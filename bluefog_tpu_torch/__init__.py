@@ -1,18 +1,33 @@
 """bluefog_tpu_torch — the PyTorch/CUDA port of ``bluefog_tpu``.
 
 A second package beside the JAX one, with the same module paths, run on
-an NVIDIA H100.  It imports torch and numpy, never jax or the JAX
-package.  This slice serves Llama through the continuous-batching
-engine (``serving``, ``models``), with the decode-attention kernel
-(``parallel.decode_attention``, CUDA source in ``csrc/``).  Entry points
-take ``device=`` (default ``"cuda"``) and raise without CUDA unless
-``device="cpu"`` is passed.
+an NVIDIA H100.  It imports torch and numpy, never jax, networkx or the
+JAX package.  Ported so far: serving Llama through the
+continuous-batching engine (``serving``, ``models``, kernel
+``parallel.decode_attention``), and decentralized training
+(``topology``, ``parallel.collectives``, ``optim.build_train_step``)
+of the ResNet family (``models.resnet``, kernel ``parallel.conv1x1``).
+CUDA sources live in ``csrc/``.  Entry points take ``device=`` (default
+``"cuda"``) and raise without CUDA unless ``device="cpu"`` is passed.
 """
 
-from bluefog_tpu_torch import models, serving  # noqa: F401
-from bluefog_tpu_torch.models import (Llama, LlamaConfig, init_cache,
-                                      llama_generate)
+from bluefog_tpu_torch import models, optim, serving, topology  # noqa: F401
+from bluefog_tpu_torch.models import (Llama, LlamaConfig, ResNet, ResNet18,
+                                      ResNet34, ResNet50, ResNet101,
+                                      ResNet152, init_cache, llama_generate)
+from bluefog_tpu_torch.optim import (build_train_step, consensus_distance,
+                                     rank_major)
+from bluefog_tpu_torch.parallel.collectives import StackedBackend
 from bluefog_tpu_torch.serving import Request, ServingEngine
+from bluefog_tpu_torch.topology import (ExponentialTwoGraph, Topology,
+                                        DynamicTopology,
+                                        one_peer_dynamic_schedule,
+                                        uniform_topology_spec)
 
-__all__ = ["models", "serving", "Llama", "LlamaConfig", "init_cache",
-           "llama_generate", "Request", "ServingEngine"]
+__all__ = ["models", "optim", "serving", "topology", "Llama",
+           "LlamaConfig", "init_cache", "llama_generate", "Request",
+           "ServingEngine", "ResNet", "ResNet18", "ResNet34", "ResNet50",
+           "ResNet101", "ResNet152", "build_train_step", "rank_major",
+           "consensus_distance", "StackedBackend", "ExponentialTwoGraph",
+           "Topology", "DynamicTopology", "one_peer_dynamic_schedule",
+           "uniform_topology_spec"]

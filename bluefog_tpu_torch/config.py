@@ -1,10 +1,11 @@
 """Environment-variable configuration of the port.
 
 Port of ``bluefog_tpu/config.py``, cut to the knobs this slice reads
-(the serving engine's slot pool, the observe switch and the Python
-timeline writer).  The environment-variable names and defaults are the
-JAX package's, so one environment configures both packages.  Every
-environment read of the port lives in this module.
+(the serving engine's slot pool, the observe switch, the Python
+timeline writer, and the knobs ``build_train_step`` reads).  The
+environment-variable names and defaults are the JAX package's, so one
+environment configures both packages.  Every environment read of the
+port lives in this module.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ __all__ = [
     "timeline_flush_every",
     "timeline_queue_capacity",
     "kv_zero_on_free",
+    "fuse_epilogues",
+    "hier_local_size",
+    "mix_compress",
 ]
 
 
@@ -58,3 +62,40 @@ def kv_zero_on_free() -> bool:
     which is all reuse needs for exactness (everything above the index
     is masked and overwritten as the next request writes)."""
     return _env("BLUEFOG_KV_ZERO_ON_FREE", "0") in ("1", "true", "True")
+
+
+def fuse_epilogues() -> bool:
+    """BLUEFOG_FUSE_EPILOGUES (default on): whether
+    :func:`bluefog_tpu_torch.optim.functional.build_train_step` builds
+    the fused per-bucket epilogue pipeline.  The port has that pipeline
+    only (its combine weights are runtime tensors, as the JAX package's
+    fused builder passes them); ``0`` selects the JAX package's
+    pre-fusion builders, which the port does not have, and the builder
+    raises."""
+    return _env("BLUEFOG_FUSE_EPILOGUES", "1") not in ("0", "false",
+                                                       "False")
+
+
+def hier_local_size():
+    """BLUEFOG_HIER_LOCAL_SIZE (default unset): default intra-machine
+    group width of the hierarchical neighbor exchange for cta/atc steps
+    that did not pass ``hierarchical=`` / ``hierarchical_local_size=``.
+    Unset/0 keeps the flat rank-level exchange."""
+    raw = _env("BLUEFOG_HIER_LOCAL_SIZE", "")
+    try:
+        v = int(raw)
+    except ValueError:
+        return None
+    return v if v >= 1 else None
+
+
+def mix_compress():
+    """BLUEFOG_MIX_COMPRESS (default unset): default wire compression of
+    the cta/atc combine when ``compress=`` was not passed: ``int8``,
+    ``int8_sr``, ``bf16`` or ``topk``.  Unset or unrecognized keeps the
+    full-precision wire; explicit builder arguments win.  The ``topk``
+    wire's ratio knob (``BLUEFOG_MIX_COMPRESS_RATIO``) comes with that
+    wire (ROADMAP.md Queue 1, item 5): the JAX package reads it only
+    under ``topk``, which the port's builder refuses."""
+    raw = _env("BLUEFOG_MIX_COMPRESS", "").strip().lower()
+    return raw if raw in ("int8", "int8_sr", "bf16", "topk") else None

@@ -1,4 +1,7 @@
-"""The JAX package's Llama parameters as the port's state dict.
+"""The JAX package's Llama and ResNet parameters as the port's state.
+
+:func:`resnet_params_from_flax` (end of the module) carries a ResNet's
+``params`` and ``batch_stats``; the rest of this docstring is Llama's.
 
 :func:`llama_params_from_flax` takes the param tree of
 ``bluefog_tpu.models.Llama`` as numpy arrays (e.g.
@@ -19,7 +22,7 @@ parameter's storage dtype.  This module imports numpy and torch only.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -99,3 +102,48 @@ def llama_params_from_flax(params_np: Mapping, cfg: LlamaConfig,
     # np.array copies: jax-backed leaves are read-only buffers
     return {key: torch.from_numpy(np.array(flat[key])).to(dev)
             for key in want}
+
+
+# flax's auto-name of a bottleneck's expansion conv, by pallas_conv1x1
+_EXPAND = {False: "Conv_2", True: "_PallasConv1x1_0"}
+
+
+def resnet_params_from_flax(variables_np: Mapping, model,
+                            device: Union[str, torch.device] = "cuda"
+                            ) -> Tuple[Dict[str, torch.Tensor],
+                                       Dict[str, torch.Tensor]]:
+    """Convert the JAX ResNet's variables (``{"params": ...,
+    "batch_stats": ...}``, numpy leaves) to the port's ``(params,
+    batch_stats)`` dicts for ``model`` (a
+    :class:`bluefog_tpu_torch.models.ResNet`), on ``device``.
+
+    Flax path ``a/b/c`` becomes key ``a.b.c``; conv kernels go from HWIO
+    to OIHW, Dense kernels keep ``[in, out]``.  Either ``pallas_conv1x1``
+    naming of the flax tree is taken: a bottleneck's expansion conv
+    (``Conv_2`` without it, ``_PallasConv1x1_0`` with it) is renamed to
+    the model's.  Raises ``ValueError`` on a missing, extra or misshapen
+    entry."""
+    dev = resolve_device(device)
+    want = getattr(model, "pallas_conv1x1", False)
+    out = []
+    for coll, ref in (("params", dict(model.named_parameters())),
+                      ("batch_stats", dict(model.named_buffers()))):
+        flat: Dict[str, np.ndarray] = {}
+        for path, arr in _flatten(variables_np.get(coll, {})):
+            path = tuple(_EXPAND[want] if p == _EXPAND[not want] else p
+                         for p in path)
+            if arr.ndim == 4:               # conv kernel, HWIO -> OIHW
+                arr = arr.transpose(3, 2, 0, 1)
+            flat[".".join(path)] = arr
+        missing = sorted(set(ref) - set(flat))
+        extra = sorted(set(flat) - set(ref))
+        if missing or extra:
+            raise ValueError(f"{coll} do not match the model: missing "
+                             f"{missing[:4]}, unexpected {extra[:4]}")
+        for key, t in ref.items():
+            if tuple(flat[key].shape) != tuple(t.shape):
+                raise ValueError(f"{coll} {key}: shape {flat[key].shape} "
+                                 f"!= {tuple(t.shape)}")
+        out.append({key: torch.from_numpy(np.array(flat[key], np.float32))
+                    .to(dev) for key in ref})
+    return out[0], out[1]

@@ -1,13 +1,18 @@
 """Model zoo of the port (``bluefog_tpu.models``'s counterpart).
 
-This slice ports the Llama decoder's decode layout and generation;
-ResNet, MLP, ViT and the Llama training losses wait for later slices
-(ROADMAP.md).
+Ported so far: the Llama decoder's decode layout and generation (slice
+1) and the ResNet family (slice 2).  MLP, ViT and the Llama training
+forward wait for later slices (ROADMAP.md).
 """
 
 from bluefog_tpu_torch.models.llama import KVCache, Llama, LlamaConfig
 from bluefog_tpu_torch.models.generate import (decode_config, init_cache,
                                                llama_generate)
+from bluefog_tpu_torch.models.resnet import (BasicBlock, BottleneckBlock,
+                                             ResNet, ResNet18, ResNet34,
+                                             ResNet50, ResNet101, ResNet152)
 
 __all__ = ["Llama", "LlamaConfig", "KVCache", "llama_generate",
-           "init_cache", "decode_config"]
+           "init_cache", "decode_config", "ResNet", "BasicBlock",
+           "BottleneckBlock", "ResNet18", "ResNet34", "ResNet50",
+           "ResNet101", "ResNet152"]

@@ -1,2 +1,4 @@
-"""Kernels of the port: hand-written CUDA for the Pallas kernels of
-``bluefog_tpu.parallel`` (this slice: the decode-attention kernel)."""
+"""Data plane and kernels of the port: rank-major collectives
+(``collectives``, the stacked backend) and hand-written CUDA for the
+Pallas kernels of ``bluefog_tpu.parallel`` (so far the decode-attention
+kernel K4 and the 1x1-conv backward K1)."""

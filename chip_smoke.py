@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (bluefog_tpu_torch) on one NVIDIA
-card: the quickest proof that the port starts, builds its kernels and
-serves on the GPU.
+card: the quickest proof that the port starts, builds its kernels, serves
+and trains on the GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -10,15 +10,17 @@ Phases (any failure raises and exits non-zero, printing no result):
 1. Device: the card's name and power limit (nvidia-smi), its compute
    capability; build every kernel from the sources in the checkout into
    build/torch_kernels/ (one nvcc per source, all started together).
-2. Kernel against plain: the decode-attention kernel, bf16 and int8
-   cache, against its plain PyTorch version on the same inputs, at the
-   serving shapes of Llama-3.1-8B (B=8, KV=8, rep=4, D=128, S 2048 and
-   8192, per-row positions including 0 and S-1) and one small odd shape
-   (D=16, S=40, rep=1, f32).  Times: CUDA events, median of 25 runs,
-   each after a write of 128 MB that evicts the 50 MB L2 (in a decode
-   step the other layers' weights do the same).  The bound is the
-   larger of the bytes the call must move over the card's memory rate
-   and its flops over the peak rate of its input type.
+2. Kernels against plain (CUDA events, median of 25 runs, each after a
+   write of 128 MB that evicts the 50 MB L2; the bound is the larger of
+   the bytes the call must move over the card's memory rate and its
+   operations over the peak rate of its input type):
+   a. K4 decode attention, bf16 and int8 cache, at the serving shapes of
+      Llama-3.1-8B (B=8, KV=8, rep=4, D=128, S 2048 and 8192, per-row
+      positions including 0 and S-1) and one small odd f32 shape;
+   b. K1 1x1-conv backward at the 7 distinct ResNet-50 shapes of batch
+      128 in bf16 and two small f32 shapes: max |err| of dx and dw, dw
+      bit-equal across two runs, kernel, plain and bound ms, and the two
+      cuBLAS products dy @ w.T and x.T @ dy as the library yardstick.
 3. Serving: Llama-3.1-8B at full width (32 layers, random bf16 weights
    from --seed at flax's initializer scales) through ServingEngine
    (capacity 8, max_len 2048, prefill chunk 256): 16 requests, prompt
@@ -26,8 +28,26 @@ Phases (any failure raises and exits non-zero, printing no result):
    temperature 0.8; then 4 requests with the int8 K/V cache.  Every
    request must complete its budget with finite logits, and the kernel's
    launch count in the run must equal n_layers x decode steps.
-4. Reference: the tiny f32 config served on the card (kernel) and on the
-   CPU (plain version) emits the same greedy tokens, both cache layouts.
+4. Reference (serving): the tiny f32 config served on the card (kernel)
+   and on the CPU (plain version) emits the same greedy tokens, both
+   cache layouts.
+5. Train, 1 rank: ResNet-50 (pallas_conv1x1=True, bf16 compute, f32
+   params, train-mode batch norm) through build_train_step,
+   comm_mode="none", SGD(0.1, momentum 0.9), synthetic ImageNet batches
+   of 128 x 224 x 224 x 3 from --seed; bench.py's protocol: 5 warm-up
+   steps, 3 windows of 10 steps, the median window.  img/s per card,
+   step ms, peak memory; finite losses; K1 launched 20 x steps times.
+   Then torch.profiler over 3 steps: device-busy share, top kernels and
+   K1's share of the device time.
+6. Train, 4 ranks stacked on the card: atc over
+   uniform_topology_spec(ExponentialTwoGraph(4)), batch 128 per rank, 2
+   warm-up and 5 timed steps; img/s per card, the combine's ms per step
+   (CUDA events); K1 launched 20 x 4 x steps times; and after 3 steps
+   from one state on the same per-rank data (batch 16), the consensus
+   distance under atc is below that of comm_mode="none".
+7. Reference (training): a tiny f32 ResNet trained 3 atc steps over 4
+   ranks on the card (kernel) and on the CPU (plain version) gives the
+   same params, batch statistics and losses within f32 tolerance.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
@@ -54,7 +74,7 @@ MEM_RATE = (("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
 # dense peak by input type (H100 SXM data sheet), operations/s
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.int8: 1979e12}
-KERNEL_SOURCES = ["decode_attention"]
+KERNEL_SOURCES = ["decode_attention", "conv1x1_backward"]
 
 
 def log(*a):
@@ -348,6 +368,338 @@ def phase_reference(seed):
             f"{len(prompts)} greedy requests token-exact, card vs host")
 
 
+# ResNet-50 at batch 128: the distinct (N, ci, co) of its 20 K1 launches
+# per rank-step (16 expansions, 4 projections; stage 1's projection has
+# its expansion's shape), then two small f32 shapes
+K1_SHAPES = [(401408, 64, 256, torch.bfloat16, "stage 1 expand x3 + proj"),
+             (100352, 128, 512, torch.bfloat16, "stage 2 expand x4"),
+             (100352, 256, 512, torch.bfloat16, "stage 2 proj"),
+             (25088, 256, 1024, torch.bfloat16, "stage 3 expand x6"),
+             (25088, 512, 1024, torch.bfloat16, "stage 3 proj"),
+             (6272, 512, 2048, torch.bfloat16, "stage 4 expand x3"),
+             (6272, 1024, 2048, torch.bfloat16, "stage 4 proj"),
+             (98, 32, 16, torch.float32, "small f32"),
+             (196, 64, 24, torch.float32, "small f32")]
+K1_LAUNCHES_PER_RANK_STEP = 20
+BATCH = 128
+
+
+def phase_k1(name, seed):
+    """K1 against its plain version at every distinct shape of the
+    training path.  Tolerances: dx is rounded to x's type after an f32
+    sum taken in another order than the plain version's (one ulp of x's
+    type, plus 1e-3 of the largest entry near zero); dw is f32 from
+    exact bf16 products summed in another order (1e-4 of its largest
+    entry)."""
+    from bluefog_tpu_torch.parallel import conv1x1 as k1
+
+    rate = mem_rate(name)
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    g = torch.Generator("cuda").manual_seed(seed)
+    results = {}
+    for n, ci, co, dt, what in K1_SHAPES:
+        x = torch.randn(n, ci, generator=g, device="cuda").to(dt)
+        dy = torch.randn(n, co, generator=g, device="cuda").to(dt)
+        w = (torch.randn(ci, co, generator=g, device="cuda") * 0.1).to(dt)
+        run = lambda: k1.conv1x1_backward(x, dy, w)  # noqa: E731
+        plain = lambda: k1.conv1x1_backward_plain(x, dy, w)  # noqa: E731
+        dx, dw = run()
+        dx2, dw2 = run()
+        torch.cuda.synchronize()
+        if not (torch.equal(dw, dw2) and torch.equal(dx, dx2)):
+            raise AssertionError(f"K1 {what}: two runs differ")
+        ref_dx, ref_dw = plain()
+        ulp = 2.0 ** -7 if dt == torch.bfloat16 else 1e-5
+        err_dx = (dx.float() - ref_dx.float()).abs().max().item()
+        err_dw = (dw - ref_dw).abs().max().item()
+        tol_dw = 1e-4 * ref_dw.abs().max().item()
+        ok_dx = torch.allclose(dx.float(), ref_dx.float(), rtol=ulp,
+                               atol=1e-3 * ref_dx.float().abs().max().item())
+        if not ok_dx or err_dw > tol_dw:
+            raise AssertionError(
+                f"K1 {what} N={n} ci={ci} co={co}: max |err| dx {err_dx}, "
+                f"dw {err_dw} (tolerance {tol_dw})")
+        ms = time_ms(run, flush)
+        plain_ms = time_ms(plain, flush)
+        # yardstick only: cuBLAS computing the same two products (the
+        # port never calls it)
+        library_ms = time_ms(lambda: (dy @ w.T, x.T @ dy), flush)
+        es = x.element_size()
+        nbytes = 2 * n * ci * es + n * co * es + ci * co * (es + 4)
+        ops = 4 * n * ci * co
+        t_bytes = nbytes / rate * 1e3
+        t_ops = ops / PEAK_OPS[dt] * 1e3
+        rec = dict(max_abs_err=max(err_dx, err_dw), ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   library_ms=library_ms)
+        log(f"[kernel] conv1x1_backward {what} N={n} ci={ci} co={co} "
+            f"{str(dt).split('.')[-1]}: max|err| dx {err_dx:.3g} dw "
+            f"{err_dw:.3g} (tol {tol_dw:.3g}), dw bit-equal across runs, "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}, {nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.1f} GFLOP; {ops / ms / 1e9:.1f} TFLOP/s)")
+        if (n, ci, co) == (401408, 64, 256):   # the heaviest path shape
+            results["conv1x1_backward"] = rec
+    return results
+
+
+def _resnet_step(n_ranks, comm_mode, seed, batch, **kw):
+    """ResNet-50 (pallas_conv1x1=True) over ``n_ranks`` stacked ranks:
+    (step, params, stats, optimizer, synthetic batch), all from --seed."""
+    import torch.nn.functional as F
+
+    import bluefog_tpu_torch as bt
+
+    model = bt.ResNet50(num_classes=1000, pallas_conv1x1=True,
+                        device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(seed))
+    backend = bt.StackedBackend(n_ranks, device="cuda")
+    p0, s0 = model.state()
+    params, stats = bt.rank_major(p0, backend), bt.rank_major(s0, backend)
+    opt = torch.optim.SGD(params.values(), lr=0.1, momentum=0.9)
+
+    def loss_fn(p, s, b):
+        images, labels = b
+        logits, new = model.apply(p, s, images, train=True)
+        return F.cross_entropy(logits, labels), new
+
+    step = bt.build_train_step(loss_fn, opt, backend, comm_mode=comm_mode,
+                               has_aux=True, **kw)
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    images = torch.randn(n_ranks, batch, 224, 224, 3, generator=g,
+                         device="cuda", dtype=torch.bfloat16)
+    labels = torch.randint(0, 1000, (n_ranks, batch), generator=g,
+                           device="cuda")
+    return step, params, stats, opt, (images, labels)
+
+
+def _reset_counts():
+    from bluefog_tpu_torch.parallel import conv1x1 as k1
+    from bluefog_tpu_torch.parallel import decode_attention as da
+
+    k1.reset_launch_counts()
+    da.reset_launch_counts()
+
+
+def _check_launches(want, what):
+    from bluefog_tpu_torch.parallel import conv1x1 as k1
+    from bluefog_tpu_torch.parallel import decode_attention as da
+
+    got = k1.conv1x1_backward.launches
+    if got != want or got == 0:
+        raise AssertionError(f"{what}: conv1x1_backward launched {got} "
+                             f"times, want {want}")
+    if da.decode_attention.launches or da.decode_attention_int8.launches:
+        raise AssertionError(f"{what}: decode attention launched")
+    return got
+
+
+def _profile_train(step, state, steps=3):
+    """torch.profiler over ``steps`` train steps: device-busy share, the
+    kernels that take the device time, K1's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    params, stats, opt, batch = state
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            params, stats, opt, loss = step(params, stats, opt, batch, i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events)
+    k1_us = sum(e.self_device_time_total for e in events if "k1_" in e.key)
+    log(f"[profile] {steps} train steps: wall {wall_us / steps / 1e3:.2f} "
+        f"ms/step, device busy {busy / steps / 1e3:.2f} ms/step "
+        f"({100 * busy / wall_us:.1f}%), K1 {k1_us / steps / 1e3:.3f} "
+        f"ms/step ({100 * k1_us / max(busy, 1):.1f}% of device time)")
+    for e in sorted(events, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:15]:
+        log(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f} "
+            f"ms/step  {e.count // steps:5d} calls/step  {e.key[:90]}")
+
+
+def phase_train_1rank(seed):
+    step, params, stats, opt, batch = _resnet_step(1, "none", seed, BATCH)
+    warmup, windows, per_window = 5, 3, 10
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses, rates = [], []
+    i = 0
+    for _ in range(warmup):
+        params, stats, opt, loss = step(params, stats, opt, batch, i)
+        losses.append(loss)
+        i += 1
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(per_window):
+            params, stats, opt, loss = step(params, stats, opt, batch, i)
+            losses.append(loss)
+            i += 1
+        torch.cuda.synchronize()
+        rates.append(BATCH * per_window / (time.perf_counter() - t0))
+    launches = _check_launches(K1_LAUNCHES_PER_RANK_STEP * i,
+                               "train 1 rank")
+    losses = torch.cat(losses)
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite loss: {losses.tolist()}")
+    rate = statistics.median(rates)
+    log(f"[train1] ResNet-50 batch {BATCH}, 1 rank, comm_mode none: "
+        f"{rate:.1f} img/s per card (windows "
+        f"{', '.join(f'{r:.1f}' for r in rates)}), step "
+        f"{BATCH / rate * 1e3:.2f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, loss "
+        f"{losses[0].item():.4f} -> {losses[-1].item():.4f}, K1 launches "
+        f"{launches} = 20 x {i} steps")
+    _profile_train(step, (params, stats, opt, batch))
+    return launches
+
+
+def phase_train_4ranks(seed):
+    import bluefog_tpu_torch as bt
+
+    topo = bt.uniform_topology_spec(bt.ExponentialTwoGraph(4))
+    step, params, stats, opt, batch = _resnet_step(4, "atc", seed, BATCH,
+                                                   topology=topo)
+    warmup, timed = 2, 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    for i in range(warmup):
+        params, stats, opt, loss = step(params, stats, opt, batch, i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + timed):
+        params, stats, opt, loss = step(params, stats, opt, batch, i)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _check_launches(K1_LAUNCHES_PER_RANK_STEP * 4 * (warmup
+                                                                + timed),
+                               "train 4 ranks")
+    if not torch.isfinite(loss).all():
+        raise AssertionError(f"non-finite loss: {loss.tolist()}")
+    # the combine the step runs, alone, on a copy of the params (one
+    # flat buffer per dtype: a cat, the gathers and multiply-adds, and
+    # the copies back into the leaves)
+    copy = {k: v.clone() for k, v in params.items()}
+    combine_ms = []
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step.combine(copy, 0)
+        end.record()
+        combine_ms.append((start, end))
+    torch.cuda.synchronize()
+    combine = statistics.median(s.elapsed_time(e) for s, e in combine_ms[1:])
+    n_el = sum(v[0].numel() for v in params.values())
+    log(f"[train4] ResNet-50 batch {BATCH} per rank, 4 ranks stacked, atc "
+        f"over ExponentialTwoGraph(4): {4 * BATCH * timed / wall:.1f} img/s "
+        f"per card, step {wall / timed * 1e3:.2f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, combine "
+        f"{combine:.3f} ms per step ({len(params)} leaves, {n_el / 1e6:.1f} "
+        f"M f32 values per rank as one buffer, 2 shift classes), K1 launches {launches} "
+        f"= 20 x 4 ranks x {warmup + timed} steps")
+    _profile_train(step, (params, stats, opt, batch), steps=1)
+    del step, params, stats, opt, batch, copy
+    torch.cuda.empty_cache()
+
+    # consensus: the same start and per-rank data, atc against none
+    spread = {}
+    for mode, kw in (("atc", dict(topology=topo)), ("none", {})):
+        step, params, stats, opt, batch = _resnet_step(4, mode, seed, 16,
+                                                       **kw)
+        for i in range(3):
+            params, stats, opt, loss = step(params, stats, opt, batch, i)
+        spread[mode] = float(bt.consensus_distance(params))
+        del step, params, stats, opt, batch
+    if not spread["atc"] < spread["none"]:
+        raise AssertionError(f"consensus distance atc {spread['atc']} not "
+                             f"below none {spread['none']}")
+    log(f"[train4] consensus distance after 3 steps (batch 16 per rank): "
+        f"atc {spread['atc']:.4g} < none {spread['none']:.4g}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_reference(seed):
+    """A tiny f32 ResNet trained 3 atc steps over 4 ranks on the card (K1)
+    and on the host (plain version).  Tolerance: 5e-4 of each leaf's
+    largest entry plus 5e-7, losses 1e-5 (f32 sums in another order,
+    carried through three momentum steps and train-mode batch norm, as
+    in tests/test_torch_train_step.py; TF32 is off)."""
+    import torch.nn.functional as F
+
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.models import BottleneckBlock
+    from bluefog_tpu_torch.parallel import conv1x1 as k1
+
+    topo = bt.uniform_topology_spec(bt.ExponentialTwoGraph(4))
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(4, 4, 32, 32, 3).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, (4, 4)))
+    out = {}
+    init = None
+    for dev in ("cuda", "cpu"):
+        model = bt.ResNet((1, 1), BottleneckBlock, num_classes=10,
+                          num_filters=8, dtype=torch.float32,
+                          pallas_conv1x1=True, device=dev,
+                          generator=torch.Generator(dev).manual_seed(seed))
+        if init is None:
+            init = {k: v.cpu() for k, v in model.state_dict().items()}
+        model.load_state_dict(init)
+        backend = bt.StackedBackend(4, device=dev)
+        p0, s0 = model.state()
+        params, stats = bt.rank_major(p0, backend), bt.rank_major(s0,
+                                                                  backend)
+        opt = torch.optim.SGD(params.values(), lr=0.1, momentum=0.9)
+
+        def loss_fn(p, s, b, model=model):
+            logits, new = model.apply(p, s, b[0], train=True)
+            return F.cross_entropy(logits, b[1]), new
+
+        step = bt.build_train_step(loss_fn, opt, backend, comm_mode="atc",
+                                   topology=topo, has_aux=True)
+        batch = (x.to(dev), y.to(dev))
+        k1.reset_launch_counts()
+        losses = []
+        for i in range(3):
+            params, stats, opt, loss = step(params, stats, opt, batch, i)
+            losses.append(loss.cpu())
+        launches = k1.conv1x1_backward.launches
+        # 4 sites (each block's expansion and projection) x 4 ranks x 3 steps
+        if launches != (4 * 4 * 3 if dev == "cuda" else 0):
+            raise AssertionError(f"tiny reference on {dev}: K1 launched "
+                                 f"{launches} times")
+        out[dev] = ({k: v.cpu() for k, v in params.items()},
+                    {k: v.cpu() for k, v in stats.items()},
+                    torch.stack(losses))
+    worst = 0.0
+    for which in (0, 1):
+        for k, want in out["cpu"][which].items():
+            got = out["cuda"][which][k]
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            worst = max(worst, err / max(scale, 1e-12))
+            if err > 5e-4 * scale + 5e-7:
+                raise AssertionError(f"tiny reference: {k} differs by {err} "
+                                     f"(largest entry {scale})")
+    loss_err = (out["cuda"][2] - out["cpu"][2]).abs().max().item()
+    if loss_err > 1e-5:
+        raise AssertionError(f"tiny reference: losses differ by {loss_err}")
+    log(f"[reference] tiny f32 ResNet, 3 atc steps over 4 ranks: card (K1, "
+        f"48 launches) vs host (plain) params and batch statistics agree "
+        f"to {worst:.3g} of each leaf's largest entry, losses to "
+        f"{loss_err:.3g}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -361,8 +713,14 @@ def main() -> int:
     t0 = time.perf_counter()
     name = phase_device()
     kernels = phase_kernels(name, args.seed)
+    kernels.update(phase_k1(name, args.seed))
     launches = phase_serving(args.seed)
     phase_reference(args.seed)
+    torch.backends.cudnn.benchmark = True   # the training path's convs
+    launches["conv1x1_backward"] = phase_train_1rank(args.seed)
+    phase_train_4ranks(args.seed)
+    torch.backends.cudnn.benchmark = False
+    phase_train_reference(args.seed)
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):
         entries.append(dict(
@@ -370,6 +728,12 @@ def main() -> int:
             source="bluefog_tpu_torch/csrc/decode_attention.cu",
             replaces="bluefog_tpu/parallel/pallas_decode.py:57",
             launches=launches[kname], **kernels[kname]))
+    entries.append(dict(
+        name="conv1x1_backward", route="cuda",
+        source="bluefog_tpu_torch/csrc/conv1x1_backward.cu",
+        replaces="bluefog_tpu/parallel/pallas_conv.py:80",
+        launches=launches["conv1x1_backward"],
+        **kernels["conv1x1_backward"]))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """The port stands alone: no module of bluefog_tpu_torch/, and not
-chip_smoke.py, imports jax, flax or the JAX package; the package imports
-with jax blocked; and its entry points run on the card unless the caller
-asks for the CPU (without CUDA, a call that does not pass device="cpu"
-raises)."""
+chip_smoke.py, imports jax, flax, optax, networkx or the JAX package; the
+package imports with those blocked; and its entry points run on the card
+unless the caller asks for the CPU (without CUDA, a call that does not
+pass device="cpu" raises)."""
 
 import ast
 import os
@@ -15,7 +15,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "bluefog_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "networkx",
+             "bluefog_tpu"}
 
 
 def _port_files():
@@ -54,7 +55,8 @@ def test_package_imports_with_jax_blocked():
         for p in (ROOT / "bluefog_tpu_torch").rglob("*.py"))
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'bluefog_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'networkx',\n"
+        "             'bluefog_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {modules!r}:\n"
@@ -69,7 +71,8 @@ def test_package_imports_with_jax_blocked():
 
 def _entry_points():
     import bluefog_tpu_torch as bt
-    from bluefog_tpu_torch.interop import llama_params_from_flax
+    from bluefog_tpu_torch.interop import (llama_params_from_flax,
+                                           resnet_params_from_flax)
     from bluefog_tpu_torch.serving import SlotPool
 
     cfg = bt.LlamaConfig.tiny(dtype=torch.float32)
@@ -84,12 +87,23 @@ def _entry_points():
             model, cfg, capacity=1, max_len=8, prefill_chunk=4),
         "SlotPool": lambda: SlotPool(cfg, 1, 8),
         "llama_params_from_flax": lambda: llama_params_from_flax(tree, cfg),
+        "ResNet": lambda: bt.ResNet50(),
+        "StackedBackend": lambda: bt.StackedBackend(4),
+        "build_train_step": lambda: bt.build_train_step(
+            lambda p, b: p["w"].sum(), torch.optim.SGD([torch.zeros(1)]),
+            bt.StackedBackend(4), comm_mode="none"),
+        "resnet_params_from_flax": lambda: resnet_params_from_flax(
+            {"params": {}, "batch_stats": {}}, bt.ResNet(
+                (1,), bt.models.BottleneckBlock, num_filters=4,
+                device="cpu")),
     }
 
 
 @pytest.mark.parametrize("name", ["Llama", "init_cache", "llama_generate",
                                   "ServingEngine", "SlotPool",
-                                  "llama_params_from_flax"])
+                                  "llama_params_from_flax", "ResNet",
+                                  "StackedBackend", "build_train_step",
+                                  "resnet_params_from_flax"])
 def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is valid here")
