@@ -6,7 +6,9 @@ JAX package.  Ported so far: serving Llama through the
 continuous-batching engine (``serving``, ``models``, kernel
 ``parallel.decode_attention``), and decentralized training
 (``topology``, ``parallel.collectives``, ``optim.build_train_step``)
-of the ResNet family (``models.resnet``, kernel ``parallel.conv1x1``).
+of the ResNet family (``models.resnet``, kernel ``parallel.conv1x1``)
+and of Llama (``models.llama``'s training forward and
+``llama_loss_fn``, kernels ``parallel.flash_attention``).
 CUDA sources live in ``csrc/``.  Entry points take ``device=`` (default
 ``"cuda"``) and raise without CUDA unless ``device="cpu"`` is passed.
 """
@@ -14,7 +16,8 @@ CUDA sources live in ``csrc/``.  Entry points take ``device=`` (default
 from bluefog_tpu_torch import models, optim, serving, topology  # noqa: F401
 from bluefog_tpu_torch.models import (Llama, LlamaConfig, ResNet, ResNet18,
                                       ResNet34, ResNet50, ResNet101,
-                                      ResNet152, init_cache, llama_generate)
+                                      ResNet152, init_cache, llama_generate,
+                                      llama_loss_fn)
 from bluefog_tpu_torch.optim import (build_train_step, consensus_distance,
                                      rank_major)
 from bluefog_tpu_torch.parallel.collectives import StackedBackend
@@ -25,7 +28,8 @@ from bluefog_tpu_torch.topology import (ExponentialTwoGraph, Topology,
                                         uniform_topology_spec)
 
 __all__ = ["models", "optim", "serving", "topology", "Llama",
-           "LlamaConfig", "init_cache", "llama_generate", "Request",
+           "LlamaConfig", "init_cache", "llama_generate", "llama_loss_fn",
+           "Request",
            "ServingEngine", "ResNet", "ResNet18", "ResNet34", "ResNet50",
            "ResNet101", "ResNet152", "build_train_step", "rank_major",
            "consensus_distance", "StackedBackend", "ExponentialTwoGraph",

@@ -1,0 +1,934 @@
+// Flash attention for Hopper (sm_90a): the forward (K2) and the two
+// backward kernels, dQ (K3a) and dK/dV (K3b).
+//
+// Replaces the Pallas TPU kernels of bluefog_tpu/parallel/
+// pallas_attention.py: _kernel (K2, :107), _bwd_dq_kernel (K3a, :267) and
+// _bwd_dkv_kernel (K3b, :309).  Layouts are the JAX package's: q, out, dO,
+// dQ [B, T, H, D]; k, v, dK, dV [B, S, KV, D]; lse and delta [B, H, T]
+// f32.  Query head h reads kv head h / (H / KV) (GQA by index, K and V are
+// never widened).  Positions are global: query row i sits at q_off + i,
+// key j at kv_off + j, and the causal rule keeps q_pos >= kv_pos.
+//
+// Numerics follow the TPU kernels: scores are products of the native
+// operands accumulated in f32, times scale; masked scores are -1e30 and
+// any score <= -5e29 gives p = 0, so a row with no live key ends with
+// out = 0 and lse = -1e30; out = acc / max(l, 1e-30) and lse = m + log(l)
+// where l > 0.  P is rounded to v's type before P·V, P to dO's type for
+// dV, dS to q's type for dK and to k's type for dQ; delta = rowsum(dO·O)
+// comes from the caller (computed outside the kernels, as in JAX).
+//
+// What bounds them on this card: tensor-core operations.  At the Llama
+// training shape (B=4, H=32, KV=8, T=2048, D=128, causal) K2 does
+// 4·B·H·T²·D/2 = 137 GFLOP over ~168 MB (~820 operations per byte, far
+// above the card's ~295), K3a 6·B·H·T²·D/2 and K3b 8·B·H·T²·D/2.  What
+// the design does about it: every product runs on the tensor cores
+// (mma.sync m16n8k16, bf16 in, f32 accumulators), the score tile never
+// leaves registers (the accumulator fragment of S is re-packed in place
+// as the A operand of the next product), K/V (K2, K3a) or Q/dO (K3b)
+// tiles stream through a two-stage cp.async ring in padded shared memory
+// read with ldmatrix, and in causal mode a block stops at its last live
+// tile (K2, K3a) or starts at its first (K3b), the TPU kernels'
+// _block_live.  The TPU grid walked k blocks in order into VMEM
+// accumulators; here one block owns its rows and loops over the tiles,
+// so nothing is summed across blocks: no atomics, and dQ, dK and dV are
+// bit-equal from run to run.  wgmma, TMA and warp specialisation are
+// later work.
+//
+//   K2   block = 64 query rows of one (batch, head), 4 warps of 16 rows,
+//        loop over 64-key tiles; m, l and the [16, D] accumulator of each
+//        warp stay in registers.
+//   K3a  block = 64 query rows, loop over 64-key tiles: recompute P, then
+//        dP = dO·Vᵀ, dS = P·(dP - delta), dQ += dS·K (scale at the end).
+//   K3b  block = 64 keys of one (batch, kv head), 4 warps of 16 keys,
+//        loop over (32-row query tile, group member) pairs in that order:
+//        dV += Pᵀ·dO and dK += dSᵀ·Q in f32 registers, written once.
+//   They run at a fifth of the tensor cores' rate.  128-row blocks of 8
+//   warps, which halve the L2 re-reads of K/V, measured no faster on the
+//   H100 (PERF.md), so L2 is not the limit; the suspects are shared-
+//   memory reads (each warp reads whole K/V or Q/dO tiles through
+//   ldmatrix for its 16 rows, ~256 bytes per mma.sync) and short chains
+//   of dependent mma.sync at 8 warps per SM.  wgmma, which reads each
+//   tile once per 64-row warpgroup, is the next step.
+//
+// Tails are masked (any T and S; the TPU kernels needed block divisors).
+// D is 16, 32, 64 or 128.  bf16 runs on the tensor cores; f32 takes a
+// plain FMA path (one thread per query row, or per key for K3b) with the
+// same masking rules.
+//
+// Plain C interface, bound with ctypes (bluefog_tpu_torch/parallel/
+// flash_attention.py), which validates shapes, types and alignment:
+//   int bf_flash_forward(q, k, v, out, lse, B, T, S, H, KV, D, q_off,
+//                        kv_off, causal, scale, dtype, stream)
+//   int bf_flash_backward_dq(q, k, v, dout, lse, delta, dq, ...)
+//   int bf_flash_backward_dkv(q, k, v, dout, lse, delta, dk, dv, ...)
+// dtype: 0 = float32, 1 = bfloat16.  Each returns 0 or a CUDA error code
+// (cudaGetLastError() after the launch).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kNegInf = -1e30f;
+constexpr float kDead = -5e29f;  // kNegInf / 2: scores at or below are p = 0
+
+constexpr int kF32 = 0;
+constexpr int kBF16 = 1;
+
+struct Shape {
+  int B, T, S, H, KV, rep;  // q [B, T, H, D]; k, v [B, S, KV, D]
+  int q_off, kv_off, causal;
+  float scale;
+};
+
+// ---------------------------------------------------------------------------
+// Warp-level tensor-core helpers (mma.sync m16n8k16, bf16 -> f32).
+//
+// Accumulator fragment of a 16 x 8 tile, lane = 4 g + t: c[0], c[1] at
+// (row g, cols 2t, 2t + 1), c[2], c[3] at (row g + 8, same cols).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+// 4-byte asynchronous copy (lse and delta rows); zeros when !valid.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragment (16 x 16, row-major) at rows 0..15, cols 0..15 of a.
+__device__ __forceinline__ void load_a(uint32_t (&af)[4], const bf16* a,
+                                       int ld, int lane) {
+  const int mi = lane >> 3, r = lane & 7;
+  ldsm_x4(af, a + ((mi & 1) * 8 + r) * ld + (mi >> 1) * 8);
+}
+
+// acc[16 x 8NT] += A[16 x KD] · B[8NT x KD]ᵀ, A and B row-major in shared
+// memory with the KD axis contiguous (S = Q·Kᵀ and its relatives).
+template <int NT, int KD>
+__device__ __forceinline__ void warp_abt(float (&acc)[NT][4], const bf16* a,
+                                         const bf16* b, int ld, int lane) {
+  const int mi = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int kc = 0; kc < KD / 16; ++kc) {
+    uint32_t af[4];
+    load_a(af, a + kc * 16, ld, lane);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t bq[4];
+      ldsm_x4(bq, b + ((j + (mi >> 1)) * 8 + r) * ld + kc * 16 + (mi & 1) * 8);
+      mma16816(acc[j], af, bq[0], bq[1]);
+      mma16816(acc[j + 1], af, bq[2], bq[3]);
+    }
+  }
+}
+
+// Same with A held in registers as KD/16 A fragments.
+template <int NT, int KD>
+__device__ __forceinline__ void warp_abt_reg(float (&acc)[NT][4],
+                                             const uint32_t (&af)[KD / 16][4],
+                                             const bf16* b, int ld, int lane) {
+  const int mi = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int kc = 0; kc < KD / 16; ++kc) {
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t bq[4];
+      ldsm_x4(bq, b + ((j + (mi >> 1)) * 8 + r) * ld + kc * 16 + (mi & 1) * 8);
+      mma16816(acc[j], af[kc], bq[0], bq[1]);
+      mma16816(acc[j + 1], af[kc], bq[2], bq[3]);
+    }
+  }
+}
+
+// acc[16 x 8NT] += A[16 x 16KC] · B[16KC x 8NT]; A in registers, B
+// row-major in shared memory with the N axis contiguous (P·V, dS·K, ...),
+// read transposed by ldmatrix.
+template <int NT, int KC>
+__device__ __forceinline__ void warp_ab(float (&acc)[NT][4],
+                                        const uint32_t (&af)[KC][4],
+                                        const bf16* b, int ld, int lane) {
+  const int mi = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t bq[4];
+      ldsm_x4_t(bq, b + (kc * 16 + (mi & 1) * 8 + r) * ld + (j + (mi >> 1)) * 8);
+      mma16816(acc[j], af[kc], bq[0], bq[1]);
+      mma16816(acc[j + 1], af[kc], bq[2], bq[3]);
+    }
+  }
+}
+
+// Accumulator fragments of a [16 x 8NT] tile, rounded to bf16, as the
+// A fragments of a [16 x 8NT] operand (NT / 2 chunks of 16 columns).
+template <int NT>
+__device__ __forceinline__ void c_to_a(uint32_t (&af)[NT / 2][4],
+                                       const float (&c)[NT][4]) {
+#pragma unroll
+  for (int kc = 0; kc < NT / 2; ++kc) {
+    af[kc][0] = pack_bf16(c[2 * kc][0], c[2 * kc][1]);
+    af[kc][1] = pack_bf16(c[2 * kc][2], c[2 * kc][3]);
+    af[kc][2] = pack_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1]);
+    af[kc][3] = pack_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3]);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ROWS rows of D bf16 from g (row stride gs elements) starting at row0
+// into s (row stride D + 8), zero-filling rows at or past n.
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* s, const bf16* g,
+                                          long long gs, int row0, int n,
+                                          int tid) {
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int c = tid; c < ROWS * CH; c += THREADS) {
+    const int r = c / CH, col = (c % CH) * 8;
+    const bool ok = row0 + r < n;
+    cp_async16(s + r * (D + 8) + col, ok ? g + (row0 + r) * gs + col : g, ok);
+  }
+}
+
+// Key tiles of width bk that hold a live key for query rows up to
+// q_last: all of them without the causal mask, else up to the last key
+// whose global position is <= q_off + q_last (the TPU's _block_live).
+__device__ __forceinline__ int live_k_tiles(const Shape& s, int q_last,
+                                            int bk) {
+  const int nk = (s.S + bk - 1) / bk;
+  if (!s.causal) return nk;
+  const int last_key = s.q_off + q_last - s.kv_off;
+  return last_key < 0 ? 0 : min(nk, last_key / bk + 1);
+}
+
+// Is score (query row qi, key kj) masked?  Keys past S are; with the
+// causal mask, keys after the query's global position are.
+__device__ __forceinline__ bool masked(const Shape& s, int qi, int kj) {
+  return kj >= s.S || (s.causal && s.q_off + qi < s.kv_off + kj);
+}
+
+constexpr int kWarps = 4;
+constexpr int kThreadsTc = 32 * kWarps;
+constexpr int kBq = 16 * kWarps;   // K2/K3a: query rows per block
+constexpr int kBk = 64;            // K2/K3a: keys per tile
+constexpr int kBkB = 16 * kWarps;  // K3b: keys per block
+constexpr int kBqB = 32;           // K3b: query rows per step
+
+template <int D>
+struct Smem {
+  static constexpr int LD = D + 8;  // padded row: ldmatrix is conflict-free
+  static constexpr int FWD = (kBq + 4 * kBk) * LD * 2;
+  static constexpr int DQ = (2 * kBq + 4 * kBk) * LD * 2;
+  static constexpr int DKV = (2 * kBkB + 4 * kBqB) * LD * 2 + 4 * kBqB * 4;
+};
+
+// ---------------------------------------------------------------------------
+// K2: forward.  grid (query tiles, B * H).
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kThreadsTc)
+    k2_forward_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ out,
+                  float* __restrict__ lse, Shape s) {
+  constexpr int LD = Smem<D>::LD, NT = kBk / 8, ND = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + kBq * LD;   // [2][kBk][LD]
+  bf16* Vs = Ks + 2 * kBk * LD;
+
+  // causal: the last query tiles have the most live keys; start them first
+  const int qt = s.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int b = blockIdx.y / s.H, h = blockIdx.y % s.H, kvh = h / s.rep;
+  const int q0 = qt * kBq;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long qs = (long long)s.H * D, ks = (long long)s.KV * D;
+  const bf16* qg = q + ((long long)b * s.T * s.H + h) * D;
+  const bf16* kg = k + ((long long)b * s.S * s.KV + kvh) * D;
+  const bf16* vg = v + ((long long)b * s.S * s.KV + kvh) * D;
+  const int n_live = live_k_tiles(s, min(q0 + kBq, s.T) - 1, kBk);
+
+  load_rows<kBq, D, kThreadsTc>(Qs, qg, qs, q0, s.T, tid);
+  if (n_live > 0) {
+    load_rows<kBk, D, kThreadsTc>(Ks, kg, ks, 0, s.S, tid);
+    load_rows<kBk, D, kThreadsTc>(Vs, vg, ks, 0, s.S, tid);
+  }
+  cp_async_commit();
+
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  uint32_t qf[D / 16][4];
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+
+  for (int j = 0; j < n_live; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j is in; tile j - 1's buffer is free
+    if (j == 0) {
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc)
+        load_a(qf[kc], Qs + warp * 16 * LD + kc * 16, LD, lane);
+    }
+    if (j + 1 < n_live) {
+      const int nb = (j + 1) & 1;
+      load_rows<kBk, D, kThreadsTc>(Ks + nb * kBk * LD, kg, ks, (j + 1) * kBk,
+                                    s.S, tid);
+      load_rows<kBk, D, kThreadsTc>(Vs + nb * kBk * LD, vg, ks, (j + 1) * kBk,
+                                    s.S, tid);
+    }
+    cp_async_commit();
+    const bf16* kt = Ks + (j & 1) * kBk * LD;
+    const bf16* vt = Vs + (j & 1) * kBk * LD;
+
+    float sc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    warp_abt_reg<NT, D>(sc, qf, kt, LD, lane);
+
+    const int k0 = j * kBk;
+    const bool edge = k0 + kBk > s.S ||
+                      (s.causal && s.kv_off + k0 + kBk - 1 > s.q_off + q0);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[n][e] * s.scale;
+        if (edge && masked(s, row0 + (e >> 1) * 8, k0 + n * 8 + 2 * t + (e & 1)))
+          x = kNegInf;
+        sc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float nm = fmaxf(m[i], quad_max(mx[i]));
+      corr[i] = __expf(m[i] - nm);
+      m[i] = nm;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[n][e];
+        const float p = x <= kDead ? 0.f : __expf(x - m[e >> 1]);
+        sc[n][e] = p;
+        rs[e >> 1] += p;
+      }
+    // per-thread partial row sums; corr is uniform across the quad, so
+    // the quad's sum at the end is the row's l
+    l[0] = l[0] * corr[0] + rs[0];
+    l[1] = l[1] * corr[1] + rs[1];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+    uint32_t pf[NT / 2][4];
+    c_to_a<NT>(pf, sc);  // P in v's type (bf16)
+    warp_ab<ND, NT / 2>(o, pf, vt, LD, lane);
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float li = quad_sum(l[i]);
+    const int row = row0 + i * 8;
+    if (row >= s.T) continue;
+    const float safe = fmaxf(li, 1e-30f);
+    bf16* og = out + (((long long)b * s.T + row) * s.H + h) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(og + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[n][2 * i] / safe, o[n][2 * i + 1] / safe);
+    if (t == 0)
+      lse[((long long)b * s.H + h) * s.T + row] =
+          li > 0.f ? m[i] + logf(safe) : kNegInf;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3a: dQ.  grid (query tiles, B * H).
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kThreadsTc)
+    k3a_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, Shape s) {
+  constexpr int LD = Smem<D>::LD, NT = kBk / 8, ND = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + kBq * LD;
+  bf16* Ks = dOs + kBq * LD;  // [2][kBk][LD]
+  bf16* Vs = Ks + 2 * kBk * LD;
+
+  const int qt = s.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int b = blockIdx.y / s.H, h = blockIdx.y % s.H, kvh = h / s.rep;
+  const int q0 = qt * kBq;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long qs = (long long)s.H * D, ks = (long long)s.KV * D;
+  const long long qoff = ((long long)b * s.T * s.H + h) * D;
+  const bf16* kg = k + ((long long)b * s.S * s.KV + kvh) * D;
+  const bf16* vg = v + ((long long)b * s.S * s.KV + kvh) * D;
+  const int n_live = live_k_tiles(s, min(q0 + kBq, s.T) - 1, kBk);
+
+  load_rows<kBq, D, kThreadsTc>(Qs, q + qoff, qs, q0, s.T, tid);
+  load_rows<kBq, D, kThreadsTc>(dOs, dout + qoff, qs, q0, s.T, tid);
+  if (n_live > 0) {
+    load_rows<kBk, D, kThreadsTc>(Ks, kg, ks, 0, s.S, tid);
+    load_rows<kBk, D, kThreadsTc>(Vs, vg, ks, 0, s.S, tid);
+  }
+  cp_async_commit();
+
+  const int row0 = q0 + warp * 16 + g;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + i * 8;
+    const long long at = ((long long)b * s.H + h) * s.T + row;
+    lse_r[i] = row < s.T ? lse[at] : 0.f;
+    delta_r[i] = row < s.T ? delta[at] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int j = 0; j < n_live; ++j) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (j + 1 < n_live) {
+      const int nb = (j + 1) & 1;
+      load_rows<kBk, D, kThreadsTc>(Ks + nb * kBk * LD, kg, ks, (j + 1) * kBk,
+                                    s.S, tid);
+      load_rows<kBk, D, kThreadsTc>(Vs + nb * kBk * LD, vg, ks, (j + 1) * kBk,
+                                    s.S, tid);
+    }
+    cp_async_commit();
+    const bf16* kt = Ks + (j & 1) * kBk * LD;
+    const bf16* vt = Vs + (j & 1) * kBk * LD;
+
+    float p[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[n][e] = dp[n][e] = 0.f;
+    warp_abt<NT, D>(p, Qs + warp * 16 * LD, kt, LD, lane);
+    warp_abt<NT, D>(dp, dOs + warp * 16 * LD, vt, LD, lane);
+    const int k0 = j * kBk;
+    const bool edge = k0 + kBk > s.S ||
+                      (s.causal && s.kv_off + k0 + kBk - 1 > s.q_off + q0);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = p[n][e] * s.scale;
+        if (edge && masked(s, row0 + (e >> 1) * 8, k0 + n * 8 + 2 * t + (e & 1)))
+          x = kNegInf;
+        const float pr = x <= kDead ? 0.f : __expf(x - lse_r[e >> 1]);
+        p[n][e] = pr * (dp[n][e] - delta_r[e >> 1]);  // dS
+      }
+    uint32_t df[NT / 2][4];
+    c_to_a<NT>(df, p);  // dS in k's type
+    warp_ab<ND, NT / 2>(acc, df, kt, LD, lane);
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + i * 8;
+    if (row >= s.T) continue;
+    bf16* dg = dq + (((long long)b * s.T + row) * s.H + h) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dg + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[n][2 * i] * s.scale,
+                                acc[n][2 * i + 1] * s.scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3b: dK and dV.  grid (key tiles, B * KV).
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kThreadsTc)
+    k3b_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               bf16* __restrict__ dk, bf16* __restrict__ dv, Shape s) {
+  constexpr int LD = Smem<D>::LD, NQ = kBqB / 8, ND = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + kBkB * LD;
+  bf16* Qs = Vs + kBkB * LD;       // [2][kBqB][LD]
+  bf16* dOs = Qs + 2 * kBqB * LD;  // [2][kBqB][LD]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * kBqB * LD);  // [2][kBqB]
+  float* Ds = Ls + 2 * kBqB;                                  // [2][kBqB]
+
+  const int b = blockIdx.y / s.KV, kvh = blockIdx.y % s.KV;
+  const int k0 = blockIdx.x * kBkB;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long qs = (long long)s.H * D, ks = (long long)s.KV * D;
+  const long long koff = ((long long)b * s.S * s.KV + kvh) * D;
+  const int nq = (s.T + kBqB - 1) / kBqB;
+  // causal: the first query tile whose last row reaches this block's
+  // first key (every later tile is live too)
+  int first = 0;
+  if (s.causal) {
+    const int need = s.kv_off + k0 - s.q_off - (kBqB - 1);
+    first = need <= 0 ? 0 : (need + kBqB - 1) / kBqB;
+  }
+  const int p_begin = first * s.rep, p_end = nq * s.rep;
+
+  // (query tile, group member) pair p into buffer buf
+  auto load_pair = [&](int p, int buf) {
+    const int qi = p / s.rep, h = kvh * s.rep + p % s.rep;
+    const long long qoff = ((long long)b * s.T * s.H + h) * D;
+    load_rows<kBqB, D, kThreadsTc>(Qs + buf * kBqB * LD, q + qoff, qs,
+                                   qi * kBqB, s.T, tid);
+    load_rows<kBqB, D, kThreadsTc>(dOs + buf * kBqB * LD, dout + qoff, qs,
+                                   qi * kBqB, s.T, tid);
+    if (tid < kBqB) {
+      const int row = qi * kBqB + tid;
+      const bool ok = row < s.T;
+      const long long at = ok ? ((long long)b * s.H + h) * s.T + row : 0;
+      cp_async4(Ls + buf * kBqB + tid, lse + at, ok);
+      cp_async4(Ds + buf * kBqB + tid, delta + at, ok);
+    }
+  };
+
+  load_rows<kBkB, D, kThreadsTc>(Ks, k + koff, ks, k0, s.S, tid);
+  load_rows<kBkB, D, kThreadsTc>(Vs, v + koff, ks, k0, s.S, tid);
+  if (p_begin < p_end) load_pair(p_begin, 0);
+  cp_async_commit();
+
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+
+  for (int p = p_begin; p < p_end; ++p) {
+    const int buf = (p - p_begin) & 1;
+    cp_async_wait_all();
+    __syncthreads();
+    if (p + 1 < p_end) load_pair(p + 1, buf ^ 1);
+    cp_async_commit();
+    const int q0 = (p / s.rep) * kBqB;
+    const bf16* qt = Qs + buf * kBqB * LD;
+    const bf16* dot = dOs + buf * kBqB * LD;
+    const float* lt = Ls + buf * kBqB;
+    const float* dt = Ds + buf * kBqB;
+
+    float pt[NQ][4], dpt[NQ][4];  // Pᵀ and dPᵀ: rows keys, cols queries
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pt[n][e] = dpt[n][e] = 0.f;
+    warp_abt<NQ, D>(pt, Ks + warp * 16 * LD, qt, LD, lane);
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * t + (e & 1);
+        float x = pt[n][e] * s.scale;
+        if (q0 + col >= s.T || masked(s, q0 + col, key0 + (e >> 1) * 8))
+          x = kNegInf;
+        pt[n][e] = x <= kDead ? 0.f : __expf(x - lt[col]);
+      }
+    uint32_t af[NQ / 2][4];
+    c_to_a<NQ>(af, pt);  // P in dO's type
+    warp_ab<ND, NQ / 2>(dva, af, dot, LD, lane);
+    warp_abt<NQ, D>(dpt, Vs + warp * 16 * LD, dot, LD, lane);
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pt[n][e] *= dpt[n][e] - dt[n * 8 + 2 * t + (e & 1)];  // dSᵀ
+    c_to_a<NQ>(af, pt);  // dS in q's type
+    warp_ab<ND, NQ / 2>(dka, af, qt, LD, lane);
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + i * 8;
+    if (key >= s.S) continue;
+    const long long at = (((long long)b * s.S + key) * s.KV + kvh) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(dka[n][2 * i] * s.scale,
+                                dka[n][2 * i + 1] * s.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(dva[n][2 * i], dva[n][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 FMA path: one thread per query row (K2, K3a) or key (K3b), the same
+// masking and guards, f32 products and exact expf.
+// ---------------------------------------------------------------------------
+constexpr int kThreadsFma = 128;
+
+// keys a query row sees: [0, n) with the causal mask, all S without
+__device__ __forceinline__ int row_keys(const Shape& s, int row) {
+  if (!s.causal) return s.S;
+  return max(0, min(s.S, s.q_off + row - s.kv_off + 1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsFma)
+    k2_forward_fma(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ out,
+                   float* __restrict__ lse, Shape s) {
+  const int row = blockIdx.x * kThreadsFma + threadIdx.x;
+  const int b = blockIdx.y / s.H, h = blockIdx.y % s.H, kvh = h / s.rep;
+  if (row >= s.T) return;
+  const long long qa = (((long long)b * s.T + row) * s.H + h) * D;
+  float qv[D], acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    qv[d] = q[qa + d];
+    acc[d] = 0.f;
+  }
+  float m = kNegInf, l = 0.f;
+  const int n = row_keys(s, row);
+  for (int j = 0; j < n; ++j) {
+    const long long ka = (((long long)b * s.S + j) * s.KV + kvh) * D;
+    float dot = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) dot = fmaf(qv[d], k[ka + d], dot);
+    const float x = dot * s.scale;
+    if (x > m) {
+      const float corr = expf(m - x);
+      l *= corr;
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] *= corr;
+      m = x;
+    }
+    const float p = expf(x - m);
+    l += p;
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] = fmaf(p, v[ka + d], acc[d]);
+  }
+  const float safe = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int d = 0; d < D; ++d) out[qa + d] = acc[d] / safe;
+  lse[((long long)b * s.H + h) * s.T + row] = l > 0.f ? m + logf(safe)
+                                                      : kNegInf;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsFma)
+    k3a_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dq, Shape s) {
+  const int row = blockIdx.x * kThreadsFma + threadIdx.x;
+  const int b = blockIdx.y / s.H, h = blockIdx.y % s.H, kvh = h / s.rep;
+  if (row >= s.T) return;
+  const long long qa = (((long long)b * s.T + row) * s.H + h) * D;
+  const long long ra = ((long long)b * s.H + h) * s.T + row;
+  const float lr = lse[ra], dr = delta[ra];
+  float qv[D], dov[D], acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    qv[d] = q[qa + d];
+    dov[d] = dout[qa + d];
+    acc[d] = 0.f;
+  }
+  const int n = row_keys(s, row);
+  for (int j = 0; j < n; ++j) {
+    const long long ka = (((long long)b * s.S + j) * s.KV + kvh) * D;
+    float sd = 0.f, pd = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      sd = fmaf(qv[d], k[ka + d], sd);
+      pd = fmaf(dov[d], v[ka + d], pd);
+    }
+    const float ds = expf(sd * s.scale - lr) * (pd - dr);
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, k[ka + d], acc[d]);
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d) dq[qa + d] = acc[d] * s.scale;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsFma)
+    k3b_dkv_fma(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dk, float* __restrict__ dv, Shape s) {
+  const int key = blockIdx.x * kThreadsFma + threadIdx.x;
+  const int b = blockIdx.y / s.KV, kvh = blockIdx.y % s.KV;
+  if (key >= s.S) return;
+  const long long ka = (((long long)b * s.S + key) * s.KV + kvh) * D;
+  float kv[D], vv[D], dka[D], dva[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    kv[d] = k[ka + d];
+    vv[d] = v[ka + d];
+    dka[d] = dva[d] = 0.f;
+  }
+  // causal: query rows whose global position reaches this key
+  const int first = s.causal ? max(0, s.kv_off + key - s.q_off) : 0;
+  for (int i = first; i < s.T; ++i) {
+    for (int r = 0; r < s.rep; ++r) {
+      const int h = kvh * s.rep + r;
+      const long long qa = (((long long)b * s.T + i) * s.H + h) * D;
+      const long long ra = ((long long)b * s.H + h) * s.T + i;
+      float sd = 0.f, pd = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        sd = fmaf(q[qa + d], kv[d], sd);
+        pd = fmaf(dout[qa + d], vv[d], pd);
+      }
+      const float p = expf(sd * s.scale - lse[ra]);
+      const float ds = p * (pd - delta[ra]);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        dva[d] = fmaf(p, dout[qa + d], dva[d]);
+        dka[d] = fmaf(ds, q[qa + d], dka[d]);
+      }
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    dk[ka + d] = dka[d] * s.scale;
+    dv[ka + d] = dva[d];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
+template <typename K>
+int set_smem(K kernel, int bytes) {
+  // above 48 KB only after this attribute; it is per device, so it is set
+  // on every launch (a host-side call of a few microseconds)
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+template <int D>
+int launch_forward(const void* q, const void* k, const void* v, void* out,
+                   void* lse, const Shape& s, int dtype, cudaStream_t st) {
+  if (dtype == kBF16) {
+    const int err = set_smem(k2_forward_tc<D>, Smem<D>::FWD);
+    if (err) return err;
+    dim3 grid((s.T + kBq - 1) / kBq, s.B * s.H);
+    k2_forward_tc<D><<<grid, kThreadsTc, Smem<D>::FWD, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(out),
+        static_cast<float*>(lse), s);
+  } else {
+    dim3 grid((s.T + kThreadsFma - 1) / kThreadsFma, s.B * s.H);
+    k2_forward_fma<D><<<grid, kThreadsFma, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out),
+        static_cast<float*>(lse), s);
+  }
+  return 0;
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, const Shape& s,
+              int dtype, cudaStream_t st) {
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  if (dtype == kBF16) {
+    const int err = set_smem(k3a_dq_tc<D>, Smem<D>::DQ);
+    if (err) return err;
+    dim3 grid((s.T + kBq - 1) / kBq, s.B * s.H);
+    k3a_dq_tc<D><<<grid, kThreadsTc, Smem<D>::DQ, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
+        static_cast<bf16*>(dq), s);
+  } else {
+    dim3 grid((s.T + kThreadsFma - 1) / kThreadsFma, s.B * s.H);
+    k3a_dq_fma<D><<<grid, kThreadsFma, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
+        static_cast<float*>(dq), s);
+  }
+  return 0;
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv,
+               const Shape& s, int dtype, cudaStream_t st) {
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  if (dtype == kBF16) {
+    const int err = set_smem(k3b_dkv_tc<D>, Smem<D>::DKV);
+    if (err) return err;
+    dim3 grid((s.S + kBkB - 1) / kBkB, s.B * s.KV);
+    k3b_dkv_tc<D><<<grid, kThreadsTc, Smem<D>::DKV, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), s);
+  } else {
+    dim3 grid((s.S + kThreadsFma - 1) / kThreadsFma, s.B * s.KV);
+    k3b_dkv_fma<D><<<grid, kThreadsFma, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
+        static_cast<float*>(dk), static_cast<float*>(dv), s);
+  }
+  return 0;
+}
+
+// Validates the launch-independent arguments; 0 when they are usable.
+int check(const Shape& s, int D, int dtype) {
+  if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
+  if (D != 16 && D != 32 && D != 64 && D != 128) return cudaErrorInvalidValue;
+  if (s.B < 1 || s.T < 1 || s.S < 1 || s.KV < 1 || s.H % s.KV)
+    return cudaErrorInvalidValue;
+  if ((long long)s.B * s.H > 65535) return cudaErrorInvalidValue;
+  return 0;
+}
+
+Shape make_shape(int B, int T, int S, int H, int KV, int q_off, int kv_off,
+                 int causal, float scale) {
+  Shape s;
+  s.B = B;
+  s.T = T;
+  s.S = S;
+  s.H = H;
+  s.KV = KV;
+  s.rep = KV > 0 ? H / KV : 0;
+  s.q_off = q_off;
+  s.kv_off = kv_off;
+  s.causal = causal;
+  s.scale = scale;
+  return s;
+}
+
+}  // namespace
+
+#define BF_DISPATCH_D(D, CALL)            \
+  switch (D) {                            \
+    case 16: { constexpr int kD = 16; err = CALL; break; }   \
+    case 32: { constexpr int kD = 32; err = CALL; break; }   \
+    case 64: { constexpr int kD = 64; err = CALL; break; }   \
+    case 128: { constexpr int kD = 128; err = CALL; break; } \
+    default: err = cudaErrorInvalidValue;                    \
+  }
+
+extern "C" int bf_flash_forward(const void* q, const void* k, const void* v,
+                                void* out, void* lse, int B, int T, int S,
+                                int H, int KV, int D, int q_off, int kv_off,
+                                int causal, float scale, int dtype,
+                                void* stream) {
+  const Shape s = make_shape(B, T, S, H, KV, q_off, kv_off, causal, scale);
+  int err = check(s, D, dtype);
+  if (err) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  BF_DISPATCH_D(D, launch_forward<kD>(q, k, v, out, lse, s, dtype, st));
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bf_flash_backward_dq(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dq, int B, int T, int S, int H,
+                                    int KV, int D, int q_off, int kv_off,
+                                    int causal, float scale, int dtype,
+                                    void* stream) {
+  const Shape s = make_shape(B, T, S, H, KV, q_off, kv_off, causal, scale);
+  int err = check(s, D, dtype);
+  if (err) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  BF_DISPATCH_D(D, launch_dq<kD>(q, k, v, dout, lse, delta, dq, s, dtype,
+                                 st));
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bf_flash_backward_dkv(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     void* dk, void* dv, int B, int T, int S,
+                                     int H, int KV, int D, int q_off,
+                                     int kv_off, int causal, float scale,
+                                     int dtype, void* stream) {
+  const Shape s = make_shape(B, T, S, H, KV, q_off, kv_off, causal, scale);
+  int err = check(s, D, dtype);
+  if (err) return err;
+  if ((long long)B * KV > 65535) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  BF_DISPATCH_D(D, launch_dkv<kD>(q, k, v, dout, lse, delta, dk, dv, s,
+                                  dtype, st));
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}

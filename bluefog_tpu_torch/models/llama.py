@@ -1,20 +1,32 @@
-"""Llama decoder in its decode layout (K/V-cached, last-position logits).
+"""Llama decoder: the full-sequence training forward and the decode
+layout (K/V-cached, last-position logits).
 
-Port of ``bluefog_tpu/models/llama.py``, the parts the serving path
-runs: :class:`LlamaConfig` (every field kept, so configs map one to
-one), ``RMSNorm``, ``_llama3_scaled_freqs``/``rotary_embed``,
-``_amax_quantize``, the ``Attention._decode_attend`` cache path,
-``_cached_attention``, ``FeedForward``, ``Block`` and ``Llama``.
-Deviations from the JAX package:
+Port of ``bluefog_tpu/models/llama.py``: :class:`LlamaConfig` (every
+field kept, so configs map one to one), ``RMSNorm``,
+``_llama3_scaled_freqs``/``rotary_embed``, ``_amax_quantize``,
+``Attention`` (the full-sequence path and the ``_decode_attend`` cache
+path), ``_cached_attention``, ``FeedForward``, ``Block``, ``Llama`` and
+the losses ``chunked_xent``/``llama_chunked_xent_loss_fn``.  Deviations
+from the JAX package:
 
-* Only the decode layout is ported: :class:`Llama` always writes the
-  K/V cache it is given and returns the last position's logits
-  (``all_logits=True`` keeps every position, as in JAX).  The training
-  forward, and with it tensor/sequence parallelism, ring/ulysses
-  attention, MoE, remat and the flash/splash kernels, waits for the
-  Llama-training slice; ``QuantDense`` (``param_quant``) and the w8a8
-  integer attention ``_cached_attention_int8`` wait for a later serving
-  slice.  Configs that need them raise ``NotImplementedError``.
+* :meth:`Llama.forward` runs the decode layout when it is given a
+  :class:`KVCache` (it writes the cache and returns the last position's
+  logits, every position with ``all_logits=True``), else the training
+  forward of JAX's ``__call__(tokens, pos_offset, return_hidden)``:
+  full sequence, causal, autograd on, f32 logits ``[B, T, vocab]``.
+  The training forward's attention is the flash kernels
+  (``attn_impl="flash"``, ``parallel/flash_attention.py``),
+  :func:`~bluefog_tpu_torch.parallel.ring_attention.blockwise_attention`
+  (``attn_mode="blockwise"``) or ``full_attention``.
+* Not ported yet, and refused with ``NotImplementedError`` naming the
+  ROADMAP item (:func:`require_ported`): tensor parallelism, ring/Ulysses
+  attention, MoE, ``attn_impl="splash"`` (K5), ``remat_policy="dots"``,
+  ``QuantDense`` (``param_quant``) and the w8a8 integer attention.
+* ``remat=True`` checkpoints each block with ``torch.utils.checkpoint``
+  (the whole block is recomputed, as flax's ``nn.checkpoint`` with
+  ``policy=None``, for ``remat_policy`` "none" and "everything" alike).
+  ``scan_layers=True`` changes only flax's parameter layout, which
+  ``interop/from_jax.py`` reads; the port always loops over its layers.
 * The cache is a :class:`KVCache` of stacked per-layer tensors written
   IN PLACE (JAX rebuilt it with ``dynamic_update_slice``), with ONE
   ``[B]`` index for all layers (JAX kept an equal ``cache_index`` per
@@ -28,30 +40,37 @@ Deviations from the JAX package:
   (``parallel/decode_attention.py``), JAX's ``decode_attn="pallas"``
   path; prefill (T > 1) runs :func:`_cached_attention`.
 * Projections keep flax's ``[in, out]`` kernel layout and compute
-  ``x @ kernel`` in ``cfg.dtype``.  The parameters are stored in the
-  dtype flax casts them to on every call (``cfg.dtype`` for the
-  projections and the embedding, f32 for the norms and for the logits
-  head under ``logits_dot_in_fp32``), not as f32 masters: the forward is
-  the same, and the card holds half the bytes.
-* The decoder stack is a Python loop over ``nn.ModuleList`` layers (JAX
-  could ``nn.scan`` them; ``interop/from_jax.py`` reads both layouts).
+  ``x @ kernel`` in ``cfg.dtype``.  ``Llama(param_dtype=torch.float32)``
+  keeps f32 master parameters, cast to ``cfg.dtype`` on every call, as
+  flax's ``param_dtype=float32`` does (the training layout).  By default
+  the parameters are stored in the dtype flax casts them to
+  (``cfg.dtype`` for the projections and the embedding, f32 for the
+  norms and for the logits head under ``logits_dot_in_fp32``): the
+  forward is the same, and the card holds half the bytes (the serving
+  layout).  The embedding gathers its rows and then casts them (flax
+  casts the table, then gathers: the same values).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from bluefog_tpu_torch._device import resolve_device
 from bluefog_tpu_torch.parallel.decode_attention import (
     decode_attention, decode_attention_int8)
+from bluefog_tpu_torch.parallel.flash_attention import flash_attention
+from bluefog_tpu_torch.parallel.ring_attention import (blockwise_attention,
+                                                       full_attention)
 
-__all__ = ["LlamaConfig", "Llama", "KVCache", "RMSNorm", "rotary_embed"]
+__all__ = ["LlamaConfig", "Llama", "KVCache", "RMSNorm", "rotary_embed",
+           "chunked_xent", "llama_chunked_xent_loss_fn", "llama_loss_fn"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -270,23 +289,30 @@ class LlamaConfig:
 
 
 def require_ported(cfg: LlamaConfig) -> None:
-    """Raise ``NotImplementedError`` for a config whose parameters or
-    decode numerics need a part of the JAX model not ported yet."""
+    """Raise ``NotImplementedError`` for a config that needs a part of
+    the JAX model not ported yet, naming the ROADMAP.md item that ports
+    it."""
     later = []
     if cfg.tp_size > 1 or cfg.tp_axis is not None:
-        later.append("tensor parallelism (tp_axis/tp_size): the tp decode "
-                     "slice")
+        later.append("tensor parallelism (tp_axis/tp_size): ROADMAP.md "
+                     "Queue 1, items 10 (training) and 11 (the tp decode "
+                     "path)")
     if cfg.attn_mode in ("ring", "ulysses") or cfg.sp_axis is not None:
-        later.append(f"attn_mode={cfg.attn_mode!r}: the Llama-training "
-                     "slice")
+        later.append(f"attn_mode={cfg.attn_mode!r} (sequence parallelism): "
+                     "ROADMAP.md Queue 1, item 10 (ring and Ulysses "
+                     "attention)")
     if cfg.n_experts:
-        later.append("MoE (n_experts > 0): the Llama-training slice")
+        later.append("MoE (n_experts > 0): ROADMAP.md Queue 1, item 10 "
+                     "(moe/)")
     if cfg.param_quant != "none":
         later.append(f"param_quant={cfg.param_quant!r} (QuantDense, w8a8 "
-                     "attention): a later serving slice")
-    if cfg.decode and cfg.attn_impl != "xla":
-        later.append(f"attn_impl={cfg.attn_impl!r} in a decode config: "
-                     "the Llama-training slice")
+                     "attention): ROADMAP.md Queue 1, item 11")
+    if cfg.attn_impl == "splash":
+        later.append("attn_impl='splash' (the fused splash kernel K5): "
+                     "ROADMAP.md Queue 2, K5")
+    if cfg.remat_policy == "dots":
+        later.append("remat_policy='dots' (save the matmul outputs): "
+                     "ROADMAP.md Queue 1, item 10")
     if later:
         raise NotImplementedError(
             "not ported to bluefog_tpu_torch yet: " + "; ".join(later))
@@ -427,17 +453,20 @@ class KVCache:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense(use_bias=False)``: ``x @ kernel`` in the kernel's
-    dtype, kernel ``[in, out]``."""
+    """flax ``nn.Dense(use_bias=False)``: ``x @ kernel`` in ``dtype``,
+    kernel ``[in, out]`` stored in ``param_dtype`` (default ``dtype``)
+    and cast to ``dtype`` on every call."""
 
-    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype, device):
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype, device,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(
-            torch.empty(n_in, n_out, dtype=dtype, device=device),
-            requires_grad=False)
+            torch.empty(n_in, n_out, dtype=param_dtype or dtype,
+                        device=device), requires_grad=False)
 
     def forward(self, x):
-        return x.to(self.kernel.dtype) @ self.kernel
+        return x.to(self.dtype) @ self.kernel.to(self.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -459,33 +488,37 @@ class RMSNorm(nn.Module):
 
 
 class Embed(nn.Module):
-    """flax ``nn.Embed``: the table, stored in the compute dtype."""
+    """flax ``nn.Embed``: rows of the table (stored in ``param_dtype``,
+    default ``dtype``) in ``dtype``."""
 
-    def __init__(self, vocab: int, dim: int, dtype, device):
+    def __init__(self, vocab: int, dim: int, dtype, device,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.embedding = nn.Parameter(
-            torch.empty(vocab, dim, dtype=dtype, device=device),
-            requires_grad=False)
+            torch.empty(vocab, dim, dtype=param_dtype or dtype,
+                        device=device), requires_grad=False)
 
     def forward(self, tokens):
-        return F.embedding(tokens.long(), self.embedding)
+        return F.embedding(tokens.long(), self.embedding).to(self.dtype)
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device):
+    def __init__(self, cfg: LlamaConfig, device, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         hd = cfg.head_dim
-        self.wq = Dense(cfg.dim, cfg.n_heads * hd, cfg.dtype, device)
-        self.wk = Dense(cfg.dim, cfg.n_kv_heads * hd, cfg.dtype, device)
-        self.wv = Dense(cfg.dim, cfg.n_kv_heads * hd, cfg.dtype, device)
-        self.wo = Dense(cfg.n_heads * hd, cfg.dim, cfg.dtype, device)
+        dense = lambda n_in, n_out: Dense(  # noqa: E731
+            n_in, n_out, cfg.dtype, device, param_dtype)
+        self.wq = dense(cfg.dim, cfg.n_heads * hd)
+        self.wk = dense(cfg.dim, cfg.n_kv_heads * hd)
+        self.wv = dense(cfg.dim, cfg.n_kv_heads * hd)
+        self.wo = dense(cfg.n_heads * hd, cfg.dim)
 
-    def forward(self, x, cache: KVCache, layer: int, idx, rope, rows,
-                write_pos):
-        """``_decode_attend``: write this call's K/V at the rows' cache
-        positions (rotary at the true absolute positions), then attend
-        over the cache."""
+    def forward(self, x, rope, cache: Optional[KVCache] = None,
+                layer: int = 0, idx=None, rows=None, write_pos=None):
+        """The full-sequence causal path (``Attention.__call__`` without
+        ``decode``), or with ``cache`` the decode path."""
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.head_dim
@@ -494,6 +527,26 @@ class Attention(nn.Module):
         v = self.wv(x).reshape(b, t, cfg.n_kv_heads, hd)
         q = _apply_rotary(q, *rope)
         k = _apply_rotary(k, *rope)
+        if cache is not None:
+            out = self._decode_attend(q, k, v, cache, layer, idx, rows,
+                                      write_pos)
+        elif cfg.attn_impl == "flash":
+            out = flash_attention(
+                q, k, v, causal=True,
+                block_q=min(cfg.attn_flash_block_size, t),
+                block_k=min(cfg.attn_flash_block_k, t))
+        elif cfg.attn_mode == "blockwise":
+            out = blockwise_attention(q, k, v, cfg.attn_block_size,
+                                      causal=True)
+        else:
+            out = full_attention(q, k, v, causal=True)
+        return self.wo(out.reshape(b, t, cfg.n_heads * hd))
+
+    def _decode_attend(self, q, k, v, cache, layer, idx, rows, write_pos):
+        """Write this call's K/V at the rows' cache positions (rotary
+        already at the true absolute positions), then attend over the
+        cache."""
+        t = q.shape[1]
         # caches live KV-head-major [B, KV, S, D]; indexing [rows, :, pos]
         # addresses them as [B, T, KV, D], the projections' own layout
         k_all, v_all = cache.key[layer], cache.value[layer]
@@ -507,72 +560,73 @@ class Attention(nn.Module):
             ks_all[rows, :, write_pos] = ks[..., 0]
             vs_all[rows, :, write_pos] = vs[..., 0]
             if t == 1:
-                out = decode_attention_int8(q, k_all, ks_all, v_all,
-                                            vs_all, idx)
-            else:
-                out = _cached_attention(q, k_all.float() * ks_all[..., None],
-                                        v_all.float() * vs_all[..., None],
-                                        idx)
-        else:
-            k_all[rows, :, write_pos] = k.to(k_all.dtype)
-            v_all[rows, :, write_pos] = v.to(v_all.dtype)
-            if t == 1:
-                out = decode_attention(q, k_all, v_all, idx)
-            else:
-                out = _cached_attention(q, k_all, v_all, idx)
-        return self.wo(out.reshape(b, t, cfg.n_heads * hd))
+                return decode_attention_int8(q, k_all, ks_all, v_all, vs_all,
+                                             idx)
+            return _cached_attention(q, k_all.float() * ks_all[..., None],
+                                     v_all.float() * vs_all[..., None], idx)
+        k_all[rows, :, write_pos] = k.to(k_all.dtype)
+        v_all[rows, :, write_pos] = v.to(v_all.dtype)
+        if t == 1:
+            return decode_attention(q, k_all, v_all, idx)
+        return _cached_attention(q, k_all, v_all, idx)
 
 
 class FeedForward(nn.Module):
     """SwiGLU: ``w2(silu(w1 x) * w3 x)``."""
 
-    def __init__(self, cfg: LlamaConfig, device):
+    def __init__(self, cfg: LlamaConfig, device, param_dtype=None):
         super().__init__()
-        self.w1 = Dense(cfg.dim, cfg.ffn_dim, cfg.dtype, device)
-        self.w3 = Dense(cfg.dim, cfg.ffn_dim, cfg.dtype, device)
-        self.w2 = Dense(cfg.ffn_dim, cfg.dim, cfg.dtype, device)
+        self.w1 = Dense(cfg.dim, cfg.ffn_dim, cfg.dtype, device, param_dtype)
+        self.w3 = Dense(cfg.dim, cfg.ffn_dim, cfg.dtype, device, param_dtype)
+        self.w2 = Dense(cfg.ffn_dim, cfg.dim, cfg.dtype, device, param_dtype)
 
     def forward(self, x):
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device):
+    def __init__(self, cfg: LlamaConfig, device, param_dtype=None):
         super().__init__()
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
-        self.attention = Attention(cfg, device)
+        self.attention = Attention(cfg, device, param_dtype)
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
-        self.feed_forward = FeedForward(cfg, device)
+        self.feed_forward = FeedForward(cfg, device, param_dtype)
 
-    def forward(self, x, cache, layer, idx, rope, rows, write_pos):
-        x = x + self.attention(self.attention_norm(x), cache, layer, idx,
-                               rope, rows, write_pos)
+    def forward(self, x, rope, *cache_args):
+        x = x + self.attention(self.attention_norm(x), rope, *cache_args)
         return x + self.feed_forward(self.ffn_norm(x))
 
 
 class Llama(nn.Module):
-    """The Llama decoder's parameters and its decode-layout forward.
+    """The Llama decoder's parameters and its two forwards (see the
+    module docstring).
 
     ``cfg`` may be a training or a decode config (the parameters are the
-    same); the forward is always the decode layout.  Parameters are
-    drawn at the scale of flax's default initializers (normal with std
-    ``1/sqrt(fan_in)`` for every projection, ``1/sqrt(vocab)`` for the
-    embedding, ones for the norms) from ``generator`` (default: seed 0
-    on ``device``); load trained ones with ``load_state_dict`` (see
+    same).  ``param_dtype=torch.float32`` stores every parameter in f32
+    (the training layout, flax's ``param_dtype``); the default (None)
+    stores them in the dtype each call casts them to (the serving
+    layout).  Parameters are drawn at the scale of flax's default
+    initializers (normal with std ``1/sqrt(fan_in)`` for every
+    projection, ``1/sqrt(vocab)`` for the embedding, ones for the norms)
+    from ``generator`` (default: seed 0 on ``device``); load trained
+    ones with ``load_state_dict`` (see
     :func:`bluefog_tpu_torch.interop.llama_params_from_flax`)."""
 
     def __init__(self, cfg: LlamaConfig, device: Union[str, torch.device]
-                 = "cuda", generator: Optional[torch.Generator] = None):
+                 = "cuda", generator: Optional[torch.Generator] = None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         require_ported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
-        self.tok_embeddings = Embed(cfg.vocab_size, cfg.dim, cfg.dtype, dev)
-        self.layers = nn.ModuleList(Block(cfg, dev)
+        self.tok_embeddings = Embed(cfg.vocab_size, cfg.dim, cfg.dtype, dev,
+                                    param_dtype)
+        self.layers = nn.ModuleList(Block(cfg, dev, param_dtype)
                                     for _ in range(cfg.n_layers))
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps, dev)
         head_dtype = torch.float32 if cfg.logits_dot_in_fp32 else cfg.dtype
-        self.output = Dense(cfg.dim, cfg.vocab_size, head_dtype, dev)
+        self.output = Dense(cfg.dim, cfg.vocab_size, head_dtype, dev,
+                            param_dtype)
         self.register_buffer(
             "rope_freqs", _rope_freqs(cfg.head_dim, cfg.rope_theta,
                                       cfg.rope_scaling, dev),
@@ -583,7 +637,7 @@ class Llama(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.output.kernel.device
+        return self.rope_freqs.device
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> None:
@@ -599,9 +653,60 @@ class Llama(nn.Module):
             elif isinstance(mod, RMSNorm):
                 mod.scale.fill_(1.0)
 
+    def state(self, release: bool = False) -> Dict[str, torch.Tensor]:
+        """The parameters as ``{state-dict name: tensor}``: detached
+        copies, or with ``release=True`` the tensors themselves, the
+        module keeping only their shapes (on the ``meta`` device) so the
+        caller's state is the one copy on the card.  A released module
+        still runs :meth:`apply`, which is given every parameter."""
+        params = {k: v.detach() if release else v.detach().clone()
+                  for k, v in self.named_parameters()}
+        if release:
+            for mod in self.modules():
+                for name, p in mod._parameters.items():
+                    mod._parameters[name] = nn.Parameter(
+                        torch.empty_like(p, device="meta"),
+                        requires_grad=False)
+        return params
+
+    def apply(self, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+              **kwargs) -> torch.Tensor:
+        """The forward over the given parameters (``torch.func.
+        functional_call``, by state-dict name): the functional form the
+        losses and ``build_train_step`` use."""
+        return torch.func.functional_call(self, params, (tokens,), kwargs)
+
+    def forward(self, tokens: torch.Tensor, cache: Optional[KVCache] = None,
+                all_logits: bool = False, *, pos_offset: int = 0,
+                return_hidden: bool = False) -> torch.Tensor:
+        """With ``cache``: the decode layout (see :meth:`_decode`).
+        Without: the training forward, tokens ``[B, T]`` at positions
+        ``pos_offset + arange(T)`` -> f32 logits ``[B, T, vocab]``, or the
+        final-norm hidden states ``[B, T, dim]`` with ``return_hidden``
+        (the entry of :func:`chunked_xent`)."""
+        if cache is not None:
+            return self._decode(tokens, cache, all_logits)
+        cfg = self.cfg
+        if cfg.decode:
+            raise ValueError("a decode config runs with a KVCache: pass "
+                             "cache=")
+        t = tokens.shape[1]
+        if t > cfg.max_seq_len:
+            raise ValueError(f"sequence {t} exceeds max_seq_len "
+                             f"{cfg.max_seq_len}")
+        positions = pos_offset + torch.arange(t, device=tokens.device)
+        rope = _rope_tables(positions, self.rope_freqs)
+        x = self.tok_embeddings(tokens)
+        for block in self.layers:
+            x = _remat(block, x, rope) if cfg.remat else block(x, rope)
+        x = self.norm(x)
+        if return_hidden:
+            return x
+        return self.output(x).float()
+
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor, cache: KVCache,
-                all_logits: bool = False) -> torch.Tensor:
+    def _decode(self, tokens: torch.Tensor, cache: KVCache,
+                all_logits: bool) -> torch.Tensor:
         """tokens: [B, T] ids -> logits [B, 1, vocab] f32 (every position,
         [B, T, vocab], with ``all_logits``).  Writes the tokens' K/V into
         ``cache`` at each row's index and advances it by T."""
@@ -620,10 +725,90 @@ class Llama(nn.Module):
         rows = torch.arange(b, device=dev)[:, None]
         x = self.tok_embeddings(tokens)
         for layer, block in enumerate(self.layers):
-            x = block(x, cache, layer, idx, rope, rows, write_pos)
+            x = block(x, rope, cache, layer, idx, rows, write_pos)
         x = self.norm(x)
         if not all_logits:
             x = x[:, -1:]
         logits = self.output(x).float()
         cache.index.add_(t)
         return logits
+
+
+def _remat(block: Block, x: torch.Tensor, rope) -> torch.Tensor:
+    """``block(x, rope)`` under ``torch.utils.checkpoint``, its parameters
+    passed in as inputs: under ``functional_call`` (``Llama.apply``) the
+    recompute in the backward must see the same tensors as the forward,
+    not the module's own."""
+    names, tensors = zip(*block.named_parameters())
+
+    def run(x, rope, *tensors):
+        return torch.func.functional_call(block, dict(zip(names, tensors)),
+                                          (x, rope))
+
+    return checkpoint(run, x, rope, *tensors, use_reentrant=False)
+
+
+def _xent_sum(hx: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    logits = (hx.to(dtype) @ w.to(dtype)).float()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           t.reshape(-1).long(), reduction="sum")
+
+
+def chunked_xent(h: torch.Tensor, w_kernel: torch.Tensor,
+                 targets: torch.Tensor, *, n_chunks: int = 8,
+                 dot_in_fp32: bool = True) -> torch.Tensor:
+    """Next-token cross-entropy computed chunk by chunk over the sequence,
+    so the full ``[B, T, vocab]`` logits never exist at once.
+
+    ``h``: [B, T, dim] final-norm hidden states (``forward(...,
+    return_hidden=True)``); ``w_kernel``: [dim, vocab] head kernel;
+    ``targets``: [B, T].  Each chunk's logits, log-sum-exp and target
+    gather run inside ``torch.utils.checkpoint`` (JAX: ``jax.checkpoint``
+    under ``lax.map``): the forward holds one chunk's logits, the
+    backward recomputes them.  The mean over B·T, as the plain loss."""
+    b, s, _ = h.shape
+    if s % n_chunks:
+        raise ValueError(f"seq len {s} % n_chunks {n_chunks} != 0")
+    c = s // n_chunks
+    dtype = torch.float32 if dot_in_fp32 else h.dtype
+    total = None
+    for i in range(n_chunks):
+        part = checkpoint(_xent_sum, h[:, i * c:(i + 1) * c], w_kernel,
+                          targets[:, i * c:(i + 1) * c], dtype,
+                          use_reentrant=False)
+        total = part if total is None else total + part
+    return total / (b * s)
+
+
+def llama_chunked_xent_loss_fn(model: Llama, *, n_chunks: int = 8):
+    """``loss_fn(params, (inputs, targets))``: the decoder stack as usual,
+    the head and cross-entropy through :func:`chunked_xent`.  ``params``
+    is ``{state-dict name: tensor}`` (``model.state()``); the configs the
+    JAX builder refuses (vocab-parallel, tp_seq_shard, MoE aux) need
+    tensor parallelism or MoE, which ``Llama`` refuses already."""
+    cfg = model.cfg
+
+    def loss_fn(params, batch):
+        inp, tgt = batch
+        h = model.apply(params, inp, return_hidden=True)
+        return chunked_xent(h, params["output.kernel"], tgt,
+                            n_chunks=n_chunks,
+                            dot_in_fp32=cfg.logits_dot_in_fp32)
+
+    return loss_fn
+
+
+def llama_loss_fn(model: Llama, *, pos_offset: int = 0):
+    """``loss_fn(params, (inputs, targets))``: the mean next-token
+    cross-entropy of the full f32 logits, the plain loss of
+    ``examples/llama_benchmark.py`` (``optax.
+    softmax_cross_entropy_with_integer_labels`` averaged over B·T)."""
+
+    def loss_fn(params, batch):
+        inp, tgt = batch
+        logits = model.apply(params, inp, pos_offset=pos_offset)
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               tgt.reshape(-1).long())
+
+    return loss_fn

@@ -1,4 +1,8 @@
 """Data plane and kernels of the port: rank-major collectives
-(``collectives``, the stacked backend) and hand-written CUDA for the
-Pallas kernels of ``bluefog_tpu.parallel`` (so far the decode-attention
-kernel K4 and the 1x1-conv backward K1)."""
+(``collectives``, the stacked backend), the single-device attention
+references (``ring_attention``: ``full_attention``,
+``blockwise_attention``) and hand-written CUDA for the Pallas kernels
+of ``bluefog_tpu.parallel``: the decode-attention kernel K4
+(``decode_attention``), the 1x1-conv backward K1 (``conv1x1``) and the
+flash attention forward and backward K2, K3a, K3b
+(``flash_attention``)."""

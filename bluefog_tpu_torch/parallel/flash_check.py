@@ -1,0 +1,139 @@
+"""The acceptance check of the flash kernels (K2, K3a, K3b) against their
+plain versions, shared by ``tests/test_torch_cuda_kernels.py`` and
+``chip_smoke.py`` so that both hold the kernels to one bound.
+
+* :data:`CASES`: the shapes the kernels are checked at, the Llama
+  training shape first.
+* :func:`term_sizes`: for each entry of out, dQ, dK and dV, the sum of
+  the absolute values of the terms whose bf16 rounding may differ
+  between a kernel and its plain version.
+* :func:`mismatch`: the largest ratio of an entry's error to its own
+  bound (at most 1 passes).
+* :func:`planted_faults`: the outputs of three deliberately wrong
+  kernels, computed with the plain versions, which :func:`mismatch` must
+  reject; they show the bound is tight enough to catch a lost tile or a
+  lost group member.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from bluefog_tpu_torch.parallel.flash_attention import (
+    _dscores, _heads, _probs, flash_backward_dkv_plain,
+    flash_backward_dq_plain, flash_forward_plain)
+
+__all__ = ["CASES", "term_sizes", "mismatch", "planted_faults"]
+
+# (B, T, H, KV, D, dtype, causal, q_offset, kv_offset)
+CASES = [
+    (4, 2048, 32, 8, 128, torch.bfloat16, True, 0, 0),  # Llama-3.1-8B
+    (2, 100, 4, 4, 16, torch.float32, True, 0, 0),
+    (2, 1000, 8, 2, 64, torch.float32, True, 0, 0),
+    (1, 100, 4, 1, 64, torch.bfloat16, True, 0, 0),
+    (2, 1000, 8, 4, 16, torch.bfloat16, False, 0, 0),
+    (1, 64, 4, 2, 64, torch.bfloat16, True, 0, 64),     # every row masked
+    (1, 100, 4, 2, 128, torch.float32, True, 0, 64),    # rows < 64 masked
+    (1, 100, 4, 1, 32, torch.bfloat16, True, 128, 0),
+    (1, 1000, 8, 2, 128, torch.float32, False, 128, 0),
+]
+
+BF16_ULPS = 2          # per entry, in ulps of that entry
+BF16_TERMS = 2 ** -7   # of the entry's term sizes (term_sizes)
+BF16_FLOOR = 2 ** -12  # of the output's largest term size
+F32_TOL = 1e-5         # of the largest |want|
+
+
+@torch.no_grad()
+def term_sizes(q, k, v, do, lse, delta, causal: bool = True,
+               scale: Optional[float] = None, q_offset: int = 0,
+               kv_offset: int = 0) -> Dict[str, torch.Tensor]:
+    """f32 ``{"out", "dq", "dk", "dv"}``, each the shape of that output:
+    per entry, the sum of the absolute values of the terms of its sum
+    whose factor is rounded to bf16 before the product (P for out and
+    dV, dS for dQ and dK): ``|P|·|V|``, ``|dS|·|K|·scale``,
+    ``|P|ᵀ·|dO|`` and ``|dS|ᵀ·|Q|·scale``, from the forward's lse and
+    ``delta`` as the kernels take them."""
+    b, t, h, d = q.shape
+    kv = k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    p = _probs(q, k, lse, causal, scale, q_offset, kv_offset)
+    ds = _dscores(p, v, do, delta).abs_()
+    q5, do5 = (x.reshape(b, t, kv, h // kv, d).float().abs()
+               for x in (q, do))
+    sizes = {
+        "out": torch.einsum("bgrts,bsgd->bgrtd", p, v.float().abs()),
+        "dq": torch.einsum("bgrts,bsgd->bgrtd", ds, k.float().abs()) * scale,
+        "dv": torch.einsum("bgrts,btgrd->bsgd", p, do5),
+        "dk": torch.einsum("bgrts,btgrd->bsgd", ds, q5) * scale}
+    for key in ("out", "dq"):
+        sizes[key] = _heads(sizes[key], b, t, h)
+    return sizes
+
+
+def mismatch(got: torch.Tensor, want: torch.Tensor,
+             terms: Optional[torch.Tensor] = None) -> float:
+    """Largest ``|got - want|`` over its bound, entry by entry; at most 1
+    passes.  In bf16 an entry's bound is two ulps of the entry (each
+    side rounds its f32 sum to bf16) plus 2**-7 of its ``terms``
+    (:func:`term_sizes`): each term's bf16 factor may differ by one ulp,
+    at most 2**-7 of its size, between the two sides.  For dQ, dK and
+    dV the f32 factor differs in its last bits (another summation order)
+    and may round the other way; for out, K2 rounds P from the running
+    maximum and the plain version from the final one, a half-ulp on each
+    side.  Plus 2**-12 of the largest term size of the whole output, for
+    entries whose terms cancel: row 0's dS = P·(dP - delta) is the
+    difference of two f32 sums of the same products, taken in another
+    order by the kernel, so its dQ is f32 noise on both sides.  In f32
+    (``terms`` not needed): 1e-5 of the largest |want|.  Both have a
+    1e-6 floor, for outputs that are all zero."""
+    want32 = want.float()
+    err = (got.float() - want32).abs()
+    if not err.numel():
+        return 0.0
+    if want.dtype == torch.bfloat16:
+        _, exp = torch.frexp(want32)          # |want| in [2**(e-1), 2**e)
+        ulp = torch.where(want32 == 0, 0.0, torch.exp2(exp - 8.0))
+        bound = (BF16_ULPS * ulp + BF16_TERMS * terms
+                 + BF16_FLOOR * terms.max() + 1e-6)
+    else:
+        bound = F32_TOL * want32.abs().max() + 1e-6
+    return (err / bound).max().item()
+
+
+def planted_faults(q, k, v, do, lse, delta, ref: Dict[str, torch.Tensor],
+                   tile: int = 64) -> List[Tuple[str, str, torch.Tensor]]:
+    """``(fault, output, tensor)`` for three wrong kernels at a causal,
+    offset-free shape, each wrong only in the second half of the
+    sequence, where entries are smallest: K2 and K3a skipping the
+    diagonal key tile of each ``tile``-row query tile there (its rows see
+    keys ``< tile·i`` only), and K3b skipping the last member of each kv
+    head's group for those keys (needs more query heads than kv heads).
+    ``ref`` holds the plain versions' ``out``, ``dq``, ``dk`` and ``dv``
+    on the same inputs; the faults are computed with the plain versions
+    from the true forward's ``lse`` and ``delta``."""
+    b, t, h, d = q.shape
+    scale = d ** -0.5
+    half = t // 2 // tile * tile
+    out, dq = ref["out"].clone(), ref["dq"].clone()
+    for a in range(max(half, tile), t, tile):
+        rows = slice(a, min(a + tile, t))
+        kv = (k[:, :a], v[:, :a])
+        out[:, rows] = flash_forward_plain(q[:, rows], *kv, False, scale)[0]
+        dq[:, rows] = flash_backward_dq_plain(
+            q[:, rows], *kv, do[:, rows], lse[..., rows], delta[..., rows],
+            False, scale, 0, 0)
+    faults = [("diagonal key tile skipped past T/2", "out", out),
+              ("diagonal key tile skipped past T/2", "dq", dq)]
+    rep = h // k.shape[2]
+    if rep > 1:
+        keep = torch.arange(h, device=q.device) % rep != rep - 1
+        dk, dv = flash_backward_dkv_plain(
+            q, k, v, do * keep[:, None].to(do.dtype), lse,
+            delta * keep[:, None], True, scale, 0, 0)
+        for name, x in (("dk", dk), ("dv", dv)):
+            x[:, :half] = ref[name][:, :half]
+            faults.append(("last group member skipped past T/2", name, x))
+    return faults

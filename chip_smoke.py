@@ -45,9 +45,35 @@ Phases (any failure raises and exits non-zero, printing no result):
    (CUDA events); K1 launched 20 x 4 x steps times; and after 3 steps
    from one state on the same per-rank data (batch 16), the consensus
    distance under atc is below that of comm_mode="none".
+   c. K2, K3a, K3b flash attention forward, dQ and dK/dV at the Llama
+      training shape (B=4, T=2048, H=32, KV=8, D=128, causal, bf16) and
+      at small odd shapes (f32; D 16 and 64; T 100 and 1000; rep 1, 2,
+      4; non-causal; every row masked by kv_offset=64; q_offset=128):
+      max |err| per output, dQ/dK/dV bit-equal across two runs; at the
+      training shape kernel, plain, bound and library ms (SDPA forward
+      for K2, SDPA's backward for K3a + K3b together).
 7. Reference (training): a tiny f32 ResNet trained 3 atc steps over 4
    ranks on the card (kernel) and on the CPU (plain version) gives the
    same params, batch statistics and losses within f32 tolerance.
+8. Llama train, 1 rank: Llama-3.1-8B's width (dim 4096, 32 heads, 8 kv
+   heads, ffn 14336, vocab 128256, llama3 rope) cut to 4 layers,
+   attn_impl="flash", f32 master params and bf16 compute, SGD(1e-3,
+   momentum 0.9), comm_mode="none", batch 4 x 2048 synthetic tokens
+   from --seed (examples/llama_benchmark.py's protocol: 3 warm-up and
+   10 timed steps).  tokens/s per card, step ms, MFU over 989 TFLOP/s,
+   peak memory, losses finite near ln(vocab); K2, K3a and K3b launched
+   n_layers x steps times each.  torch.profiler over 2 steps: device
+   busy share, top kernels, the attention kernels' and the f32 head's
+   shares.  Then one window of 10 steps with logits_dot_in_fp32=False.
+9. Llama train, 2 ranks stacked on the card: the same width at 2
+   layers, atc over uniform_topology_spec(ExponentialTwoGraph(2)), 4 x
+   2048 per rank: tokens/s per card, the combine's ms per step, launch
+   counts; then, after 3 steps from one state on different per-rank data
+   (1 x 512 per rank), the consensus distance under atc is below that
+   under comm_mode="none".
+10. Reference (Llama training): a tiny f32 Llama with attn_impl="flash"
+   trained 3 atc steps over 2 ranks on the card (kernels) and on the
+   CPU (plain versions) gives the same params and losses.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
@@ -56,7 +82,10 @@ the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -74,7 +103,7 @@ MEM_RATE = (("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
 # dense peak by input type (H100 SXM data sheet), operations/s
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.int8: 1979e12}
-KERNEL_SOURCES = ["decode_attention", "conv1x1_backward"]
+KERNEL_SOURCES = ["decode_attention", "conv1x1_backward", "flash_attention"]
 
 
 def log(*a):
@@ -234,21 +263,19 @@ def _requests(rng, n, vocab):
 def _serve(model, cfg, kv_quant, reqs, counter):
     """Serve ``reqs`` on a fresh engine with the launch counts set to 0
     just before; returns (summary, launches of ``counter``)."""
-    from bluefog_tpu_torch.parallel import decode_attention as da
     from bluefog_tpu_torch.serving import ServingEngine
 
     eng = ServingEngine(model, cfg, capacity=8, max_len=2048,
                         prefill_chunk=256, kv_quant=kv_quant)
     torch.cuda.synchronize()
-    da.reset_launch_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"decode_attention": da.decode_attention.launches,
-                "decode_attention_int8": da.decode_attention_int8.launches}
+    launches = _launches()
     m = eng.metrics.summary()
     bad = [r.rid for r in reqs
            if r.state != "completed" or len(r.tokens) != r.max_new_tokens]
@@ -257,13 +284,8 @@ def _serve(model, cfg, kv_quant, reqs, counter):
     if eng.nonfinite_logit_rows():
         raise AssertionError(f"{eng.nonfinite_logit_rows()} logit rows "
                              "were not finite")
-    want = cfg.n_layers * m["decode_steps"]
-    if launches[counter] != want or launches[counter] == 0:
-        raise AssertionError(f"{counter} launched {launches[counter]} "
-                             f"times, want n_layers x decode steps = {want}")
-    other = sum(v for k, v in launches.items() if k != counter)
-    if other:
-        raise AssertionError(f"unexpected launches {launches}")
+    _expect_launches(f"serve kv_quant={kv_quant} (n_layers x decode steps)",
+                     {counter: cfg.n_layers * m["decode_steps"]})
     log(f"[serve] kv_quant={kv_quant}: {len(reqs)} requests, "
         f"{m['tokens_generated']} tokens in {wall:.2f} s wall; tokens/s "
         f"{m['tokens_per_sec']:.1f}, TTFT p50 {m['ttft_p50'] * 1e3:.1f} ms,"
@@ -271,6 +293,15 @@ def _serve(model, cfg, kv_quant, reqs, counter):
         f"{m['decode_steps']} steps, {m['prefill_chunks']} prefill chunks, "
         f"{counter} launches {launches[counter]}")
     return m, launches[counter]
+
+
+def _device_kernels(prof):
+    """The profile's device kernels by name: CUDA events without the user
+    annotations (``Optimizer.step#SGD.step`` spans kernels already
+    counted, and would count them twice)."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def _profile_decode(model, cfg, reqs, steps=10):
@@ -295,8 +326,7 @@ def _profile_decode(model, cfg, reqs, steps=10):
             eng.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = _device_kernels(prof)
     busy = sum(e.self_device_time_total for e in events)
     active = sum(r.state == "decode" for r in reqs)
     log(f"[profile] {steps} decode steps ({active} slots decoding): wall "
@@ -366,6 +396,171 @@ def phase_reference(seed):
                                      f"host {b}")
         log(f"[reference] tiny f32, kv_quant={kv_quant}: "
             f"{len(prompts)} greedy requests token-exact, card vs host")
+
+
+FLASH_OUTPUTS = {"flash_forward": ("out",), "flash_backward_dq": ("dq",),
+                 "flash_backward_dkv": ("dk", "dv")}
+FLASH_REPLACES = {
+    "flash_forward": "bluefog_tpu/parallel/pallas_attention.py:107",
+    "flash_backward_dq": "bluefog_tpu/parallel/pallas_attention.py:267",
+    "flash_backward_dkv": "bluefog_tpu/parallel/pallas_attention.py:309"}
+
+
+def _live_pairs(t, s_len, causal, q_off, kv_off):
+    """(query, key) pairs under the mask: the work the kernels do."""
+    if not causal:
+        return t * s_len
+    rows = np.arange(t)
+    return int(np.clip(q_off + rows - kv_off + 1, 0, s_len).sum())
+
+
+def _flash_err(got, want, terms, what):
+    """max |got - want|, after :func:`flash_check.mismatch` holds every
+    entry to its own bound."""
+    from bluefog_tpu_torch.parallel import flash_check
+
+    ratio = flash_check.mismatch(got, want, terms)
+    err = (got.float() - want.float()).abs().max().item()
+    if ratio > 1:
+        raise AssertionError(f"{what}: max |err| {err}, {ratio:.3g} times "
+                             "its bound")
+    return err, ratio
+
+
+def phase_flash(name, seed):
+    """K2, K3a and K3b against their plain versions at every shape of
+    ``flash_check.CASES``, each entry of out, dQ, dK and dV within its
+    own bound (``flash_check.mismatch``: bf16 two ulps of the entry plus
+    2**-7 of the sizes of the terms whose bf16 rounding may differ and
+    2**-12 of the largest such size, f32 1e-5 of the largest); lse (f32)
+    within 1e-4 absolute plus 1e-5.  At the training shape the bound
+    must also reject three planted faults
+    (``flash_check.planted_faults``)."""
+    import torch.nn.functional as F
+
+    from bluefog_tpu_torch.parallel import flash_attention as fa
+    from bluefog_tpu_torch.parallel import flash_check
+
+    rate = mem_rate(name)
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    g = torch.Generator("cuda").manual_seed(seed)
+    results = {}
+    for case in flash_check.CASES:
+        b, t, h, kv, d, dt, causal, q_off, kv_off = case
+        q, do = (torch.randn(b, t, h, d, generator=g, device="cuda").to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(b, t, kv, d, generator=g, device="cuda").to(dt)
+                for _ in range(2))
+        args = (causal, None, q_off, kv_off)
+        what = (f"flash B={b} T={t} H={h} KV={kv} D={d} "
+                f"{str(dt).split('.')[-1]} causal={causal} q_offset={q_off}"
+                f" kv_offset={kv_off}")
+        out, lse = fa.flash_forward(q, k, v, *args)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()
+        grads = [fa.flash_backward_dq(q, k, v, do, lse, delta, *args),
+                 *fa.flash_backward_dkv(q, k, v, do, lse, delta, *args)]
+        again = [fa.flash_backward_dq(q, k, v, do, lse, delta, *args),
+                 *fa.flash_backward_dkv(q, k, v, do, lse, delta, *args)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b_) for a, b_ in zip(grads, again)):
+            raise AssertionError(f"{what}: two backward runs differ")
+        ref_out, ref_lse = fa.flash_forward_plain(q, k, v, *args)
+        ref = dict(zip(("out", "dq", "dk", "dv"),
+                       (ref_out, *fa.flash_backward_plain(
+                           q, k, v, do, lse, delta, *args))))
+        terms = flash_check.term_sizes(q, k, v, do, lse, delta, *args)
+        errs, ratios = {}, {}
+        for key, got in zip(ref, (out, *grads)):
+            errs[key], ratios[key] = _flash_err(got, ref[key], terms[key],
+                                                f"{what} {key}")
+        errs["lse"] = (lse - ref_lse).abs().max().item()
+        if not torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-4):
+            raise AssertionError(f"{what}: lse differs by {errs['lse']}")
+        if causal and kv_off > q_off:   # rows before kv_off - q_off: no key
+            dead = kv_off - q_off
+            if (out[:, :dead].any() or grads[0][:, :dead].any()
+                    or not bool((lse[..., :dead] == -1e30).all())):
+                raise AssertionError(f"{what}: masked rows are not exact")
+            if dead >= t and (grads[1].any() or grads[2].any()):
+                raise AssertionError(f"{what}: masked dK/dV are not zero")
+        log(f"[kernel] {what}: max|err| "
+            + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
+            + "; of its bound "
+            + ", ".join(f"{k_} {r:.3g}" for k_, r in ratios.items())
+            + "; dQ, dK, dV bit-equal across two runs")
+        if case == flash_check.CASES[0]:
+            for fault, key, bad in flash_check.planted_faults(
+                    q, k, v, do, lse, delta, ref):
+                ratio = flash_check.mismatch(bad, ref[key], terms[key])
+                if ratio <= 1:
+                    raise AssertionError(f"{what}: the bound passes a "
+                                         f"planted fault ({fault}, {key})")
+                log(f"[kernel] planted fault, {fault}: {key} at {ratio:.3g} "
+                    "times its bound, rejected")
+                del bad
+        del ref, ref_out, ref_lse, again, terms
+        if case != flash_check.CASES[0]:
+            continue
+        # the training path's shape: kernel, plain, bound and library times
+        pairs = _live_pairs(t, t, causal, q_off, kv_off)
+        es = q.element_size()
+        n_q, n_kv = b * t * h * d * es, b * t * kv * d * es
+        n_row = b * h * t * 4
+        timed = {
+            "flash_forward": (
+                lambda: fa.flash_forward(q, k, v, *args),
+                lambda: fa.flash_forward_plain(q, k, v, *args),
+                2 * n_q + 2 * n_kv + n_row, 4 * b * h * pairs * d),
+            "flash_backward_dq": (
+                lambda: fa.flash_backward_dq(q, k, v, do, lse, delta, *args),
+                lambda: fa.flash_backward_dq_plain(
+                    q, k, v, do, lse, delta, causal, d ** -0.5, q_off,
+                    kv_off),
+                3 * n_q + 2 * n_kv + 2 * n_row, 6 * b * h * pairs * d),
+            "flash_backward_dkv": (
+                lambda: fa.flash_backward_dkv(q, k, v, do, lse, delta, *args),
+                lambda: fa.flash_backward_dkv_plain(
+                    q, k, v, do, lse, delta, causal, d ** -0.5, q_off,
+                    kv_off),
+                2 * n_q + 4 * n_kv + 2 * n_row, 8 * b * h * pairs * d),
+        }
+        # yardstick only: SDPA on the [B, H, T, D] views, its forward for
+        # K2 and its backward (forward subtracted) for K3a + K3b together
+        # (the port never calls it)
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_err = (sdpa().transpose(1, 2).float() - out.float()).abs().max()
+        if lib_err.item() > 0.05:
+            raise AssertionError(f"SDPA yardstick disagrees by {lib_err}")
+        lib_fwd = time_ms(sdpa, flush)
+        leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                  enable_gqa=True)
+
+        lib_bwd = (time_ms(lambda: torch.autograd.grad(sdpa_fwd(), leaves,
+                                                       dot), flush)
+                   - time_ms(sdpa_fwd, flush))
+        for kname, (run, plain, nbytes, ops) in timed.items():
+            ms = time_ms(run, flush)
+            plain_ms = time_ms(plain, flush, reps=5)
+            t_bytes, t_ops = nbytes / rate * 1e3, ops / PEAK_OPS[dt] * 1e3
+            lib = lib_fwd if kname == "flash_forward" else lib_bwd
+            results[kname] = dict(
+                max_abs_err=max(errs[o] for o in FLASH_OUTPUTS[kname]),
+                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=lib)
+            rec = results[kname]
+            log(f"[kernel] {kname} at the training shape: kernel {ms:.4f} "
+                f"ms ({ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} "
+                f"ms, library {lib:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']}, {nbytes / 1e6:.1f} MB, "
+                f"{ops / 1e9:.1f} GFLOP)")
+    return results
 
 
 # ResNet-50 at batch 128: the distinct (N, ci, co) of its 20 K1 launches
@@ -478,22 +673,37 @@ def _resnet_step(n_ranks, comm_mode, seed, batch, **kw):
 def _reset_counts():
     from bluefog_tpu_torch.parallel import conv1x1 as k1
     from bluefog_tpu_torch.parallel import decode_attention as da
+    from bluefog_tpu_torch.parallel import flash_attention as fa
 
     k1.reset_launch_counts()
     da.reset_launch_counts()
+    fa.reset_launch_counts()
 
 
-def _check_launches(want, what):
+def _launches():
+    """Every kernel wrapper's launch count, by kernel name."""
     from bluefog_tpu_torch.parallel import conv1x1 as k1
     from bluefog_tpu_torch.parallel import decode_attention as da
+    from bluefog_tpu_torch.parallel import flash_attention as fa
 
-    got = k1.conv1x1_backward.launches
-    if got != want or got == 0:
-        raise AssertionError(f"{what}: conv1x1_backward launched {got} "
-                             f"times, want {want}")
-    if da.decode_attention.launches or da.decode_attention_int8.launches:
-        raise AssertionError(f"{what}: decode attention launched")
-    return got
+    return {"decode_attention": da.decode_attention.launches,
+            "decode_attention_int8": da.decode_attention_int8.launches,
+            "conv1x1_backward": k1.conv1x1_backward.launches,
+            "flash_forward": fa.flash_forward.launches,
+            "flash_backward_dq": fa.flash_backward_dq.launches,
+            "flash_backward_dkv": fa.flash_backward_dkv.launches}
+
+
+def _expect_launches(what, want):
+    """The launch counts since the last reset must be ``want`` ({kernel:
+    count}, each > 0) for the named kernels and 0 for every other.
+    Returns the named kernels' counts."""
+    got = _launches()
+    expected = {k: want.get(k, 0) for k in got}
+    if got != expected or not all(want.values()):
+        raise AssertionError(f"{what}: launches {got}, want {want} and "
+                             "none of the other kernels")
+    return {k: got[k] for k in want}
 
 
 def _profile_train(step, state, steps=3):
@@ -510,8 +720,7 @@ def _profile_train(step, state, steps=3):
             params, stats, opt, loss = step(params, stats, opt, batch, i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = _device_kernels(prof)
     busy = sum(e.self_device_time_total for e in events)
     k1_us = sum(e.self_device_time_total for e in events if "k1_" in e.key)
     log(f"[profile] {steps} train steps: wall {wall_us / steps / 1e3:.2f} "
@@ -545,8 +754,9 @@ def phase_train_1rank(seed):
             i += 1
         torch.cuda.synchronize()
         rates.append(BATCH * per_window / (time.perf_counter() - t0))
-    launches = _check_launches(K1_LAUNCHES_PER_RANK_STEP * i,
-                               "train 1 rank")
+    launches = _expect_launches(
+        "train 1 rank", {"conv1x1_backward": K1_LAUNCHES_PER_RANK_STEP * i}
+    )["conv1x1_backward"]
     losses = torch.cat(losses)
     if not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite loss: {losses.tolist()}")
@@ -580,9 +790,9 @@ def phase_train_4ranks(seed):
         params, stats, opt, loss = step(params, stats, opt, batch, i)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _check_launches(K1_LAUNCHES_PER_RANK_STEP * 4 * (warmup
-                                                                + timed),
-                               "train 4 ranks")
+    launches = _expect_launches("train 4 ranks", {
+        "conv1x1_backward": K1_LAUNCHES_PER_RANK_STEP * 4 * (warmup + timed)
+    })["conv1x1_backward"]
     if not torch.isfinite(loss).all():
         raise AssertionError(f"non-finite loss: {loss.tolist()}")
     # the combine the step runs, alone, on a copy of the params (one
@@ -700,6 +910,314 @@ def phase_train_reference(seed):
         f"{loss_err:.3g}")
 
 
+FLASH_KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+
+
+def _llama_model(n_layers, seed):
+    """Llama-3.1-8B's width at ``n_layers`` layers (attn_impl="flash",
+    f32 master params from --seed, bf16 compute): (cfg, module, params).
+    The module keeps no copy of the weights (``state(release=True)``)."""
+    import bluefog_tpu_torch as bt
+
+    # depth is the one cut, as examples/llama_benchmark.py's --layers
+    cfg = dataclasses.replace(
+        bt.LlamaConfig.llama3_8b(rope_scaling_kind="llama3",
+                                 attn_impl="flash"),
+        n_layers=n_layers)
+    model = bt.Llama(cfg, device="cuda", param_dtype=torch.float32,
+                     generator=torch.Generator("cuda").manual_seed(seed))
+    return cfg, model, model.state(release=True)
+
+
+def _llama_step(n_ranks, n_layers, comm_mode, seed, batch, seq, **kw):
+    """The model above over ``n_ranks`` stacked ranks: (cfg, model,
+    backend, step, params, optimizer, synthetic batch), all from --seed;
+    the rank-major params are the one copy of the weights on the card."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.models.llama import llama_loss_fn
+
+    cfg, model, state = _llama_model(n_layers, seed)
+    backend = bt.StackedBackend(n_ranks, device="cuda")
+    params = bt.rank_major(state, backend)
+    del state
+    opt = torch.optim.SGD(params.values(), lr=1e-3, momentum=0.9)
+    step = bt.build_train_step(llama_loss_fn(model), opt, backend,
+                               comm_mode=comm_mode, **kw)
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    raw = torch.randint(0, cfg.vocab_size, (n_ranks, batch, seq + 1),
+                        generator=g, device="cuda")
+    return (cfg, model, backend, step, params, opt,
+            (raw[..., :-1].contiguous(), raw[..., 1:].contiguous()))
+
+
+def _expect_flash(what, n):
+    return _expect_launches(what, dict.fromkeys(FLASH_KERNELS, n))
+
+
+def _model_flops(cfg, params, tokens):
+    """llama_benchmark.py's count: 6 x matmul params (the embedding table
+    is a gather) per token plus causal attention 6 x L x T x dim."""
+    n_params = sum(v[0].numel() for v in params.values())
+    matmul = n_params - cfg.vocab_size * cfg.dim
+    return n_params, (6.0 * matmul * tokens
+                      + 6.0 * cfg.n_layers * LLAMA_SEQ * cfg.dim * tokens)
+
+
+LLAMA_BATCH, LLAMA_SEQ = 4, 2048
+PEAK_BF16 = 989e12
+
+
+def _profile_llama(step, params, opt, batch, steps=2):
+    """torch.profiler over ``steps`` train steps: device-busy share, the
+    top kernels, the three attention kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            params, opt, loss = step(params, opt, batch, i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = _device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in events)
+    attn = sum(e.self_device_time_total for e in events
+               if any(n in e.key for n in ("k2_forward", "k3a_dq",
+                                           "k3b_dkv")))
+    # the step's only f32 matrix products are the head's three (logits,
+    # dX, dW); cuBLAS names its f32 kernels sgemm or gemm_f32f32
+    head = sum(e.self_device_time_total for e in events
+               if "sgemm" in e.key or "gemm_f32f32" in e.key)
+    log(f"[profile] {steps} Llama train steps: wall "
+        f"{wall_us / steps / 1e3:.2f} ms/step, device busy "
+        f"{busy / steps / 1e3:.2f} ms/step ({100 * busy / wall_us:.1f}%), "
+        f"K2+K3a+K3b {attn / steps / 1e3:.3f} ms/step "
+        f"({100 * attn / max(busy, 1):.1f}% of device time), f32 GEMMs "
+        f"(the head) {head / steps / 1e3:.3f} ms/step "
+        f"({100 * head / max(busy, 1):.1f}%)")
+    for e in sorted(events, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:15]:
+        log(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f} "
+            f"ms/step  {e.count // steps:5d} calls/step  {e.key[:90]}")
+    return busy / steps / 1e3
+
+
+def _head_ms(cfg, flush, tokens):
+    """The f32 logits head alone at the step's shape: x [tokens, dim] @
+    kernel [dim, vocab] in f32, log-softmax cross-entropy, and the
+    backward of both (CUDA events, median of 5)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator("cuda").manual_seed(7)
+    x = torch.randn(tokens, cfg.dim, generator=g, device="cuda",
+                    requires_grad=True)
+    w = (torch.randn(cfg.dim, cfg.vocab_size, generator=g, device="cuda")
+         * cfg.dim ** -0.5).requires_grad_(True)
+    tgt = torch.randint(0, cfg.vocab_size, (tokens,), generator=g,
+                        device="cuda")
+
+    def head():
+        loss = F.cross_entropy(x @ w, tgt)
+        torch.autograd.grad(loss, (x, w))
+
+    ms = time_ms(head, flush, reps=5)
+    del x, w
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_llama_train_1rank(seed):
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.models.llama import llama_loss_fn
+
+    n_layers, warmup, timed = 4, 3, 10
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, backend, step, params, opt, batch = _llama_step(
+        1, n_layers, "none", seed, LLAMA_BATCH, LLAMA_SEQ)
+    tokens = LLAMA_BATCH * LLAMA_SEQ
+    n_params, flops = _model_flops(cfg, params, tokens)
+    torch.cuda.synchronize()
+    _reset_counts()
+    losses = []
+    for i in range(warmup):
+        params, opt, loss = step(params, opt, batch, i)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + timed):
+        params, opt, loss = step(params, opt, batch, i)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / timed
+    launches = _expect_flash("Llama train 1 rank",
+                             n_layers * (warmup + timed))
+    losses = torch.cat(losses)
+    ln_v = math.log(cfg.vocab_size)
+    if not torch.isfinite(losses).all() or \
+            (losses - ln_v).abs().max().item() > 2.0:
+        raise AssertionError(f"losses {losses.tolist()} not finite near "
+                             f"ln(vocab) = {ln_v:.2f}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[llama1] Llama-3.1-8B width, {n_layers} layers "
+        f"({n_params / 1e9:.3f} B params), 1 rank, batch {LLAMA_BATCH} x "
+        f"{LLAMA_SEQ}, attn flash, f32 head: {tokens / dt:.1f} tokens/s "
+        f"per card, step {dt * 1e3:.2f} ms, MFU "
+        f"{flops / dt / PEAK_BF16:.4f} of 989 TFLOP/s, peak memory "
+        f"{peak:.2f} GiB, loss {losses[0].item():.4f} -> "
+        f"{losses[-1].item():.4f} (ln vocab {ln_v:.4f}); launches "
+        f"{launches} = {n_layers} layers x {warmup + timed} steps each")
+    busy_ms = _profile_llama(step, params, opt, batch)
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    head = _head_ms(cfg, flush, tokens)
+    log(f"[llama1] the f32 head alone (x @ kernel, cross-entropy and their "
+        f"backward, [{tokens} x {cfg.dim}] x [{cfg.dim} x {cfg.vocab_size}]"
+        f"): {head:.2f} ms, {100 * head / busy_ms:.1f}% of the step's "
+        f"device time")
+    # the same state, the head in bf16 (the JAX package's --bf16-logits):
+    # a copy of the released module, which holds no weights, with the
+    # head's compute dtype that Llama(logits_dot_in_fp32=False) gives it
+    model16 = copy.deepcopy(model)
+    model16.cfg = dataclasses.replace(cfg, logits_dot_in_fp32=False)
+    model16.output.dtype = cfg.dtype
+    step16 = bt.build_train_step(llama_loss_fn(model16), opt, backend,
+                                 comm_mode="none")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(timed):
+        params, opt, loss = step16(params, opt, batch, i)
+    torch.cuda.synchronize()
+    dt16 = (time.perf_counter() - t0) / timed
+    if not torch.isfinite(loss).all():
+        raise AssertionError(f"bf16 head: non-finite loss {loss.tolist()}")
+    log(f"[llama1] logits_dot_in_fp32=False (bf16 head), {timed} steps: "
+        f"{tokens / dt16:.1f} tokens/s per card, step {dt16 * 1e3:.2f} ms, "
+        f"MFU {flops / dt16 / PEAK_BF16:.4f}, loss {loss.item():.4f}")
+    del step, step16, params, opt, batch, model, model16, backend
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_llama_train_2ranks(seed):
+    import bluefog_tpu_torch as bt
+
+    n_layers, warmup, timed = 2, 2, 3
+    topo = bt.uniform_topology_spec(bt.ExponentialTwoGraph(2))
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, _, step, params, opt, batch = _llama_step(
+        2, n_layers, "atc", seed, LLAMA_BATCH, LLAMA_SEQ, topology=topo)
+    tokens = 2 * LLAMA_BATCH * LLAMA_SEQ
+    n_params, flops = _model_flops(cfg, params, tokens)
+    torch.cuda.synchronize()
+    _reset_counts()
+    for i in range(warmup):
+        params, opt, loss = step(params, opt, batch, i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + timed):
+        params, opt, loss = step(params, opt, batch, i)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / timed
+    launches = _expect_flash("Llama train 2 ranks",
+                             n_layers * 2 * (warmup + timed))
+    if not torch.isfinite(loss).all():
+        raise AssertionError(f"non-finite loss: {loss.tolist()}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    combine = []
+    for _ in range(4):   # the step's own in-place combine, on its params
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step.combine(params, 0)
+        end.record()
+        combine.append((start, end))
+    torch.cuda.synchronize()
+    combine_ms = statistics.median(a.elapsed_time(b) for a, b in combine[1:])
+    log(f"[llama2] Llama-3.1-8B width, {n_layers} layers ({n_params / 1e9:.3f}"
+        f" B params per rank), 2 ranks stacked, atc over "
+        f"ExponentialTwoGraph(2), batch {LLAMA_BATCH} x {LLAMA_SEQ} per "
+        f"rank: {tokens / dt:.1f} tokens/s per card, step {dt * 1e3:.2f} ms,"
+        f" MFU {flops / dt / PEAK_BF16:.4f}, peak memory {peak:.2f} GiB, "
+        f"combine {combine_ms:.3f} ms per step ({n_params / 1e6:.1f} M f32 "
+        f"values per rank), loss {loss.tolist()}; launches {launches} = "
+        f"{n_layers} layers x 2 ranks x {warmup + timed} steps each")
+    del step, params, opt, batch, model
+    torch.cuda.empty_cache()
+
+    # consensus: the same start, different per-rank data, atc against none
+    spread = {}
+    for mode, kw in (("atc", dict(topology=topo)), ("none", {})):
+        _, model, _, step, params, opt, batch = _llama_step(
+            2, n_layers, mode, seed, 1, 512, **kw)
+        for i in range(3):
+            params, opt, loss = step(params, opt, batch, i)
+        spread[mode] = float(bt.consensus_distance(params))
+        del model, step, params, opt, batch
+        torch.cuda.empty_cache()
+    if not spread["atc"] < spread["none"]:
+        raise AssertionError(f"consensus distance atc {spread['atc']} not "
+                             f"below none {spread['none']}")
+    log(f"[llama2] consensus distance after 3 steps (1 x 512 per rank): "
+        f"atc {spread['atc']:.4g} < none {spread['none']:.4g}")
+
+
+def phase_llama_reference(seed):
+    """The tiny f32 Llama (attn_impl="flash", D=16: the kernels' f32
+    path) trained 3 atc steps over 2 ranks on the card (K2, K3a, K3b)
+    and on the host (plain versions).  Tolerance: 1e-4 of each leaf's
+    largest entry plus 1e-7, losses 1e-5 (f32 sums in another order
+    through three momentum steps; TF32 is off)."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.models.llama import llama_loss_fn
+
+    cfg = bt.LlamaConfig.tiny(dtype=torch.float32, attn_impl="flash")
+    topo = bt.uniform_topology_spec(bt.ExponentialTwoGraph(2))
+    rng = np.random.RandomState(seed)
+    raw = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 2, 33)))
+    init = bt.Llama(cfg, device="cpu", param_dtype=torch.float32,
+                    generator=torch.Generator().manual_seed(seed)
+                    ).state_dict()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = bt.Llama(cfg, device=dev, param_dtype=torch.float32)
+        model.load_state_dict(init)
+        backend = bt.StackedBackend(2, device=dev)
+        params = bt.rank_major(model.state(release=True), backend)
+        opt = torch.optim.SGD(params.values(), lr=0.1, momentum=0.9)
+        step = bt.build_train_step(llama_loss_fn(model), opt, backend,
+                                   comm_mode="atc", topology=topo)
+        batch = (raw[..., :-1].to(dev), raw[..., 1:].to(dev))
+        _reset_counts()
+        losses = []
+        for i in range(3):
+            params, opt, loss = step(params, opt, batch, i)
+            losses.append(loss.cpu())
+        if dev == "cuda":
+            _expect_flash("tiny reference", cfg.n_layers * 2 * 3)
+        elif any(_launches().values()):
+            raise AssertionError("the host run launched a kernel")
+        out[dev] = ({k: v.cpu() for k, v in params.items()},
+                    torch.stack(losses))
+    worst = 0.0
+    for k, want in out["cpu"][0].items():
+        got = out["cuda"][0][k]
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        worst = max(worst, err / max(scale, 1e-12))
+        if err > 1e-4 * scale + 1e-7:
+            raise AssertionError(f"tiny Llama reference: {k} differs by "
+                                 f"{err} (largest entry {scale})")
+    loss_err = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    if loss_err > 1e-5:
+        raise AssertionError(f"tiny Llama reference: losses differ by "
+                             f"{loss_err}")
+    log(f"[reference] tiny f32 Llama (flash), 3 atc steps over 2 ranks: "
+        f"card (K2, K3a, K3b, 12 launches each) vs host (plain) params "
+        f"agree to {worst:.3g} of each leaf's largest entry, losses to "
+        f"{loss_err:.3g}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -714,6 +1232,7 @@ def main() -> int:
     name = phase_device()
     kernels = phase_kernels(name, args.seed)
     kernels.update(phase_k1(name, args.seed))
+    kernels.update(phase_flash(name, args.seed))
     launches = phase_serving(args.seed)
     phase_reference(args.seed)
     torch.backends.cudnn.benchmark = True   # the training path's convs
@@ -721,6 +1240,9 @@ def main() -> int:
     phase_train_4ranks(args.seed)
     torch.backends.cudnn.benchmark = False
     phase_train_reference(args.seed)
+    launches.update(phase_llama_train_1rank(args.seed))
+    phase_llama_train_2ranks(args.seed)
+    phase_llama_reference(args.seed)
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):
         entries.append(dict(
@@ -734,6 +1256,12 @@ def main() -> int:
         replaces="bluefog_tpu/parallel/pallas_conv.py:80",
         launches=launches["conv1x1_backward"],
         **kernels["conv1x1_backward"]))
+    for kname in FLASH_KERNELS:
+        entries.append(dict(
+            name=kname, route="cuda",
+            source="bluefog_tpu_torch/csrc/flash_attention.cu",
+            replaces=FLASH_REPLACES[kname], launches=launches[kname],
+            **kernels[kname]))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -172,3 +172,96 @@ def test_k1_tile_table_comes_from_the_library():
                 assert bm % 16 == 0 and bn % 16 == 0
     with pytest.raises(RuntimeError, match="no tile configuration"):
         k1._tile(7)
+
+
+# ---------------------------------------------------------------------------
+# K2, K3a, K3b: flash attention forward and backward (parallel/
+# flash_attention.py, csrc/flash_attention.cu) against their plain
+# versions on the card, at parallel/flash_check.py's shapes and to its
+# bound, entry by entry (the one chip_smoke.py uses): bf16 two ulps of
+# each entry (each side rounds its f32 sum) plus 2**-7 of the sizes of
+# the terms whose bf16 factor (P or dS) may round the other way, and
+# 2**-12 of the largest such size; f32 1e-5 of the largest.  lse is f32
+# in both (1e-4 absolute, ~1e-5 of its size).  A row with no live key is
+# exact: out 0, lse -1e30, zero gradients.
+# ---------------------------------------------------------------------------
+
+from bluefog_tpu_torch.parallel import flash_attention as fa  # noqa: E402
+from bluefog_tpu_torch.parallel import flash_check  # noqa: E402
+
+
+def flash_inputs(b, t, h, kv, d, dtype, seed=0):
+    g = torch.Generator("cuda").manual_seed(seed)
+    q, do = (torch.randn(b, t, h, d, generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, t, kv, d, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,kv,d,dtype,causal,q_off,kv_off",
+                         flash_check.CASES)
+def test_flash_kernels_match_plain_on_card(b, t, h, kv, d, dtype, causal,
+                                           q_off, kv_off):
+    """K2, K3a and K3b against their plain versions; dQ, dK and dV
+    bit-equal across two runs (no atomics)."""
+    _card()
+    q, k, v, do = flash_inputs(b, t, h, kv, d, dtype)
+    args = (causal, None, q_off, kv_off)
+    fa.reset_launch_counts()
+    out, lse = fa.flash_forward(q, k, v, *args)
+    ref_out, ref_lse = fa.flash_forward_plain(q, k, v, *args)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    terms = flash_check.term_sizes(q, k, v, do, lse, delta, *args)
+    assert flash_check.mismatch(out, ref_out, terms["out"]) <= 1
+    dq = fa.flash_backward_dq(q, k, v, do, lse, delta, *args)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, delta, *args)
+    dq2 = fa.flash_backward_dq(q, k, v, do, lse, delta, *args)
+    dk2, dv2 = fa.flash_backward_dkv(q, k, v, do, lse, delta, *args)
+    torch.cuda.synchronize()
+    assert (fa.flash_forward.launches, fa.flash_backward_dq.launches,
+            fa.flash_backward_dkv.launches) == (1, 2, 2)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) \
+        and torch.equal(dv, dv2)
+    ref = fa.flash_backward_plain(q, k, v, do, lse, delta, *args)
+    for key, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert got.dtype == dtype
+        assert flash_check.mismatch(got, want, terms[key]) <= 1
+    if causal and kv_off > q_off:  # rows before kv_off - q_off see no key
+        dead = kv_off - q_off
+        assert not out[:, :dead].any() and not dq[:, :dead].any()
+        assert bool((lse[..., :dead] == -1e30).all())
+        if dead >= t:
+            assert not (dk.any() or dv.any())
+
+
+@pytest.mark.cuda
+def test_flash_autograd_on_card_matches_host():
+    """flash_attention's autograd on the card (K2, K3a, K3b) against the
+    same function on the host (plain versions), f32, GQA, causal."""
+    _card()
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn(2, 77, 4, 32, generator=g)
+    k = torch.randn(2, 77, 2, 32, generator=g)
+    v = torch.randn(2, 77, 2, 32, generator=g)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        leaves = [x.to(dev).requires_grad_(True) for x in (q, k, v)]
+        y = fa.flash_attention(*leaves, causal=True)
+        grads = torch.autograd.grad(torch.sin(y).sum(), leaves)
+        outs.append([y.detach().cpu()] + [x.cpu() for x in grads])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_refuses_what_the_kernel_does_not_take():
+    _card()
+    q, k, v, _ = flash_inputs(1, 16, 4, 2, 48, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_forward(q, k, v)
+    q, k, v, _ = flash_inputs(1, 16, 4, 2, 16, torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_forward(q, k, v)

@@ -1,8 +1,8 @@
 """The port stands alone: no module of bluefog_tpu_torch/, and not
-chip_smoke.py, imports jax, flax, optax, networkx or the JAX package; the
-package imports with those blocked; and its entry points run on the card
-unless the caller asks for the CPU (without CUDA, a call that does not
-pass device="cpu" raises)."""
+chip_smoke.py, imports jax, flax, optax, networkx, triton or the JAX
+package; the package imports with those blocked; and its entry points
+run on the card unless the caller asks for the CPU (without CUDA, a call
+that does not pass device="cpu" raises)."""
 
 import ast
 import os
@@ -16,7 +16,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "networkx",
-             "bluefog_tpu"}
+             "bluefog_tpu", "triton"}
 
 
 def _port_files():
@@ -56,7 +56,7 @@ def test_package_imports_with_jax_blocked():
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'networkx',\n"
-        "             'bluefog_tpu'):\n"
+        "             'bluefog_tpu', 'triton'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {modules!r}:\n"

@@ -228,12 +228,28 @@ def test_config_maps_one_to_one():
     (dict(tp_axis="tp", tp_size=2), "tensor parallelism"),
     (dict(n_experts=4), "MoE"),
     (dict(decode=True, param_quant="int8"), "param_quant"),
-    (dict(decode=True, attn_impl="flash"), "attn_impl"),
+    (dict(attn_impl="splash"), "attn_impl"),
     (dict(attn_mode="ring", sp_axis="sp"), "attn_mode"),
 ])
 def test_unported_knobs_raise_naming_the_slice(over, match):
     with pytest.raises(NotImplementedError, match=match):
         bt.Llama(bt.LlamaConfig.tiny(**over), device="cpu")
+
+
+def test_decode_config_with_flash_serves_like_xla():
+    """The JAX package takes ``decode=True, attn_impl="flash"`` (decode
+    never reads ``attn_impl``): the port serves it, with the same greedy
+    tokens as ``attn_impl="xla"``."""
+    state = bt.Llama(bt.LlamaConfig.tiny(dtype=torch.float32),
+                     device="cpu").state_dict()
+    outs = []
+    for impl in ("xla", "flash"):
+        cfg = bt.LlamaConfig.tiny(dtype=torch.float32, decode=True,
+                                  attn_impl=impl)
+        outs.append(bt.llama_generate(state, cfg, _prompt(), 6,
+                                      max_len=MAX_LEN, device="cpu"))
+    assert outs[0].shape == (B, T_PROMPT + 6)
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_param_tree_mismatch_raises():
