@@ -1,9 +1,13 @@
-"""Bridges into the port: the JAX package's Llama and ResNet parameters
-as port state (``from_jax``).  The HF importer waits for a later slice."""
+"""Bridges into the port: the JAX package's Llama, ResNet, ViT and MLP
+parameters as port state (``from_jax``).  The HF importer waits for a
+later slice."""
 
 from bluefog_tpu_torch.interop.from_jax import (llama_param_shapes,
                                                 llama_params_from_flax,
-                                                resnet_params_from_flax)
+                                                mlp_params_from_flax,
+                                                resnet_params_from_flax,
+                                                vit_params_from_flax)
 
 __all__ = ["llama_params_from_flax", "llama_param_shapes",
-           "resnet_params_from_flax"]
+           "resnet_params_from_flax", "vit_params_from_flax",
+           "mlp_params_from_flax"]

@@ -1,7 +1,9 @@
-"""The JAX package's Llama and ResNet parameters as the port's state.
+"""The JAX package's model parameters as the port's state.
 
-:func:`resnet_params_from_flax` (end of the module) carries a ResNet's
-``params`` and ``batch_stats``; the rest of this docstring is Llama's.
+:func:`resnet_params_from_flax` carries a ResNet's ``params`` and
+``batch_stats``, :func:`vit_params_from_flax` a ViT's and
+:func:`mlp_params_from_flax` an ``MLP``'s or ``MnistNet``'s params (end
+of the module); the rest of this docstring is Llama's.
 
 :func:`llama_params_from_flax` takes the param tree of
 ``bluefog_tpu.models.Llama`` as numpy arrays (e.g.
@@ -30,7 +32,9 @@ import torch
 from bluefog_tpu_torch._device import resolve_device
 from bluefog_tpu_torch.models.llama import LlamaConfig
 
-__all__ = ["llama_params_from_flax", "llama_param_shapes"]
+__all__ = ["llama_params_from_flax", "llama_param_shapes",
+           "resnet_params_from_flax", "vit_params_from_flax",
+           "mlp_params_from_flax"]
 
 _LAYER = re.compile(r"^layer_(\d+)$")
 
@@ -135,15 +139,54 @@ def resnet_params_from_flax(variables_np: Mapping, model,
             if arr.ndim == 4:               # conv kernel, HWIO -> OIHW
                 arr = arr.transpose(3, 2, 0, 1)
             flat[".".join(path)] = arr
-        missing = sorted(set(ref) - set(flat))
-        extra = sorted(set(flat) - set(ref))
-        if missing or extra:
-            raise ValueError(f"{coll} do not match the model: missing "
-                             f"{missing[:4]}, unexpected {extra[:4]}")
-        for key, t in ref.items():
-            if tuple(flat[key].shape) != tuple(t.shape):
-                raise ValueError(f"{coll} {key}: shape {flat[key].shape} "
-                                 f"!= {tuple(t.shape)}")
-        out.append({key: torch.from_numpy(np.array(flat[key], np.float32))
-                    .to(dev) for key in ref})
+        out.append(_match(flat, ref, coll, dev))
     return out[0], out[1]
+
+
+def _match(flat: Dict[str, np.ndarray], ref: Mapping[str, torch.Tensor],
+           coll: str, dev: torch.device) -> Dict[str, torch.Tensor]:
+    """``flat`` (key -> array) as f32 tensors on ``dev`` in ``ref``'s
+    order, after checking that the keys and shapes are ``ref``'s."""
+    missing = sorted(set(ref) - set(flat))
+    extra = sorted(set(flat) - set(ref))
+    if missing or extra:
+        raise ValueError(f"{coll} do not match the model: missing "
+                         f"{missing[:4]}, unexpected {extra[:4]}")
+    for key, t in ref.items():
+        if tuple(flat[key].shape) != tuple(t.shape):
+            raise ValueError(f"{coll} {key}: shape {flat[key].shape} "
+                             f"!= {tuple(t.shape)}")
+    # np.array copies: jax-backed leaves are read-only buffers
+    return {key: torch.from_numpy(np.array(flat[key], np.float32)).to(dev)
+            for key in ref}
+
+
+def vit_params_from_flax(variables_np: Mapping, model,
+                         device: Union[str, torch.device] = "cuda"
+                         ) -> Dict[str, torch.Tensor]:
+    """Convert the JAX ViT's params (``{"params": ...}`` or the bare tree,
+    numpy leaves) to the state dict of ``model`` (a
+    :class:`bluefog_tpu_torch.models.ViT`) on ``device``.  Flax path
+    ``a/b/c`` becomes key ``a.b.c``; nothing is transposed (the port
+    keeps the patch kernel HWIO and Dense kernels ``[in, out]``).
+    Raises ``ValueError`` on a missing, extra or misshapen entry."""
+    tree = variables_np.get("params", variables_np)
+    flat = {".".join(path): arr for path, arr in _flatten(tree)}
+    return _match(flat, dict(model.named_parameters()), "params",
+                  resolve_device(device))
+
+
+def mlp_params_from_flax(variables_np: Mapping, model,
+                         device: Union[str, torch.device] = "cuda"
+                         ) -> Dict[str, torch.Tensor]:
+    """Convert the JAX ``MLP``'s or ``MnistNet``'s params (numpy leaves)
+    to the state dict of ``model`` (the port's :class:`~bluefog_tpu_torch.
+    models.MLP` or :class:`~bluefog_tpu_torch.models.MnistNet`) on
+    ``device``: conv kernels go from HWIO to OIHW, Dense kernels keep
+    ``[in, out]``.  Raises ``ValueError`` on a missing, extra or
+    misshapen entry."""
+    tree = variables_np.get("params", variables_np)
+    flat = {".".join(path): arr.transpose(3, 2, 0, 1) if arr.ndim == 4
+            else arr for path, arr in _flatten(tree)}
+    return _match(flat, dict(model.named_parameters()), "params",
+                  resolve_device(device))

@@ -15,16 +15,20 @@ from the JAX package:
   forward of JAX's ``__call__(tokens, pos_offset, return_hidden)``:
   full sequence, causal, autograd on, f32 logits ``[B, T, vocab]``.
   The training forward's attention is the flash kernels
-  (``attn_impl="flash"``, ``parallel/flash_attention.py``),
+  (``attn_impl="flash"``, ``parallel/flash_attention.py``), splash (K2
+  forward, the fused one-pass backward K5, ``attn_impl="splash"``,
+  ``parallel/splash.py``),
   :func:`~bluefog_tpu_torch.parallel.ring_attention.blockwise_attention`
   (``attn_mode="blockwise"``) or ``full_attention``.
 * Not ported yet, and refused with ``NotImplementedError`` naming the
   ROADMAP item (:func:`require_ported`): tensor parallelism, ring/Ulysses
-  attention, MoE, ``attn_impl="splash"`` (K5), ``remat_policy="dots"``,
-  ``QuantDense`` (``param_quant``) and the w8a8 integer attention.
-* ``remat=True`` checkpoints each block with ``torch.utils.checkpoint``
-  (the whole block is recomputed, as flax's ``nn.checkpoint`` with
-  ``policy=None``, for ``remat_policy`` "none" and "everything" alike).
+  attention, MoE, ``QuantDense`` (``param_quant``) and the w8a8 integer
+  attention.
+* ``remat=True`` checkpoints each block with ``torch.utils.checkpoint``:
+  the whole block is recomputed for ``remat_policy`` "none" and
+  "everything" (flax's ``policy=None`` and ``nothing_saveable`` save the
+  same), and "dots" keeps the projections' outputs through a selective
+  checkpoint policy (JAX's ``checkpoint_dots_with_no_batch_dims``).
   ``scan_layers=True`` changes only flax's parameter layout, which
   ``interop/from_jax.py`` reads; the port always loops over its layers.
 * The cache is a :class:`KVCache` of stacked per-layer tensors written
@@ -54,13 +58,15 @@ from the JAX package:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from bluefog_tpu_torch._device import resolve_device
 from bluefog_tpu_torch.parallel.decode_attention import (
@@ -68,6 +74,7 @@ from bluefog_tpu_torch.parallel.decode_attention import (
 from bluefog_tpu_torch.parallel.flash_attention import flash_attention
 from bluefog_tpu_torch.parallel.ring_attention import (blockwise_attention,
                                                        full_attention)
+from bluefog_tpu_torch.parallel.splash import splash_attention
 
 __all__ = ["LlamaConfig", "Llama", "KVCache", "RMSNorm", "rotary_embed",
            "chunked_xent", "llama_chunked_xent_loss_fn", "llama_loss_fn"]
@@ -300,19 +307,13 @@ def require_ported(cfg: LlamaConfig) -> None:
     if cfg.attn_mode in ("ring", "ulysses") or cfg.sp_axis is not None:
         later.append(f"attn_mode={cfg.attn_mode!r} (sequence parallelism): "
                      "ROADMAP.md Queue 1, item 10 (ring and Ulysses "
-                     "attention)")
+                     "attention, after item 6's process backend)")
     if cfg.n_experts:
         later.append("MoE (n_experts > 0): ROADMAP.md Queue 1, item 10 "
                      "(moe/)")
     if cfg.param_quant != "none":
         later.append(f"param_quant={cfg.param_quant!r} (QuantDense, w8a8 "
                      "attention): ROADMAP.md Queue 1, item 11")
-    if cfg.attn_impl == "splash":
-        later.append("attn_impl='splash' (the fused splash kernel K5): "
-                     "ROADMAP.md Queue 2, K5")
-    if cfg.remat_policy == "dots":
-        later.append("remat_policy='dots' (save the matmul outputs): "
-                     "ROADMAP.md Queue 1, item 10")
     if later:
         raise NotImplementedError(
             "not ported to bluefog_tpu_torch yet: " + "; ".join(later))
@@ -535,6 +536,11 @@ class Attention(nn.Module):
                 q, k, v, causal=True,
                 block_q=min(cfg.attn_flash_block_size, t),
                 block_k=min(cfg.attn_flash_block_k, t))
+        elif cfg.attn_impl == "splash":
+            out = splash_attention(
+                q, k, v, causal=True,
+                block_q=min(cfg.attn_flash_block_size, t),
+                block_kv=min(cfg.attn_flash_block_k, t))
         elif cfg.attn_mode == "blockwise":
             out = blockwise_attention(q, k, v, cfg.attn_block_size,
                                       causal=True)
@@ -698,7 +704,8 @@ class Llama(nn.Module):
         rope = _rope_tables(positions, self.rope_freqs)
         x = self.tok_embeddings(tokens)
         for block in self.layers:
-            x = _remat(block, x, rope) if cfg.remat else block(x, rope)
+            x = (_remat(block, x, rope, cfg.remat_policy) if cfg.remat
+                 else block(x, rope))
         x = self.norm(x)
         if return_hidden:
             return x
@@ -734,18 +741,38 @@ class Llama(nn.Module):
         return logits
 
 
-def _remat(block: Block, x: torch.Tensor, rope) -> torch.Tensor:
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX's ``checkpoint_dots_with_no_batch_dims`` as a selective
+    checkpoint policy: save the outputs of matrix products without batch
+    dims (``x @ kernel`` on ``[B, T, D]`` reaches ``aten.mm``: the seven
+    projections of a block) and recompute everything else, ``aten.bmm``
+    (batched products), the attention kernels, norms and rope
+    included."""
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(block: Block, x: torch.Tensor, rope,
+           policy: str = "none") -> torch.Tensor:
     """``block(x, rope)`` under ``torch.utils.checkpoint``, its parameters
     passed in as inputs: under ``functional_call`` (``Llama.apply``) the
     recompute in the backward must see the same tensors as the forward,
-    not the module's own."""
+    not the module's own.  ``policy`` is ``cfg.remat_policy``: "none" and
+    "everything" recompute the whole block (flax's ``policy=None`` and
+    ``nothing_saveable`` save the same: nothing), "dots" keeps the
+    projections' outputs (:func:`_dots_policy`)."""
     names, tensors = zip(*block.named_parameters())
 
     def run(x, rope, *tensors):
         return torch.func.functional_call(block, dict(zip(names, tensors)),
                                           (x, rope))
 
-    return checkpoint(run, x, rope, *tensors, use_reentrant=False)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(run, x, rope, *tensors, use_reentrant=False, **kw)
 
 
 def _xent_sum(hx: torch.Tensor, w: torch.Tensor, t: torch.Tensor,

@@ -3,6 +3,7 @@
 references (``ring_attention``: ``full_attention``,
 ``blockwise_attention``) and hand-written CUDA for the Pallas kernels
 of ``bluefog_tpu.parallel``: the decode-attention kernel K4
-(``decode_attention``), the 1x1-conv backward K1 (``conv1x1``) and the
+(``decode_attention``), the 1x1-conv backward K1 (``conv1x1``), the
 flash attention forward and backward K2, K3a, K3b
-(``flash_attention``)."""
+(``flash_attention``), and splash attention's fused one-pass backward
+K5 (``splash``)."""

@@ -1,9 +1,11 @@
-"""The acceptance check of the flash kernels (K2, K3a, K3b) against their
-plain versions, shared by ``tests/test_torch_cuda_kernels.py`` and
-``chip_smoke.py`` so that both hold the kernels to one bound.
+"""The acceptance check of the attention kernels (K2, K3a, K3b and the
+fused splash backward K5) against their plain versions, shared by
+``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py`` so that both
+hold the kernels to one bound.
 
-* :data:`CASES`: the shapes the kernels are checked at, the Llama
-  training shape first.
+* :data:`CASES`: the shapes K2, K3a and K3b are checked at, the Llama
+  training shape first, the ViT-B/16 shape second; :data:`SPLASH_CASES`
+  those of K5 (causal, no offsets), its two training shapes first.
 * :func:`term_sizes`: for each entry of out, dQ, dK and dV, the sum of
   the absolute values of the terms whose bf16 rounding may differ
   between a kernel and its plain version.
@@ -12,7 +14,11 @@ plain versions, shared by ``tests/test_torch_cuda_kernels.py`` and
 * :func:`planted_faults`: the outputs of three deliberately wrong
   kernels, computed with the plain versions, which :func:`mismatch` must
   reject; they show the bound is tight enough to catch a lost tile or a
-  lost group member.
+  lost group member.  :func:`splash_planted_faults`: the same for K5's
+  own failure modes (a lost dQ partial, a skipped diagonal query step).
+
+K5 sums each dQ row over per-key-tile f32 partials, in another order
+than K3a; its dK and dV take K3b's order.  The bound is the same.
 """
 
 from __future__ import annotations
@@ -25,11 +31,13 @@ from bluefog_tpu_torch.parallel.flash_attention import (
     _dscores, _heads, _probs, flash_backward_dkv_plain,
     flash_backward_dq_plain, flash_forward_plain)
 
-__all__ = ["CASES", "term_sizes", "mismatch", "planted_faults"]
+__all__ = ["CASES", "SPLASH_CASES", "term_sizes", "mismatch",
+           "planted_faults", "splash_planted_faults"]
 
 # (B, T, H, KV, D, dtype, causal, q_offset, kv_offset)
 CASES = [
     (4, 2048, 32, 8, 128, torch.bfloat16, True, 0, 0),  # Llama-3.1-8B
+    (128, 200, 12, 12, 64, torch.bfloat16, False, 0, 0),  # ViT-B/16 b128
     (2, 100, 4, 4, 16, torch.float32, True, 0, 0),
     (2, 1000, 8, 2, 64, torch.float32, True, 0, 0),
     (1, 100, 4, 1, 64, torch.bfloat16, True, 0, 0),
@@ -38,6 +46,18 @@ CASES = [
     (1, 100, 4, 2, 128, torch.float32, True, 0, 64),    # rows < 64 masked
     (1, 100, 4, 1, 32, torch.bfloat16, True, 128, 0),
     (1, 1000, 8, 2, 128, torch.float32, False, 128, 0),
+]
+
+# (B, T, H, KV, D, dtype): K5, causal with no offsets
+SPLASH_CASES = [
+    (4, 2048, 32, 8, 64, torch.bfloat16),   # Llama-1B training
+    (4, 2048, 32, 8, 128, torch.bfloat16),  # Llama-3.1-8B width
+    (2, 128, 4, 4, 16, torch.float32),      # rep 1
+    (2, 100, 8, 4, 32, torch.bfloat16),     # rep 2, ragged T
+    (1, 1000, 8, 2, 16, torch.float32),     # rep 4, ragged T
+    (2, 1000, 4, 1, 32, torch.bfloat16),
+    (1, 128, 4, 2, 32, torch.bfloat16),
+    (1, 100, 4, 1, 64, torch.float32),
 ]
 
 BF16_ULPS = 2          # per entry, in ulps of that entry
@@ -137,3 +157,38 @@ def planted_faults(q, k, v, do, lse, delta, ref: Dict[str, torch.Tensor],
             x[:, :half] = ref[name][:, :half]
             faults.append(("last group member skipped past T/2", name, x))
     return faults
+
+
+def splash_planted_faults(q, k, v, do, lse, delta,
+                          ref: Dict[str, torch.Tensor], tile: int = 64,
+                          rows: int = 32
+                          ) -> List[Tuple[str, str, torch.Tensor]]:
+    """``(fault, output, tensor)`` for two wrong K5 kernels at a causal
+    shape, each wrong only in the second half of the sequence: the dQ sum
+    dropping each row's diagonal partial there (the ``tile``-key group
+    that holds the row: the sum stops one group short), and every
+    ``tile``-key block there skipping its diagonal query step (its first
+    ``rows`` rows: their contributions to its dK and dV are lost).
+    ``ref`` holds the plain version's ``dq``, ``dk`` and ``dv`` on the
+    same inputs; the faults are computed with the plain versions from the
+    true forward's ``lse`` and ``delta``."""
+    t = q.shape[1]
+    scale = q.shape[-1] ** -0.5
+    half = t // 2 // tile * tile
+    dq, dk, dv = (ref[key].float() for key in ("dq", "dk", "dv"))
+    for a in range(max(half, tile), t, tile):
+        blk = slice(a, min(a + tile, t))     # the tile's rows and keys
+        dq[:, blk] -= flash_backward_dq_plain(
+            q[:, blk], k[:, blk], v[:, blk], do[:, blk], lse[..., blk],
+            delta[..., blk], True, scale, a, a).float()
+        step = slice(a, min(a + rows, t))
+        lost_k, lost_v = flash_backward_dkv_plain(
+            q[:, step], k[:, blk], v[:, blk], do[:, step], lse[..., step],
+            delta[..., step], True, scale, a, a)
+        dk[:, blk] -= lost_k.float()
+        dv[:, blk] -= lost_v.float()
+    dq, dk, dv = (x.to(ref[key].dtype) for x, key in
+                  ((dq, "dq"), (dk, "dk"), (dv, "dv")))
+    return [("dQ sum drops the diagonal partial past T/2", "dq", dq),
+            ("diagonal query step skipped past T/2", "dk", dk),
+            ("diagonal query step skipped past T/2", "dv", dv)]

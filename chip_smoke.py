@@ -46,12 +46,20 @@ Phases (any failure raises and exits non-zero, printing no result):
    from one state on the same per-rank data (batch 16), the consensus
    distance under atc is below that of comm_mode="none".
    c. K2, K3a, K3b flash attention forward, dQ and dK/dV at the Llama
-      training shape (B=4, T=2048, H=32, KV=8, D=128, causal, bf16) and
-      at small odd shapes (f32; D 16 and 64; T 100 and 1000; rep 1, 2,
+      training shape (B=4, T=2048, H=32, KV=8, D=128, causal, bf16), the
+      ViT-B/16 shape (B=128, T=200, H=12, D=64, non-causal, bf16) and at
+      small odd shapes (f32; D 16 and 64; T 100 and 1000; rep 1, 2,
       4; non-causal; every row masked by kv_offset=64; q_offset=128):
       max |err| per output, dQ/dK/dV bit-equal across two runs; at the
       training shape kernel, plain, bound and library ms (SDPA forward
       for K2, SDPA's backward for K3a + K3b together).
+   d. K5, splash attention's fused one-pass backward, at the Llama-1B
+      training shape (B=4, T=2048, H=32, KV=8, D=64, causal, bf16), at
+      8B width (D=128) and at small odd shapes (f32 D 16 and 64, bf16
+      D 32; T 100, 128, 1000; rep 1, 2, 4): each dQ/dK/dV entry within
+      its bound, bit-equal across two runs; at the 1B shape the bound
+      rejects K5's planted faults; at both training shapes K5 (and its
+      dQ sum's share), K3a + K3b, plain, SDPA's backward and bound ms.
 7. Reference (training): a tiny f32 ResNet trained 3 atc steps over 4
    ranks on the card (kernel) and on the CPU (plain version) gives the
    same params, batch statistics and losses within f32 tolerance.
@@ -74,9 +82,28 @@ Phases (any failure raises and exits non-zero, printing no result):
 10. Reference (Llama training): a tiny f32 Llama with attn_impl="flash"
    trained 3 atc steps over 2 ranks on the card (kernels) and on the
    CPU (plain versions) gives the same params and losses.
+11. Llama-1B train, 1 rank, full depth and width (examples/
+   llama_benchmark.py --model 1b: vocab 32000, dim 2048, 16 layers, 32
+   heads, 8 kv heads, ffn 5632; remat=True), f32 master params, bf16
+   compute, the f32 head, SGD(1e-3, momentum 0.9), batch 4 x 2048 from
+   --seed, 3 warm-up and 10 timed steps per window: (a) splash, remat
+   policy "none" (K2 2 x 16 x 13 launches, K5 16 x 13, K3a/K3b none);
+   (b) flash (K3a/K3b 16 x 13 each, K5 none); (c) splash with remat
+   policy "dots".  tokens/s per card, step ms, MFU, peak memory, losses
+   finite near ln(vocab); torch.profiler over 2 steps of each window.
+12. Llama-1B, splash, 2 ranks stacked, atc over ExponentialTwoGraph(2),
+   2 warm-up and 3 timed steps: tokens/s per card, combine ms, peak
+   memory, launch counts.
+13. Reference (splash): the tiny f32 Llama with attn_impl="splash", T =
+   128, 3 atc steps over 2 ranks, card (K2, K5) against host.
+14. ViT-B/16 (attn_impl="flash": K2/K3a/K3b non-causal at T = 200),
+   batch 128 of 224 x 224 images, bf16 compute, 1 rank, 3 warm-up and
+   10 timed steps: img/s, step ms, peak memory, 12 x 13 launches of
+   each kernel; then a tiny f32 ViT after 3 atc steps over 2 ranks, card
+   against host.
 
-The line before the last is a JSON object with one entry per kernel;
-the last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with one entry per kernel
+(seven); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -103,7 +130,8 @@ MEM_RATE = (("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
 # dense peak by input type (H100 SXM data sheet), operations/s
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.int8: 1979e12}
-KERNEL_SOURCES = ["decode_attention", "conv1x1_backward", "flash_attention"]
+KERNEL_SOURCES = ["decode_attention", "conv1x1_backward", "flash_attention",
+                  "splash_backward"]
 
 
 def log(*a):
@@ -563,6 +591,131 @@ def phase_flash(name, seed):
     return results
 
 
+def _kernel_split_ms(fn, names, reps=5):
+    """torch.profiler over ``reps`` calls of ``fn``: device ms per call of
+    each group of kernel symbols in ``names`` ({label: (symbols,)})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = _device_kernels(prof)
+    return {label: sum(e.self_device_time_total for e in events
+                       if any(n in e.key for n in syms)) / reps / 1e3
+            for label, syms in names.items()}
+
+
+def phase_splash(name, seed):
+    """K5 against its plain version at every shape of
+    ``flash_check.SPLASH_CASES`` (causal, no offsets), each entry of dQ,
+    dK and dV within its own bound (``flash_check.mismatch``, the bound of
+    phase 2c), dQ/dK/dV bit-equal across two runs.  At the Llama-1B
+    training shape the bound must also reject K5's planted faults
+    (``flash_check.splash_planted_faults``).  At both training shapes:
+    K5 (with its dQ sum), K3a + K3b, SDPA's backward (the yardstick) and
+    the bound, and the sum pass's share of K5 (torch.profiler)."""
+    import torch.nn.functional as F
+
+    from bluefog_tpu_torch.parallel import flash_attention as fa
+    from bluefog_tpu_torch.parallel import flash_check
+    from bluefog_tpu_torch.parallel import splash as sp
+
+    rate = mem_rate(name)
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    g = torch.Generator("cuda").manual_seed(seed + 2)
+    results = {}
+    for case in flash_check.SPLASH_CASES:
+        b, t, h, kv, d, dt = case
+        q, do = (torch.randn(b, t, h, d, generator=g, device="cuda").to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(b, t, kv, d, generator=g, device="cuda").to(dt)
+                for _ in range(2))
+        what = (f"splash B={b} T={t} H={h} KV={kv} D={d} "
+                f"{str(dt).split('.')[-1]}")
+        out, lse = fa.flash_forward(q, k, v)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()
+        del out
+        grads = sp.splash_backward(q, k, v, do, lse, delta)
+        again = sp.splash_backward(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b_) for a, b_ in zip(grads, again)):
+            raise AssertionError(f"{what}: two K5 runs differ")
+        del again
+        ref = dict(zip(("dq", "dk", "dv"),
+                       sp.splash_backward_plain(q, k, v, do, lse, delta)))
+        terms = flash_check.term_sizes(q, k, v, do, lse, delta)
+        errs, ratios = {}, {}
+        for key, got in zip(ref, grads):
+            errs[key], ratios[key] = _flash_err(got, ref[key], terms[key],
+                                                f"{what} {key}")
+        log(f"[kernel] {what}: max|err| "
+            + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
+            + "; of its bound "
+            + ", ".join(f"{k_} {r:.3g}" for k_, r in ratios.items())
+            + "; dQ, dK, dV bit-equal across two runs")
+        if case == flash_check.SPLASH_CASES[0]:
+            for fault, key, bad in flash_check.splash_planted_faults(
+                    q, k, v, do, lse, delta, ref):
+                ratio = flash_check.mismatch(bad, ref[key], terms[key])
+                if ratio <= 1:
+                    raise AssertionError(f"{what}: the bound passes a "
+                                         f"planted fault ({fault}, {key})")
+                log(f"[kernel] planted K5 fault, {fault}: {key} at "
+                    f"{ratio:.3g} times its bound, rejected")
+                del bad
+        del ref, terms, grads
+        if case not in flash_check.SPLASH_CASES[:2]:
+            continue
+        # the training paths' shapes: kernel, plain, bound and library
+        pairs = _live_pairs(t, t, True, 0, 0)
+        es = q.element_size()
+        n_q, n_kv, n_row = b * t * h * d * es, b * t * kv * d * es, b * h * t * 4
+        nbytes = 3 * n_q + 4 * n_kv + 2 * n_row
+        ops = 10 * b * h * pairs * d
+        run = lambda: sp.splash_backward(q, k, v, do, lse, delta)  # noqa
+        ms = time_ms(run, flush)
+        plain_ms = time_ms(lambda: sp.splash_backward_plain(
+            q, k, v, do, lse, delta), flush, reps=5)
+        k3_ms = time_ms(lambda: (
+            fa.flash_backward_dq(q, k, v, do, lse, delta),
+            fa.flash_backward_dkv(q, k, v, do, lse, delta)), flush)
+        split = _kernel_split_ms(run, {"main": ("k5_tc",),
+                                       "sum": ("k5_sum",)})
+        # yardstick only: SDPA's backward (forward subtracted) on the
+        # [B, H, T, D] views (the port never calls it)
+        leaves = [x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v)]
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                  enable_gqa=True)
+
+        lib = (time_ms(lambda: torch.autograd.grad(sdpa_fwd(), leaves, dot),
+                       flush) - time_ms(sdpa_fwd, flush))
+        t_bytes, t_ops = nbytes / rate * 1e3, ops / PEAK_OPS[dt] * 1e3
+        rec = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   library_ms=lib)
+        log(f"[kernel] splash_backward at {what}: K5 {ms:.4f} ms "
+            f"({ops / ms / 1e9:.1f} TFLOP/s; main kernel {split['main']:.4f}"
+            f" ms, dQ sum {split['sum']:.4f} ms = "
+            f"{100 * split['sum'] / (split['main'] + split['sum']):.1f}%), "
+            f"K3a + K3b {k3_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+            f"backward {lib:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}, {nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.1f} GFLOP)")
+        if case == flash_check.SPLASH_CASES[0]:
+            results["splash_backward"] = rec
+        del q, k, v, do, lse, delta, leaves
+        torch.cuda.empty_cache()
+    return results
+
+
 # ResNet-50 at batch 128: the distinct (N, ci, co) of its 20 K1 launches
 # per rank-step (16 expansions, 4 projections; stage 1's projection has
 # its expansion's shape), then two small f32 shapes
@@ -674,10 +827,12 @@ def _reset_counts():
     from bluefog_tpu_torch.parallel import conv1x1 as k1
     from bluefog_tpu_torch.parallel import decode_attention as da
     from bluefog_tpu_torch.parallel import flash_attention as fa
+    from bluefog_tpu_torch.parallel import splash as sp
 
     k1.reset_launch_counts()
     da.reset_launch_counts()
     fa.reset_launch_counts()
+    sp.reset_launch_counts()
 
 
 def _launches():
@@ -685,13 +840,15 @@ def _launches():
     from bluefog_tpu_torch.parallel import conv1x1 as k1
     from bluefog_tpu_torch.parallel import decode_attention as da
     from bluefog_tpu_torch.parallel import flash_attention as fa
+    from bluefog_tpu_torch.parallel import splash as sp
 
     return {"decode_attention": da.decode_attention.launches,
             "decode_attention_int8": da.decode_attention_int8.launches,
             "conv1x1_backward": k1.conv1x1_backward.launches,
             "flash_forward": fa.flash_forward.launches,
             "flash_backward_dq": fa.flash_backward_dq.launches,
-            "flash_backward_dkv": fa.flash_backward_dkv.launches}
+            "flash_backward_dkv": fa.flash_backward_dkv.launches,
+            "splash_backward": sp.splash_backward.launches}
 
 
 def _expect_launches(what, want):
@@ -913,30 +1070,42 @@ def phase_train_reference(seed):
 FLASH_KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
 
 
-def _llama_model(n_layers, seed):
-    """Llama-3.1-8B's width at ``n_layers`` layers (attn_impl="flash",
-    f32 master params from --seed, bf16 compute): (cfg, module, params).
-    The module keeps no copy of the weights (``state(release=True)``)."""
+def _llama8b_cfg(n_layers):
+    """Llama-3.1-8B's width at ``n_layers`` layers, attn_impl="flash"."""
     import bluefog_tpu_torch as bt
 
     # depth is the one cut, as examples/llama_benchmark.py's --layers
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         bt.LlamaConfig.llama3_8b(rope_scaling_kind="llama3",
                                  attn_impl="flash"),
         n_layers=n_layers)
-    model = bt.Llama(cfg, device="cuda", param_dtype=torch.float32,
-                     generator=torch.Generator("cuda").manual_seed(seed))
-    return cfg, model, model.state(release=True)
 
 
-def _llama_step(n_ranks, n_layers, comm_mode, seed, batch, seq, **kw):
-    """The model above over ``n_ranks`` stacked ranks: (cfg, model,
-    backend, step, params, optimizer, synthetic batch), all from --seed;
-    the rank-major params are the one copy of the weights on the card."""
+def _llama1b_cfg(**over):
+    """examples/llama_benchmark.py's "1b" model (:141-144) at full depth
+    and width, with the benchmark's defaults (remat=True, policy
+    "none"): splash attention unless ``over`` says otherwise."""
+    import bluefog_tpu_torch as bt
+
+    base = dict(vocab_size=32000, dim=2048, n_layers=16, n_heads=32,
+                n_kv_heads=8, hidden_dim=5632, max_seq_len=8192, remat=True,
+                remat_policy="none", attn_impl="splash")
+    base.update(over)
+    return bt.LlamaConfig(**base)
+
+
+def _llama_step(cfg, n_ranks, comm_mode, seed, batch, seq, **kw):
+    """``cfg``'s model (f32 master params from --seed, bf16 compute) over
+    ``n_ranks`` stacked ranks: (cfg, model, backend, step, params,
+    optimizer, synthetic batch), all from --seed; the module keeps no copy
+    of the weights (``state(release=True)``), so the rank-major params are
+    the one copy on the card."""
     import bluefog_tpu_torch as bt
     from bluefog_tpu_torch.models.llama import llama_loss_fn
 
-    cfg, model, state = _llama_model(n_layers, seed)
+    model = bt.Llama(cfg, device="cuda", param_dtype=torch.float32,
+                     generator=torch.Generator("cuda").manual_seed(seed))
+    state = model.state(release=True)
     backend = bt.StackedBackend(n_ranks, device="cuda")
     params = bt.rank_major(state, backend)
     del state
@@ -967,9 +1136,15 @@ LLAMA_BATCH, LLAMA_SEQ = 4, 2048
 PEAK_BF16 = 989e12
 
 
-def _profile_llama(step, params, opt, batch, steps=2):
-    """torch.profiler over ``steps`` train steps: device-busy share, the
-    top kernels, the three attention kernels' share."""
+# device kernels by the port's kernel, for the profiles' shares
+KERNEL_SYMBOLS = {"K2": ("k2_forward",), "K3a+K3b": ("k3a_dq", "k3b_dkv"),
+                  "K5": ("k5_tc", "k5_fma", "k5_sum")}
+
+
+def _profile_llama(step, params, opt, batch, steps=2, what="Llama"):
+    """torch.profiler over ``steps`` train steps of ``what`` (a model
+    with an f32 head): device-busy share, the top kernels, the attention
+    kernels' shares (K2, K3a+K3b, K5) and the head's."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -982,19 +1157,20 @@ def _profile_llama(step, params, opt, batch, steps=2):
         wall_us = (time.perf_counter() - t0) * 1e6
     events = _device_kernels(prof)
     busy = sum(e.self_device_time_total for e in events)
-    attn = sum(e.self_device_time_total for e in events
-               if any(n in e.key for n in ("k2_forward", "k3a_dq",
-                                           "k3b_dkv")))
+    attn = {k: sum(e.self_device_time_total for e in events
+                   if any(n in e.key for n in names))
+            for k, names in KERNEL_SYMBOLS.items()}
     # the step's only f32 matrix products are the head's three (logits,
     # dX, dW); cuBLAS names its f32 kernels sgemm or gemm_f32f32
     head = sum(e.self_device_time_total for e in events
                if "sgemm" in e.key or "gemm_f32f32" in e.key)
-    log(f"[profile] {steps} Llama train steps: wall "
+    log(f"[profile] {steps} {what} train steps: wall "
         f"{wall_us / steps / 1e3:.2f} ms/step, device busy "
         f"{busy / steps / 1e3:.2f} ms/step ({100 * busy / wall_us:.1f}%), "
-        f"K2+K3a+K3b {attn / steps / 1e3:.3f} ms/step "
-        f"({100 * attn / max(busy, 1):.1f}% of device time), f32 GEMMs "
-        f"(the head) {head / steps / 1e3:.3f} ms/step "
+        + "".join(f"{k} {us / steps / 1e3:.3f} ms/step "
+                  f"({100 * us / max(busy, 1):.1f}% of device time), "
+                  for k, us in attn.items())
+        + f"f32 GEMMs (the head) {head / steps / 1e3:.3f} ms/step "
         f"({100 * head / max(busy, 1):.1f}%)")
     for e in sorted(events, key=lambda e: e.self_device_time_total,
                     reverse=True)[:15]:
@@ -1027,15 +1203,18 @@ def _head_ms(cfg, flush, tokens):
     return ms
 
 
-def phase_llama_train_1rank(seed):
-    import bluefog_tpu_torch as bt
-    from bluefog_tpu_torch.models.llama import llama_loss_fn
-
-    n_layers, warmup, timed = 4, 3, 10
+def _llama_window(cfg, seed, warmup, timed, label, want):
+    """One training window of ``cfg`` on 1 rank: a fresh model and
+    optimizer from --seed, the launch counts set to 0, ``warmup`` then
+    ``timed`` steps of batch 4 x 2048; the counts must be ``want`` and the
+    losses finite near ln(vocab).  Logs tokens/s per card, step ms, MFU
+    over 989 TFLOP/s, peak memory and the losses after ``label``.
+    Returns (launches, (model, backend, step, params, opt, batch),
+    model FLOP per step)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg, model, backend, step, params, opt, batch = _llama_step(
-        1, n_layers, "none", seed, LLAMA_BATCH, LLAMA_SEQ)
+        cfg, 1, "none", seed, LLAMA_BATCH, LLAMA_SEQ)
     tokens = LLAMA_BATCH * LLAMA_SEQ
     n_params, flops = _model_flops(cfg, params, tokens)
     torch.cuda.synchronize()
@@ -1051,23 +1230,37 @@ def phase_llama_train_1rank(seed):
         losses.append(loss)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / timed
-    launches = _expect_flash("Llama train 1 rank",
-                             n_layers * (warmup + timed))
+    launches = _expect_launches(label, want)
     losses = torch.cat(losses)
     ln_v = math.log(cfg.vocab_size)
     if not torch.isfinite(losses).all() or \
             (losses - ln_v).abs().max().item() > 2.0:
-        raise AssertionError(f"losses {losses.tolist()} not finite near "
-                             f"ln(vocab) = {ln_v:.2f}")
+        raise AssertionError(f"{label}: losses {losses.tolist()} not finite "
+                             f"near ln(vocab) = {ln_v:.2f}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[llama1] Llama-3.1-8B width, {n_layers} layers "
-        f"({n_params / 1e9:.3f} B params), 1 rank, batch {LLAMA_BATCH} x "
-        f"{LLAMA_SEQ}, attn flash, f32 head: {tokens / dt:.1f} tokens/s "
-        f"per card, step {dt * 1e3:.2f} ms, MFU "
-        f"{flops / dt / PEAK_BF16:.4f} of 989 TFLOP/s, peak memory "
-        f"{peak:.2f} GiB, loss {losses[0].item():.4f} -> "
-        f"{losses[-1].item():.4f} (ln vocab {ln_v:.4f}); launches "
-        f"{launches} = {n_layers} layers x {warmup + timed} steps each")
+    remat = f"remat policy {cfg.remat_policy!r}" if cfg.remat else "no remat"
+    log(f"{label} ({cfg.n_layers} layers, {n_params / 1e9:.3f} B params), "
+        f"1 rank, batch {LLAMA_BATCH} x {LLAMA_SEQ}, attn {cfg.attn_impl}, "
+        f"{remat}, f32 head: {tokens / dt:.1f} tokens/s per card, step "
+        f"{dt * 1e3:.2f} ms, MFU {flops / dt / PEAK_BF16:.4f} of 989 "
+        f"TFLOP/s, peak memory {peak:.2f} GiB, losses "
+        f"{', '.join(f'{x:.4f}' for x in losses.tolist())} (ln vocab "
+        f"{ln_v:.4f}); launches {launches} over {warmup + timed} steps")
+    return launches, (model, backend, step, params, opt, batch), flops
+
+
+def phase_llama_train_1rank(seed):
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.models.llama import llama_loss_fn
+
+    n_layers, warmup, timed = 4, 3, 10
+    cfg = _llama8b_cfg(n_layers)
+    launches, state, flops = _llama_window(
+        cfg, seed, warmup, timed, "[llama1] Llama-3.1-8B width",
+        dict.fromkeys(FLASH_KERNELS, n_layers * (warmup + timed)))
+    model, backend, step, params, opt, batch = state
+    del state
+    tokens = LLAMA_BATCH * LLAMA_SEQ
     busy_ms = _profile_llama(step, params, opt, batch)
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     head = _head_ms(cfg, flush, tokens)
@@ -1099,14 +1292,20 @@ def phase_llama_train_1rank(seed):
     return launches
 
 
-def phase_llama_train_2ranks(seed):
+def _llama_train_2ranks(cfg, seed, label, per_step):
+    """``cfg`` over 2 ranks stacked on the card, atc over
+    ExponentialTwoGraph(2), batch 4 x 2048 per rank, 2 warm-up and 3
+    timed steps; each kernel of ``per_step`` ({kernel: launches per layer
+    and rank-step}) launched that many times.  Logs tokens/s per card,
+    step ms, MFU, peak memory and the combine's ms per step."""
     import bluefog_tpu_torch as bt
 
-    n_layers, warmup, timed = 2, 2, 3
+    warmup, timed = 2, 3
     topo = bt.uniform_topology_spec(bt.ExponentialTwoGraph(2))
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg, model, _, step, params, opt, batch = _llama_step(
-        2, n_layers, "atc", seed, LLAMA_BATCH, LLAMA_SEQ, topology=topo)
+        cfg, 2, "atc", seed, LLAMA_BATCH, LLAMA_SEQ, topology=topo)
     tokens = 2 * LLAMA_BATCH * LLAMA_SEQ
     n_params, flops = _model_flops(cfg, params, tokens)
     torch.cuda.synchronize()
@@ -1119,10 +1318,11 @@ def phase_llama_train_2ranks(seed):
         params, opt, loss = step(params, opt, batch, i)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / timed
-    launches = _expect_flash("Llama train 2 ranks",
-                             n_layers * 2 * (warmup + timed))
+    n = cfg.n_layers * 2 * (warmup + timed)   # layers x ranks x steps
+    launches = _expect_launches(label, {k: c * n
+                                        for k, c in per_step.items()})
     if not torch.isfinite(loss).all():
-        raise AssertionError(f"non-finite loss: {loss.tolist()}")
+        raise AssertionError(f"{label}: non-finite loss {loss.tolist()}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     combine = []
     for _ in range(4):   # the step's own in-place combine, on its params
@@ -1134,22 +1334,31 @@ def phase_llama_train_2ranks(seed):
         combine.append((start, end))
     torch.cuda.synchronize()
     combine_ms = statistics.median(a.elapsed_time(b) for a, b in combine[1:])
-    log(f"[llama2] Llama-3.1-8B width, {n_layers} layers ({n_params / 1e9:.3f}"
-        f" B params per rank), 2 ranks stacked, atc over "
+    log(f"{label} ({cfg.n_layers} layers, {n_params / 1e9:.3f} B params "
+        f"per rank), 2 ranks stacked, attn {cfg.attn_impl}, atc over "
         f"ExponentialTwoGraph(2), batch {LLAMA_BATCH} x {LLAMA_SEQ} per "
         f"rank: {tokens / dt:.1f} tokens/s per card, step {dt * 1e3:.2f} ms,"
         f" MFU {flops / dt / PEAK_BF16:.4f}, peak memory {peak:.2f} GiB, "
         f"combine {combine_ms:.3f} ms per step ({n_params / 1e6:.1f} M f32 "
-        f"values per rank), loss {loss.tolist()}; launches {launches} = "
-        f"{n_layers} layers x 2 ranks x {warmup + timed} steps each")
+        f"values per rank), loss {loss.tolist()}; launches {launches} over "
+        f"{warmup + timed} steps")
     del step, params, opt, batch, model
     torch.cuda.empty_cache()
 
+
+def phase_llama_train_2ranks(seed):
+    import bluefog_tpu_torch as bt
+
+    n_layers = 2
+    topo = bt.uniform_topology_spec(bt.ExponentialTwoGraph(2))
+    _llama_train_2ranks(_llama8b_cfg(n_layers), seed,
+                        "[llama2] Llama-3.1-8B width",
+                        dict.fromkeys(FLASH_KERNELS, 1))
     # consensus: the same start, different per-rank data, atc against none
     spread = {}
     for mode, kw in (("atc", dict(topology=topo)), ("none", {})):
         _, model, _, step, params, opt, batch = _llama_step(
-            2, n_layers, mode, seed, 1, 512, **kw)
+            _llama8b_cfg(n_layers), 2, mode, seed, 1, 512, **kw)
         for i in range(3):
             params, opt, loss = step(params, opt, batch, i)
         spread[mode] = float(bt.consensus_distance(params))
@@ -1162,19 +1371,22 @@ def phase_llama_train_2ranks(seed):
         f"atc {spread['atc']:.4g} < none {spread['none']:.4g}")
 
 
-def phase_llama_reference(seed):
-    """The tiny f32 Llama (attn_impl="flash", D=16: the kernels' f32
-    path) trained 3 atc steps over 2 ranks on the card (K2, K3a, K3b)
-    and on the host (plain versions).  Tolerance: 1e-4 of each leaf's
-    largest entry plus 1e-7, losses 1e-5 (f32 sums in another order
-    through three momentum steps; TF32 is off)."""
+def phase_llama_reference(seed, attn_impl="flash", seq=32):
+    """The tiny f32 Llama (D=16: the kernels' f32 path) with ``attn_impl``
+    "flash" (K2, K3a, K3b) or "splash" (K2, K5) trained 3 atc steps over 2
+    ranks on the card (kernels) and on the host (plain versions), ``seq``
+    tokens per row.  Tolerance: 1e-4 of each leaf's largest entry plus
+    1e-7, losses 1e-5 (f32 sums in another order through three momentum
+    steps; TF32 is off)."""
     import bluefog_tpu_torch as bt
     from bluefog_tpu_torch.models.llama import llama_loss_fn
 
-    cfg = bt.LlamaConfig.tiny(dtype=torch.float32, attn_impl="flash")
+    cfg = bt.LlamaConfig.tiny(dtype=torch.float32, attn_impl=attn_impl)
+    kernels = (FLASH_KERNELS if attn_impl == "flash"
+               else ("flash_forward", "splash_backward"))
     topo = bt.uniform_topology_spec(bt.ExponentialTwoGraph(2))
     rng = np.random.RandomState(seed)
-    raw = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 2, 33)))
+    raw = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 2, seq + 1)))
     init = bt.Llama(cfg, device="cpu", param_dtype=torch.float32,
                     generator=torch.Generator().manual_seed(seed)
                     ).state_dict()
@@ -1194,7 +1406,8 @@ def phase_llama_reference(seed):
             params, opt, loss = step(params, opt, batch, i)
             losses.append(loss.cpu())
         if dev == "cuda":
-            _expect_flash("tiny reference", cfg.n_layers * 2 * 3)
+            _expect_launches(f"tiny reference ({attn_impl})",
+                             dict.fromkeys(kernels, cfg.n_layers * 2 * 3))
         elif any(_launches().values()):
             raise AssertionError("the host run launched a kernel")
         out[dev] = ({k: v.cpu() for k, v in params.items()},
@@ -1212,10 +1425,167 @@ def phase_llama_reference(seed):
     if loss_err > 1e-5:
         raise AssertionError(f"tiny Llama reference: losses differ by "
                              f"{loss_err}")
-    log(f"[reference] tiny f32 Llama (flash), 3 atc steps over 2 ranks: "
-        f"card (K2, K3a, K3b, 12 launches each) vs host (plain) params "
+    log(f"[reference] tiny f32 Llama ({attn_impl}, T={seq}), 3 atc steps "
+        f"over 2 ranks: card ({', '.join(kernels)}, "
+        f"{cfg.n_layers * 2 * 3} launches each) vs host (plain) params "
         f"agree to {worst:.3g} of each leaf's largest entry, losses to "
         f"{loss_err:.3g}")
+
+
+def phase_llama1b(seed):
+    """Llama-1B (examples/llama_benchmark.py --model 1b) at full depth on
+    1 rank: window (a) splash with remat policy "none" (the benchmark's
+    defaults), (b) flash, the A/B of the JAX package, (c) splash with
+    remat policy "dots"; each followed by torch.profiler over 2 steps,
+    whose device time is the A/B's steady measure (the host this card
+    shares makes wall times vary between windows).  Under remat K2 runs
+    twice per layer (forward and recompute)."""
+    warmup, timed = 3, 10
+    n = 16 * (warmup + timed)    # 16 layers x steps
+    windows = [
+        ("(a) splash", {}, {"flash_forward": 2 * n, "splash_backward": n}),
+        ("(b) flash", dict(attn_impl="flash"),
+         {"flash_forward": 2 * n, "flash_backward_dq": n,
+          "flash_backward_dkv": n}),
+        ("(c) splash, dots", dict(remat_policy="dots"),
+         {"flash_forward": 2 * n, "splash_backward": n})]
+    for what, over, want in windows:
+        got, state, _ = _llama_window(_llama1b_cfg(**over), seed, warmup,
+                                      timed, f"[llama1b] {what}", want)
+        if not over:
+            launches = got
+        _profile_llama(*state[2:], what=f"Llama-1B {what}")
+        del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_llama1b_2ranks(seed):
+    """Llama-1B, splash, full depth, 2 ranks stacked on the card, atc."""
+    _llama_train_2ranks(_llama1b_cfg(), seed, "[llama1b2] Llama-1B",
+                        {"flash_forward": 2, "splash_backward": 1})
+
+
+VIT_BATCH = 128
+
+
+def _vit_step(cfg, n_ranks, comm_mode, seed, batch, dev="cuda",
+              init=None, **kw):
+    """ViT ``cfg`` over ``n_ranks`` stacked ranks on ``dev``: (model,
+    step, params, optimizer, synthetic batch), weights from --seed (or
+    ``init``, a state dict), SGD(1e-3, momentum 0.9), cross-entropy."""
+    import torch.nn.functional as F
+
+    import bluefog_tpu_torch as bt
+
+    model = bt.ViT(cfg, device=dev,
+                   generator=torch.Generator(dev).manual_seed(seed))
+    if init is not None:
+        model.load_state_dict(init)
+    backend = bt.StackedBackend(n_ranks, device=dev)
+    params = bt.rank_major(model.state(), backend)
+    opt = torch.optim.SGD(params.values(), lr=1e-3, momentum=0.9)
+
+    def loss_fn(p, b):
+        return F.cross_entropy(model.apply(p, b[0]), b[1])
+
+    step = bt.build_train_step(loss_fn, opt, backend, comm_mode=comm_mode,
+                               **kw)
+    g = torch.Generator().manual_seed(seed + 1)
+    size = cfg.image_size
+    images = torch.randn(n_ranks, batch, size, size, 3, generator=g)
+    labels = torch.randint(0, cfg.num_classes, (n_ranks, batch), generator=g)
+    images = images.to(dev, cfg.dtype)
+    return model, step, params, opt, (images, labels.to(dev))
+
+
+def phase_vit(seed):
+    """ViT-B/16 (attn_impl="flash": K2, K3a, K3b non-causal at T = 200),
+    224 x 224 images, 1000 classes, bf16 compute over f32 params, batch
+    128, 1 rank, comm_mode="none", 3 warm-up and 10 timed steps: img/s,
+    step ms, peak memory, K2/K3a/K3b launched 12 x steps times each.
+    Then a tiny f32 ViT (flash, D=16: the f32 path) after 3 atc steps over
+    2 ranks on the card and on the host: params within 1e-4 of each
+    leaf's largest entry plus 1e-7, losses within 1e-5."""
+    import bluefog_tpu_torch as bt
+
+    warmup, timed = 3, 10
+    cfg = bt.ViTConfig.base(attn_impl="flash")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, step, params, opt, batch = _vit_step(cfg, 1, "none", seed,
+                                                VIT_BATCH)
+    torch.cuda.synchronize()
+    _reset_counts()
+    losses = []
+    for i in range(warmup):
+        params, opt, loss = step(params, opt, batch, i)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + timed):
+        params, opt, loss = step(params, opt, batch, i)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / timed
+    launches = _expect_flash("ViT-B/16 1 rank", cfg.depth * (warmup + timed))
+    losses = torch.cat(losses)
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"ViT-B/16: non-finite loss {losses.tolist()}")
+    n_params = sum(v[0].numel() for v in params.values())
+    log(f"[vit] ViT-B/16 ({n_params / 1e6:.1f} M params, {model.n_tokens} "
+        f"tokens + {model.n_reg} registers), 1 rank, batch {VIT_BATCH} x "
+        f"224 x 224, attn flash, bf16 compute: {VIT_BATCH / dt:.1f} img/s "
+        f"per card, step {dt * 1e3:.2f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, loss "
+        f"{losses[0].item():.4f} -> {losses[-1].item():.4f} (ln 1000 = "
+        f"{math.log(1000):.4f}); launches {launches} = 12 layers x "
+        f"{warmup + timed} steps each")
+    _profile_llama(step, params, opt, batch, what="ViT-B/16")
+    del model, step, params, opt, batch
+    torch.cuda.empty_cache()
+
+    # card against host: the tiny f32 ViT, 3 atc steps over 2 ranks
+    tiny = bt.ViTConfig.tiny(dtype=torch.float32, attn_impl="flash")
+    topo = bt.uniform_topology_spec(bt.ExponentialTwoGraph(2))
+    init = bt.ViT(tiny, device="cpu",
+                  generator=torch.Generator().manual_seed(seed)).state_dict()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        _, step, params, opt, batch = _vit_step(tiny, 2, "atc", seed, 4,
+                                                dev=dev, init=init,
+                                                topology=topo)
+        _reset_counts()
+        losses = []
+        for i in range(3):
+            params, opt, loss = step(params, opt, batch, i)
+            losses.append(loss.cpu())
+        if dev == "cuda":
+            _expect_flash("tiny ViT reference", tiny.depth * 2 * 3)
+        elif any(_launches().values()):
+            raise AssertionError("the host run launched a kernel")
+        out[dev] = ({k: v.cpu() for k, v in params.items()},
+                    torch.stack(losses))
+    worst, worst_key = 0.0, None
+    for k, want in out["cpu"][0].items():
+        err = (out["cuda"][0][k] - want).abs().max().item()
+        ratio = err / (1e-4 * want.abs().max().item() + 1e-7)
+        if ratio > worst:
+            worst, worst_key = ratio, k
+    if worst > 1:
+        raise AssertionError(f"tiny ViT reference: {worst_key} differs by "
+                             f"{worst:.3g} times its bound")
+    loss_err = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    if loss_err > 1e-5:
+        raise AssertionError(f"tiny ViT reference: losses differ by "
+                             f"{loss_err}")
+    # the key biases' updates are f32 noise (their gradient is zero in
+    # exact arithmetic): the 1e-7 floor holds them
+    log(f"[reference] tiny f32 ViT (flash), 3 atc steps over 2 ranks: card "
+        f"(K2, K3a, K3b, {tiny.depth * 2 * 3} launches each) vs host "
+        f"(plain) params within {worst:.3g} of their bound at most "
+        f"({worst_key}), losses within {loss_err:.3g}")
+    return launches
 
 
 def main() -> int:
@@ -1233,6 +1603,7 @@ def main() -> int:
     kernels = phase_kernels(name, args.seed)
     kernels.update(phase_k1(name, args.seed))
     kernels.update(phase_flash(name, args.seed))
+    kernels.update(phase_splash(name, args.seed))
     launches = phase_serving(args.seed)
     phase_reference(args.seed)
     torch.backends.cudnn.benchmark = True   # the training path's convs
@@ -1243,6 +1614,10 @@ def main() -> int:
     launches.update(phase_llama_train_1rank(args.seed))
     phase_llama_train_2ranks(args.seed)
     phase_llama_reference(args.seed)
+    launches["splash_backward"] = phase_llama1b(args.seed)["splash_backward"]
+    phase_llama1b_2ranks(args.seed)
+    phase_llama_reference(args.seed, attn_impl="splash", seq=128)
+    phase_vit(args.seed)
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):
         entries.append(dict(
@@ -1262,6 +1637,11 @@ def main() -> int:
             source="bluefog_tpu_torch/csrc/flash_attention.cu",
             replaces=FLASH_REPLACES[kname], launches=launches[kname],
             **kernels[kname]))
+    entries.append(dict(
+        name="splash_backward", route="cuda",
+        source="bluefog_tpu_torch/csrc/splash_backward.cu",
+        replaces="bluefog_tpu/parallel/splash.py:98",
+        launches=launches["splash_backward"], **kernels["splash_backward"]))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -265,3 +265,69 @@ def test_flash_refuses_what_the_kernel_does_not_take():
     q, k, v, _ = flash_inputs(1, 16, 4, 2, 16, torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_forward(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# K5: splash attention's fused one-pass backward (parallel/splash.py,
+# csrc/splash_backward.cu) against its plain version on the card, at
+# parallel/flash_check.py's SPLASH_CASES and to the same per-entry bound
+# as K3a/K3b (its dQ is summed over per-key-tile f32 partials in another
+# order than K3a's; its dK/dV take K3b's order).
+# ---------------------------------------------------------------------------
+
+from bluefog_tpu_torch.parallel import splash as sp  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,kv,d,dtype", flash_check.SPLASH_CASES)
+def test_splash_kernel_matches_plain_on_card(b, t, h, kv, d, dtype):
+    """K5 against its plain version; dQ, dK and dV bit-equal across two
+    runs (no atomics: the dQ partials are summed in a fixed order)."""
+    _card()
+    q, k, v, do = flash_inputs(b, t, h, kv, d, dtype, seed=1)
+    out, lse = fa.flash_forward(q, k, v)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    sp.reset_launch_counts()
+    got = sp.splash_backward(q, k, v, do, lse, delta)
+    again = sp.splash_backward(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert sp.splash_backward.launches == 2
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    terms = flash_check.term_sizes(q, k, v, do, lse, delta)
+    want = sp.splash_backward_plain(q, k, v, do, lse, delta)
+    for key, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype
+        assert flash_check.mismatch(g, w, terms[key]) <= 1, key
+
+
+@pytest.mark.cuda
+def test_splash_autograd_on_card_matches_host():
+    """splash_attention's autograd on the card (K2, K5) against the same
+    function on the host (plain versions), f32, GQA rep 2."""
+    _card()
+    g = torch.Generator().manual_seed(6)
+    q = torch.randn(2, 256, 4, 32, generator=g)
+    k = torch.randn(2, 256, 2, 32, generator=g)
+    v = torch.randn(2, 256, 2, 32, generator=g)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        leaves = [x.to(dev).requires_grad_(True) for x in (q, k, v)]
+        y = sp.splash_attention(*leaves)
+        grads = torch.autograd.grad(torch.sin(y).sum(), leaves)
+        outs.append([y.detach().cpu()] + [x.cpu() for x in grads])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_splash_refuses_what_the_kernel_does_not_take():
+    _card()
+    q, k, v, do = flash_inputs(1, 64, 4, 2, 32, torch.bfloat16)
+    out, lse = fa.flash_forward(q, k, v)
+    delta = torch.zeros_like(lse)
+    with pytest.raises(ValueError, match="self-attention"):
+        sp.splash_backward(q, k[:, :32].contiguous(), v[:, :32].contiguous(),
+                           do, lse, delta)
+    with pytest.raises(ValueError, match="contiguous"):
+        sp.splash_backward(q, k, v, do.transpose(1, 2).contiguous()
+                           .transpose(1, 2), lse, delta)

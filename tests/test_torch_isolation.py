@@ -72,7 +72,9 @@ def test_package_imports_with_jax_blocked():
 def _entry_points():
     import bluefog_tpu_torch as bt
     from bluefog_tpu_torch.interop import (llama_params_from_flax,
-                                           resnet_params_from_flax)
+                                           mlp_params_from_flax,
+                                           resnet_params_from_flax,
+                                           vit_params_from_flax)
     from bluefog_tpu_torch.serving import SlotPool
 
     cfg = bt.LlamaConfig.tiny(dtype=torch.float32)
@@ -96,6 +98,14 @@ def _entry_points():
             {"params": {}, "batch_stats": {}}, bt.ResNet(
                 (1,), bt.models.BottleneckBlock, num_filters=4,
                 device="cpu")),
+        "ViT": lambda: bt.ViT(bt.ViTConfig.tiny()),
+        "ViT_B16": lambda: bt.ViT_B16(),
+        "MLP": lambda: bt.MLP(784),
+        "MnistNet": lambda: bt.MnistNet(),
+        "vit_params_from_flax": lambda: vit_params_from_flax(
+            tree, bt.ViT(bt.ViTConfig.tiny(), device="cpu")),
+        "mlp_params_from_flax": lambda: mlp_params_from_flax(
+            tree, bt.MnistNet(device="cpu")),
     }
 
 
@@ -103,7 +113,10 @@ def _entry_points():
                                   "ServingEngine", "SlotPool",
                                   "llama_params_from_flax", "ResNet",
                                   "StackedBackend", "build_train_step",
-                                  "resnet_params_from_flax"])
+                                  "resnet_params_from_flax", "ViT",
+                                  "ViT_B16", "MLP", "MnistNet",
+                                  "vit_params_from_flax",
+                                  "mlp_params_from_flax"])
 def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is valid here")

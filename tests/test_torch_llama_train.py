@@ -196,12 +196,15 @@ def test_released_state_is_the_one_copy():
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(attn_impl="splash"), "K5"),
-    (dict(remat=True, remat_policy="dots"), "remat_policy"),
+    (dict(tp_size=2, tp_axis="tp"), "tensor parallelism"),
+    (dict(decode=True, param_quant="int8"), "param_quant"),
     (dict(attn_mode="ulysses", sp_axis="sp"), "Ulysses"),
     (dict(n_experts=2), "moe/"),
 ])
 def test_unported_training_knobs_raise_naming_their_item(over, match):
+    """splash (K5) and remat_policy="dots" are ported (tests/
+    test_torch_splash.py, tests/test_torch_remat.py); what is still
+    refused names its ROADMAP item."""
     with pytest.raises(NotImplementedError, match=match) as info:
         bt.Llama(bt.LlamaConfig.tiny(**over), device="cpu")
     assert "ROADMAP.md" in str(info.value)
