@@ -20,35 +20,69 @@
 // What bounds them on this card: tensor-core operations.  At the Llama
 // training shape (B=4, H=32, KV=8, T=2048, D=128, causal) K2 does
 // 4·B·H·T²·D/2 = 137 GFLOP over ~168 MB (~820 operations per byte, far
-// above the card's ~295), K3a 6·B·H·T²·D/2 and K3b 8·B·H·T²·D/2.  What
-// the design does about it: every product runs on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulators), the score tile never
-// leaves registers (the accumulator fragment of S is re-packed in place
-// as the A operand of the next product), K/V (K2, K3a) or Q/dO (K3b)
-// tiles stream through a two-stage cp.async ring in padded shared memory
-// read with ldmatrix, and in causal mode a block stops at its last live
-// tile (K2, K3a) or starts at its first (K3b), the TPU kernels'
-// _block_live.  The TPU grid walked k blocks in order into VMEM
-// accumulators; here one block owns its rows and loops over the tiles,
-// so nothing is summed across blocks: no atomics, and dQ, dK and dV are
-// bit-equal from run to run.  wgmma, TMA and warp specialisation are
-// later work.
+// above the card's ~295), K3a 6·B·H·T²·D/2 and K3b 8·B·H·T²·D/2.
 //
-//   K2   block = 64 query rows of one (batch, head), 4 warps of 16 rows,
-//        loop over 64-key tiles; m, l and the [16, D] accumulator of each
-//        warp stay in registers.
+// K2 in bf16 at D = 64 and 128 (every main-path shape: Llama-3.1-8B
+// width, Llama-1B flash and splash, ViT-B/16) is built from what Hopper
+// added (sm90_tile.cuh), in the shape of FlashAttention-3's forward:
+//   a block serves one (batch, head).  Warpgroup 0 is the producer: one
+//   thread loads Q once and keeps K and V tiles of 128 keys in flight
+//   through a two-stage ring with TMA (4-D tensor maps over the
+//   [B, T, H, D] / [B, S, KV, D] layouts, 128-byte swizzle, zeros out of
+//   bounds), full and empty mbarriers per stage; setmaxnreg gives its
+//   registers away (24).  Each consumer warpgroup owns 64 query rows:
+//   S = Q·Kᵀ is one wgmma chain (m64n128k16, Q and K from shared memory,
+//   K-major), the online softmax runs in the S accumulator registers, P
+//   is rounded to bf16 in place as the register A operand of O += P·V
+//   (m64nDk16, V MN-major through the transpose bit), and O stays in
+//   registers until a masked store (rows past T never land) with lse.  At
+//   D = 128 two consumers share a block (128 rows, 384 threads, 240
+//   registers each; shared memory Q 32 KB + 2 stages x (K + V) 64 KB =
+//   160 KB, one block an SM); at D = 64 one consumer (64 rows, 256
+//   threads, 232 registers; 72 KB, two blocks an SM).  wgmma reads each
+//   K/V tile once per 64-row warpgroup, where the mma.sync warps each
+//   re-read it (~256 bytes of shared memory per mma.sync), and runs
+//   asynchronously; a warpgroup's softmax overlaps the other's products.
+//   The shared-memory size is set on every launch.  The tensor maps are
+//   encoded on the host per call (cuTensorMapEncodeTiled through
+//   cudaGetDriverEntryPoint, three maps, pure host work of about a
+//   microsecond each).  The softmax keeps scores unscaled and takes
+//   p = 2^(x·c - m·c) with c = scale·log2 e (one FFMA and one ex2 a
+//   score), masks only on edge tiles, and reduces its row maxima in four
+//   independent chains (a first version with a scaled copy, __expf and a
+//   mask test on every score was markedly slower on the H100).
+//   ptxas (-Xptxas -v, CUDA 12.9): at entry the launch bound's registers
+//   (168 at D = 128, 128 at D = 64), setmaxnreg sharing them out as
+//   above, no spills.  Tried on the H100 and not kept, each slower or no
+//   faster: FlashAttention-3's intra-warpgroup overlap (tile j's S
+//   product issued beside tile j - 1's P·V, two- or three-stage ring),
+//   ping-pong turns of the two consumers on named barriers, a three-stage
+//   ring, one consumer at D = 128.  Not yet: Q as register operands, FP8.
+// K2 in bf16 at D = 16 and 32 (test shapes only; no model of the repo
+// runs them) keeps the mma.sync kernel below: a 32- or 64-byte row needs
+// other swizzles and descriptors, and the wrapper counts those launches
+// apart (flash_forward.launches_mma_sync).
+//
+// K3a and K3b (and K2 at D = 16, 32) run on mma.sync m16n8k16 (bf16 in,
+// f32 accumulators): the score tile never leaves registers (the
+// accumulator fragment of S is re-packed in place as the A operand of the
+// next product), K/V (K2, K3a) or Q/dO (K3b) tiles stream through a
+// two-stage cp.async ring in padded shared memory read with ldmatrix, and
+// in causal mode a block stops at its last live tile (K2, K3a) or starts
+// at its first (K3b), the TPU kernels' _block_live.  The TPU grid walked
+// k blocks in order into VMEM accumulators; here one block owns its rows
+// and loops over the tiles, so nothing is summed across blocks: no
+// atomics, and dQ, dK and dV are bit-equal from run to run.
+//
+//   K2   (D = 16, 32) block = 64 query rows of one (batch, head), 4 warps
+//        of 16 rows, loop over 64-key tiles.
 //   K3a  block = 64 query rows, loop over 64-key tiles: recompute P, then
 //        dP = dO·Vᵀ, dS = P·(dP - delta), dQ += dS·K (scale at the end).
 //   K3b  block = 64 keys of one (batch, kv head), 4 warps of 16 keys,
 //        loop over (32-row query tile, group member) pairs in that order:
 //        dV += Pᵀ·dO and dK += dSᵀ·Q in f32 registers, written once.
-//   They run at a fifth of the tensor cores' rate.  128-row blocks of 8
-//   warps, which halve the L2 re-reads of K/V, measured no faster on the
-//   H100 (PERF.md), so L2 is not the limit; the suspects are shared-
-//   memory reads (each warp reads whole K/V or Q/dO tiles through
-//   ldmatrix for its 16 rows, ~256 bytes per mma.sync) and short chains
-//   of dependent mma.sync at 8 warps per SM.  wgmma, which reads each
-//   tile once per 64-row warpgroup, is the next step.
+//   K3a and K3b run at a fifth of the tensor cores' rate (PERF.md); their
+//   wgmma redesign is the next step.
 //
 // Tails are masked (any T and S; the TPU kernels needed block divisors).
 // D is 16, 32, 64 or 128.  bf16 runs on the tensor cores; f32 takes a
@@ -56,10 +90,12 @@
 // same masking rules.
 //
 // The warp-level helpers (mma.sync, ldmatrix, cp.async) live in
-// mma_tile.cuh, shared with splash_backward.cu (K5).
+// mma_tile.cuh, shared with splash_backward.cu (K5); the Hopper ones
+// (TMA, mbarrier, wgmma, setmaxnreg, tensor maps) in sm90_tile.cuh.
 //
 // Plain C interface, bound with ctypes (bluefog_tpu_torch/parallel/
-// flash_attention.py), which validates shapes, types and alignment:
+// flash_attention.py), which validates shapes, types, contiguity and
+// 16-byte alignment (what TMA needs of a base address and row strides):
 //   int bf_flash_forward(q, k, v, out, lse, B, T, S, H, KV, D, q_off,
 //                        kv_off, causal, scale, dtype, stream)
 //   int bf_flash_backward_dq(q, k, v, dout, lse, delta, dq, ...)
@@ -68,6 +104,7 @@
 // (cudaGetLastError() after the launch).
 
 #include "mma_tile.cuh"
+#include "sm90_tile.cuh"
 
 namespace {
 
@@ -110,7 +147,7 @@ struct Smem {
 };
 
 // ---------------------------------------------------------------------------
-// K2: forward.  grid (query tiles, B * H).
+// K2, bf16 at D = 16 and 32: mma.sync.  grid (query tiles, B * H).
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(kThreadsTc)
@@ -237,6 +274,297 @@ __global__ void __launch_bounds__(kThreadsTc)
       lse[((long long)b * s.H + h) * s.T + row] =
           li > 0.f ? m[i] + logf(safe) : kNegInf;
   }
+}
+
+// ---------------------------------------------------------------------------
+// K2, bf16 at D = 64 and 128: TMA + mbarrier ring + wgmma, warp-specialised.
+// grid (query tiles, B * H): warpgroup 0 the producer, the consumers of 64
+// query rows each after it.  D = 128: two consumers (128-row tiles, 384
+// threads, one block an SM: 160 KB of shared memory).  D = 64: one
+// consumer (64-row tiles, 256 threads, two blocks an SM), which the H100
+// ran faster at both D = 64 shapes of the repo's models (Llama-1B, ViT).
+// ---------------------------------------------------------------------------
+constexpr int kWgRows = 64;                  // query rows per consumer
+constexpr int kBkW = 128;                    // keys per tile
+constexpr int kStagesW = 2;                  // K/V ring depth
+
+template <int D>
+struct WgSmem {
+  static constexpr int NC = D == 64 ? 1 : 2;   // consumer warpgroups
+  static constexpr int ROWS = kWgRows * NC;    // query rows per block
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int BLOCKS_PER_SM = NC == 1 ? 2 : 1;
+  // setmaxnreg: the producer gives its registers to the consumers; the
+  // block's 65536 / BLOCKS_PER_SM registers are shared out exactly
+  static constexpr int CONSUMER_REGS = NC == 1 ? 232 : 240;
+  static constexpr int NB = D / 64;          // 64-column boxes per row
+  static constexpr int QBOX = kWgRows * 128; // bytes of one box of Q rows
+  static constexpr int KBOX = kBkW * 128;    // bytes of one box of keys
+  static constexpr int Q = NB * QBOX;        // one consumer's Q tile
+  static constexpr int KV = NB * KBOX;       // one K (or V) stage
+  static constexpr int BARS = 1 + 3 * kStagesW;
+  // the tiles, the barriers, and 1024 bytes to align the base (the 128B
+  // swizzle's pattern repeats every 1024 bytes)
+  static constexpr int BYTES = NC * Q + 2 * kStagesW * KV + 8 * BARS + 1024;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Issues sc[64 x 128] = Q[64 x D] · K[128 x D]ᵀ as one commit group (the
+// caller waits): q and k at their first box (K-major, SBO 1024 bytes = 8
+// rows); the k-th 16-column step starts 32·k bytes into its box.
+template <int D>
+__device__ __forceinline__ void qk_issue(float (&sc)[64], const void* q,
+                                         const void* k) {
+  using L = WgSmem<D>;
+  const uint64_t dq = sm90::desc_sw128(q, 16, 1024);
+  const uint64_t dk = sm90::desc_sw128(k, 16, 1024);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    sm90::wgmma_ss_n128(sc,
+                        sm90::desc_add(dq, (kk / 4) * L::QBOX + (kk % 4) * 32),
+                        sm90::desc_add(dk, (kk / 4) * L::KBOX + (kk % 4) * 32),
+                        kk > 0);
+  sm90::wgmma_commit();
+}
+
+// Issues o[64 x D] += P[64 x 128] · V[128 x D] as one commit group: P as
+// register A operands (s_to_a), V MN-major (LBO: the second 64-column
+// box; SBO 1024 bytes = 8 keys); the k-th step of 16 keys starts 2048·k
+// bytes in.
+template <int D>
+__device__ __forceinline__ void pv_issue(float (&o)[D / 2],
+                                         const uint32_t (&p)[kBkW / 16][4],
+                                         const void* v) {
+  const uint64_t dv = sm90::desc_sw128(v, WgSmem<D>::KBOX, 1024);
+  sm90::fence_regs(o);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBkW / 16; ++kk) {
+    if constexpr (D == 128)
+      sm90::wgmma_rs_n128(o, p[kk], sm90::desc_add(dv, kk * 2048), 1);
+    else
+      sm90::wgmma_rs_n64(o, p[kk], sm90::desc_add(dv, kk * 2048), 1);
+  }
+  sm90::wgmma_commit();
+}
+
+// The online softmax of one S tile in its accumulator registers (rows
+// row0 and row0 + 8 of the thread, keys k0..): masks on an edge tile,
+// updates m and l, turns sc into P (f32) and gives O's rescale per row.
+// Scores stay unscaled (the scale is positive, so maxima agree): p =
+// 2^(x·scale·log2 e - m·scale·log2 e), one FFMA and one ex2.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             const Shape& s, int row0, int k0,
+                                             bool edge, float sl2, int t) {
+  if (edge) {
+#pragma unroll
+    for (int n = 0; n < kBkW / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (masked(s, row0 + (e >> 1) * 8, k0 + n * 8 + 2 * t + (e & 1)))
+          sc[4 * n + e] = kNegInf;
+  }
+  float mx[2][4];  // four independent chains per row
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mx[i / 4][i % 4] = kNegInf;
+#pragma unroll
+  for (int n = 0; n < kBkW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      mx[e >> 1][(n & 1) * 2 + (e & 1)] =
+          fmaxf(mx[e >> 1][(n & 1) * 2 + (e & 1)], sc[4 * n + e]);
+  float ms[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float tile_max =
+        fmaxf(fmaxf(mx[i][0], mx[i][1]), fmaxf(mx[i][2], mx[i][3]));
+    const float nm = fmaxf(m[i], quad_max(tile_max));
+    corr[i] = exp2_approx((m[i] - nm) * sl2);
+    m[i] = nm;
+    ms[i] = nm * sl2;
+  }
+  float rs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int n = 0; n < kBkW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = sc[4 * n + e];
+      const float p = x <= kDead ? 0.f : exp2_approx(fmaf(x, sl2, -ms[e >> 1]));
+      sc[4 * n + e] = p;
+      rs[e >> 1][n & 1] += p;
+    }
+  // per-thread partial row sums; corr is uniform across the quad, so the
+  // quad's sum at the end is the row's l
+  l[0] = l[0] * corr[0] + (rs[0][0] + rs[0][1]);
+  l[1] = l[1] * corr[1] + (rs[1][0] + rs[1][1]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WgSmem<D>::THREADS,
+                                  WgSmem<D>::BLOCKS_PER_SM)
+    k2_forward_wgmma(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     bf16* __restrict__ out, float* __restrict__ lse,
+                     Shape s) {
+  using L = WgSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);   // [consumer][box][64][64]
+  unsigned char* Ks = Qs + L::NC * L::Q;  // [stage][box][128][64]
+  unsigned char* Vs = Ks + kStagesW * L::KV;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(Vs + kStagesW * L::KV);
+  uint64_t* full_k = full_q + 1;             // [stage]: K landed
+  uint64_t* full_v = full_k + kStagesW;      // [stage]: V landed
+  uint64_t* empty = full_v + kStagesW;       // [stage]: both consumers done
+
+  // causal: the last query tiles have the most live keys; start them first
+  const int qt = s.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int b = blockIdx.y / s.H, h = blockIdx.y % s.H, kvh = h / s.rep;
+  const int q0 = qt * L::ROWS;
+  const int n_live = live_k_tiles(s, min(q0 + L::ROWS, s.T) - 1, kBkW);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(full_q, 1);
+    for (int i = 0; i < kStagesW; ++i) {
+      sm90::mbar_init(full_k + i, 1);
+      sm90::mbar_init(full_v + i, 1);
+      sm90::mbar_init(empty + i, L::NC);  // one arrival a warpgroup
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread keeps the ring full; the warpgroup gives its
+    // registers to the consumers
+    sm90::setmaxnreg_dec<24>();
+    if (tid == 0) {
+      sm90::mbar_arrive_expect_tx(full_q, L::NC * L::Q);
+      for (int c = 0; c < L::NC; ++c)
+        for (int nb = 0; nb < L::NB; ++nb)
+          sm90::tma_load_4d(Qs + c * L::Q + nb * L::QBOX, &tq, full_q, nb * 64,
+                            h, q0 + c * kWgRows, b);
+      int stage = 0, phase = 1;  // a fresh barrier's parity-1 phase is done
+      for (int j = 0; j < n_live; ++j) {
+        sm90::mbar_wait(empty + stage, phase);
+        sm90::mbar_arrive_expect_tx(full_k + stage, L::KV);
+        for (int nb = 0; nb < L::NB; ++nb)
+          sm90::tma_load_4d(Ks + stage * L::KV + nb * L::KBOX, &tk,
+                            full_k + stage, nb * 64, kvh, j * kBkW, b);
+        sm90::mbar_arrive_expect_tx(full_v + stage, L::KV);
+        for (int nb = 0; nb < L::NB; ++nb)
+          sm90::tma_load_4d(Vs + stage * L::KV + nb * L::KBOX, &tv,
+                            full_v + stage, nb * 64, kvh, j * kBkW, b);
+        if (++stage == kStagesW) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<L::CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + c * kWgRows;      // this warpgroup's first row
+    const int row0 = r0 + warp * 16 + g;  // this thread's rows: +0, +8
+    // this warpgroup's own live tiles (at most the block's)
+    const int my_live = live_k_tiles(s, min(r0 + kWgRows, s.T) - 1, kBkW);
+    const unsigned char* qs = Qs + c * L::Q;
+    const float sl2 = s.scale * 1.4426950408889634f;  // scale · log2(e)
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    sm90::mbar_wait(full_q, 0);
+
+    // A tile is an edge tile when it may hold a masked score of this
+    // warpgroup's rows.  The two consumers interleave on the SM: while one
+    // runs its softmax, the other's products keep the tensor cores busy.
+    float sc[64], corr[2];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    int stage = 0, phase = 0;
+    for (int j = 0; j < n_live; ++j) {
+      sm90::mbar_wait(full_k + stage, phase);
+      if (j < my_live) {
+        const int k0 = j * kBkW;
+        const bool edge = k0 + kBkW > s.S ||
+                          (s.causal && s.kv_off + k0 + kBkW - 1 > s.q_off + r0);
+        qk_issue<D>(sc, qs, Ks + stage * L::KV);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(sc);
+        softmax_tile(sc, m, l, corr, s, row0, k0, edge, sl2, t);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[4 * n + e] *= corr[e >> 1];
+        uint32_t pf[kBkW / 16][4];
+        sm90::s_to_a<kBkW / 8>(pf, sc);  // P in v's type (bf16)
+        sm90::mbar_wait(full_v + stage, phase);
+        pv_issue<D>(o, pf, Vs + stage * L::KV);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(o);
+      }
+      // past this warpgroup's causal edge the tile is the other
+      // consumer's: the stage goes back once it has landed.  Either way
+      // the warpgroup's products that read the stage have completed.
+      if (tid == 0) sm90::mbar_arrive(empty + stage);
+      if (++stage == kStagesW) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float li = quad_sum(l[i]);
+      const int row = row0 + i * 8;
+      if (row >= s.T) continue;
+      const float safe = fmaxf(li, 1e-30f);
+      bf16* og = out + (((long long)b * s.T + row) * s.H + h) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(og + n * 8 + 2 * t) =
+            __floats2bfloat162_rn(o[4 * n + 2 * i] / safe,
+                                  o[4 * n + 2 * i + 1] / safe);
+      if (t == 0)
+        lse[((long long)b * s.H + h) * s.T + row] =
+            li > 0.f ? m[i] * s.scale + logf(safe) : kNegInf;
+    }
+  }
+}
+
+// The three tensor maps of a K2 launch: q as (D, H, T, B) in boxes of
+// (64, 1, 64, 1), k and v as (D, KV, S, B) in boxes of (64, 1, 128, 1).
+int k2_maps(CUtensorMap (&maps)[3], const void* q, const void* k,
+            const void* v, const Shape& s, int D) {
+  const uint64_t e = 2;  // bytes of a bf16
+  const uint64_t qd[4] = {(uint64_t)D, (uint64_t)s.H, (uint64_t)s.T,
+                          (uint64_t)s.B};
+  const uint64_t qst[3] = {D * e, s.H * D * e, (uint64_t)s.T * s.H * D * e};
+  const uint64_t kd[4] = {(uint64_t)D, (uint64_t)s.KV, (uint64_t)s.S,
+                          (uint64_t)s.B};
+  const uint64_t kst[3] = {D * e, s.KV * D * e,
+                           (uint64_t)s.S * s.KV * D * e};
+  const uint32_t qbox[4] = {64, 1, kWgRows, 1}, kbox[4] = {64, 1, kBkW, 1};
+  int err = sm90::encode_bf16_4d(&maps[0], q, qd, qst, qbox);
+  if (!err) err = sm90::encode_bf16_4d(&maps[1], k, kd, kst, kbox);
+  if (!err) err = sm90::encode_bf16_4d(&maps[2], v, kd, kst, kbox);
+  return err;
 }
 
 // ---------------------------------------------------------------------------
@@ -606,13 +934,25 @@ template <int D>
 int launch_forward(const void* q, const void* k, const void* v, void* out,
                    void* lse, const Shape& s, int dtype, cudaStream_t st) {
   if (dtype == kBF16) {
-    const int err = set_smem(k2_forward_tc<D>, Smem<D>::FWD);
-    if (err) return err;
-    dim3 grid((s.T + kBq - 1) / kBq, s.B * s.H);
-    k2_forward_tc<D><<<grid, kThreadsTc, Smem<D>::FWD, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out),
-        static_cast<float*>(lse), s);
+    if constexpr (D >= 64) {
+      CUtensorMap maps[3];
+      int err = k2_maps(maps, q, k, v, s, D);
+      if (!err) err = set_smem(k2_forward_wgmma<D>, WgSmem<D>::BYTES);
+      if (err) return err;
+      using L = WgSmem<D>;
+      dim3 grid((s.T + L::ROWS - 1) / L::ROWS, s.B * s.H);
+      k2_forward_wgmma<D><<<grid, L::THREADS, L::BYTES, st>>>(
+          maps[0], maps[1], maps[2], static_cast<bf16*>(out),
+          static_cast<float*>(lse), s);
+    } else {
+      const int err = set_smem(k2_forward_tc<D>, Smem<D>::FWD);
+      if (err) return err;
+      dim3 grid((s.T + kBq - 1) / kBq, s.B * s.H);
+      k2_forward_tc<D><<<grid, kThreadsTc, Smem<D>::FWD, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<bf16*>(out),
+          static_cast<float*>(lse), s);
+    }
   } else {
     dim3 grid((s.T + kThreadsFma - 1) / kThreadsFma, s.B * s.H);
     k2_forward_fma<D><<<grid, kThreadsFma, 0, st>>>(

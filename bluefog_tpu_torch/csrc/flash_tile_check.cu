@@ -1,0 +1,106 @@
+// The single-tile check of K2's wgmma layouts, for the cuda tests only
+// (tests/test_torch_cuda_kernels.py::test_sm90_tile_product_and_repack_on_
+// card builds and loads it; chip_smoke.py and the port's wrappers never
+// do).  It includes flash_attention.cu, so it runs the forward's own TMA
+// maps, descriptors, product issues and S -> P re-pack (k2_maps,
+// qk_issue, pv_issue, sm90::s_to_a) on one tile, against torch.matmul.
+// cuda_build.py hashes the included source with this one.
+//
+//   int bf_flash_tile_check(a, b, v, s_out, o_out, D, stream)
+
+#include "flash_attention.cu"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// One consumer warpgroup, one thread issuing the loads.  a [64, D],
+// b [128, D] and v [128, D] bf16 (row-major, contiguous); writes
+// s = a·bᵀ [64, 128] f32 and o = bf16(s)·v [64, D] f32.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(128)
+    k2_tile_check(const __grid_constant__ CUtensorMap ta,
+                  const __grid_constant__ CUtensorMap tb,
+                  const __grid_constant__ CUtensorMap tv,
+                  float* __restrict__ s_out, float* __restrict__ o_out) {
+  using L = WgSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* As = align1024(smem_raw);
+  unsigned char* Bs = As + L::Q;
+  unsigned char* Vs = Bs + L::KV;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(Vs + L::KV);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  if (tid == 0) {
+    sm90::mbar_init(bar, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    sm90::mbar_arrive_expect_tx(bar, L::Q + 2 * L::KV);
+    for (int nb = 0; nb < L::NB; ++nb) {
+      sm90::tma_load_4d(As + nb * L::QBOX, &ta, bar, nb * 64, 0, 0, 0);
+      sm90::tma_load_4d(Bs + nb * L::KBOX, &tb, bar, nb * 64, 0, 0, 0);
+      sm90::tma_load_4d(Vs + nb * L::KBOX, &tv, bar, nb * 64, 0, 0, 0);
+    }
+  }
+  sm90::mbar_wait(bar, 0);
+  float sc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+  qk_issue<D>(sc, As, Bs);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sc);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  uint32_t pf[kBkW / 16][4];
+  sm90::s_to_a<kBkW / 8>(pf, sc);
+  pv_issue<D>(o, pf, Vs);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(o);
+  const int row = warp * 16 + g;
+#pragma unroll
+  for (int n = 0; n < kBkW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s_out[(row + (e >> 1) * 8) * kBkW + n * 8 + 2 * t + (e & 1)] =
+          sc[4 * n + e];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o_out[(row + (e >> 1) * 8) * D + n * 8 + 2 * t + (e & 1)] = o[4 * n + e];
+}
+
+}  // namespace
+
+// a [64, D], b [128, D], v [128, D] bf16; s [64, 128] = a·bᵀ and
+// o [64, D] = bf16(s)·v, both f32.  D is 64 or 128.
+extern "C" int bf_flash_tile_check(const void* a, const void* b,
+                                   const void* v, void* s_out, void* o_out,
+                                   int D, void* stream) {
+  if (D != 64 && D != 128) return cudaErrorInvalidValue;
+  // a as the q of one head (T = 64), b and v as one kv head (S = 128)
+  const Shape s = make_shape(1, kWgRows, kBkW, 1, 1, 0, 0, 0, 1.f);
+  CUtensorMap maps[3];
+  int err = k2_maps(maps, a, b, v, s, D);
+  if (err) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* so = static_cast<float*>(s_out);
+  float* oo = static_cast<float*>(o_out);
+  if (D == 64) {
+    constexpr int bytes = WgSmem<64>::Q + 2 * WgSmem<64>::KV + 8 + 1024;
+    err = set_smem(k2_tile_check<64>, bytes);
+    if (err) return err;
+    k2_tile_check<64><<<1, 128, bytes, st>>>(maps[0], maps[1], maps[2], so,
+                                             oo);
+  } else {
+    constexpr int bytes = WgSmem<128>::Q + 2 * WgSmem<128>::KV + 8 + 1024;
+    err = set_smem(k2_tile_check<128>, bytes);
+    if (err) return err;
+    k2_tile_check<128><<<1, 128, bytes, st>>>(maps[0], maps[1], maps[2], so,
+                                              oo);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -4,8 +4,8 @@ Every kernel of the port is a ``csrc/<name>.cu`` file with a plain C
 interface.  :func:`load` compiles it at first use into a shared library
 under ``build/torch_kernels/`` at the root of the checkout (a directory
 ``.gitignore`` lists) and loads it with ``ctypes``.  The library's file
-name carries a hash of the source, the shared headers of ``csrc/``
-(``*.cuh``) and the compiler flags, so an edited source or header builds
+name carries a hash of the source, the ``csrc/`` sources it includes,
+the shared headers of ``csrc/`` (``*.cuh``) and the compiler flags, so an edited source or header builds
 anew and an unchanged one is loaded as it is.  The build
 uses only the sources in this package and the CUDA toolkit's headers.
 
@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -53,9 +54,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    # the source, every shared header of csrc/ and the flags
-    src = (_CSRC / f"{name}.cu").read_bytes() + b"".join(
-        p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
+    # the source, the csrc/ sources it includes (a test-only source may
+    # include a kernel's), every shared header of csrc/ and the flags
+    src = (_CSRC / f"{name}.cu").read_bytes()
+    for inc in re.findall(rb'^#include "(\w+\.cu)"', src, re.M):
+        src += (_CSRC / inc.decode()).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

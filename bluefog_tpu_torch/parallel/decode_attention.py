@@ -13,6 +13,13 @@ Pallas kernel ``_decode_kernel`` becomes the hand-written CUDA kernel in
   ``block_s`` tiling for the caller to choose and no cache length the
   kernel refuses (the TPU kernel needed a block divisor of the cache
   length in [8, 512]).  ``block_s``/``interpret`` are not taken.
+* The card splits each row's positions across blocks (flash-decoding):
+  :func:`split_len` positions per split, a pure function of the cache
+  length, ``B * KV`` and the card's SM count; each block leaves an f32
+  partial (m, l, acc) in scratch this wrapper allocates, and a merge
+  kernel combines a row's live partials in split order.
+  :func:`decode_attention_split_plain` is that arithmetic in plain torch
+  (the tests' emulation; the main path never calls it).
 * Where the tensors lie decides the path: on a CUDA tensor the wrapper
   launches the kernel or raises, on a CPU tensor it runs
   :func:`decode_attention_plain`.  Nothing falls back from the card to
@@ -30,16 +37,29 @@ from typing import Union
 import torch
 
 __all__ = ["decode_attention", "decode_attention_int8",
-           "decode_attention_plain", "reset_launch_counts", "HEAD_DIMS",
-           "MAX_REP"]
+           "decode_attention_plain", "decode_attention_split_plain",
+           "split_len", "reset_launch_counts", "HEAD_DIMS", "MAX_REP"]
 
 _NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)   # head dims the kernel is compiled for
 MAX_REP = 16                    # query heads per kv head, at most
 # dtype codes of csrc/decode_attention.cu
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+SPLIT_UNIT = 32    # a split of csrc/decode_attention.cu: a multiple of 32
+BLOCKS_PER_SM = 4  # the split's aim at a full-length cache
 
 _fn = None  # the bound bf_decode_attention, bound at first launch
+_sms = {}   # SM count by device index
+
+
+def split_len(seq_len: int, pairs: int, sms: int) -> int:
+    """Cache positions per split of the card's kernel: enough splits that
+    ``pairs`` (= B * KV) rows at full length give ``BLOCKS_PER_SM`` blocks
+    on each of ``sms`` SMs, each split a multiple of ``SPLIT_UNIT``
+    positions."""
+    units = -(-seq_len // SPLIT_UNIT)
+    splits = max(1, min(-(-BLOCKS_PER_SM * sms // pairs), units))
+    return -(-units // splits) * SPLIT_UNIT
 
 
 def _as_index(idx, batch: int, device) -> torch.Tensor:
@@ -90,13 +110,75 @@ def decode_attention_plain(q, k_all, v_all, idx, k_scale=None,
     return out.reshape(b, 1, n_q, d).to(q.dtype)
 
 
+def decode_attention_split_plain(q, k_all, v_all, idx, split: int,
+                                 k_scale=None, v_scale=None,
+                                 n_live=None):
+    """The card kernel's split-and-merge arithmetic in plain torch (f32),
+    for the tests: positions ``[j * split, (j + 1) * split)`` up to
+    ``idx[b]`` (clamped to S - 1) give split j's unnormalised partial
+    (m_j, l_j, acc_j), where acc_j carries the int8 value scale and l_j
+    does not; the live partials are merged in split order, ``out = sum_j
+    e^(m_j - M) acc_j / max(sum_j e^(m_j - M) l_j, 1e-30)``.  ``n_live``
+    ([B] tensor) overrides the number of splits merged per row (a planted
+    fault: one short drops the last live split).  Same arguments and
+    result as :func:`decode_attention_plain`."""
+    b, t, n_q, d = q.shape
+    if t != 1:
+        raise ValueError(f"decode attention serves one token, got T={t}")
+    n_kv, s = k_all.shape[1], k_all.shape[2]
+    rep = n_q // n_kv
+    idx = _as_index(idx, b, q.device).long().clamp(max=s - 1)
+    live = torch.where(idx < 0, 0, idx // split + 1)
+    if n_live is not None:
+        live = torch.as_tensor(n_live, device=q.device).long()
+    q4 = q.reshape(b, n_kv, rep, d).float()
+    scores = torch.einsum("bkrd,bksd->bkrs", q4,
+                          k_all.float()) * (1.0 / d ** 0.5)
+    if k_scale is not None:
+        scores = scores * k_scale[:, :, None, :]
+    pos = torch.arange(s, device=q.device)
+    n_splits = -(-s // split)
+    m, l, acc = [], [], []
+    for j in range(n_splits):
+        cols = slice(j * split, min((j + 1) * split, s))
+        valid = (pos[cols][None, :] <= idx[:, None])[:, None, None, :]
+        sj = torch.where(valid, scores[..., cols], _NEG_INF)
+        mj = sj.amax(dim=-1, keepdim=True)                # [B, KV, rep, 1]
+        pj = torch.where(valid, torch.exp(sj - mj), 0.0)
+        l.append(pj.sum(dim=-1, keepdim=True))
+        if v_scale is not None:
+            pj = pj * v_scale[:, :, None, cols]
+        acc.append(torch.einsum("bkrs,bksd->bkrd", pj,
+                                v_all[:, :, cols].float()))
+        m.append(mj)
+    m, l, acc = (torch.stack(x) for x in (m, l, acc))    # [n_splits, ...]
+    keep = (torch.arange(n_splits, device=q.device)[:, None]
+            < live[None, :])[:, :, None, None, None]      # [n_splits, B, ...]
+    mx = torch.where(keep, m, _NEG_INF).amax(dim=0)
+    w = torch.where(keep, torch.exp(m - mx), 0.0)
+    num = (w * acc).sum(dim=0)
+    den = (w * l).sum(dim=0)
+    out = num / den.clamp_min(1e-30)
+    return out.reshape(b, 1, n_q, d).to(q.dtype)
+
+
+def _sm_count(dev) -> int:
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    n = _sms.get(index)
+    if n is None:
+        n = _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
+
+
 def _bind():
     global _fn
     if _fn is None:
         from bluefog_tpu_torch import cuda_build
 
         fn = cuda_build.load("decode_attention").bf_decode_attention
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -146,14 +228,19 @@ def _launch(q, k_all, v_all, k_scale, v_scale, idx) -> torch.Tensor:
         _check("v_scale", v_scale, torch.float32, (b, n_kv, s), dev)
     idx = _as_index(idx, b, dev)
     out = torch.empty_like(q)
+    rep = n_q // n_kv
+    split = split_len(s, b * n_kv, _sm_count(dev))
+    # the splits' f32 partials: acc [rep, D] and (m, l) per row
+    part = torch.empty(b * n_kv * -(-s // split) * rep * (d + 2),
+                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _bind()(q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
                       k_scale.data_ptr() if quantized else None,
                       v_scale.data_ptr() if quantized else None,
-                      idx.data_ptr(), out.data_ptr(), b, n_kv, s,
-                      n_q // n_kv, d, _CODES[q.dtype], _CODES[kv_dtype],
-                      stream)
+                      idx.data_ptr(), out.data_ptr(), part.data_ptr(), b,
+                      n_kv, s, rep, d, split, _CODES[q.dtype],
+                      _CODES[kv_dtype], stream)
     if err != 0:
         raise RuntimeError(f"decode attention kernel launch failed with "
                            f"code {err}")

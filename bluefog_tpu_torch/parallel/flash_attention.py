@@ -17,8 +17,9 @@ f32 outside the kernels, then launches K3a and K3b.
 Deviations from the JAX package:
 
 * ``block_q``/``block_k`` are accepted for signature parity only.  The
-  card's tiles are the kernels' own (64 query rows by 64 keys; 64 keys by
-  32 query rows for dK/dV), a pure function of the head dim and the
+  card's tiles are the kernels' own (the bf16 forward at D = 64 and 128:
+  128 query rows by 128 keys; otherwise 64 query rows by 64 keys; 64 keys
+  by 32 query rows for dK/dV), a pure function of the head dim and the
   card, and tails are masked, so any T works (the TPU kernels needed
   block divisors of T).  ``interpret`` is not taken.
 * Where the tensors lie decides the path: on a CUDA tensor each wrapper
@@ -243,7 +244,11 @@ def flash_forward(q, k, v, causal: bool = True, scale: Optional[float] = None,
     """K2: ``(out, lse)`` of q ``[B, T, H, D]`` over k/v ``[B, S, KV, D]``
     (all one dtype).  A CUDA tensor launches the kernel (counted in
     ``flash_forward.launches``) or raises; a CPU tensor runs
-    :func:`flash_forward_plain`."""
+    :func:`flash_forward_plain`.  bf16 at D = 64 and 128 runs the TMA +
+    wgmma kernel; bf16 at D = 16 and 32 the mma.sync one, whose launches
+    ``flash_forward.launches_mma_sync`` also counts.  The operands'
+    checks (contiguous, 16-byte aligned, so every row stride is a
+    multiple of 16 bytes) are what the tensor maps need."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if not _on_card(q):
         return flash_forward_plain(q, k, v, causal, scale, q_offset,
@@ -255,6 +260,8 @@ def flash_forward(q, k, v, causal: bool = True, scale: Optional[float] = None,
     _call("bf_flash_forward", (q, k, v, out, lse), dims, causal, scale,
           q_offset, kv_offset)
     flash_forward.launches += 1
+    if q.dtype == torch.bfloat16 and dims[-1] < 64:
+        flash_forward.launches_mma_sync += 1
     return out, lse
 
 
@@ -296,6 +303,7 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool = True,
 
 
 flash_forward.launches = 0
+flash_forward.launches_mma_sync = 0
 flash_backward_dq.launches = 0
 flash_backward_dkv.launches = 0
 
@@ -303,6 +311,7 @@ flash_backward_dkv.launches = 0
 def reset_launch_counts() -> None:
     """Set the three kernel wrappers' launch counts to 0."""
     flash_forward.launches = 0
+    flash_forward.launches_mma_sync = 0
     flash_backward_dq.launches = 0
     flash_backward_dkv.launches = 0
 

@@ -4,8 +4,9 @@ fused splash backward K5) against their plain versions, shared by
 hold the kernels to one bound.
 
 * :data:`CASES`: the shapes K2, K3a and K3b are checked at, the Llama
-  training shape first, the ViT-B/16 shape second; :data:`SPLASH_CASES`
-  those of K5 (causal, no offsets), its two training shapes first.
+  training shape first, the ViT-B/16 shape second, Llama-1B's third;
+  :data:`SPLASH_CASES` those of K5 (causal, no offsets), its two
+  training shapes first.
 * :func:`term_sizes`: for each entry of out, dQ, dK and dV, the sum of
   the absolute values of the terms whose bf16 rounding may differ
   between a kernel and its plain version.
@@ -38,6 +39,7 @@ __all__ = ["CASES", "SPLASH_CASES", "term_sizes", "mismatch",
 CASES = [
     (4, 2048, 32, 8, 128, torch.bfloat16, True, 0, 0),  # Llama-3.1-8B
     (128, 200, 12, 12, 64, torch.bfloat16, False, 0, 0),  # ViT-B/16 b128
+    (4, 2048, 32, 8, 64, torch.bfloat16, True, 0, 0),   # Llama-1B
     (2, 100, 4, 4, 16, torch.float32, True, 0, 0),
     (2, 1000, 8, 2, 64, torch.float32, True, 0, 0),
     (1, 100, 4, 1, 64, torch.bfloat16, True, 0, 0),

@@ -11,12 +11,18 @@ Phases (any failure raises and exits non-zero, printing no result):
    capability; build every kernel from the sources in the checkout into
    build/torch_kernels/ (one nvcc per source, all started together).
 2. Kernels against plain (CUDA events, median of 25 runs, each after a
-   write of 128 MB that evicts the 50 MB L2; the bound is the larger of
-   the bytes the call must move over the card's memory rate and its
+   write of 128 MB that evicts the 50 MB L2 and a ~0.1 ms device spin
+   that hides the host's launch time; the bound is the larger of the
+   bytes the call must move over the card's memory rate and its
    operations over the peak rate of its input type):
-   a. K4 decode attention, bf16 and int8 cache, at the serving shapes of
-      Llama-3.1-8B (B=8, KV=8, rep=4, D=128, S 2048 and 8192, per-row
-      positions including 0 and S-1) and one small odd f32 shape;
+   a. K4 split-KV decode attention, bf16 and int8 cache, at the serving
+      shapes of Llama-3.1-8B (B=8, KV=8, rep=4, D=128, S 2048 and 8192,
+      positions drawn per row from --seed with rows at 0 and S-1, and a
+      second set with rows either side of the split boundaries, checked
+      only) and one small odd f32 shape, bit-equal across two runs, SDPA
+      beside it on the drawn positions (at S=2048 also timed without the
+      spin, the host's launch gap included); at S=2048 the tolerance
+      rejects a planted merge that drops each row's last live split;
    b. K1 1x1-conv backward at the 7 distinct ResNet-50 shapes of batch
       128 in bf16 and two small f32 shapes: max |err| of dx and dw, dw
       bit-equal across two runs, kernel, plain and bound ms, and the two
@@ -27,7 +33,9 @@ Phases (any failure raises and exits non-zero, printing no result):
    lengths 16-1500, 32-128 new tokens, half greedy and half at
    temperature 0.8; then 4 requests with the int8 K/V cache.  Every
    request must complete its budget with finite logits, and the kernel's
-   launch count in the run must equal n_layers x decode steps.
+   launch count in the run must equal n_layers x decode steps.  A
+   torch.profiler window of 10 decode steps gives the device-busy share
+   and K4's ms per step.
 4. Reference (serving): the tiny f32 config served on the card (kernel)
    and on the CPU (plain version) emits the same greedy tokens, both
    cache layouts.
@@ -47,12 +55,14 @@ Phases (any failure raises and exits non-zero, printing no result):
    distance under atc is below that of comm_mode="none".
    c. K2, K3a, K3b flash attention forward, dQ and dK/dV at the Llama
       training shape (B=4, T=2048, H=32, KV=8, D=128, causal, bf16), the
-      ViT-B/16 shape (B=128, T=200, H=12, D=64, non-causal, bf16) and at
-      small odd shapes (f32; D 16 and 64; T 100 and 1000; rep 1, 2,
-      4; non-causal; every row masked by kv_offset=64; q_offset=128):
-      max |err| per output, dQ/dK/dV bit-equal across two runs; at the
-      training shape kernel, plain, bound and library ms (SDPA forward
-      for K2, SDPA's backward for K3a + K3b together).
+      ViT-B/16 shape (B=128, T=200, H=12, D=64, non-causal, bf16), the
+      Llama-1B shape (D=64) and at small odd shapes (f32; D 16 and 64; T
+      100 and 1000; rep 1, 2, 4; non-causal; every row masked by
+      kv_offset=64; q_offset=128): max |err| per output, every output
+      bit-equal across two runs; K2 (the wgmma kernel in bf16 at D 64 and
+      128) and SDPA's forward timed at every shape; at the training shape
+      kernel, plain, bound and library ms (SDPA forward for K2, SDPA's
+      backward for K3a + K3b together) and three planted faults.
    d. K5, splash attention's fused one-pass backward, at the Llama-1B
       training shape (B=4, T=2048, H=32, KV=8, D=64, causal, bf16), at
       8B width (D=128) and at small odd shapes (f32 D 16 and 64, bf16
@@ -145,14 +155,20 @@ def mem_rate(name: str) -> float:
     raise RuntimeError(f"no memory rate known for {name!r}")
 
 
-def time_ms(fn, flush: torch.Tensor, reps: int = 25) -> float:
+def time_ms(fn, flush: torch.Tensor, reps: int = 25,
+            spin: bool = True) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs after two
-    warm-up runs, each run preceded by a write of ``flush``."""
+    warm-up runs, each run preceded by a write of ``flush`` and (``spin``)
+    a ~0.1 ms device-side spin, so that the host's time to launch ``fn``
+    overlaps device work and the events time the device alone.  Without
+    the spin a small kernel's time includes the host's launch gap."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(200_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -194,13 +210,32 @@ def _case_bytes_ops(q, k, idx, quantized):
     return nbytes, ops
 
 
+def _ratio_to_tol(got, want, tol):
+    """Largest |got - want| over allclose's bound atol + rtol * |want|
+    (atol = rtol = tol): at most 1 passes."""
+    want = want.float()
+    return ((got.float() - want).abs() / (tol + tol * want.abs())).max().item()
+
+
 def phase_kernels(name, seed):
+    """K4 against its plain version at the serving shapes (B=8, KV=8,
+    rep=4, D=128, S 2048 and 8192, bf16 and int8 caches) and a small odd
+    f32 shape, bit-equal across two runs, on two sets of positions: one
+    drawn per row from ``seed`` with rows at 0 and S-1 (the timed set),
+    and at B=8 the same with rows one before, at and one after the split
+    boundaries of the kernel's split (decode_attention.split_len),
+    checked only.  Kernel, plain, SDPA and bound ms on the drawn set; at
+    the serving shape the kernel and SDPA also without the device spin
+    (the host's launch gap included), and the tolerance must reject a
+    planted fault: the merge dropping each row's last live split
+    (decode_attention_split_plain with one split fewer)."""
     from bluefog_tpu_torch.models.llama import _amax_quantize
     from bluefog_tpu_torch.parallel import decode_attention as da
 
     rate = mem_rate(name)
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     g = torch.Generator("cuda").manual_seed(seed)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [(8, 8, 4, 2048, 128, torch.bfloat16),
              (8, 8, 4, 8192, 128, torch.bfloat16),
              (3, 2, 1, 40, 16, torch.float32)]
@@ -210,38 +245,73 @@ def phase_kernels(name, seed):
                         dtype=dt)
         k = torch.randn(b, n_kv, s, d, generator=g, device="cuda", dtype=dt)
         v = torch.randn(b, n_kv, s, d, generator=g, device="cuda", dtype=dt)
+        split = da.split_len(s, b * n_kv, sms)
         idx = torch.randint(0, s, (b,), generator=g, device="cuda",
                             dtype=torch.int32)
         idx[0], idx[1] = 0, s - 1
+        checked = [idx]
+        if b == 8:   # around the split boundaries
+            edges = idx.clone()
+            edges[2:6] = torch.tensor([split - 1, split, split + 1,
+                                       3 * split - 1], dtype=torch.int32)
+            checked.append(edges)
         kq, ks = _amax_quantize(k)
         vq, vs = _amax_quantize(v)
         ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
         tol = 1.6e-2 if dt == torch.bfloat16 else 1e-5
+        serving = (b, s, d) == (8, 2048, 128)
         for quantized in (False, True):
             if quantized:
                 kname = "decode_attention_int8"
-                args = (q, kq, ks, vq, vs, idx)
-                run = lambda: da.decode_attention_int8(*args)  # noqa: E731
-                plain = lambda: da.decode_attention_plain(  # noqa: E731
-                    q, kq, vq, idx, ks, vs)
-                cache = kq
+                run = lambda ix: da.decode_attention_int8(  # noqa: E731
+                    q, kq, ks, vq, vs, ix)
+                kv, scales = (kq, vq), (ks, vs)
             else:
                 kname = "decode_attention"
-                run = lambda: da.decode_attention(q, k, v, idx)  # noqa
-                plain = lambda: da.decode_attention_plain(q, k, v, idx)  # noqa
-                cache = k
-            out = run()
-            torch.cuda.synchronize()
-            ref = plain()
-            err = (out.float() - ref.float()).abs().max().item()
-            if not torch.allclose(out.float(), ref.float(), atol=tol,
-                                  rtol=tol):
-                raise AssertionError(
-                    f"{kname} B={b} S={s} D={d} {dt}: max |err| {err} "
-                    f"beyond atol=rtol={tol}")
-            ms = time_ms(run, flush)
-            plain_ms = time_ms(plain, flush)
-            library_ms = None
+                run = lambda ix: da.decode_attention(q, k, v, ix)  # noqa
+                kv, scales = (k, v), ()
+            cache = kv[0]
+            plain = lambda ix: da.decode_attention_plain(  # noqa: E731
+                q, *kv, ix, *scales)
+            err = 0.0
+            for ix in checked:
+                out, again = run(ix), run(ix)
+                torch.cuda.synchronize()
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{kname} B={b} S={s} idx="
+                                         f"{ix.tolist()}: two runs differ")
+                ref = plain(ix)
+                e = (out.float() - ref.float()).abs().max().item()
+                ratio = _ratio_to_tol(out, ref, tol)
+                if ratio > 1:
+                    raise AssertionError(
+                        f"{kname} B={b} S={s} D={d} {dt} idx={ix.tolist()}:"
+                        f" max |err| {e} beyond atol=rtol={tol}")
+                err = max(err, e)
+                log(f"[kernel] {kname} B={b} KV={n_kv} rep={rep} S={s} "
+                    f"D={d} q={str(dt).split('.')[-1]} split={split} "
+                    f"idx={ix.tolist()}: max|err| {e:.3g} ({ratio:.3g} of "
+                    f"atol=rtol={tol}), bit-equal across two runs")
+            if serving:
+                # planted fault: a merge one split short in every row
+                ix = checked[-1]
+                ref = plain(ix)
+                live = ix.long().clamp(max=s - 1) // split + 1
+                bad = da.decode_attention_split_plain(
+                    q, *kv, ix, split, *scales, n_live=live - 1)
+                bad_ratio = _ratio_to_tol(bad, ref, tol)
+                multi = live > 1   # rows that keep some splits
+                multi_ratio = _ratio_to_tol(bad[multi], ref[multi], tol)
+                if bad_ratio <= 1 or multi_ratio <= 1:
+                    raise AssertionError(f"{kname}: the tolerance passes a "
+                                         "merge that drops the last split")
+                log(f"[kernel] planted K4 fault, the merge drops each row's "
+                    f"last live split ({kname}, split {split}): "
+                    f"{bad_ratio:.3g} times the tolerance, {multi_ratio:.3g}"
+                    f" over the rows with more than one split; rejected")
+            ms = time_ms(lambda: run(idx), flush)
+            plain_ms = time_ms(lambda: plain(idx), flush)
+            library_ms = sdpa = None
             if not quantized:
                 # yardstick only: one PyTorch call computing the same
                 # function (the port never calls it)
@@ -251,10 +321,10 @@ def phase_kernels(name, seed):
                 sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
                     qs, k, v, attn_mask=mask, enable_gqa=True)
                 lib = sdpa().reshape(b, 1, n_kv * rep, d)
-                lib_err = (lib.float() - ref.float()).abs().max().item()
-                if lib_err > 4 * tol + 1e-2:
+                lib_err = (lib.float() - plain(idx).float()).abs().max()
+                if lib_err.item() > 4 * tol + 1e-2:
                     raise AssertionError(f"library yardstick disagrees by "
-                                         f"{lib_err}")
+                                         f"{lib_err.item()}")
                 library_ms = time_ms(sdpa, flush)
             nbytes, ops = _case_bytes_ops(q, cache, idx, quantized)
             t_bytes = nbytes / rate * 1e3
@@ -263,14 +333,22 @@ def phase_kernels(name, seed):
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops
                        else "operations", library_ms=library_ms)
-            log(f"[kernel] {kname} B={b} KV={n_kv} rep={rep} S={s} D={d} "
-                f"q={str(dt).split('.')[-1]} idx={idx.tolist()}: max|err| "
-                f"{err:.3g} (tol {tol}), kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, library "
+            log(f"[kernel] {kname} B={b} S={s} D={d} idx={idx.tolist()} "
+                f"timed: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"library "
                 f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}"
+                f"{'' if library_ms is None else f' (kernel/library {ms / library_ms:.3f})'}"
                 f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
                 f"{nbytes / 1e6:.1f} MB)")
-            if (b, s, d) == (8, 2048, 128):  # the serving path's shape
+            if serving:
+                gap_ms = time_ms(lambda: run(idx), flush, spin=False)
+                gap = f"kernel {gap_ms:.4f} ms"
+                if sdpa is not None:
+                    lib_gap = time_ms(sdpa, flush, spin=False)
+                    gap += (f", library {lib_gap:.4f} ms (kernel/library "
+                            f"{gap_ms / lib_gap:.3f})")
+                log(f"[kernel] {kname} B={b} S={s} timed without the device"
+                    f" spin (the host's launch gap included): {gap}")
                 results[kname] = rec
     return results
 
@@ -356,10 +434,15 @@ def _profile_decode(model, cfg, reqs, steps=10):
         wall_us = (time.perf_counter() - t0) * 1e6
     events = _device_kernels(prof)
     busy = sum(e.self_device_time_total for e in events)
+    k4 = sum(e.self_device_time_total for e in events
+             if "decode_split_kernel" in e.key
+             or "decode_merge_kernel" in e.key)
     active = sum(r.state == "decode" for r in reqs)
     log(f"[profile] {steps} decode steps ({active} slots decoding): wall "
         f"{wall_us / steps / 1e3:.2f} ms/step, device busy "
-        f"{busy / steps / 1e3:.2f} ms/step ({100 * busy / wall_us:.1f}%)")
+        f"{busy / steps / 1e3:.2f} ms/step ({100 * busy / wall_us:.1f}%), "
+        f"K4 (split + merge) {k4 / steps / 1e3:.3f} ms/step "
+        f"({100 * k4 / max(busy, 1):.1f}% of device time)")
     for e in sorted(events, key=lambda e: e.self_device_time_total,
                     reverse=True)[:12]:
         log(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f} "
@@ -461,9 +544,11 @@ def phase_flash(name, seed):
     own bound (``flash_check.mismatch``: bf16 two ulps of the entry plus
     2**-7 of the sizes of the terms whose bf16 rounding may differ and
     2**-12 of the largest such size, f32 1e-5 of the largest); lse (f32)
-    within 1e-4 absolute plus 1e-5.  At the training shape the bound
-    must also reject three planted faults
-    (``flash_check.planted_faults``)."""
+    within 1e-4 absolute plus 1e-5; every output bit-equal across two
+    runs.  At the training shape the bound must also reject three planted
+    faults (``flash_check.planted_faults``).  K2 and SDPA's forward are
+    timed at every shape; K3a, K3b, the plain versions and SDPA's
+    backward at the training shape."""
     import torch.nn.functional as F
 
     from bluefog_tpu_torch.parallel import flash_attention as fa
@@ -484,6 +569,7 @@ def phase_flash(name, seed):
                 f"{str(dt).split('.')[-1]} causal={causal} q_offset={q_off}"
                 f" kv_offset={kv_off}")
         out, lse = fa.flash_forward(q, k, v, *args)
+        out2, lse2 = fa.flash_forward(q, k, v, *args)
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
         delta = delta.contiguous()
         grads = [fa.flash_backward_dq(q, k, v, do, lse, delta, *args),
@@ -493,6 +579,9 @@ def phase_flash(name, seed):
         torch.cuda.synchronize()
         if not all(torch.equal(a, b_) for a, b_ in zip(grads, again)):
             raise AssertionError(f"{what}: two backward runs differ")
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"{what}: two forward runs differ")
+        del out2, lse2
         ref_out, ref_lse = fa.flash_forward_plain(q, k, v, *args)
         ref = dict(zip(("out", "dq", "dk", "dv"),
                        (ref_out, *fa.flash_backward_plain(
@@ -516,7 +605,7 @@ def phase_flash(name, seed):
             + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
             + "; of its bound "
             + ", ".join(f"{k_} {r:.3g}" for k_, r in ratios.items())
-            + "; dQ, dK, dV bit-equal across two runs")
+            + "; out, lse, dQ, dK, dV bit-equal across two runs")
         if case == flash_check.CASES[0]:
             for fault, key, bad in flash_check.planted_faults(
                     q, k, v, do, lse, delta, ref):
@@ -528,11 +617,32 @@ def phase_flash(name, seed):
                     "times its bound, rejected")
                 del bad
         del ref, ref_out, ref_lse, again, terms
+        # K2 at every shape, SDPA's forward beside it (a yardstick of
+        # speed only: it takes no offsets)
+        pairs = _live_pairs(t, t, causal, q_off, kv_off)
+        k2_ms = time_ms(lambda: fa.flash_forward(q, k, v, *args), flush)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+        sdpa_ms = time_ms(sdpa, flush)
+        ops = 4 * b * h * pairs * d
+        es = q.element_size()
+        nbytes = 2 * b * t * (h + kv) * d * es + b * h * t * 4
+        bound = max(nbytes / rate, ops / PEAK_OPS[dt]) * 1e3
+        k2_kernel = ("wgmma" if dt == torch.bfloat16 and d >= 64 else
+                     "mma.sync" if dt == torch.bfloat16 else "f32 FMA")
+        plain = ""
+        if case in flash_check.CASES[:3]:   # the models' shapes
+            plain_ms = time_ms(
+                lambda: fa.flash_forward_plain(q, k, v, *args), flush, reps=5)
+            plain = f", plain {plain_ms:.4f} ms"
+        log(f"[kernel] K2 ({k2_kernel}) at {what}: {k2_ms:.4f} ms "
+            f"({ops / k2_ms / 1e9:.1f} TFLOP/s), SDPA forward {sdpa_ms:.4f}"
+            f" ms (K2/SDPA {k2_ms / sdpa_ms:.3f}){plain}, bound "
+            f"{bound:.4f} ms")
         if case != flash_check.CASES[0]:
             continue
         # the training path's shape: kernel, plain, bound and library times
-        pairs = _live_pairs(t, t, causal, q_off, kv_off)
-        es = q.element_size()
         n_q, n_kv = b * t * h * d * es, b * t * kv * d * es
         n_row = b * h * t * 4
         timed = {
@@ -556,13 +666,11 @@ def phase_flash(name, seed):
         # yardstick only: SDPA on the [B, H, T, D] views, its forward for
         # K2 and its backward (forward subtracted) for K3a + K3b together
         # (the port never calls it)
-        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
         lib_err = (sdpa().transpose(1, 2).float() - out.float()).abs().max()
         if lib_err.item() > 0.05:
             raise AssertionError(f"SDPA yardstick disagrees by {lib_err}")
-        lib_fwd = time_ms(sdpa, flush)
+        lib_fwd = sdpa_ms
         leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
 
         def sdpa_fwd():
@@ -846,6 +954,8 @@ def _launches():
             "decode_attention_int8": da.decode_attention_int8.launches,
             "conv1x1_backward": k1.conv1x1_backward.launches,
             "flash_forward": fa.flash_forward.launches,
+            # K2's mma.sync launches (bf16, D 16 and 32): none on a model
+            "flash_forward_mma_sync": fa.flash_forward.launches_mma_sync,
             "flash_backward_dq": fa.flash_backward_dq.launches,
             "flash_backward_dkv": fa.flash_backward_dkv.launches,
             "splash_backward": sp.splash_backward.launches}

@@ -78,6 +78,53 @@ def test_kernel_head_dims_and_types_on_card(d, dtype):
             atol=tol, rtol=tol)
 
 
+def _sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", [1, 16])
+@pytest.mark.parametrize("cache", ["bf16", "f32", "int8"])
+def test_split_kv_kernel_at_split_boundaries_on_card(cache, rep):
+    """The split-KV kernel and its ordered merge: rows at positions one
+    before, at and one after split boundaries, the last position, past
+    the cache end and at 0, in one call; against the plain version
+    (bf16 q: 2 bf16 ulps, atol = rtol = 1.6e-2; f32 q: 1e-5) and
+    bit-equal across two runs (no atomics)."""
+    _card()
+    g = torch.Generator("cuda").manual_seed(rep)
+    b, n_kv, s, d = 8, 2, 300, 128
+    split = da.split_len(s, b * n_kv, _sm_count())
+    assert split < s  # several splits per row at this shape
+    qdt = torch.float32 if cache == "f32" else torch.bfloat16
+    kdt = torch.float32 if cache == "f32" else torch.bfloat16
+    q = torch.randn(b, 1, n_kv * rep, d, generator=g, device="cuda",
+                    dtype=qdt)
+    k = torch.randn(b, n_kv, s, d, generator=g, device="cuda", dtype=kdt)
+    v = torch.randn(b, n_kv, s, d, generator=g, device="cuda", dtype=kdt)
+    idx = torch.tensor([split - 1, split, split + 1, 2 * split - 1,
+                        2 * split + 1, s - 1, s + 7, 0], dtype=torch.int32,
+                       device="cuda")
+    da.reset_launch_counts()
+    if cache == "int8":
+        kq, ks = _amax_quantize(k)
+        vq, vs = _amax_quantize(v)
+        ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+        outs = [da.decode_attention_int8(q, kq, ks, vq, vs, idx)
+                for _ in range(2)]
+        ref = da.decode_attention_plain(q, kq, vq, idx, ks, vs)
+        assert da.decode_attention_int8.launches == 2
+    else:
+        outs = [da.decode_attention(q, k, v, idx) for _ in range(2)]
+        ref = da.decode_attention_plain(q, k, v, idx)
+        assert da.decode_attention.launches == 2
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    tol = 1e-5 if qdt == torch.float32 else 1.6e-2
+    torch.testing.assert_close(outs[0].float(), ref.float(), atol=tol,
+                               rtol=tol)
+
+
 # ---------------------------------------------------------------------------
 # K1: the fused 1x1-conv backward (parallel/conv1x1.py,
 # csrc/conv1x1_backward.cu) against its plain version on the card.
@@ -211,7 +258,9 @@ def test_flash_kernels_match_plain_on_card(b, t, h, kv, d, dtype, causal,
     args = (causal, None, q_off, kv_off)
     fa.reset_launch_counts()
     out, lse = fa.flash_forward(q, k, v, *args)
+    out2, lse2 = fa.flash_forward(q, k, v, *args)
     ref_out, ref_lse = fa.flash_forward_plain(q, k, v, *args)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     terms = flash_check.term_sizes(q, k, v, do, lse, delta, *args)
@@ -222,7 +271,11 @@ def test_flash_kernels_match_plain_on_card(b, t, h, kv, d, dtype, causal,
     dk2, dv2 = fa.flash_backward_dkv(q, k, v, do, lse, delta, *args)
     torch.cuda.synchronize()
     assert (fa.flash_forward.launches, fa.flash_backward_dq.launches,
-            fa.flash_backward_dkv.launches) == (1, 2, 2)
+            fa.flash_backward_dkv.launches) == (2, 2, 2)
+    # bf16 at D = 64 and 128 runs the wgmma kernel, at D = 16 and 32 the
+    # mma.sync one
+    assert fa.flash_forward.launches_mma_sync == (
+        2 if dtype == torch.bfloat16 and d < 64 else 0)
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) \
         and torch.equal(dv, dv2)
     ref = fa.flash_backward_plain(q, k, v, do, lse, delta, *args)
@@ -235,6 +288,91 @@ def test_flash_kernels_match_plain_on_card(b, t, h, kv, d, dtype, causal,
         assert bool((lse[..., :dead] == -1e30).all())
         if dead >= t:
             assert not (dk.any() or dv.any())
+
+
+def _tile_check(a, b, v):
+    """K2's wgmma layouts on one tile: ``a [64, D]``, ``b [128, D]``,
+    ``v [128, D]`` bf16 on the card, D 64 or 128; returns ``(s, o)`` f32
+    with ``s = a·bᵀ`` and ``o = bf16(s)·v`` computed by the forward's own
+    descriptor, TMA and re-pack code (``csrc/flash_tile_check.cu``, a
+    test-only library that includes ``flash_attention.cu``)."""
+    import ctypes
+
+    from bluefog_tpu_torch import cuda_build
+
+    d = a.shape[-1]
+    for x, rows in ((a, 64), (b, 128), (v, 128)):
+        assert x.dtype == torch.bfloat16 and x.shape == (rows, d)
+        assert x.is_cuda and x.is_contiguous()
+    s = torch.empty(64, 128, dtype=torch.float32, device=a.device)
+    o = torch.empty(64, d, dtype=torch.float32, device=a.device)
+    fn = cuda_build.load("flash_tile_check").bf_flash_tile_check
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(a.data_ptr(), b.data_ptr(), v.data_ptr(), s.data_ptr(),
+             o.data_ptr(), d, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"tile check launch failed with code {err}"
+    return s, o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_tile_product_and_repack_on_card(d):
+    """K2's wgmma layouts on one tile, against torch.matmul: s = a·bᵀ
+    (TMA boxes, the K-major descriptors of Q and K, the accumulator
+    layout) and o = bf16(s)·v (the S accumulator re-packed as the
+    register A operand, V's MN-major descriptor).  Both sides multiply
+    exact bf16 values and sum in f32 in another order: 1e-5 relative
+    plus 1e-3 (s, entries ~10) and 1e-2 (o, entries ~100)."""
+    _card()
+    g = torch.Generator("cuda").manual_seed(d)
+    a = torch.randn(64, d, generator=g, device="cuda").to(torch.bfloat16)
+    b = torch.randn(128, d, generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn(128, d, generator=g, device="cuda").to(torch.bfloat16)
+    s, o = _tile_check(a, b, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, a.float() @ b.float().T, rtol=1e-5,
+                               atol=1e-3)
+    p = s.to(torch.bfloat16).float()  # the kernel rounds its own S
+    torch.testing.assert_close(o, p @ v.float(), rtol=1e-5, atol=1e-2)
+
+
+# (B, T, H, KV, D, causal, q_offset, kv_offset): ragged T around the
+# wgmma kernel's 64-row warpgroups and 128-key tiles, offsets, rows with
+# no live key (kv_offset 70: rows 0-69), non-causal
+K2_ODD = ([(2, t, 4, 2, d, True, 0, 0)
+           for d in (64, 128) for t in (1, 63, 65, 127, 129, 200)]
+          + [(1, 129, 4, 1, 128, True, 0, 70),
+             (2, 200, 4, 4, 64, False, 0, 0),
+             (1, 65, 8, 2, 64, True, 37, 5),
+             (1, 127, 4, 2, 128, True, 200, 64)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,kv,d,causal,q_off,kv_off", K2_ODD)
+def test_k2_wgmma_odd_shapes_on_card(b, t, h, kv, d, causal, q_off, kv_off):
+    """The wgmma K2 at ragged shapes, within flash_check.mismatch's bound
+    (lse to 1e-4 absolute plus 1e-5), bit-equal across two runs; a row
+    with no live key gives out 0 and lse -1e30 exactly."""
+    _card()
+    q, k, v, do = flash_inputs(b, t, h, kv, d, torch.bfloat16, seed=t)
+    args = (causal, None, q_off, kv_off)
+    fa.reset_launch_counts()
+    out, lse = fa.flash_forward(q, k, v, *args)
+    out2, lse2 = fa.flash_forward(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert fa.flash_forward.launches == 2
+    assert fa.flash_forward.launches_mma_sync == 0
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref_out, ref_lse = fa.flash_forward_plain(q, k, v, *args)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    terms = flash_check.term_sizes(q, k, v, do, lse, delta, *args)
+    assert flash_check.mismatch(out, ref_out, terms["out"]) <= 1
+    if causal and kv_off > q_off:
+        dead = kv_off - q_off
+        assert not out[:, :dead].any()
+        assert bool((lse[..., :dead] == -1e30).all())
 
 
 @pytest.mark.cuda
