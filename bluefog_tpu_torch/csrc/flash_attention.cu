@@ -58,31 +58,68 @@
 //   product issued beside tile j - 1's P·V, two- or three-stage ring),
 //   ping-pong turns of the two consumers on named barriers, a three-stage
 //   ring, one consumer at D = 128.  Not yet: Q as register operands, FP8.
-// K2 in bf16 at D = 16 and 32 (test shapes only; no model of the repo
-// runs them) keeps the mma.sync kernel below: a 32- or 64-byte row needs
-// other swizzles and descriptors, and the wrapper counts those launches
-// apart (flash_forward.launches_mma_sync).
 //
-// K3a and K3b (and K2 at D = 16, 32) run on mma.sync m16n8k16 (bf16 in,
-// f32 accumulators): the score tile never leaves registers (the
+// K3a and K3b in bf16 at D = 64 and 128 take the same parts and shape:
+//   K3a (dQ): a block serves NC · 64 query rows of one (batch, head),
+//   longest causal tiles first.  The producer thread loads Q and dO once
+//   (their own tensor maps over [B, T, H, D]) and keeps K and V tiles of
+//   128 keys in flight through a two-stage ring.  Each consumer warpgroup
+//   owns 64 rows, keeps their lse·log2 e and delta in registers, and per
+//   key tile issues S = Q·Kᵀ and dP = dO·Vᵀ as two SS chains (both
+//   K-major) in one commit group, waits once, takes P = 2^(x·c - lse·log2
+//   e) in the S registers (one FFMA and one ex2 a score, the mask on edge
+//   tiles only), dS = P·(dP - delta) in place, rounds dS to bf16 as the
+//   register A operand (s_to_a) and issues dQ += dS·K (RS, K read
+//   MN-major from the same swizzled tile through the transpose bit).  dQ
+//   stays in f32 registers until a masked store of dQ·scale.
+//   K3b (dK, dV): a block serves NC · 64 keys of one (batch, kv head),
+//   the keys that see the most query tiles first; K and V are loaded
+//   once.  The producer thread streams the (64-row query tile, group
+//   member) pairs' Q and dO tiles by TMA through a two-stage ring, from
+//   the first live tile on; the producer's second warp copies each pair's
+//   64 lse and delta values into the same stage (zeros past T) and
+//   arrives on the stage's full barrier.  Per pair each consumer issues
+//   Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (SS m64n64, both K-major), waits once,
+//   takes Pᵀ as above from each column's lse, rounds it to bf16 (dV's
+//   A operand), forms dSᵀ = Pᵀ·(dPᵀ - delta) and its bf16 A operand, and
+//   issues dV += Pᵀ·dO and dK += dSᵀ·Q (RS, dO and Q MN-major) in one
+//   group.  dK and dV stay in f32 registers, written once (dK·scale).
+//   Both take K2's block (WgSmem): one consumer at D = 64 (two blocks an
+//   SM), two at D = 128, 128-key dQ steps and a two-stage ring.  Tried on
+//   the H100 and not kept, each slower or no faster at the models' shapes:
+//   64-key dQ steps, two consumers at D = 64, one dK/dV consumer at
+//   D = 128, a third stage.  Every key (K3a) or query column (K3b) an edge
+//   tile holds past the tensor is zeros from TMA, so every edge tile is
+//   masked: a zero score is not a masked score.  ptxas (-Xptxas -v, CUDA
+//   12.8): at entry 168 registers (D = 128) and 128 (D = 64), setmaxnreg
+//   240 / 24 and 232 / 24 as K2, no spills; the overwriting first step of
+//   each score chain (ss_chain) keeps S and dP dead between tiles.  At
+//   the Llama-3.1-8B training shape each runs at ~550 TFLOP/s on the H100
+//   (PERF.md), against ~200 and ~150 for the mma.sync design it replaces.
+//
+// K2, K3a and K3b in bf16 at D = 16 and 32 (test shapes only; no model of
+// the repo runs them) keep the mma.sync kernels below: a 32- or 64-byte
+// row needs other swizzles and descriptors, and the wrappers count those
+// launches apart (launches_mma_sync).  They run on mma.sync m16n8k16
+// (bf16 in, f32 accumulators): the score tile never leaves registers (the
 // accumulator fragment of S is re-packed in place as the A operand of the
 // next product), K/V (K2, K3a) or Q/dO (K3b) tiles stream through a
-// two-stage cp.async ring in padded shared memory read with ldmatrix, and
-// in causal mode a block stops at its last live tile (K2, K3a) or starts
-// at its first (K3b), the TPU kernels' _block_live.  The TPU grid walked
-// k blocks in order into VMEM accumulators; here one block owns its rows
-// and loops over the tiles, so nothing is summed across blocks: no
-// atomics, and dQ, dK and dV are bit-equal from run to run.
+// two-stage cp.async ring in padded shared memory read with ldmatrix.
 //
-//   K2   (D = 16, 32) block = 64 query rows of one (batch, head), 4 warps
-//        of 16 rows, loop over 64-key tiles.
+//   K2   block = 64 query rows of one (batch, head), 4 warps of 16 rows,
+//        loop over 64-key tiles.
 //   K3a  block = 64 query rows, loop over 64-key tiles: recompute P, then
 //        dP = dO·Vᵀ, dS = P·(dP - delta), dQ += dS·K (scale at the end).
 //   K3b  block = 64 keys of one (batch, kv head), 4 warps of 16 keys,
 //        loop over (32-row query tile, group member) pairs in that order:
 //        dV += Pᵀ·dO and dK += dSᵀ·Q in f32 registers, written once.
-//   K3a and K3b run at a fifth of the tensor cores' rate (PERF.md); their
-//   wgmma redesign is the next step.
+//
+// In causal mode every kernel stops at its last live tile (K2, K3a) or
+// starts at its first (K3b), the TPU kernels' _block_live.  The TPU grid
+// walked k blocks in order into VMEM accumulators; here one block owns its
+// rows (or keys) and loops over the tiles in a fixed order, so nothing is
+// summed across blocks: no atomics, and dQ, dK and dV are bit-equal from
+// run to run.
 //
 // Tails are masked (any T and S; the TPU kernels needed block divisors).
 // D is 16, 32, 64 or 128.  bf16 runs on the tensor cores; f32 takes a
@@ -283,6 +320,7 @@ __global__ void __launch_bounds__(kThreadsTc)
 // threads, one block an SM: 160 KB of shared memory).  D = 64: one
 // consumer (64-row tiles, 256 threads, two blocks an SM), which the H100
 // ran faster at both D = 64 shapes of the repo's models (Llama-1B, ViT).
+// K3a and K3b below take the same block, tile and ring (WgSmem).
 // ---------------------------------------------------------------------------
 constexpr int kWgRows = 64;                  // query rows per consumer
 constexpr int kBkW = 128;                    // keys per tile
@@ -306,6 +344,14 @@ struct WgSmem {
   // the tiles, the barriers, and 1024 bytes to align the base (the 128B
   // swizzle's pattern repeats every 1024 bytes)
   static constexpr int BYTES = NC * Q + 2 * kStagesW * KV + 8 * BARS + 1024;
+  // K3a (the same block of query rows): Q and dO, the K/V ring
+  static constexpr int DQ_BYTES =
+      2 * NC * Q + 2 * kStagesW * KV + 8 * (1 + 2 * kStagesW) + 1024;
+  // K3b (NC · 64 keys): K and V, a ring of (Q, dO) tiles of 64 rows (Q
+  // bytes each) with the pair's 64 lse and delta values
+  static constexpr int DKV_BYTES = 2 * NC * Q +
+                                   kStagesW * (2 * Q + 2 * kWgRows * 4) +
+                                   8 * (1 + 2 * kStagesW) + 1024;
 };
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
@@ -568,7 +614,488 @@ int k2_maps(CUtensorMap (&maps)[3], const void* q, const void* k,
 }
 
 // ---------------------------------------------------------------------------
-// K3a: dQ.  grid (query tiles, B * H).
+// K3a and K3b, bf16 at D = 64 and 128: TMA + mbarrier ring + wgmma,
+// warp-specialised as K2 (warpgroup 0 the producer, consumers of 64 rows
+// after it).  Each consumer recomputes its scores from the tiles in shared
+// memory, takes P = 2^(x·c - lse·log2 e) with c = scale·log2 e on the
+// unscaled score x (one FFMA and one ex2), masks on edge tiles only, and
+// keeps its outputs in f32 registers until one masked store.
+// ---------------------------------------------------------------------------
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Issues acc[64 x N] = A[64 x D] · B[N x D]ᵀ (no fence, no commit): A and B
+// K-major in 128B-swizzled boxes of 64 columns, abox and bbox bytes from
+// one box to the next (SBO 1024 bytes = 8 rows; the k-th 16-column step
+// starts 32·k bytes into its box).  N is 64 or 128.  The first step
+// overwrites acc, so the previous tile's values are dead before it.
+template <int D, int N>
+__device__ __forceinline__ void ss_chain(float (&acc)[N / 2], const void* a,
+                                         int abox, const void* b, int bbox) {
+  const uint64_t da = sm90::desc_sw128(a, 16, 1024);
+  const uint64_t db = sm90::desc_sw128(b, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t ka = sm90::desc_add(da, (kk / 4) * abox + (kk % 4) * 32);
+    const uint64_t kb = sm90::desc_add(db, (kk / 4) * bbox + (kk % 4) * 32);
+    if constexpr (N == 128) {
+      if (kk == 0)
+        sm90::wgmma_ss_n128_set(acc, ka, kb);
+      else
+        sm90::wgmma_ss_n128(acc, ka, kb, 1);
+    } else {
+      if (kk == 0)
+        sm90::wgmma_ss_n64_set(acc, ka, kb);
+      else
+        sm90::wgmma_ss_n64(acc, ka, kb, 1);
+    }
+  }
+}
+
+// Issues acc[64 x D] += A[64 x 16·KS] · B[16·KS x D] (no fence, no
+// commit): A as KS register operands (s_to_a), B MN-major (the transpose
+// bit) from a tile of rows whose 64-column boxes lie bbox bytes apart (LBO;
+// SBO 1024 bytes = 8 rows); the k-th step of 16 rows starts 2048·k bytes
+// in.
+template <int D, int KS>
+__device__ __forceinline__ void rs_chain(float (&acc)[D / 2],
+                                         const uint32_t (&a)[KS][4],
+                                         const void* b, int bbox) {
+  const uint64_t db = sm90::desc_sw128(b, bbox, 1024);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    if constexpr (D == 128)
+      sm90::wgmma_rs_n128(acc, a[kk], sm90::desc_add(db, kk * 2048), 1);
+    else
+      sm90::wgmma_rs_n64(acc, a[kk], sm90::desc_add(db, kk * 2048), 1);
+  }
+}
+
+// K3a: a block owns the NC · 64 query rows of K2's block (WgSmem) of one
+// (batch, head), Q and dO loaded once; K and V stream in tiles of 128 keys
+// through K2's two-stage ring.  grid (B * H, query tiles): the tiles with
+// the most live keys first.
+template <int D>
+__global__ void __launch_bounds__(WgSmem<D>::THREADS,
+                                  WgSmem<D>::BLOCKS_PER_SM)
+    k3a_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dq,
+                 Shape s) {
+  using L = WgSmem<D>;
+  constexpr int NC = L::NC, BK = kBkW;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);  // [consumer][box][64][64]
+  unsigned char* dOs = Qs + NC * L::Q;      // the same
+  unsigned char* Ks = dOs + NC * L::Q;      // [stage][box][128][64]
+  unsigned char* Vs = Ks + kStagesW * L::KV;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(Vs + kStagesW * L::KV);
+  uint64_t* full = full_q + 1;         // [stage]: K and V landed
+  uint64_t* empty = full + kStagesW;   // [stage]: every consumer done
+
+  const int qt = s.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int b = blockIdx.x / s.H, h = blockIdx.x % s.H, kvh = h / s.rep;
+  const int q0 = qt * L::ROWS;
+  const int n_live = live_k_tiles(s, min(q0 + L::ROWS, s.T) - 1, BK);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(full_q, 1);
+    for (int i = 0; i < kStagesW; ++i) {
+      sm90::mbar_init(full + i, 1);
+      sm90::mbar_init(empty + i, NC);  // one arrival a warpgroup
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    sm90::setmaxnreg_dec<24>();
+    if (tid == 0) {
+      sm90::mbar_arrive_expect_tx(full_q, 2 * NC * L::Q);
+      for (int c = 0; c < NC; ++c)
+        for (int nb = 0; nb < L::NB; ++nb) {
+          const int at = c * L::Q + nb * L::QBOX, row = q0 + c * kWgRows;
+          sm90::tma_load_4d(Qs + at, &tq, full_q, nb * 64, h, row, b);
+          sm90::tma_load_4d(dOs + at, &tdo, full_q, nb * 64, h, row, b);
+        }
+      int stage = 0, phase = 1;  // a fresh barrier's parity-1 phase is done
+      for (int j = 0; j < n_live; ++j) {
+        sm90::mbar_wait(empty + stage, phase);
+        sm90::mbar_arrive_expect_tx(full + stage, 2 * L::KV);
+        for (int nb = 0; nb < L::NB; ++nb) {
+          const int at = stage * L::KV + nb * L::KBOX;
+          sm90::tma_load_4d(Ks + at, &tk, full + stage, nb * 64, kvh, j * BK,
+                            b);
+          sm90::tma_load_4d(Vs + at, &tv, full + stage, nb * 64, kvh, j * BK,
+                            b);
+        }
+        if (++stage == kStagesW) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<L::CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + c * kWgRows;      // this warpgroup's first row
+    const int row0 = r0 + warp * 16 + g;  // this thread's rows: +0, +8
+    const int my_live =
+        r0 < s.T ? live_k_tiles(s, min(r0 + kWgRows, s.T) - 1, BK) : 0;
+    const unsigned char* qs = Qs + c * L::Q;
+    const unsigned char* dos = dOs + c * L::Q;
+    const float sl2 = s.scale * kLog2e;
+    float l2[2], dl[2];  // the rows' lse · log2 e and delta
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + i * 8;
+      const long long at = ((long long)b * s.H + h) * s.T + row;
+      l2[i] = row < s.T ? lse[at] * kLog2e : 0.f;
+      dl[i] = row < s.T ? delta[at] : 0.f;
+    }
+    float acc[D / 2], sc[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    sm90::mbar_wait(full_q, 0);
+
+    int stage = 0, phase = 0;
+    for (int j = 0; j < n_live; ++j) {
+      sm90::mbar_wait(full + stage, phase);
+      if (j < my_live) {
+        const int k0 = j * BK;
+        const bool edge = k0 + BK > s.S ||
+                          (s.causal && s.kv_off + k0 + BK - 1 > s.q_off + r0);
+        const unsigned char* kt = Ks + stage * L::KV;
+        // S = Q·Kᵀ and dP = dO·Vᵀ, one commit group
+        sm90::wgmma_fence();
+        ss_chain<D, BK>(sc, qs, L::QBOX, kt, L::KBOX);
+        ss_chain<D, BK>(dp, dos, L::QBOX, Vs + stage * L::KV, L::KBOX);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(sc);
+        sm90::fence_regs(dp);
+        if (edge) {  // keys past S (zeros from TMA) and the causal mask
+#pragma unroll
+          for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (masked(s, row0 + (e >> 1) * 8, k0 + n * 8 + 2 * t + (e & 1)))
+                sc[4 * n + e] = kNegInf;
+        }
+        // dS = P · (dP - delta), in place
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const float x = sc[i];
+          const int r = (i >> 1) & 1;
+          const float p =
+              x <= kDead ? 0.f : exp2_approx(fmaf(x, sl2, -l2[r]));
+          sc[i] = p * (dp[i] - dl[r]);
+        }
+        uint32_t df[BK / 16][4];
+        sm90::s_to_a<BK / 8>(df, sc);  // dS in k's type (bf16)
+        // dQ += dS·K, K read MN-major from the same tile
+        sm90::fence_regs(acc);
+        sm90::wgmma_fence();
+        rs_chain<D, BK / 16>(acc, df, kt, L::KBOX);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+      }
+      // the warpgroup's products that read the stage have completed
+      if (tid == 0) sm90::mbar_arrive(empty + stage);
+      if (++stage == kStagesW) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + i * 8;
+      if (row >= s.T) continue;
+      bf16* dg = dq + (((long long)b * s.T + row) * s.H + h) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(dg + n * 8 + 2 * t) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * i] * s.scale,
+                                  acc[4 * n + 2 * i + 1] * s.scale);
+    }
+  }
+}
+
+// The first 64-row query tile whose last row reaches key k (causal: every
+// later tile does too); 0 without the causal mask.
+__device__ __forceinline__ int first_q_tile(const Shape& s, int k) {
+  if (!s.causal) return 0;
+  const int need = s.kv_off + k - s.q_off - (kWgRows - 1);
+  return need <= 0 ? 0 : (need + kWgRows - 1) / kWgRows;
+}
+
+// K3b: a block owns NC · 64 keys of one (batch, kv head), K and V loaded
+// once; (64-row query tile, group member) pairs stream through a
+// two-stage ring: the pair's Q and dO tiles (TMA) and its 64 lse and
+// delta values (the producer's second warp, zeros past T).  grid (B * KV,
+// key tiles): the keys that see the most query tiles first.
+template <int D>
+__global__ void __launch_bounds__(WgSmem<D>::THREADS,
+                                  WgSmem<D>::BLOCKS_PER_SM)
+    k3b_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, Shape s) {
+  using L = WgSmem<D>;
+  constexpr int NC = L::NC, STAGES = kStagesW;
+  constexpr int TILE = L::Q;  // 64 rows of D: a consumer's K, a Q stage
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = align1024(smem_raw);  // [consumer][box][64][64]
+  unsigned char* Vs = Ks + NC * TILE;       // the same
+  unsigned char* Qs = Vs + NC * TILE;       // [stage][box][64][64]
+  unsigned char* dOs = Qs + STAGES * TILE;
+  float* Ls = reinterpret_cast<float*>(dOs + STAGES * TILE);  // [stage][64]
+  float* Ds = Ls + STAGES * kWgRows;
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(Ds + STAGES * kWgRows);
+  uint64_t* full = full_kv + 1;      // [stage]: the pair's tiles and rows
+  uint64_t* empty = full + STAGES;   // [stage]: every consumer done
+
+  const int b = blockIdx.x / s.KV, kvh = blockIdx.x % s.KV;
+  const int k0 = blockIdx.y * L::ROWS;
+  const int p_begin = first_q_tile(s, k0) * s.rep;
+  const int p_end = (s.T + kWgRows - 1) / kWgRows * s.rep;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(full_kv, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      sm90::mbar_init(full + i, 2);  // the TMA thread and the row warp
+      sm90::mbar_init(empty + i, NC);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    sm90::setmaxnreg_dec<24>();
+    if (tid == 0) {
+      sm90::mbar_arrive_expect_tx(full_kv, 2 * NC * TILE);
+      for (int c = 0; c < NC; ++c)
+        for (int nb = 0; nb < L::NB; ++nb) {
+          const int at = c * TILE + nb * L::QBOX, key = k0 + c * kWgRows;
+          sm90::tma_load_4d(Ks + at, &tk, full_kv, nb * 64, kvh, key, b);
+          sm90::tma_load_4d(Vs + at, &tv, full_kv, nb * 64, kvh, key, b);
+        }
+      int stage = 0, phase = 1;
+      for (int p = p_begin; p < p_end; ++p) {
+        const int qi = p / s.rep, h = kvh * s.rep + p % s.rep;
+        sm90::mbar_wait(empty + stage, phase);
+        sm90::mbar_arrive_expect_tx(full + stage, 2 * TILE);
+        for (int nb = 0; nb < L::NB; ++nb) {
+          const int at = stage * TILE + nb * L::QBOX;
+          sm90::tma_load_4d(Qs + at, &tq, full + stage, nb * 64, h,
+                            qi * kWgRows, b);
+          sm90::tma_load_4d(dOs + at, &tdo, full + stage, nb * 64, h,
+                            qi * kWgRows, b);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    } else if (tid >> 5 == 1) {
+      // the pair's 64 lse and delta values, zeros past T, then one
+      // arrival: __syncwarp orders the lanes' stores before it
+      const int lane = tid & 31;
+      int stage = 0, phase = 1;
+      for (int p = p_begin; p < p_end; ++p) {
+        const int q0 = p / s.rep * kWgRows, h = kvh * s.rep + p % s.rep;
+        const long long at = ((long long)b * s.H + h) * s.T;
+        sm90::mbar_wait(empty + stage, phase);
+        for (int i = lane; i < kWgRows; i += 32) {
+          const bool ok = q0 + i < s.T;
+          Ls[stage * kWgRows + i] = ok ? lse[at + q0 + i] : 0.f;
+          Ds[stage * kWgRows + i] = ok ? delta[at + q0 + i] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(full + stage);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<L::CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int kc0 = k0 + c * kWgRows;      // this warpgroup's first key
+    const int key0 = kc0 + warp * 16 + g;  // this thread's keys: +0, +8
+    // this warpgroup's first live pair (at or after the block's)
+    const int my_begin = kc0 < s.S ? first_q_tile(s, kc0) * s.rep : p_end;
+    const unsigned char* ks = Ks + c * TILE;
+    const unsigned char* vs = Vs + c * TILE;
+    const float sl2 = s.scale * kLog2e;
+    // dK, dV [64 keys x D]; Sᵀ, dPᵀ [64 keys x 64 queries]
+    float dka[D / 2], dva[D / 2], st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    sm90::mbar_wait(full_kv, 0);
+
+    int stage = 0, phase = 0;
+    for (int p = p_begin; p < p_end; ++p) {
+      sm90::mbar_wait(full + stage, phase);
+      if (p >= my_begin) {
+        const int q0 = p / s.rep * kWgRows;
+        const bool edge =
+            q0 + kWgRows > s.T || kc0 + kWgRows > s.S ||
+            (s.causal && s.kv_off + kc0 + kWgRows - 1 > s.q_off + q0);
+        const unsigned char* qt = Qs + stage * TILE;
+        const unsigned char* dot = dOs + stage * TILE;
+        const float* lt = Ls + stage * kWgRows;
+        const float* dt = Ds + stage * kWgRows;
+        // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, one commit group
+        sm90::wgmma_fence();
+        ss_chain<D, 64>(st, ks, L::QBOX, qt, L::QBOX);
+        ss_chain<D, 64>(dpt, vs, L::QBOX, dot, L::QBOX);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(st);
+        sm90::fence_regs(dpt);
+        if (edge) {  // query columns past T, keys past S, the causal mask
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qi = q0 + n * 8 + 2 * t + (e & 1);
+              if (qi >= s.T || masked(s, qi, key0 + (e >> 1) * 8))
+                st[4 * n + e] = kNegInf;
+            }
+        }
+        // Pᵀ, then dSᵀ = Pᵀ · (dPᵀ - delta), each column's lse and delta
+        // from the pair's rows in shared memory
+        uint32_t pf[4][4], sf[4][4];
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 lv =
+              *reinterpret_cast<const float2*>(lt + n * 8 + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = st[4 * n + e];
+            const float l2 = ((e & 1) ? lv.y : lv.x) * kLog2e;
+            st[4 * n + e] = x <= kDead ? 0.f : exp2_approx(fmaf(x, sl2, -l2));
+          }
+        }
+        sm90::s_to_a<8>(pf, st);  // Pᵀ in dO's type
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 dv2 =
+              *reinterpret_cast<const float2*>(dt + n * 8 + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            st[4 * n + e] *= dpt[4 * n + e] - ((e & 1) ? dv2.y : dv2.x);
+        }
+        sm90::s_to_a<8>(sf, st);  // dSᵀ in q's type
+        // dV += Pᵀ·dO and dK += dSᵀ·Q, dO and Q read MN-major
+        sm90::fence_regs(dva);
+        sm90::fence_regs(dka);
+        sm90::wgmma_fence();
+        rs_chain<D, 4>(dva, pf, dot, L::QBOX);
+        rs_chain<D, 4>(dka, sf, qt, L::QBOX);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dva);
+        sm90::fence_regs(dka);
+      }
+      // every warp read the stage's lse and delta before it issued its
+      // part of the products, which have completed
+      if (tid == 0) sm90::mbar_arrive(empty + stage);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = key0 + i * 8;
+      if (key >= s.S) continue;
+      const long long at = (((long long)b * s.S + key) * s.KV + kvh) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + n * 8 + 2 * t) =
+            __floats2bfloat162_rn(dka[4 * n + 2 * i] * s.scale,
+                                  dka[4 * n + 2 * i + 1] * s.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + n * 8 + 2 * t) =
+            __floats2bfloat162_rn(dva[4 * n + 2 * i], dva[4 * n + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+// The tensor maps of a K3a or K3b launch: q and dO as (D, H, T, B) in boxes
+// of (64, 1, 64, 1); k and v as (D, KV, S, B) in boxes of (64, 1, krows, 1).
+int bwd_maps(CUtensorMap* maps, const void* q, const void* dout,
+             const void* k, const void* v, const Shape& s, int D,
+             int krows) {
+  const uint64_t e = 2;  // bytes of a bf16
+  const uint64_t qd[4] = {(uint64_t)D, (uint64_t)s.H, (uint64_t)s.T,
+                          (uint64_t)s.B};
+  const uint64_t qst[3] = {D * e, s.H * D * e, (uint64_t)s.T * s.H * D * e};
+  const uint64_t kd[4] = {(uint64_t)D, (uint64_t)s.KV, (uint64_t)s.S,
+                          (uint64_t)s.B};
+  const uint64_t kst[3] = {D * e, s.KV * D * e,
+                           (uint64_t)s.S * s.KV * D * e};
+  const uint32_t qbox[4] = {64, 1, kWgRows, 1};
+  const uint32_t kbox[4] = {64, 1, (uint32_t)krows, 1};
+  int err = sm90::encode_bf16_4d(&maps[0], q, qd, qst, qbox);
+  if (!err) err = sm90::encode_bf16_4d(&maps[1], dout, qd, qst, qbox);
+  if (!err) err = sm90::encode_bf16_4d(&maps[2], k, kd, kst, kbox);
+  if (!err) err = sm90::encode_bf16_4d(&maps[3], v, kd, kst, kbox);
+  return err;
+}
+
+template <int D>
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dq, const Shape& s, cudaStream_t st) {
+  using L = WgSmem<D>;
+  const int tiles = (s.T + L::ROWS - 1) / L::ROWS;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  int err = bwd_maps(maps, q, dout, k, v, s, D, kBkW);
+  if (!err) err = set_smem(k3a_dq_wgmma<D>, L::DQ_BYTES);
+  if (err) return err;
+  k3a_dq_wgmma<D><<<dim3(s.B * s.H, tiles), L::THREADS, L::DQ_BYTES, st>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, delta,
+      static_cast<bf16*>(dq), s);
+  return 0;
+}
+
+template <int D>
+int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     void* dk, void* dv, const Shape& s, cudaStream_t st) {
+  using L = WgSmem<D>;
+  const int tiles = (s.S + L::ROWS - 1) / L::ROWS;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  int err = bwd_maps(maps, q, dout, k, v, s, D, kWgRows);
+  if (!err) err = set_smem(k3b_dkv_wgmma<D>, L::DKV_BYTES);
+  if (err) return err;
+  k3b_dkv_wgmma<D><<<dim3(s.B * s.KV, tiles), L::THREADS, L::DKV_BYTES,
+                     st>>>(maps[0], maps[1], maps[2], maps[3], lse, delta,
+                           static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                           s);
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// K3a, bf16 at D = 16 and 32: mma.sync.  grid (query tiles, B * H).
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(kThreadsTc)
@@ -671,7 +1198,7 @@ __global__ void __launch_bounds__(kThreadsTc)
 }
 
 // ---------------------------------------------------------------------------
-// K3b: dK and dV.  grid (key tiles, B * KV).
+// K3b, bf16 at D = 16 and 32: mma.sync.  grid (key tiles, B * KV).
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(kThreadsTc)
@@ -970,13 +1497,17 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (dtype == kBF16) {
-    const int err = set_smem(k3a_dq_tc<D>, Smem<D>::DQ);
-    if (err) return err;
-    dim3 grid((s.T + kBq - 1) / kBq, s.B * s.H);
-    k3a_dq_tc<D><<<grid, kThreadsTc, Smem<D>::DQ, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
-        static_cast<bf16*>(dq), s);
+    if constexpr (D >= 64) {
+      return launch_dq_wgmma<D>(q, k, v, dout, l, dl, dq, s, st);
+    } else {
+      const int err = set_smem(k3a_dq_tc<D>, Smem<D>::DQ);
+      if (err) return err;
+      dim3 grid((s.T + kBq - 1) / kBq, s.B * s.H);
+      k3a_dq_tc<D><<<grid, kThreadsTc, Smem<D>::DQ, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
+          static_cast<bf16*>(dq), s);
+    }
   } else {
     dim3 grid((s.T + kThreadsFma - 1) / kThreadsFma, s.B * s.H);
     k3a_dq_fma<D><<<grid, kThreadsFma, 0, st>>>(
@@ -994,13 +1525,17 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (dtype == kBF16) {
-    const int err = set_smem(k3b_dkv_tc<D>, Smem<D>::DKV);
-    if (err) return err;
-    dim3 grid((s.S + kBkB - 1) / kBkB, s.B * s.KV);
-    k3b_dkv_tc<D><<<grid, kThreadsTc, Smem<D>::DKV, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), s);
+    if constexpr (D >= 64) {
+      return launch_dkv_wgmma<D>(q, k, v, dout, l, dl, dk, dv, s, st);
+    } else {
+      const int err = set_smem(k3b_dkv_tc<D>, Smem<D>::DKV);
+      if (err) return err;
+      dim3 grid((s.S + kBkB - 1) / kBkB, s.B * s.KV);
+      k3b_dkv_tc<D><<<grid, kThreadsTc, Smem<D>::DKV, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
+          static_cast<bf16*>(dk), static_cast<bf16*>(dv), s);
+    }
   } else {
     dim3 grid((s.S + kThreadsFma - 1) / kThreadsFma, s.B * s.KV);
     k3b_dkv_fma<D><<<grid, kThreadsFma, 0, st>>>(

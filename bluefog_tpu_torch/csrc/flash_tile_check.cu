@@ -1,12 +1,14 @@
-// The single-tile check of K2's wgmma layouts, for the cuda tests only
-// (tests/test_torch_cuda_kernels.py::test_sm90_tile_product_and_repack_on_
-// card builds and loads it; chip_smoke.py and the port's wrappers never
-// do).  It includes flash_attention.cu, so it runs the forward's own TMA
-// maps, descriptors, product issues and S -> P re-pack (k2_maps,
-// qk_issue, pv_issue, sm90::s_to_a) on one tile, against torch.matmul.
-// cuda_build.py hashes the included source with this one.
+// The single-tile checks of the flash kernels' wgmma layouts, for the
+// cuda tests only (tests/test_torch_cuda_kernels.py::test_sm90_tile_*
+// build and load it; chip_smoke.py and the port's wrappers never do).  It
+// includes flash_attention.cu, so it runs the kernels' own TMA maps,
+// descriptors, product issues and S -> P re-pack on one tile, against
+// torch.matmul: the forward's (k2_maps, qk_issue, pv_issue, sm90::s_to_a)
+// and the backward's (bwd_maps, ss_chain, rs_chain).  cuda_build.py hashes
+// the included source with this one.
 //
 //   int bf_flash_tile_check(a, b, v, s_out, o_out, D, stream)
+//   int bf_flash_bwd_tile_check(a, b, c, s_out, o_out, D, N, stream)
 
 #include "flash_attention.cu"
 
@@ -73,6 +75,84 @@ __global__ void __launch_bounds__(128)
       o_out[(row + (e >> 1) * 8) * D + n * 8 + 2 * t + (e & 1)] = o[4 * n + e];
 }
 
+// ---------------------------------------------------------------------------
+// The backward's forms on one tile.  a [64, D], b [N, D], c [N, D] bf16;
+// writes s = a·bᵀ [64, N] (ss_chain: both K-major; N = 64 is the n64 SS
+// form of K3b's Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, N = 128 K3a's S and dP over a
+// key tile) and o = bf16(s)·c [64, D] (rs_chain, c MN-major from a tile
+// of N rows: K3b's Pᵀ·dO and dSᵀ·Q read dO and Q so, K3a's dS·K reads K).
+// ---------------------------------------------------------------------------
+template <int D, int N>
+__global__ void __launch_bounds__(128)
+    bwd_tile_check(const __grid_constant__ CUtensorMap ta,
+                   const __grid_constant__ CUtensorMap tb,
+                   const __grid_constant__ CUtensorMap tc,
+                   float* __restrict__ s_out, float* __restrict__ o_out) {
+  constexpr int NB = D / 64, ABOX = kWgRows * 128, BBOX = N * 128;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* As = align1024(smem_raw);
+  unsigned char* Bs = As + NB * ABOX;
+  unsigned char* Cs = Bs + NB * BBOX;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(Cs + NB * BBOX);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  if (tid == 0) {
+    sm90::mbar_init(bar, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    sm90::mbar_arrive_expect_tx(bar, NB * (ABOX + 2 * BBOX));
+    for (int nb = 0; nb < NB; ++nb) {
+      sm90::tma_load_4d(As + nb * ABOX, &ta, bar, nb * 64, 0, 0, 0);
+      sm90::tma_load_4d(Bs + nb * BBOX, &tb, bar, nb * 64, 0, 0, 0);
+      sm90::tma_load_4d(Cs + nb * BBOX, &tc, bar, nb * 64, 0, 0, 0);
+    }
+  }
+  sm90::mbar_wait(bar, 0);
+  float sc[N / 2];
+  sm90::wgmma_fence();
+  ss_chain<D, N>(sc, As, ABOX, Bs, BBOX);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sc);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  uint32_t pf[N / 16][4];
+  sm90::s_to_a<N / 8>(pf, sc);
+  sm90::fence_regs(o);
+  sm90::wgmma_fence();
+  rs_chain<D, N / 16>(o, pf, Cs, BBOX);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(o);
+  const int row = warp * 16 + g;
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s_out[(row + (e >> 1) * 8) * N + n * 8 + 2 * t + (e & 1)] =
+          sc[4 * n + e];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o_out[(row + (e >> 1) * 8) * D + n * 8 + 2 * t + (e & 1)] = o[4 * n + e];
+}
+
+template <int D, int N>
+int launch_bwd_tile_check(const CUtensorMap (&maps)[4], float* so, float* oo,
+                          cudaStream_t st) {
+  constexpr int bytes =
+      (D / 64) * (kWgRows * 128 + 2 * N * 128) + 8 + 1024;
+  const int err = set_smem(bwd_tile_check<D, N>, bytes);
+  if (err) return err;
+  bwd_tile_check<D, N><<<1, 128, bytes, st>>>(maps[0], maps[2], maps[3], so,
+                                              oo);
+  return 0;
+}
+
 }  // namespace
 
 // a [64, D], b [128, D], v [128, D] bf16; s [64, 128] = a·bᵀ and
@@ -102,5 +182,33 @@ extern "C" int bf_flash_tile_check(const void* a, const void* b,
     k2_tile_check<128><<<1, 128, bytes, st>>>(maps[0], maps[1], maps[2], so,
                                               oo);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a [64, D], b [N, D], c [N, D] bf16; s [64, N] = a·bᵀ and o [64, D] =
+// bf16(s)·c, both f32, through the backward's own maps and product issues.
+// D and N are 64 or 128.
+extern "C" int bf_flash_bwd_tile_check(const void* a, const void* b,
+                                       const void* c, void* s_out,
+                                       void* o_out, int D, int N,
+                                       void* stream) {
+  if ((D != 64 && D != 128) || (N != 64 && N != 128))
+    return cudaErrorInvalidValue;
+  // a as the q (and dO) of one head (T = 64), b and c as the k and v of
+  // one kv head (S = N) in boxes of N rows
+  const Shape s = make_shape(1, kWgRows, N, 1, 1, 0, 0, 0, 1.f);
+  CUtensorMap maps[4];
+  int err = bwd_maps(maps, a, a, b, c, s, D, N);
+  if (err) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* so = static_cast<float*>(s_out);
+  float* oo = static_cast<float*>(o_out);
+  if (D == 64)
+    err = N == 64 ? launch_bwd_tile_check<64, 64>(maps, so, oo, st)
+                  : launch_bwd_tile_check<64, 128>(maps, so, oo, st);
+  else
+    err = N == 64 ? launch_bwd_tile_check<128, 64>(maps, so, oo, st)
+                  : launch_bwd_tile_check<128, 128>(maps, so, oo, st);
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,11 +17,15 @@ f32 outside the kernels, then launches K3a and K3b.
 Deviations from the JAX package:
 
 * ``block_q``/``block_k`` are accepted for signature parity only.  The
-  card's tiles are the kernels' own (the bf16 forward at D = 64 and 128:
-  128 query rows by 128 keys; otherwise 64 query rows by 64 keys; 64 keys
-  by 32 query rows for dK/dV), a pure function of the head dim and the
-  card, and tails are masked, so any T works (the TPU kernels needed
-  block divisors of T).  ``interpret`` is not taken.
+  card's tiles are the kernels' own, a pure function of the dtype and the
+  head dim: in bf16 at D = 64 and 128 (the TMA + ``wgmma`` kernels) the
+  forward takes 128 keys a step for 64 query rows per warpgroup, dQ
+  :data:`DQ_KEY_TILE` keys a step for 64 query rows per warpgroup, and
+  dK/dV 64-row query tiles for 64 keys per warpgroup; otherwise (bf16 at
+  D = 16 and 32, the ``mma.sync`` kernels) 64 query rows by 64 keys, and
+  64 keys by 32 query rows for dK/dV.  Tails are masked, so any T works
+  (the TPU kernels needed block divisors of T).  ``interpret`` is not
+  taken.
 * Where the tensors lie decides the path: on a CUDA tensor each wrapper
   launches its kernel or raises, on a CPU tensor it runs the plain
   version (:func:`flash_forward_plain`, :func:`flash_backward_plain`).
@@ -29,7 +33,8 @@ Deviations from the JAX package:
 
 Each kernel wrapper (:func:`flash_forward`, :func:`flash_backward_dq`,
 :func:`flash_backward_dkv`) counts its launches in its ``launches``
-attribute; the plain versions count nothing.
+attribute, and those of its ``mma.sync`` kernel (bf16 at D = 16 and 32)
+also in ``launches_mma_sync``; the plain versions count nothing.
 """
 
 from __future__ import annotations
@@ -42,10 +47,14 @@ import torch
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_forward",
            "flash_backward_dq", "flash_backward_dkv", "flash_forward_plain",
            "flash_backward_plain", "flash_backward_dq_plain",
-           "flash_backward_dkv_plain", "reset_launch_counts", "HEAD_DIMS"]
+           "flash_backward_dkv_plain", "reset_launch_counts", "HEAD_DIMS",
+           "DQ_KEY_TILE"]
 
 _NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)   # head dims the kernels are compiled for
+# keys per step of the bf16 dQ kernel at D = 64 and 128 (kBkW in
+# csrc/flash_attention.cu, the forward's key tile too)
+DQ_KEY_TILE = 128
 # dtype codes of csrc/flash_attention.cu
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -270,7 +279,9 @@ def flash_backward_dq(q, k, v, do, lse, delta, causal: bool = True,
                       scale: Optional[float] = None, q_offset: int = 0,
                       kv_offset: int = 0) -> torch.Tensor:
     """K3a: dQ ``[B, T, H, D]`` from the forward's lse and ``delta =
-    rowsum(dO·O)`` (both ``[B, H, T]`` f32)."""
+    rowsum(dO·O)`` (both ``[B, H, T]`` f32).  bf16 at D = 64 and 128 runs
+    the TMA + wgmma kernel, bf16 at D = 16 and 32 the mma.sync one
+    (counted also in ``flash_backward_dq.launches_mma_sync``)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if not _on_card(q):
         return flash_backward_dq_plain(q, k, v, do, lse, delta, causal,
@@ -280,6 +291,8 @@ def flash_backward_dq(q, k, v, do, lse, delta, causal: bool = True,
     _call("bf_flash_backward_dq", (q, k, v, do, lse, delta, dq), dims,
           causal, scale, q_offset, kv_offset)
     flash_backward_dq.launches += 1
+    if q.dtype == torch.bfloat16 and dims[-1] < 64:
+        flash_backward_dq.launches_mma_sync += 1
     return dq
 
 
@@ -289,7 +302,9 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool = True,
                        kv_offset: int = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3b: ``(dK, dV)`` ``[B, S, KV, D]``, each kv head summed over its
-    group's query heads."""
+    group's query heads.  bf16 at D = 64 and 128 runs the TMA + wgmma
+    kernel, bf16 at D = 16 and 32 the mma.sync one (counted also in
+    ``flash_backward_dkv.launches_mma_sync``)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if not _on_card(q):
         return flash_backward_dkv_plain(q, k, v, do, lse, delta, causal,
@@ -299,21 +314,19 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool = True,
     _call("bf_flash_backward_dkv", (q, k, v, do, lse, delta, dk, dv),
           dims, causal, scale, q_offset, kv_offset)
     flash_backward_dkv.launches += 1
+    if q.dtype == torch.bfloat16 and dims[-1] < 64:
+        flash_backward_dkv.launches_mma_sync += 1
     return dk, dv
-
-
-flash_forward.launches = 0
-flash_forward.launches_mma_sync = 0
-flash_backward_dq.launches = 0
-flash_backward_dkv.launches = 0
 
 
 def reset_launch_counts() -> None:
     """Set the three kernel wrappers' launch counts to 0."""
-    flash_forward.launches = 0
-    flash_forward.launches_mma_sync = 0
-    flash_backward_dq.launches = 0
-    flash_backward_dkv.launches = 0
+    for fn in (flash_forward, flash_backward_dq, flash_backward_dkv):
+        fn.launches = 0
+        fn.launches_mma_sync = 0
+
+
+reset_launch_counts()
 
 
 class _Flash(torch.autograd.Function):

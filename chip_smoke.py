@@ -60,9 +60,11 @@ Phases (any failure raises and exits non-zero, printing no result):
       100 and 1000; rep 1, 2, 4; non-causal; every row masked by
       kv_offset=64; q_offset=128): max |err| per output, every output
       bit-equal across two runs; K2 (the wgmma kernel in bf16 at D 64 and
-      128) and SDPA's forward timed at every shape; at the training shape
-      kernel, plain, bound and library ms (SDPA forward for K2, SDPA's
-      backward for K3a + K3b together) and three planted faults.
+      128) and SDPA's forward timed at every shape; at the three model
+      shapes K3a's and K3b's (wgmma) kernel, plain, bound and library ms
+      (SDPA's backward for K3a + K3b together), K2's at the training
+      shape (SDPA's forward), and there three planted faults in K3a's
+      key tiles.
    d. K5, splash attention's fused one-pass backward, at the Llama-1B
       training shape (B=4, T=2048, H=32, KV=8, D=64, causal, bf16), at
       8B width (D=128) and at small odd shapes (f32 D 16 and 64, bf16
@@ -546,9 +548,10 @@ def phase_flash(name, seed):
     2**-12 of the largest such size, f32 1e-5 of the largest); lse (f32)
     within 1e-4 absolute plus 1e-5; every output bit-equal across two
     runs.  At the training shape the bound must also reject three planted
-    faults (``flash_check.planted_faults``).  K2 and SDPA's forward are
-    timed at every shape; K3a, K3b, the plain versions and SDPA's
-    backward at the training shape."""
+    faults (``flash_check.planted_faults`` at K3a's key tile).  K2 and
+    SDPA's forward are timed at every shape; K3a, K3b, their plain
+    versions and SDPA's backward at the three model shapes
+    (``CASES[:3]``); the kernels line takes the training shape's."""
     import torch.nn.functional as F
 
     from bluefog_tpu_torch.parallel import flash_attention as fa
@@ -607,8 +610,9 @@ def phase_flash(name, seed):
             + ", ".join(f"{k_} {r:.3g}" for k_, r in ratios.items())
             + "; out, lse, dQ, dK, dV bit-equal across two runs")
         if case == flash_check.CASES[0]:
+            # each fault lies in the kernels' own tiles: K3a's key step
             for fault, key, bad in flash_check.planted_faults(
-                    q, k, v, do, lse, delta, ref):
+                    q, k, v, do, lse, delta, ref, tile=fa.DQ_KEY_TILE):
                 ratio = flash_check.mismatch(bad, ref[key], terms[key])
                 if ratio <= 1:
                     raise AssertionError(f"{what}: the bound passes a "
@@ -640,9 +644,12 @@ def phase_flash(name, seed):
             f"({ops / k2_ms / 1e9:.1f} TFLOP/s), SDPA forward {sdpa_ms:.4f}"
             f" ms (K2/SDPA {k2_ms / sdpa_ms:.3f}){plain}, bound "
             f"{bound:.4f} ms")
-        if case != flash_check.CASES[0]:
+        if case not in flash_check.CASES[:3]:
             continue
-        # the training path's shape: kernel, plain, bound and library times
+        # the models' shapes: K3a's and K3b's kernel, plain, bound and
+        # library times (and K2's at the training shape, the kernels line's
+        # entry for all three)
+        first = case == flash_check.CASES[0]
         n_q, n_kv = b * t * h * d * es, b * t * kv * d * es
         n_row = b * h * t * 4
         timed = {
@@ -674,28 +681,36 @@ def phase_flash(name, seed):
         leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
 
         def sdpa_fwd():
-            return F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                                  enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                *leaves, is_causal=causal, enable_gqa=True)
 
         lib_bwd = (time_ms(lambda: torch.autograd.grad(sdpa_fwd(), leaves,
                                                        dot), flush)
                    - time_ms(sdpa_fwd, flush))
+        pair_ms = 0.0
         for kname, (run, plain, nbytes, ops) in timed.items():
+            if kname == "flash_forward" and not first:
+                continue  # K2 timed above at every shape
             ms = time_ms(run, flush)
             plain_ms = time_ms(plain, flush, reps=5)
             t_bytes, t_ops = nbytes / rate * 1e3, ops / PEAK_OPS[dt] * 1e3
             lib = lib_fwd if kname == "flash_forward" else lib_bwd
-            results[kname] = dict(
+            rec = dict(
                 max_abs_err=max(errs[o] for o in FLASH_OUTPUTS[kname]),
                 ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=lib)
-            rec = results[kname]
-            log(f"[kernel] {kname} at the training shape: kernel {ms:.4f} "
+            if first:
+                results[kname] = rec
+            if kname != "flash_forward":
+                pair_ms += ms
+            log(f"[kernel] {kname} at {what}: kernel {ms:.4f} "
                 f"ms ({ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} "
                 f"ms, library {lib:.4f} ms, bound {rec['bound_ms']:.4f} ms "
                 f"({rec['bound_by']}, {nbytes / 1e6:.1f} MB, "
                 f"{ops / 1e9:.1f} GFLOP)")
+        log(f"[kernel] K3a + K3b at {what}: {pair_ms:.4f} ms, SDPA's "
+            f"backward {lib_bwd:.4f} ms (pair/SDPA {pair_ms / lib_bwd:.3f})")
     return results
 
 
@@ -954,10 +969,15 @@ def _launches():
             "decode_attention_int8": da.decode_attention_int8.launches,
             "conv1x1_backward": k1.conv1x1_backward.launches,
             "flash_forward": fa.flash_forward.launches,
-            # K2's mma.sync launches (bf16, D 16 and 32): none on a model
+            # the mma.sync launches of K2, K3a and K3b (bf16, D 16 and
+            # 32): none on a model
             "flash_forward_mma_sync": fa.flash_forward.launches_mma_sync,
             "flash_backward_dq": fa.flash_backward_dq.launches,
+            "flash_backward_dq_mma_sync":
+                fa.flash_backward_dq.launches_mma_sync,
             "flash_backward_dkv": fa.flash_backward_dkv.launches,
+            "flash_backward_dkv_mma_sync":
+                fa.flash_backward_dkv.launches_mma_sync,
             "splash_backward": sp.splash_backward.launches}
 
 

@@ -237,12 +237,14 @@ from bluefog_tpu_torch.parallel import flash_attention as fa  # noqa: E402
 from bluefog_tpu_torch.parallel import flash_check  # noqa: E402
 
 
-def flash_inputs(b, t, h, kv, d, dtype, seed=0):
+def flash_inputs(b, t, h, kv, d, dtype, seed=0, s_len=None):
+    """q, k, v, dO on the card: q and dO ``[b, t, h, d]``, k and v
+    ``[b, s_len, kv, d]`` (``s_len`` defaults to t)."""
     g = torch.Generator("cuda").manual_seed(seed)
     q, do = (torch.randn(b, t, h, d, generator=g, device="cuda").to(dtype)
              for _ in range(2))
-    k, v = (torch.randn(b, t, kv, d, generator=g, device="cuda").to(dtype)
-            for _ in range(2))
+    k, v = (torch.randn(b, s_len or t, kv, d, generator=g,
+                        device="cuda").to(dtype) for _ in range(2))
     return q, k, v, do
 
 
@@ -272,10 +274,12 @@ def test_flash_kernels_match_plain_on_card(b, t, h, kv, d, dtype, causal,
     torch.cuda.synchronize()
     assert (fa.flash_forward.launches, fa.flash_backward_dq.launches,
             fa.flash_backward_dkv.launches) == (2, 2, 2)
-    # bf16 at D = 64 and 128 runs the wgmma kernel, at D = 16 and 32 the
-    # mma.sync one
-    assert fa.flash_forward.launches_mma_sync == (
-        2 if dtype == torch.bfloat16 and d < 64 else 0)
+    # bf16 at D = 64 and 128 runs the wgmma kernels, at D = 16 and 32 the
+    # mma.sync ones
+    mma_sync = 2 if dtype == torch.bfloat16 and d < 64 else 0
+    assert (fa.flash_forward.launches_mma_sync,
+            fa.flash_backward_dq.launches_mma_sync,
+            fa.flash_backward_dkv.launches_mma_sync) == (mma_sync,) * 3
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) \
         and torch.equal(dv, dv2)
     ref = fa.flash_backward_plain(q, k, v, do, lse, delta, *args)
@@ -337,6 +341,54 @@ def test_sm90_tile_product_and_repack_on_card(d):
     torch.testing.assert_close(o, p @ v.float(), rtol=1e-5, atol=1e-2)
 
 
+def _bwd_tile_check(a, b, c):
+    """The backward's wgmma layouts on one tile: ``a [64, D]``, ``b [N,
+    D]``, ``c [N, D]`` bf16 on the card, D and N 64 or 128; returns ``(s,
+    o)`` f32 with ``s = a·bᵀ`` (both K-major) and ``o = bf16(s)·c`` (c
+    MN-major) computed by K3a's and K3b's own maps and product issues
+    (``bf_flash_bwd_tile_check`` of ``csrc/flash_tile_check.cu``)."""
+    import ctypes
+
+    from bluefog_tpu_torch import cuda_build
+
+    d, n = a.shape[-1], b.shape[0]
+    for x, rows in ((a, 64), (b, n), (c, n)):
+        assert x.dtype == torch.bfloat16 and x.shape == (rows, d)
+        assert x.is_cuda and x.is_contiguous()
+    s = torch.empty(64, n, dtype=torch.float32, device=a.device)
+    o = torch.empty(64, d, dtype=torch.float32, device=a.device)
+    fn = cuda_build.load("flash_tile_check").bf_flash_bwd_tile_check
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), s.data_ptr(),
+             o.data_ptr(), d, n, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"tile check launch failed with code {err}"
+    return s, o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_tile_backward_forms_on_card(d, n):
+    """K3a's and K3b's wgmma layouts on one tile, against torch.matmul:
+    the SS product of two K-major tiles at n64 (K3b's Sᵀ = K·Qᵀ and dPᵀ =
+    V·dOᵀ) and n128 (K3a's S and dP), and the RS product reading a tile
+    of 64 rows (K3b's dO and Q) or 128 (K3a's K) MN-major.  Tolerances as
+    in test_sm90_tile_product_and_repack_on_card."""
+    _card()
+    g = torch.Generator("cuda").manual_seed(d + n)
+    a = torch.randn(64, d, generator=g, device="cuda").to(torch.bfloat16)
+    b = torch.randn(n, d, generator=g, device="cuda").to(torch.bfloat16)
+    c = torch.randn(n, d, generator=g, device="cuda").to(torch.bfloat16)
+    s, o = _bwd_tile_check(a, b, c)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, a.float() @ b.float().T, rtol=1e-5,
+                               atol=1e-3)
+    p = s.to(torch.bfloat16).float()
+    torch.testing.assert_close(o, p @ c.float(), rtol=1e-5, atol=1e-2)
+
+
 # (B, T, H, KV, D, causal, q_offset, kv_offset): ragged T around the
 # wgmma kernel's 64-row warpgroups and 128-key tiles, offsets, rows with
 # no live key (kv_offset 70: rows 0-69), non-causal
@@ -373,6 +425,66 @@ def test_k2_wgmma_odd_shapes_on_card(b, t, h, kv, d, causal, q_off, kv_off):
         dead = kv_off - q_off
         assert not out[:, :dead].any()
         assert bool((lse[..., :dead] == -1e30).all())
+
+
+# (B, T, S, H, KV, D, causal, q_offset, kv_offset) for the wgmma K3a and
+# K3b: ragged T around their 64-row tiles and 128-key steps at rep 1, 2
+# and 4, non-causal, and offsets that leave rows with no live key and
+# keys with no live query (kv_offset 70 at T 129: rows 0-69 and keys
+# 59-128; kv_offset 100 at T 200: rows 0-99 and keys 100-199).  T = 1
+# reads 200 keys from the sequence's end (q_offset 199): with one key
+# (T = S = 1) every row's dS = P·(dP - delta) is zero in exact arithmetic,
+# so dQ and dK are f32 rounding noise on both sides, below any bound
+# relative to their terms (PERF.md, K3a and K3b findings).
+K3_ODD = ([(2, t, 200 if t == 1 else t, 4, (4, 2, 1)[i % 3], d, True,
+            199 if t == 1 else 0, 0)
+           for d in (64, 128)
+           for i, t in enumerate((1, 63, 65, 127, 129, 200))]
+          + [(2, 200, 200, 4, 4, 64, False, 0, 0),
+             (1, 129, 129, 8, 2, 128, False, 0, 0),
+             (1, 1, 200, 8, 2, 128, False, 0, 0),
+             (1, 129, 129, 4, 1, 128, True, 0, 70),
+             (1, 200, 200, 4, 2, 64, True, 0, 100),
+             (1, 65, 65, 8, 2, 64, True, 37, 5),
+             (1, 127, 127, 4, 2, 128, True, 200, 64)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,s_len,h,kv,d,causal,q_off,kv_off", K3_ODD)
+def test_k3_wgmma_odd_shapes_on_card(b, t, s_len, h, kv, d, causal, q_off,
+                                     kv_off):
+    """The wgmma K3a and K3b at ragged shapes: dQ, dK and dV within
+    flash_check.mismatch's bound, bit-equal across two runs, exactly zero
+    for rows with no live key (dQ) and keys with no live query (dK, dV),
+    and no mma.sync launch."""
+    _card()
+    q, k, v, do = flash_inputs(b, t, h, kv, d, torch.bfloat16, seed=t + d,
+                               s_len=s_len)
+    args = (causal, None, q_off, kv_off)
+    out, lse = fa.flash_forward(q, k, v, *args)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    fa.reset_launch_counts()
+    runs = [(fa.flash_backward_dq(q, k, v, do, lse, delta, *args),
+             *fa.flash_backward_dkv(q, k, v, do, lse, delta, *args))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (fa.flash_backward_dq.launches,
+            fa.flash_backward_dkv.launches) == (2, 2)
+    assert (fa.flash_backward_dq.launches_mma_sync,
+            fa.flash_backward_dkv.launches_mma_sync) == (0, 0)
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    dq, dk, dv = runs[0]
+    terms = flash_check.term_sizes(q, k, v, do, lse, delta, *args)
+    ref = fa.flash_backward_plain(q, k, v, do, lse, delta, *args)
+    for key, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert flash_check.mismatch(got, want, terms[key]) <= 1, key
+    if causal:
+        dead_rows = max(0, min(t, kv_off - q_off))
+        assert dead_rows == 0 or not dq[:, :dead_rows].any()
+        first_dead_key = max(0, q_off + t - kv_off)  # key pos > last query
+        if first_dead_key < s_len:
+            assert not (dk[:, first_dead_key:].any()
+                        or dv[:, first_dead_key:].any())
 
 
 @pytest.mark.cuda

@@ -279,6 +279,57 @@ def test_kernel_check_passes_online_softmax_rounding(bf16_at_training_length):
     assert flash_check.mismatch(tiled, ref["out"], terms["out"]) <= 1
 
 
+def test_kernel_check_passes_wgmma_backward_rounding(bf16_at_training_length):
+    """The same bound leaves room for the wgmma K3a's and K3b's own
+    arithmetic: P recomputed as 2**(x·c - lse·log2 e) from the unscaled
+    f32 score x with c = scale·log2 e (one fused multiply-add, rounded
+    once to f32), P rounded to bf16 for dV and dS for dK and dQ, and each
+    output summed over the kernels' tiles in their order (dQ over steps of
+    ``DQ_KEY_TILE`` keys; dK and dV over 64-row query tiles, the group
+    members inside each).  The emulation differs from the plain versions
+    and passes the unchanged bound, which still rejects the planted faults
+    at K3a's key tile."""
+    q, k, v, do, lse, delta, ref, terms = bf16_at_training_length
+    b, t, h, d = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    scale = d ** -0.5
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    q5, do5 = (x.reshape(b, t, kv, rep, d).float() for x in (q, do))
+    x = torch.einsum("btgrd,bsgd->bgrts", q5, k.float())  # unscaled
+    c = torch.tensor(scale, dtype=torch.float32) * log2e
+    l2 = lse.reshape(b, kv, rep, t, 1) * log2e
+    p = torch.exp2((x.double() * c.double() - l2.double()).float())
+    pos = torch.arange(t)
+    p = torch.where(pos[:, None] >= pos[None, :], p, 0.0)
+    dp = torch.einsum("btgrd,bsgd->bgrts", do5, v.float())
+    ds = p * (dp - delta.reshape(b, kv, rep, t, 1))
+    p16, ds16 = (y.to(torch.bfloat16).float() for y in (p, ds))
+    k4 = k.float().transpose(1, 2)[:, :, None]            # [B, KV, 1, S, D]
+    dq = torch.zeros(b, kv, rep, t, d)
+    for j in range(0, t, tfa.DQ_KEY_TILE):
+        dq += ds16[..., j:j + tfa.DQ_KEY_TILE] @ k4[..., j:j + tfa.DQ_KEY_TILE, :]
+    dk, dv = torch.zeros(b, kv, t, d), torch.zeros(b, kv, t, d)
+    q6, do6 = (y.permute(0, 2, 3, 1, 4) for y in (q5, do5))  # [B, KV, rep, T, D]
+    for i in range(0, t, 64):
+        for r in range(rep):
+            rows = slice(i, i + 64)
+            dv += p16[:, :, r, rows].transpose(-1, -2) @ do6[:, :, r, rows]
+            dk += ds16[:, :, r, rows].transpose(-1, -2) @ q6[:, :, r, rows]
+    got = {"dq": tfa._heads(dq * scale, b, t, h).to(torch.bfloat16),
+           "dk": (dk * scale).transpose(1, 2).to(torch.bfloat16),
+           "dv": dv.transpose(1, 2).to(torch.bfloat16)}
+    for key, y in got.items():
+        assert not torch.equal(y, ref[key]), key
+        assert flash_check.mismatch(y, ref[key], terms[key]) <= 1, key
+    faults = flash_check.planted_faults(q, k, v, do, lse, delta, ref,
+                                        tile=tfa.DQ_KEY_TILE)
+    assert [key for _, key, _ in faults] == ["out", "dq", "dk", "dv"]
+    for fault, key, bad in faults:
+        assert flash_check.mismatch(bad, ref[key], terms[key]) > 1, \
+            (fault, key)
+
+
 def test_kernel_check_rejects_planted_faults(bf16_at_training_length):
     """The same bound rejects wrong kernels whose error lies only past
     T/2, where entries are smallest: a skipped diagonal key tile (out,
