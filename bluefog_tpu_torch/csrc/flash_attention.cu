@@ -354,16 +354,10 @@ struct WgSmem {
                                    8 * (1 + 2 * kStagesW) + 1024;
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+using sm90::align1024;
+using sm90::exp2_approx;
+using sm90::rs_chain;
+using sm90::ss_chain;
 
 // Issues sc[64 x 128] = Q[64 x D] · K[128 x D]ᵀ as one commit group (the
 // caller waits): q and k at their first box (K-major, SBO 1024 bytes = 8
@@ -622,53 +616,6 @@ int k2_maps(CUtensorMap (&maps)[3], const void* q, const void* k,
 // keeps its outputs in f32 registers until one masked store.
 // ---------------------------------------------------------------------------
 constexpr float kLog2e = 1.4426950408889634f;
-
-// Issues acc[64 x N] = A[64 x D] · B[N x D]ᵀ (no fence, no commit): A and B
-// K-major in 128B-swizzled boxes of 64 columns, abox and bbox bytes from
-// one box to the next (SBO 1024 bytes = 8 rows; the k-th 16-column step
-// starts 32·k bytes into its box).  N is 64 or 128.  The first step
-// overwrites acc, so the previous tile's values are dead before it.
-template <int D, int N>
-__device__ __forceinline__ void ss_chain(float (&acc)[N / 2], const void* a,
-                                         int abox, const void* b, int bbox) {
-  const uint64_t da = sm90::desc_sw128(a, 16, 1024);
-  const uint64_t db = sm90::desc_sw128(b, 16, 1024);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint64_t ka = sm90::desc_add(da, (kk / 4) * abox + (kk % 4) * 32);
-    const uint64_t kb = sm90::desc_add(db, (kk / 4) * bbox + (kk % 4) * 32);
-    if constexpr (N == 128) {
-      if (kk == 0)
-        sm90::wgmma_ss_n128_set(acc, ka, kb);
-      else
-        sm90::wgmma_ss_n128(acc, ka, kb, 1);
-    } else {
-      if (kk == 0)
-        sm90::wgmma_ss_n64_set(acc, ka, kb);
-      else
-        sm90::wgmma_ss_n64(acc, ka, kb, 1);
-    }
-  }
-}
-
-// Issues acc[64 x D] += A[64 x 16·KS] · B[16·KS x D] (no fence, no
-// commit): A as KS register operands (s_to_a), B MN-major (the transpose
-// bit) from a tile of rows whose 64-column boxes lie bbox bytes apart (LBO;
-// SBO 1024 bytes = 8 rows); the k-th step of 16 rows starts 2048·k bytes
-// in.
-template <int D, int KS>
-__device__ __forceinline__ void rs_chain(float (&acc)[D / 2],
-                                         const uint32_t (&a)[KS][4],
-                                         const void* b, int bbox) {
-  const uint64_t db = sm90::desc_sw128(b, bbox, 1024);
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    if constexpr (D == 128)
-      sm90::wgmma_rs_n128(acc, a[kk], sm90::desc_add(db, kk * 2048), 1);
-    else
-      sm90::wgmma_rs_n64(acc, a[kk], sm90::desc_add(db, kk * 2048), 1);
-  }
-}
 
 // K3a: a block owns the NC · 64 query rows of K2's block (WgSmem) of one
 // (batch, head), Q and dO loaded once; K and V stream in tiles of 128 keys

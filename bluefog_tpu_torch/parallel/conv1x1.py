@@ -13,6 +13,13 @@ custom VJP becomes a ``torch.autograd.Function``.  As in the JAX package:
 * ``dy`` and ``w`` are cast to x's type before the kernel and ``dw``
   (float32 from the kernel) to w's type after.
 
+The kernel (:func:`tile_config`): in bf16 with ci and co multiples of 64
+it runs on TMA and ``wgmma``, as one fused persistent pass that reads x
+and dy once at ResNet's stage-1 shape (ci 64, co 256) and as two GEMMs
+elsewhere; otherwise on a plain FMA tile.  ``dw`` is summed from per-block
+f32 partials over :func:`split_plan`'s row chunks in block order
+(:func:`conv1x1_backward_split_plain` emulates that order on the host).
+
 Deviation: the JAX backend falls back to two XLA matmuls when its N tile
 would be below 64 rows, a VMEM-budget artifact.  On a CUDA tensor the
 wrapper always launches the kernel; on a CPU tensor it runs
@@ -33,11 +40,13 @@ from typing import Tuple
 import torch
 
 __all__ = ["conv1x1", "conv1x1_backward", "conv1x1_backward_plain",
-           "split_plan", "tile_configs", "reset_launch_counts"]
+           "conv1x1_backward_split_plain", "split_plan", "tile_config",
+           "reset_launch_counts"]
 
 # dtype codes of csrc/conv1x1_backward.cu
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MIN_SPLIT_ROWS = 256
+_CHUNK_ROWS = 128
 
 _lib = None    # the built library, its two functions bound at first launch
 _tiles = {}    # configuration -> block tile (BM, BN), read from the library
@@ -53,28 +62,48 @@ def conv1x1_backward_plain(x2d: torch.Tensor, dy2d: torch.Tensor,
     return dx, dw
 
 
-def tile_configs(ci: int, tensor_cores: bool) -> Tuple[int, int]:
-    """(dx, dw) tile configuration of the kernel (its ``Cfg`` table in
-    ``csrc/conv1x1_backward.cu``): 0 and 1 where ci is 64 (ResNet's first
-    stage), 2 above; -1 (the FMA path) without tensor cores."""
+def conv1x1_backward_split_plain(x2d: torch.Tensor, dy2d: torch.Tensor,
+                                 w: torch.Tensor, splits: int, chunk: int
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's order of ``dw`` in plain torch (a CPU emulation): one
+    f32 partial per block over rows ``[s·chunk, (s + 1)·chunk)`` of
+    :func:`split_plan`, the partials summed in block order; ``dx`` as in
+    :func:`conv1x1_backward_plain`."""
+    dx = (dy2d.float() @ w.float().T).to(x2d.dtype)
+    dw = torch.zeros(x2d.shape[1], dy2d.shape[1])
+    for s in range(splits):
+        rows = slice(s * chunk, (s + 1) * chunk)
+        dw = dw + x2d[rows].float().T @ dy2d[rows].float()
+    return dx, dw
+
+
+def tile_config(ci: int, co: int, tensor_cores: bool) -> int:
+    """The kernel's configuration (``bf_conv1x1_tile``'s table in
+    ``csrc/conv1x1_backward.cu``): 0, the fused persistent kernel, at
+    ResNet's stage-1 shape (ci 64, co 256); 1, two wgmma GEMMs, at any
+    other width that is a multiple of 64; -1, the FMA path, without
+    tensor cores."""
     if not tensor_cores:
-        return -1, -1
-    return (0, 1) if ci <= 64 else (2, 2)
+        return -1
+    return 0 if (ci, co) == (64, 256) else 1
 
 
 def split_plan(n: int, ci: int, co: int, tile: Tuple[int, int],
                sm_count: int) -> Tuple[int, int]:
     """(splits, chunk) of the split-N ``dw`` pass whose blocks cover
     ``tile`` = (BM, BN) of ``[ci, co]`` each: enough blocks to cover the
-    card's SMs once, no split under 256 rows, the chunk a multiple of 32
-    rows.  A pure function of the shape, the tile and the card, so ``dw``
-    is reduced in the same order on every call.  The kernel's block tiles
-    are read from the library (``bf_conv1x1_tile``), which holds the one
-    table of them."""
+    card's SMs once, no split under 256 rows, the chunk a multiple of 128
+    rows (the fused kernel's row tile, two of the GEMM's 64-row slices).
+    Block s sums rows ``[s·chunk, min(n, (s + 1)·chunk))``; at the fused
+    kernel's tile (all of ``[ci, co]``) that is the persistent schedule,
+    one block per SM.  A pure function of the shape, the tile and the
+    card, so ``dw`` is reduced in the same order on every call.  The
+    kernel's block tiles are read from the library (``bf_conv1x1_tile``),
+    which holds the one table of them."""
     bm, bn = tile
     tiles = math.ceil(ci / bm) * math.ceil(co / bn)
     splits = max(1, min(math.ceil(sm_count / tiles), n // _MIN_SPLIT_ROWS))
-    chunk = math.ceil(math.ceil(n / splits) / 32) * 32
+    chunk = math.ceil(math.ceil(n / splits) / _CHUNK_ROWS) * _CHUNK_ROWS
     return math.ceil(n / chunk), chunk
 
 
@@ -85,7 +114,7 @@ def _bind():
 
         lib = cuda_build.load("conv1x1_backward")
         lib.bf_conv1x1_backward.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.bf_conv1x1_backward.restype = ctypes.c_int
         lib.bf_conv1x1_tile.argtypes = [ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int),
@@ -132,13 +161,13 @@ def _launch(x2d, dy2d, w):
     dev = x2d.device
     dx = torch.empty_like(x2d)
     dw = torch.empty((ci, co), dtype=torch.float32, device=dev)
-    tensor_cores = (x2d.dtype == torch.bfloat16 and ci % 8 == 0
-                    and co % 8 == 0
+    tensor_cores = (x2d.dtype == torch.bfloat16 and ci % 64 == 0
+                    and co % 64 == 0
                     and all(t.data_ptr() % 16 == 0
                             for t in (x2d, dy2d, w, dx)))
-    cfg_dx, cfg_dw = tile_configs(ci, tensor_cores)
+    cfg = tile_config(ci, co, tensor_cores)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, chunk = split_plan(n, ci, co, _tile(cfg_dw), sms)
+    splits, chunk = split_plan(n, ci, co, _tile(cfg), sms)
     scratch = (torch.empty((splits, ci, co), dtype=torch.float32,
                            device=dev) if splits > 1 else None)
     with torch.cuda.device(dev):
@@ -146,8 +175,7 @@ def _launch(x2d, dy2d, w):
         err = _bind().bf_conv1x1_backward(
             x2d.data_ptr(), dy2d.data_ptr(), w.data_ptr(), dx.data_ptr(),
             dw.data_ptr(), scratch.data_ptr() if scratch is not None else None,
-            n, ci, co, _CODES[x2d.dtype], splits, chunk, cfg_dx, cfg_dw,
-            stream)
+            n, ci, co, _CODES[x2d.dtype], splits, chunk, cfg, stream)
     if err != 0:
         raise RuntimeError(f"conv1x1 backward kernel launch failed with "
                            f"code {err}")

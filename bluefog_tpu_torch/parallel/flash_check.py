@@ -18,8 +18,9 @@ hold the kernels to one bound.
   lost group member.  :func:`splash_planted_faults`: the same for K5's
   own failure modes (a lost dQ partial, a skipped diagonal query step).
 
-K5 sums each dQ row over per-key-tile f32 partials, in another order
-than K3a; its dK and dV take K3b's order.  The bound is the same.
+K5 sums each dQ row over per-span f32 partials (256 keys for its wgmma
+kernel, 64 for the mma.sync one), in another order than K3a; its dK and
+dV take K3b's order.  The bound is the same.
 """
 
 from __future__ import annotations
@@ -167,10 +168,12 @@ def splash_planted_faults(q, k, v, do, lse, delta,
                           ) -> List[Tuple[str, str, torch.Tensor]]:
     """``(fault, output, tensor)`` for two wrong K5 kernels at a causal
     shape, each wrong only in the second half of the sequence: the dQ sum
-    dropping each row's diagonal partial there (the ``tile``-key group
-    that holds the row: the sum stops one group short), and every
-    ``tile``-key block there skipping its diagonal query step (its first
-    ``rows`` rows: their contributions to its dK and dV are lost).
+    dropping each row's diagonal partial there (the ``tile``-key span
+    that holds the row: the sum stops one span short), and every
+    ``tile``-key span there skipping its diagonal query step (its first
+    ``rows`` rows: their contributions to its dK and dV are lost).  The
+    kernel's own span and query step: 256 and 64 for the wgmma kernel, 64
+    and 32 for the mma.sync one.
     ``ref`` holds the plain version's ``dq``, ``dk`` and ``dv`` on the
     same inputs; the faults are computed with the plain versions from the
     true forward's ``lse`` and ``delta``."""

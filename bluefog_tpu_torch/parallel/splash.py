@@ -15,8 +15,12 @@ dtype) and :class:`_Splash` is its ``torch.autograd.Function``:
   the TPU's gain came from the fused backward alone (``splash.py:7-8``).
 * backward: ``delta = rowsum(dO·O)`` in f32 outside the kernel, then K5
   (:func:`splash_backward`, ``csrc/splash_backward.cu``), one pass over
-  the live (query, key) tiles with dQ summed from per-key-tile f32
-  partials in a fixed order (no atomics).
+  the live (query, key) tiles with dQ summed from per-span f32 partials
+  in a fixed order (no atomics): 256-key spans, each a cluster of blocks
+  that sums its tiles over distributed shared memory, for the wgmma
+  kernel (bf16 at D 64 and 128), 64-key ones otherwise.  The partials
+  are packed (:func:`partial_rows`): span j holds rows from its first
+  key on.
 
 Deviations from the JAX package:
 
@@ -33,8 +37,10 @@ Deviations from the JAX package:
   card to the plain version.
 
 :func:`splash_backward` counts its launches in ``splash_backward.
-launches`` (one per call: the kernel and its dQ sum); the plain version
-counts nothing.
+launches`` (one per call: the kernel and its dQ sum), those of the
+mma.sync kernel (bf16 at D 16 and 32, no model path) also in
+``splash_backward.launches_mma_sync``; the plain version counts
+nothing.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ from bluefog_tpu_torch.parallel.flash_attention import (HEAD_DIMS, _CODES,
                                                         flash_forward)
 
 __all__ = ["splash_attention", "splash_backward", "splash_backward_plain",
-           "library_supports_head_dim", "reset_launch_counts"]
+           "library_supports_head_dim", "partial_rows", "reset_launch_counts"]
 
 _lib = None   # the built library, bound at first launch
 
@@ -93,7 +99,7 @@ def _bind():
         from bluefog_tpu_torch import cuda_build
 
         lib = cuda_build.load("splash_backward")
-        lib.bf_splash_key_tile.argtypes = []
+        lib.bf_splash_key_tile.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.bf_splash_key_tile.restype = ctypes.c_int
         lib.bf_splash_backward.argtypes = ([ctypes.c_void_p] * 10
                                            + [ctypes.c_int] * 5
@@ -104,17 +110,27 @@ def _bind():
     return _lib
 
 
-def _key_tile() -> int:
-    """Keys per K5 block, and so per dQ partial (read from the built
-    library, which holds the one definition)."""
-    return _bind().bf_splash_key_tile()
+def _key_tile(dtype: torch.dtype, d: int) -> int:
+    """Keys per K5 dQ partial (the span) for ``dtype`` and head dim ``d``:
+    256 for the wgmma kernel (bf16 at D 64 and 128), 64 for the mma.sync
+    and FMA ones.  Read from the built library, which holds the one
+    definition."""
+    return _bind().bf_splash_key_tile(_CODES[dtype], d)
 
 
-def _partials(groups: int, q: torch.Tensor) -> torch.Tensor:
-    """The f32 dQ partials, ``[groups, *q.shape]``, one per key tile; rows
-    before a tile's first key are never written nor read."""
-    return torch.empty(groups, *q.shape, dtype=torch.float32,
-                       device=q.device)
+def partial_rows(t: int, span: int) -> int:
+    """Rows of the packed dQ partials at length ``t``: partial j holds
+    rows ``j·span .. t - 1`` only, the rows the kernel writes into it."""
+    return sum(t - j * span for j in range(math.ceil(t / span)))
+
+
+def _partials(span: int, q: torch.Tensor) -> torch.Tensor:
+    """The packed f32 dQ partials, ``B·H·D`` floats for each row of
+    :func:`partial_rows` (the layout of ``part_offset`` in
+    ``csrc/splash_backward.cu``)."""
+    b, t, h, d = q.shape
+    return torch.empty(b * partial_rows(t, span) * h * d,
+                       dtype=torch.float32, device=q.device)
 
 
 @torch.no_grad()
@@ -124,7 +140,10 @@ def splash_backward(q, k, v, do, lse, delta, scale: Optional[float] = None
     attention in one pass, from the forward's lse and ``delta =
     rowsum(dO·O)`` (both ``[B, H, T]`` f32).  A CUDA tensor launches the
     kernel (counted in ``splash_backward.launches``) or raises; a CPU
-    tensor runs :func:`splash_backward_plain`."""
+    tensor runs :func:`splash_backward_plain`.  bf16 at D = 64 and 128
+    runs the TMA + wgmma kernel (256-key dQ partials), bf16 at D = 16 and
+    32 the mma.sync one (64-key partials, counted also in
+    ``splash_backward.launches_mma_sync``)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if not _on_card(q):
         return splash_backward_plain(q, k, v, do, lse, delta, scale)
@@ -132,7 +151,7 @@ def splash_backward(q, k, v, do, lse, delta, scale: Optional[float] = None
     if s_len != t:
         raise ValueError(f"splash attention is self-attention: k has "
                          f"{s_len} positions, q {t}")
-    part = _partials(math.ceil(t / _key_tile()), q)
+    part = _partials(_key_tile(q.dtype, d), q)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     ptrs = (q, k, v, do, lse, delta, part, dq, dk, dv)
     with torch.cuda.device(q.device):
@@ -144,15 +163,18 @@ def splash_backward(q, k, v, do, lse, delta, scale: Optional[float] = None
         raise RuntimeError(f"splash_backward kernel launch failed with "
                            f"code {err}")
     splash_backward.launches += 1
+    if q.dtype == torch.bfloat16 and d < 64:
+        splash_backward.launches_mma_sync += 1
     return dq, dk, dv
 
 
-splash_backward.launches = 0
-
-
 def reset_launch_counts() -> None:
-    """Set K5's launch count to 0."""
+    """Set K5's launch counts to 0."""
     splash_backward.launches = 0
+    splash_backward.launches_mma_sync = 0
+
+
+reset_launch_counts()
 
 
 class _Splash(torch.autograd.Function):

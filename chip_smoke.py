@@ -24,9 +24,12 @@ Phases (any failure raises and exits non-zero, printing no result):
       spin, the host's launch gap included); at S=2048 the tolerance
       rejects a planted merge that drops each row's last live split;
    b. K1 1x1-conv backward at the 7 distinct ResNet-50 shapes of batch
-      128 in bf16 and two small f32 shapes: max |err| of dx and dw, dw
-      bit-equal across two runs, kernel, plain and bound ms, and the two
-      cuBLAS products dy @ w.T and x.T @ dy as the library yardstick.
+      128 in bf16 (the fused wgmma kernel at stage 1, two wgmma GEMMs
+      elsewhere) and two small f32 shapes: max |err| of dx and dw, dx
+      and dw bit-equal across two runs, kernel, plain and bound ms, the
+      two cuBLAS products dy @ w.T and x.T @ dy as the library
+      yardstick, each shape's launches per rank-step, and the sums of
+      kernel, bound and cuBLAS ms over a rank-step's 20 launches.
 3. Serving: Llama-3.1-8B at full width (32 layers, random bf16 weights
    from --seed at flax's initializer scales) through ServingEngine
    (capacity 8, max_len 2048, prefill chunk 256): 16 requests, prompt
@@ -70,8 +73,10 @@ Phases (any failure raises and exits non-zero, printing no result):
       8B width (D=128) and at small odd shapes (f32 D 16 and 64, bf16
       D 32; T 100, 128, 1000; rep 1, 2, 4): each dQ/dK/dV entry within
       its bound, bit-equal across two runs; at the 1B shape the bound
-      rejects K5's planted faults; at both training shapes K5 (and its
-      dQ sum's share), K3a + K3b, plain, SDPA's backward and bound ms.
+      rejects K5's planted faults at the kernel's own dQ span and query
+      step (256 keys and 64 rows for the wgmma kernel); at both training
+      shapes K5 (its main kernel and dQ sum apart, with the partials'
+      count and bytes), K3a + K3b, plain, SDPA's backward and bound ms.
 7. Reference (training): a tiny f32 ResNet trained 3 atc steps over 4
    ranks on the card (kernel) and on the CPU (plain version) gives the
    same params, batch statistics and losses within f32 tolerance.
@@ -780,8 +785,12 @@ def phase_splash(name, seed):
             + ", ".join(f"{k_} {r:.3g}" for k_, r in ratios.items())
             + "; dQ, dK, dV bit-equal across two runs")
         if case == flash_check.SPLASH_CASES[0]:
+            # at the kernel's own span and query step (the wgmma kernel's
+            # 256 keys and 64 rows at this shape)
+            span = sp._key_tile(dt, d)
             for fault, key, bad in flash_check.splash_planted_faults(
-                    q, k, v, do, lse, delta, ref):
+                    q, k, v, do, lse, delta, ref, tile=span,
+                    rows=64 if span > 64 else 32):
                 ratio = flash_check.mismatch(bad, ref[key], terms[key])
                 if ratio <= 1:
                     raise AssertionError(f"{what}: the bound passes a "
@@ -805,8 +814,12 @@ def phase_splash(name, seed):
         k3_ms = time_ms(lambda: (
             fa.flash_backward_dq(q, k, v, do, lse, delta),
             fa.flash_backward_dkv(q, k, v, do, lse, delta)), flush)
-        split = _kernel_split_ms(run, {"main": ("k5_tc",),
+        split = _kernel_split_ms(run, {"main": ("k5_wgmma", "k5_tc"),
                                        "sum": ("k5_sum",)})
+        # the dQ partials: each live (row, span) pair's D f32 written by
+        # the main kernel and read back by the sum
+        span = sp._key_tile(dt, d)
+        part_bytes = b * h * d * 4 * sp.partial_rows(t, span)
         # yardstick only: SDPA's backward (forward subtracted) on the
         # [B, H, T, D] views (the port never calls it)
         leaves = [x.detach().transpose(1, 2).requires_grad_(True)
@@ -827,7 +840,9 @@ def phase_splash(name, seed):
         log(f"[kernel] splash_backward at {what}: K5 {ms:.4f} ms "
             f"({ops / ms / 1e9:.1f} TFLOP/s; main kernel {split['main']:.4f}"
             f" ms, dQ sum {split['sum']:.4f} ms = "
-            f"{100 * split['sum'] / (split['main'] + split['sum']):.1f}%), "
+            f"{100 * split['sum'] / (split['main'] + split['sum']):.1f}%; "
+            f"{math.ceil(t / span)} partials of {span} keys, "
+            f"{part_bytes / 1e6:.1f} MB written and read back), "
             f"K3a + K3b {k3_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
             f"backward {lib:.4f} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}, {nbytes / 1e6:.1f} MB, "
@@ -841,16 +856,17 @@ def phase_splash(name, seed):
 
 # ResNet-50 at batch 128: the distinct (N, ci, co) of its 20 K1 launches
 # per rank-step (16 expansions, 4 projections; stage 1's projection has
-# its expansion's shape), then two small f32 shapes
-K1_SHAPES = [(401408, 64, 256, torch.bfloat16, "stage 1 expand x3 + proj"),
-             (100352, 128, 512, torch.bfloat16, "stage 2 expand x4"),
-             (100352, 256, 512, torch.bfloat16, "stage 2 proj"),
-             (25088, 256, 1024, torch.bfloat16, "stage 3 expand x6"),
-             (25088, 512, 1024, torch.bfloat16, "stage 3 proj"),
-             (6272, 512, 2048, torch.bfloat16, "stage 4 expand x3"),
-             (6272, 1024, 2048, torch.bfloat16, "stage 4 proj"),
-             (98, 32, 16, torch.float32, "small f32"),
-             (196, 64, 24, torch.float32, "small f32")]
+# its expansion's shape) with their launches per rank-step, then two small
+# f32 shapes
+K1_SHAPES = [(401408, 64, 256, torch.bfloat16, "stage 1 expand x3 + proj", 4),
+             (100352, 128, 512, torch.bfloat16, "stage 2 expand x4", 4),
+             (100352, 256, 512, torch.bfloat16, "stage 2 proj", 1),
+             (25088, 256, 1024, torch.bfloat16, "stage 3 expand x6", 6),
+             (25088, 512, 1024, torch.bfloat16, "stage 3 proj", 1),
+             (6272, 512, 2048, torch.bfloat16, "stage 4 expand x3", 3),
+             (6272, 1024, 2048, torch.bfloat16, "stage 4 proj", 1),
+             (98, 32, 16, torch.float32, "small f32", 0),
+             (196, 64, 24, torch.float32, "small f32", 0)]
 K1_LAUNCHES_PER_RANK_STEP = 20
 BATCH = 128
 
@@ -868,7 +884,8 @@ def phase_k1(name, seed):
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     g = torch.Generator("cuda").manual_seed(seed)
     results = {}
-    for n, ci, co, dt, what in K1_SHAPES:
+    per_step = dict(kernel=0.0, bound=0.0, library=0.0)
+    for n, ci, co, dt, what, count in K1_SHAPES:
         x = torch.randn(n, ci, generator=g, device="cuda").to(dt)
         dy = torch.randn(n, co, generator=g, device="cuda").to(dt)
         w = (torch.randn(ci, co, generator=g, device="cuda") * 0.1).to(dt)
@@ -904,15 +921,25 @@ def phase_k1(name, seed):
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    library_ms=library_ms)
+        per_step["kernel"] += count * ms
+        per_step["bound"] += count * rec["bound_ms"]
+        per_step["library"] += count * library_ms
         log(f"[kernel] conv1x1_backward {what} N={n} ci={ci} co={co} "
             f"{str(dt).split('.')[-1]}: max|err| dx {err_dx:.3g} dw "
             f"{err_dw:.3g} (tol {tol_dw:.3g}), dw bit-equal across runs, "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
             f"{library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}, {nbytes / 1e6:.1f} MB, "
-            f"{ops / 1e9:.1f} GFLOP; {ops / ms / 1e9:.1f} TFLOP/s)")
+            f"{ops / 1e9:.1f} GFLOP; {ops / ms / 1e9:.1f} TFLOP/s; kernel/"
+            f"bound {ms / rec['bound_ms']:.2f}, kernel/library "
+            f"{ms / library_ms:.3f}), {count} launches per rank-step")
         if (n, ci, co) == (401408, 64, 256):   # the heaviest path shape
             results["conv1x1_backward"] = rec
+        del x, dy, w, dx, dw, dx2, dw2, ref_dx, ref_dw
+    log(f"[kernel] conv1x1_backward per ResNet-50 rank-step "
+        f"({K1_LAUNCHES_PER_RANK_STEP} launches): kernel "
+        f"{per_step['kernel']:.4f} ms, bound {per_step['bound']:.4f} ms, "
+        f"library (cuBLAS) {per_step['library']:.4f} ms")
     return results
 
 
@@ -978,7 +1005,10 @@ def _launches():
             "flash_backward_dkv": fa.flash_backward_dkv.launches,
             "flash_backward_dkv_mma_sync":
                 fa.flash_backward_dkv.launches_mma_sync,
-            "splash_backward": sp.splash_backward.launches}
+            "splash_backward": sp.splash_backward.launches,
+            # K5's mma.sync launches (bf16, D 16 and 32): none on a model
+            "splash_backward_mma_sync":
+                sp.splash_backward.launches_mma_sync}
 
 
 def _expect_launches(what, want):
@@ -1268,7 +1298,7 @@ PEAK_BF16 = 989e12
 
 # device kernels by the port's kernel, for the profiles' shares
 KERNEL_SYMBOLS = {"K2": ("k2_forward",), "K3a+K3b": ("k3a_dq", "k3b_dkv"),
-                  "K5": ("k5_tc", "k5_fma", "k5_sum")}
+                  "K5": ("k5_wgmma", "k5_tc", "k5_fma", "k5_sum")}
 
 
 def _profile_llama(step, params, opt, batch, steps=2, what="Llama"):

@@ -134,10 +134,10 @@ def test_bf16_weight_gradient_is_cast_to_w_dtype():
                                      (25088, 512, 1024), (6272, 1024, 2048),
                                      (98, 32, 16), (4096, 8, 8)])
 @pytest.mark.parametrize("tile", [(128, 64), (64, 128), (128, 128),
-                                  (64, 64)])
+                                  (64, 64), (64, 256)])
 def test_split_plan_covers_rows_in_fixed_chunks(n, ci, co, tile):
     splits, chunk = T.split_plan(n, ci, co, tile, 132)
-    assert chunk % 32 == 0 and splits >= 1
+    assert chunk % 128 == 0 and splits >= 1
     assert (splits - 1) * chunk < n <= splits * chunk
     assert (splits, chunk) == T.split_plan(n, ci, co, tile, 132)
     if n < 2 * 256:
@@ -149,3 +149,46 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         T.conv1x1_backward(x, torch.empty(4, 8, device="meta"),
                            torch.empty(8, 8, device="meta"))
+
+
+@pytest.mark.parametrize("n", [401408, 100352, 6272, 1000, 300])
+def test_split_plan_persistent_schedule_covers_n_exactly(n):
+    """At the fused kernel's dw tile (all of [64, 256]) the plan is the
+    persistent schedule: at most one block per SM, each a contiguous range
+    of whole 128-row tiles but the last, the ranges covering [0, N) once
+    with none empty."""
+    splits, chunk = T.split_plan(n, 64, 256, (64, 256), 132)
+    assert splits <= 132 and chunk % 128 == 0
+    ranges = [(s * chunk, min(n, (s + 1) * chunk)) for s in range(splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(splits - 1))
+    if n >= 132 * 256:
+        assert splits >= 128   # every SM but a few holds a block
+
+
+def test_kernel_dw_order_matches_jax_kernel():
+    """K1's order of dw on the card, emulated on the host: one f32
+    partial per block of split_plan's persistent schedule (here 16 blocks
+    of 256 rows), summed in block order.  It agrees with the JAX kernel in
+    interpret mode within phase 2b's dw tolerance, 1e-4 of the largest
+    entry, and dx is the plain version's."""
+    rng = np.random.RandomState(5)
+    n, ci, co = 4096, 64, 256
+    x = jnp.asarray(rng.randn(n, ci), jnp.bfloat16)
+    dy = jnp.asarray(rng.randn(n, co), jnp.bfloat16)
+    w = jnp.asarray(rng.randn(ci, co) * 0.1, jnp.bfloat16)
+    jdx, jdw = J.conv1x1_backward(x, dy, w, interpret=True)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+    splits, chunk = T.split_plan(n, ci, co, (64, 256), 132)
+    assert (splits, chunk) == (16, 256)
+    dx, dw = T.conv1x1_backward_split_plain(t(x), t(dy), t(w), splits, chunk)
+    jdw = np.asarray(jdw)
+    np.testing.assert_allclose(dw.numpy(), jdw, rtol=0,
+                               atol=1e-4 * np.abs(jdw).max())
+    plain_dx, plain_dw = T.conv1x1_backward_plain(t(x), t(dy), t(w))
+    assert torch.equal(dx, plain_dx)
+    assert not torch.equal(dw, plain_dw)   # another order of the same sum

@@ -146,8 +146,12 @@ K1_SHAPES = [
     (6272, 1024, 2048, torch.bfloat16),  # stage 4 projection
     (98, 32, 16, torch.float32),         # odd N, f32 (FMA path)
     (196, 64, 24, torch.float32),
-    (4096, 8, 8, torch.bfloat16),        # narrow, tensor cores
+    (4096, 8, 8, torch.bfloat16),        # narrow: bf16 FMA path
     (1000, 12, 20, torch.bfloat16),      # ragged widths: bf16 FMA path
+    (1000, 64, 256, torch.bfloat16),     # fused kernel, ragged N
+    (300, 64, 256, torch.bfloat16),      # fused kernel, one split
+    (4096, 64, 128, torch.bfloat16),     # two GEMMs at ci 64
+    (1000, 192, 320, torch.bfloat16),    # two GEMMs, ragged tiles
 ]
 
 
@@ -209,16 +213,64 @@ def test_k1_autograd_on_card_matches_host(stride):
 
 @pytest.mark.cuda
 def test_k1_tile_table_comes_from_the_library():
-    """Every configuration the wrapper picks has its block tile in the
+    """Every configuration the wrapper picks has its dw block tile in the
     library's one table, and an unknown configuration is refused."""
     _card()
-    for ci in (8, 64, 128, 1024):
+    for ci, co in ((8, 8), (64, 256), (64, 128), (128, 512), (1024, 2048)):
         for tensor_cores in (True, False):
-            for cfg in k1.tile_configs(ci, tensor_cores):
-                bm, bn = k1._tile(cfg)
-                assert bm % 16 == 0 and bn % 16 == 0
+            bm, bn = k1._tile(k1.tile_config(ci, co, tensor_cores))
+            assert bm % 16 == 0 and bn % 16 == 0
+    assert k1._tile(k1.tile_config(64, 256, True)) == (64, 256)
     with pytest.raises(RuntimeError, match="no tile configuration"):
         k1._tile(7)
+
+
+def _k1_tile_check(x, dy, w):
+    """K1's wgmma layouts on one tile (``csrc/conv1x1_tile_check.cu``, a
+    test-only library that includes ``conv1x1_backward.cu``): x [128,
+    128], dy [128, 256], w [128, 256] bf16; returns f32 ``(dx_f, dw_f,
+    dx_g, dw_g)``: the fused kernel's dx = dy[:64]·w[:64]ᵀ and dw =
+    x[:64, :64]ᵀ·dy[:64] on its 64-row tile, and the GEMMs' dx = dy[:,
+    :64]·w[:, :64]ᵀ and dw = x[:64]ᵀ·dy[:64, :128] on one 64-deep
+    slice."""
+    import ctypes
+
+    from bluefog_tpu_torch import cuda_build
+
+    outs = [torch.empty(*shape, dtype=torch.float32, device="cuda")
+            for shape in ((64, 64), (64, 256), (128, 128), (128, 128))]
+    fn = cuda_build.load("conv1x1_tile_check").bf_conv1x1_tile_check
+    fn.argtypes = [ctypes.c_void_p] * 8
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), dy.data_ptr(), w.data_ptr(),
+             *[o.data_ptr() for o in outs],
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"tile check launch failed with code {err}"
+    return outs
+
+
+@pytest.mark.cuda
+def test_k1_tile_forms_on_card():
+    """K1's 2-D TMA maps and wgmma forms on one tile against torch.matmul:
+    dx with dy and w K-major (n64 over four 64-column boxes of co, and n128
+    from a box of 128 rows), dw with xᵀ and dy MN-major (the transpose
+    bits; dy's two 64-column halves through LBO, two n128 halves of co
+    256).  Both sides multiply exact bf16 values and sum in f32 in
+    another order: 1e-5 relative plus 1e-3 absolute (entries ~10-100)."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator("cuda").manual_seed(11)
+    x, dy, w = (torch.randn(*shape, generator=g, device="cuda")
+                .to(torch.bfloat16)
+                for shape in ((128, 128), (128, 256), (128, 256)))
+    dx_f, dw_f, dx_g, dw_g = _k1_tile_check(x, dy, w)
+    torch.cuda.synchronize()
+    xf, dyf, wf = x.float(), dy.float(), w.float()
+    for got, want in ((dx_f, dyf[:64] @ wf[:64].T),
+                      (dw_f, xf[:64, :64].T @ dyf[:64]),
+                      (dx_g, dyf[:, :64] @ wf[:, :64].T),
+                      (dw_g, xf[:64].T @ dyf[:64, :128])):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
 
 
 # ---------------------------------------------------------------------------
@@ -542,6 +594,8 @@ def test_splash_kernel_matches_plain_on_card(b, t, h, kv, d, dtype):
     again = sp.splash_backward(q, k, v, do, lse, delta)
     torch.cuda.synchronize()
     assert sp.splash_backward.launches == 2
+    assert sp.splash_backward.launches_mma_sync == (
+        2 if dtype == torch.bfloat16 and d < 64 else 0)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
     terms = flash_check.term_sizes(q, k, v, do, lse, delta)
     want = sp.splash_backward_plain(q, k, v, do, lse, delta)
@@ -581,3 +635,84 @@ def test_splash_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         sp.splash_backward(q, k, v, do.transpose(1, 2).contiguous()
                            .transpose(1, 2), lse, delta)
+
+
+def _splash_dq_tile_check(a, b, c, n):
+    """K5's dQ form on one tile (``bf_splash_dq_tile_check`` of
+    ``csrc/flash_tile_check.cu``): a [KEYS, D] (keys), b [64, D] (query
+    rows), c [KEYS, D] bf16, KEYS 64 or 128; returns f32 ``(s, o)`` with s
+    = a·bᵀ (K5's Sᵀ, n64 SS) and o = bf16(s)ᵀ·c through the swizzled dSᵀ
+    tile the threads write and the MN-major SS chain, ``n`` (32 or 64)
+    columns of c a chain."""
+    import ctypes
+
+    from bluefog_tpu_torch import cuda_build
+
+    keys, d = a.shape
+    s = torch.empty(keys, 64, dtype=torch.float32, device=a.device)
+    o = torch.empty(64, d, dtype=torch.float32, device=a.device)
+    fn = cuda_build.load("flash_tile_check").bf_splash_dq_tile_check
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), s.data_ptr(),
+             o.data_ptr(), d, keys, n,
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"tile check launch failed with code {err}"
+    return s, o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32, 64])
+@pytest.mark.parametrize("keys", [64, 128])
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_tile_splash_dq_form_on_card(d, keys, n):
+    """K5's new dQ operand form on one tile, against torch.matmul: dS
+    stored from the bf16 register operands into a 128-byte-swizzled tile
+    with keys as rows, read back MN-major as A through the transpose bit
+    (m64n64 or m64n32 over 64 or 128 keys), K read MN-major as B from its
+    64-column boxes, a 32-column half from 64 bytes into the swizzled
+    rows.  Tolerances as in test_sm90_tile_product_and_repack_on_card."""
+    _card()
+    g = torch.Generator("cuda").manual_seed(d + keys + n + 1)
+    a = torch.randn(keys, d, generator=g, device="cuda").to(torch.bfloat16)
+    b = torch.randn(64, d, generator=g, device="cuda").to(torch.bfloat16)
+    c = torch.randn(keys, d, generator=g, device="cuda").to(torch.bfloat16)
+    s, o = _splash_dq_tile_check(a, b, c, n)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, a.float() @ b.float().T, rtol=1e-5,
+                               atol=1e-3)
+    p = s.to(torch.bfloat16).float()
+    torch.testing.assert_close(o, p.T @ c.float(), rtol=1e-5, atol=1e-2)
+
+
+# (B, T, H, KV, D) for the wgmma K5: ragged T around its 64-row steps,
+# 64-key consumers and 256-key spans (blocks past T at T = 100), rep 1, 2
+# and 4, and T = 128
+K5_ODD = [(b, t, h, kv, d)
+          for d in (64, 128)
+          for b, t, h, kv in ((2, 100, 4, 4), (1, 1000, 8, 2),
+                              (2, 128, 8, 2), (1, 1000, 4, 1),
+                              (1, 100, 8, 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,kv,d", K5_ODD)
+def test_k5_wgmma_odd_shapes_on_card(b, t, h, kv, d):
+    """The wgmma K5 at ragged shapes: dQ, dK and dV within
+    flash_check.mismatch's bound, every output bit-equal across two runs,
+    no mma.sync launch."""
+    _card()
+    q, k, v, do = flash_inputs(b, t, h, kv, d, torch.bfloat16, seed=t + d)
+    out, lse = fa.flash_forward(q, k, v)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    sp.reset_launch_counts()
+    runs = [sp.splash_backward(q, k, v, do, lse, delta) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sp.splash_backward.launches == 2
+    assert sp.splash_backward.launches_mma_sync == 0
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    terms = flash_check.term_sizes(q, k, v, do, lse, delta)
+    ref = sp.splash_backward_plain(q, k, v, do, lse, delta)
+    for key, got, want in zip(("dq", "dk", "dv"), runs[0], ref):
+        assert flash_check.mismatch(got, want, terms[key]) <= 1, key

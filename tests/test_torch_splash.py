@@ -16,7 +16,8 @@ Tighter checks of the port alone: against JAX's dense ``full_attention``
 and ``jax.grad`` within 1e-5 of the largest entry (both f32);
 ``splash_backward_plain`` equal to ``flash_backward_plain`` within 1e-6;
 the card check's bound (``flash_check.mismatch``) passing a CPU emulation
-of K5's dQ summation order and rejecting K5's planted faults; and the
+of K5's dQ summation order (64-key partials and 256-key spans) and
+rejecting K5's planted faults at both; and the
 tiny Llama with ``attn_impl="splash"`` against the JAX model's xla path
 with carried-over weights (loss 1e-5, gradients 1e-4 of each leaf's
 largest entry)."""
@@ -179,29 +180,49 @@ def bf16_at_1b_shape():
     return q, k, v, do, lse, delta, ref, terms
 
 
-def test_kernel_check_passes_k5_dq_order(bf16_at_1b_shape):
-    """K5's dQ is a sum of f32 partials, one per 64-key tile, taken in
-    tile order and scaled at the end; an emulation of that order passes
-    the card check's bound against the plain version (one f32 sum over
-    all keys)."""
+@pytest.mark.parametrize("span", [64, 256])
+def test_kernel_check_passes_k5_dq_order(bf16_at_1b_shape, span):
+    """K5's dQ is a sum of f32 partials, one per ``span`` keys, taken in
+    span order and scaled at the end, from dS rounded once to bf16: the
+    64-key partials of the mma.sync kernel (bf16 at D 16/32) and the
+    256-key spans of the wgmma kernel (D 64/128).  An emulation of each
+    order passes the card check's bound against the plain version (one f32
+    sum over all keys)."""
     q, k, v, do, lse, delta, ref, terms = bf16_at_1b_shape
     b, t, h, d = q.shape
     p = tfa._probs(q, k, lse, True, d ** -0.5, 0, 0)
     ds = tfa._dscores(p, v, do, delta).to(torch.bfloat16).float()
     kf = k.float().transpose(1, 2)[:, :, None]           # [B, KV, 1, S, D]
     acc = torch.zeros(*ds.shape[:-1], d)
-    for j in range(0, t, 64):
-        acc += ds[..., j:j + 64] @ kf[..., j:j + 64, :]
+    for j in range(0, t, span):
+        acc += ds[..., j:j + span] @ kf[..., j:j + span, :]
     tiled = tfa._heads(acc * d ** -0.5, b, t, h).to(torch.bfloat16)
     assert not torch.equal(tiled, ref["dq"])
     assert flash_check.mismatch(tiled, ref["dq"], terms["dq"]) <= 1
 
 
-def test_kernel_check_rejects_k5_planted_faults(bf16_at_1b_shape):
+def test_packed_partials_hold_the_written_rows():
+    """The packed dQ partials hold rows j·span .. T - 1 of partial j: at
+    the 1B length the wgmma kernel's 8 partials of 256 keys take 4.5 rows
+    of T where 32 unpacked 64-key partials took 32; at most 8 a row."""
+    assert tsp.partial_rows(2048, 256) == 9216
+    assert tsp.partial_rows(2048, 64) == sum(2048 - 64 * j
+                                             for j in range(32))
+    assert tsp.partial_rows(100, 64) == 136
+    assert tsp.partial_rows(1, 256) == 1
+    assert -(-2048 // 256) == 8
+
+
+@pytest.mark.parametrize("tile,rows", [(64, 32), (256, 64)])
+def test_kernel_check_rejects_k5_planted_faults(bf16_at_1b_shape, tile,
+                                                rows):
     """The same bound rejects wrong K5 kernels whose error lies only past
-    T/2: a dQ sum one partial short, a skipped diagonal query step."""
+    T/2: a dQ sum one partial short, a skipped diagonal query step; at the
+    mma.sync kernel's 64-key partials and 32-row steps, and at the wgmma
+    kernel's 256-key spans and 64-row steps."""
     *inputs, ref, terms = bf16_at_1b_shape
-    faults = flash_check.splash_planted_faults(*inputs, ref)
+    faults = flash_check.splash_planted_faults(*inputs, ref, tile=tile,
+                                               rows=rows)
     assert [key for _, key, _ in faults] == ["dq", "dk", "dv"]
     for fault, key, bad in faults:
         assert flash_check.mismatch(bad, ref[key], terms[key]) > 1, \
