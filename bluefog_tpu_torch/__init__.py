@@ -9,7 +9,10 @@ continuous-batching engine (``serving``, ``models``, kernel
 of the ResNet family (``models.resnet``, kernel ``parallel.conv1x1``)
 and of Llama (``models.llama``'s training forward and
 ``llama_loss_fn``, kernels ``parallel.flash_attention`` and
-``parallel.splash``), ViT (``models.vit``), ``MLP`` and ``MnistNet``.
+``parallel.splash``), ViT (``models.vit``), ``MLP`` and ``MnistNet``,
+with the train step's decentralized modes (the skip guard, health
+telemetry, bucketed overlap, the int8 and stochastic-rounding wires,
+error-feedback top-k mixing, the hierarchical exchange and push-sum).
 CUDA sources live in ``csrc/``.  Entry points take ``device=`` (default
 ``"cuda"``) and raise without CUDA unless ``device="cpu"`` is passed.
 """
@@ -20,7 +23,10 @@ from bluefog_tpu_torch.models import (MLP, Llama, LlamaConfig, MnistNet,
                                       ResNet101, ResNet152, ViT, ViT_B16,
                                       ViT_S16, ViTConfig, init_cache,
                                       llama_generate, llama_loss_fn)
-from bluefog_tpu_torch.optim import (build_train_step, consensus_distance,
+from bluefog_tpu_torch.optim import (GuardConfig, HealthConfig,
+                                     HealthVector, MixCompressConfig,
+                                     MixState, build_train_step,
+                                     consensus_distance, push_sum_weights,
                                      rank_major)
 from bluefog_tpu_torch.parallel.collectives import StackedBackend
 from bluefog_tpu_torch.serving import Request, ServingEngine
@@ -35,6 +41,7 @@ __all__ = ["models", "optim", "serving", "topology", "Llama",
            "ServingEngine", "ResNet", "ResNet18", "ResNet34", "ResNet50",
            "ResNet101", "ResNet152", "ViT", "ViTConfig", "ViT_S16",
            "ViT_B16", "MLP", "MnistNet", "build_train_step", "rank_major",
-           "consensus_distance", "StackedBackend", "ExponentialTwoGraph",
+           "consensus_distance", "push_sum_weights", "GuardConfig",
+           "HealthConfig", "HealthVector", "MixCompressConfig", "MixState", "StackedBackend", "ExponentialTwoGraph",
            "Topology", "DynamicTopology", "one_peer_dynamic_schedule",
            "uniform_topology_spec"]

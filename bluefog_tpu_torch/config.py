@@ -20,6 +20,7 @@ __all__ = [
     "fuse_epilogues",
     "hier_local_size",
     "mix_compress",
+    "mix_compress_ratio",
 ]
 
 
@@ -67,11 +68,12 @@ def kv_zero_on_free() -> bool:
 def fuse_epilogues() -> bool:
     """BLUEFOG_FUSE_EPILOGUES (default on): whether
     :func:`bluefog_tpu_torch.optim.functional.build_train_step` builds
-    the fused per-bucket epilogue pipeline.  The port has that pipeline
-    only (its combine weights are runtime tensors, as the JAX package's
-    fused builder passes them); ``0`` selects the JAX package's
-    pre-fusion builders, which the port does not have, and the builder
-    raises."""
+    the fused per-bucket epilogue pipeline (the guard's isfinite reduce,
+    the health norms and the consensus distance taken per bucket from the
+    exchange's own buffers).  ``0`` selects the JAX package's pre-fusion
+    arithmetic order (the health reductions walk the whole param tree
+    after the exchange) and refuses what only the fused pipeline has
+    (compressed mixing, bucketed push-sum)."""
     return _env("BLUEFOG_FUSE_EPILOGUES", "1") not in ("0", "false",
                                                        "False")
 
@@ -92,10 +94,22 @@ def hier_local_size():
 def mix_compress():
     """BLUEFOG_MIX_COMPRESS (default unset): default wire compression of
     the cta/atc combine when ``compress=`` was not passed: ``int8``,
-    ``int8_sr``, ``bf16`` or ``topk``.  Unset or unrecognized keeps the
-    full-precision wire; explicit builder arguments win.  The ``topk``
-    wire's ratio knob (``BLUEFOG_MIX_COMPRESS_RATIO``) comes with that
-    wire (ROADMAP.md Queue 1, item 5): the JAX package reads it only
-    under ``topk``, which the port's builder refuses."""
+    ``int8_sr``, ``bf16`` or ``topk`` (error-feedback compressed mixing;
+    pair with :func:`mix_compress_ratio`).  Unset or unrecognized keeps
+    the full-precision wire; explicit builder arguments win."""
     raw = _env("BLUEFOG_MIX_COMPRESS", "").strip().lower()
     return raw if raw in ("int8", "int8_sr", "bf16", "topk") else None
+
+
+def mix_compress_ratio():
+    """BLUEFOG_MIX_COMPRESS_RATIO (default unset -> builder default): kept
+    fraction of each bucket's elements for the error-feedback compressed
+    mixing wire (``BLUEFOG_MIX_COMPRESS=topk`` or ``compress="topk"``).
+    Values >= 1.0 mean "keep everything" and build the uncompressed
+    exchange; unparsable or non-positive values are ignored (``None``)."""
+    raw = _env("BLUEFOG_MIX_COMPRESS_RATIO", "")
+    try:
+        v = float(raw)
+    except ValueError:
+        return None
+    return v if v > 0 else None

@@ -1,15 +1,25 @@
 """Decentralized optimizers of the port (``bluefog_tpu.optim``'s
-counterpart).  This slice ports the functional train step over the
-stacked backend; the eager ``torch.optim`` wrappers wait for a later
-slice (ROADMAP.md, Queue 1, item 4)."""
+counterpart): the functional train step over the stacked backend with
+every mode of the JAX builder but MoE, sequence and pipeline parallelism
+(ROADMAP.md Queue 1, item 10), and the shared bucket planner
+(``fusion``).  The eager ``torch.optim`` wrappers wait for a later slice
+(ROADMAP.md Queue 1, item 4)."""
 
-from bluefog_tpu_torch.optim import functional  # noqa: F401
+from bluefog_tpu_torch.optim import functional, fusion  # noqa: F401
 from bluefog_tpu_torch.optim.functional import (ELEMENTWISE_OPTIMIZERS,
+                                                GuardConfig, HealthConfig,
+                                                HealthVector,
+                                                MixCompressConfig, MixState,
                                                 build_train_step,
                                                 comm_weight_inputs,
                                                 consensus_distance,
+                                                push_sum_weights,
                                                 rank_major)
+from bluefog_tpu_torch.optim.fusion import (FusionPlan, plan_groups,
+                                            size_balanced_threshold)
 
-__all__ = ["functional", "build_train_step", "rank_major",
-           "consensus_distance", "comm_weight_inputs",
-           "ELEMENTWISE_OPTIMIZERS"]
+__all__ = ["functional", "fusion", "build_train_step", "rank_major",
+           "consensus_distance", "comm_weight_inputs", "push_sum_weights",
+           "GuardConfig", "HealthConfig", "HealthVector",
+           "MixCompressConfig", "MixState", "ELEMENTWISE_OPTIMIZERS",
+           "FusionPlan", "plan_groups", "size_balanced_threshold"]

@@ -9,34 +9,59 @@ program over a ``Mesh``.  Every state tensor is rank-major (leading
 1. runs forward and backward rank after rank (``loss_fn`` on rank r's
    slices, ``torch.autograd.grad``), so only one rank's activations are
    alive at a time, and writes rank r's gradient into a stacked buffer;
-2. combines as ``comm_mode`` says (``functional.py:2012-2032``):
+2. combines as ``comm_mode`` says:
 
    * ``"cta"``: combine the params, then update the COMBINED params
      with the gradients taken at the pre-combine params;
    * ``"atc"``: update, then combine;
    * ``"gradient_allreduce"``: average the gradients over ranks, update;
+   * ``"push_sum"``: column-stochastic mix of the extended payload
+     [params ‖ ps_weight], de-bias by the mixed weight, update;
    * ``"none"``: update only (local SGD);
 
    only params are mixed (batch statistics and optimizer state stay
    local), and with ``num_steps_per_communication=k`` the combine runs
    only when ``step % k == 0``;
 3. updates with a ``torch.optim`` optimizer built over the stacked
-   tensors.  SGD, Adam and AdamW update element by element, so each
-   rank's slice gets exactly its own update; ``optax.sgd(lr,
-   momentum=m)`` is ``torch.optim.SGD(lr=lr, momentum=m, dampening=0)``.
-   Optimizers with per-tensor norms (LARS, LAMB, clipping) would mix
-   ranks on stacked tensors and are refused.
+   tensors.  SGD updates element by element through ``torch.optim.SGD``
+   itself (``optax.sgd(lr, momentum=m)`` is ``SGD(lr=lr, momentum=m,
+   dampening=0)``).  Adam and AdamW run torch's capturable update form
+   with one step count PER RANK (``state["step"]`` is ``[n_ranks]``), as
+   optax keeps one count per rank: a rank whose step the guard skips
+   falls one count behind.  Optimizers with per-tensor norms (LARS,
+   LAMB, clipping) would mix ranks on stacked tensors and are refused.
+
+**The fused per-bucket epilogue.**  The param tree is planned into
+``EpiloguePlan`` buckets (``optim/fusion.py``, the JAX plan leaf for
+leaf): one bucket per leaf on the plain path, ``overlap_buckets``
+size-balanced buckets under ``overlap="bucketed"``.  Each bucket's
+quantize → exchange → dequantize → consensus partial runs as one pass,
+and the guard's isfinite reduce and the health norms accumulate as
+per-rank partials.  Where the exchange is elementwise (no int8 wire, no
+top-k mixing) the plain path mixes consecutive leaves of one dtype as
+flat buffers of up to 256 MiB a rank: the same arithmetic per element in
+a handful of launches.  Under the int8 wires the absmax scale is per
+bucket, as in JAX.
+
+On CUDA tensors ``overlap="bucketed"`` runs each bucket's exchange on a
+side stream ordered by events: under ``"cta"`` the exchange reads the
+step's starting params while the forward and backward run, writing into
+its own buffers, which are copied into the params before the update;
+under unguarded ``"atc"`` bucket i's exchange runs while bucket i+1's
+update is applied.
 
 The combine weights are runtime tensors, one ``(class_weights,
 self_weights)`` pair per round, as the JAX package's fused builder passes
-them (``comm_weight_inputs``); with ``schedule=`` step ``s`` runs round
-``s % len(schedule)``.
+them (``comm_weight_inputs``; the guarded step takes them as an
+argument); with ``schedule=`` step ``s`` runs round ``s % len(schedule)``.
 
 State is updated IN PLACE: the params dict's tensors are the optimizer's
 own (the step checks this), the batch statistics are overwritten rank by
-rank, and the step returns the same objects.  ``opt_state`` is the
-optimizer itself, which holds torch's optimizer state (momentum buffers
-``[n_ranks, ...]``).
+rank, the push-sum weight and the ``MixState`` buffers are written in
+place, and the step returns the same objects.  ``opt_state`` is the
+optimizer itself, or ``(optimizer, ps_weight)`` under push-sum, or
+``(optimizer, MixState)`` under top-k mixing.  No step reads a device
+value on the host.
 
 Features of the JAX builder this slice leaves out raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
@@ -44,30 +69,114 @@ Features of the JAX builder this slice leaves out raise
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence, Union
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from bluefog_tpu_torch import config as _config
+from bluefog_tpu_torch.compressor import _resolve_k
+from bluefog_tpu_torch.optim import fusion as _fusion
 from bluefog_tpu_torch.parallel import collectives as C
 from bluefog_tpu_torch.parallel.collectives import StackedBackend
 from bluefog_tpu_torch.topology.spec import DynamicTopology, Topology
 
 CommSpec = Union[Topology, DynamicTopology]
 
-__all__ = ["build_train_step", "rank_major", "consensus_distance",
-           "comm_weight_inputs", "ELEMENTWISE_OPTIMIZERS"]
+__all__ = ["GuardConfig", "HealthConfig", "HealthVector",
+           "MixCompressConfig", "MixState", "build_train_step",
+           "rank_major", "consensus_distance", "comm_weight_inputs",
+           "push_sum_weights", "ELEMENTWISE_OPTIMIZERS"]
 
 ELEMENTWISE_OPTIMIZERS = (torch.optim.SGD, torch.optim.Adam,
                           torch.optim.AdamW)
 
-_MODES_ITEM = "ROADMAP.md Queue 1, item 5 (the remaining train-step modes)"
 _LLAMA_ITEM = "ROADMAP.md Queue 1, item 10 (the Llama training slice)"
 
+# Per-rank bytes of one flat buffer of the elementwise exchange: enough to
+# mix ResNet-50 (102 MB a rank) in one pass, and a bound on the combine's
+# transient memory (three buffers of this size times the ranks) at
+# Llama width, where one buffer per dtype would be gigabytes.
+_FLAT_BYTES = 1 << 28
 
-def _not_ported(what: str, item: str = _MODES_ITEM):
+
+def _not_ported(what: str, item: str = _LLAMA_ITEM):
     raise NotImplementedError(
         f"{what} is not ported to bluefog_tpu_torch yet; see {item}")
+
+
+@dataclasses.dataclass(frozen=True)
+class GuardConfig:
+    """Fault-tolerance policy of :func:`build_train_step`.  Only its
+    PRESENCE changes the step (the non-finite skip guard, the ``skipped``
+    output and the runtime combine weights); the fields are host-side
+    policy for the resilient runner (ROADMAP.md Queue 1, item 12):
+    ``max_consecutive_bad``, the rollback backoff ``backoff_base`` /
+    ``backoff_factor`` / ``max_backoff`` and ``max_rollbacks``."""
+
+    max_consecutive_bad: int = 3
+    backoff_base: float = 0.5
+    backoff_factor: float = 2.0
+    max_backoff: float = 30.0
+    max_rollbacks: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class HealthConfig:
+    """In-step health telemetry of :func:`build_train_step`: the step
+    also returns a :class:`HealthVector`.  ``consensus=False`` reports 0.0
+    for the consensus distance and skips its reduction."""
+
+    consensus: bool = True
+
+
+class HealthVector(NamedTuple):
+    """Per-rank health scalars a step returns under ``health=``, each a
+    float32 ``[n]`` tensor: ``loss``; ``grad_norm``, the L2 norm of the
+    rank's LOCAL gradients; ``update_norm``, the L2 norm of the update
+    (new minus old params, before any combine); ``skipped``, the guard's
+    flag, or without a guard the would-skip bit; ``consensus``,
+    ``‖x_i − Σ_j w_ij x_j‖`` from the exchange's pre and post buffers (0
+    when no neighbor combine ran this step)."""
+
+    loss: Any
+    grad_norm: Any
+    update_norm: Any
+    skipped: Any
+    consensus: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class MixCompressConfig:
+    """Error-feedback compressed parameter mixing (``compress="topk"`` is
+    these defaults, with ``BLUEFOG_MIX_COMPRESS_RATIO`` consulted).  The
+    wire carries ``topk(x − ref + e)`` per bucket
+    (:func:`~bluefog_tpu_torch.parallel.collectives.mix_compress_exchange`).
+
+    * ``ratio``: the build ratio; it fixes each bucket's k.  The LIVE
+      ratio is ``MixState.ratio`` (``k_live <= k``).  ``>= 1.0`` builds
+      the ordinary uncompressed exchange.
+    * ``values``: ``"int8"``, ``"int8_sr"`` or ``"none"`` (f32 values).
+    * ``error_feedback``: accumulate the residual into ``e``."""
+
+    ratio: float = 0.25
+    values: str = "int8"
+    error_feedback: bool = True
+
+
+class MixState(NamedTuple):
+    """Per-rank error-feedback mixing state, rank-major float32, carried
+    as ``opt_state = (optimizer, MixState)``; build it with
+    ``train_step.init_mix_state(params)``.  ``ratio`` [n]: each rank's
+    live ratio; per compressible bucket, ``err`` [n, numel], ``ref``
+    [n, R, numel] (one row per schedule round) and ``mirror`` [n, G,
+    numel] (``G`` = the sum of ``mix_mirror_slots`` over the rounds)."""
+
+    ratio: Any
+    err: Any
+    ref: Any
+    mirror: Any
 
 
 def rank_major(tree: Dict[str, torch.Tensor],
@@ -95,9 +204,18 @@ def consensus_distance(params: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 def comm_weight_inputs(specs: Sequence[CommSpec]) -> tuple:
     """One ``(class_weights [n_classes, n], self_weights [n])`` float64
-    pair per round: the combine weights as runtime data."""
+    pair per round: the combine weights as runtime data (the guarded
+    step's ``comm_weights`` argument)."""
     return tuple((C.class_recv_weights(s), C.self_weight_vector(s))
                  for s in specs)
+
+
+def push_sum_weights(backend: StackedBackend) -> torch.Tensor:
+    """The push-sum weight vector, 1 per rank (float32 ``[n]`` on the
+    backend's device): ``opt_state = (optimizer, push_sum_weights(b))``
+    for ``comm_mode="push_sum"``."""
+    return torch.ones(backend.size, dtype=torch.float32,
+                      device=backend.device)
 
 
 def _slice(tree, r: int):
@@ -111,57 +229,253 @@ def _slice(tree, r: int):
                     f"{type(tree)}")
 
 
-def _check_config(comm_mode, topology, schedule, hierarchical,
-                  hierarchical_local_size, sp_axis, pp_axis, batch_specs,
-                  param_specs, opt_state_specs, compress, overlap, guard,
-                  health, moe):
+def _ranks(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-rank ``[n]`` tensor shaped to broadcast against ``like``."""
+    return mask.reshape((like.shape[0],) + (1,) * (like.dim() - 1))
+
+
+def _sq_rows(x: torch.Tensor) -> torch.Tensor:
+    """Per-rank float32 sum of squares of rank-major ``x``: ``[n]``."""
+    return x.float().reshape(x.shape[0], -1).square().sum(dim=1)
+
+
+def _finite_rows(x: torch.Tensor) -> torch.Tensor:
+    return torch.isfinite(x).reshape(x.shape[0], -1).all(dim=1)
+
+
+def _unpack_into(out, tensors, idx):
+    """Copy a combined bucket buffer back into its leaves."""
+    if len(idx) == 1:
+        tensors[idx[0]].copy_(out)
+        return
+    n = out.shape[0]
+    off = 0
+    for i in idx:
+        k = tensors[i][0].numel()
+        tensors[i].copy_(out[:, off:off + k].view(tensors[i].shape))
+        off += k
+
+
+def _leaf_cons_sq(pre, out, tensors, idx, n):
+    """Per-leaf squared consensus partials of one bucket, summed in leaf
+    order (the unfused builders' tree walk)."""
+    acc = torch.zeros(n, dtype=torch.float32, device=out.device)
+    pre2, out2 = pre.reshape(n, -1), out.reshape(n, -1)
+    off = 0
+    for i in idx:
+        k = tensors[i][0].numel()
+        d = pre2[:, off:off + k].float() - out2[:, off:off + k].float()
+        acc = acc + d.square().sum(dim=1)
+        off += k
+    return acc
+
+
+def _rank_adam(optimizer, tensors, grads, n) -> None:
+    """torch.optim.Adam/AdamW's capturable update form (the bias
+    corrections as tensors), with ``state["step"]`` a float32 ``[n]``
+    count per rank instead of one count per tensor: optax keeps one count
+    per rank, and a rank the guard skips must fall behind."""
+    todo = {id(p): g for p, g in zip(tensors, grads)}
+    decoupled_type = isinstance(optimizer, torch.optim.AdamW)
+    for group in optimizer.param_groups:
+        lr = group["lr"]
+        beta1, beta2 = group["betas"]
+        eps, wd = group["eps"], group["weight_decay"]
+        decoupled = group.get("decoupled_weight_decay", decoupled_type)
+        for p in group["params"]:
+            g = todo.get(id(p))
+            if g is None:
+                continue
+            if group.get("maximize", False):
+                g = -g
+            state = optimizer.state[p]
+            if not state:
+                state["step"] = torch.zeros(n, dtype=torch.float32,
+                                            device=p.device)
+                state["exp_avg"] = torch.zeros_like(p)
+                state["exp_avg_sq"] = torch.zeros_like(p)
+            elif state["step"].dim() == 0:   # a count torch.optim kept
+                state["step"] = state["step"].to(
+                    device=p.device, dtype=torch.float32).expand(n).clone()
+            step_t = state["step"]
+            step_t += 1
+            if wd != 0:
+                if decoupled:
+                    p.mul_(1 - lr * wd)
+                else:
+                    g = g.add(p, alpha=wd)
+            m, v = state["exp_avg"], state["exp_avg_sq"]
+            m.lerp_(g, 1 - beta1)
+            v.mul_(beta2).addcmul_(g, g, value=1 - beta2)
+            t = _ranks(step_t, p)
+            step_size_neg = (lr / (1 - beta1 ** t)).neg()
+            bc2_sqrt = (1 - beta2 ** t).sqrt()
+            denom = (v.sqrt() / (bc2_sqrt * step_size_neg)).add_(
+                eps / step_size_neg)
+            p.addcdiv_(m, denom)
+
+
+def _snapshot_state(optimizer, tensors, n):
+    """Clones of every rank-major optimizer-state tensor of ``tensors``
+    (momentum, Adam moments and counts), keyed by param."""
+    snap = {}
+    for p in tensors:
+        snap[id(p)] = {k: v.clone() for k, v in optimizer.state[p].items()
+                       if isinstance(v, torch.Tensor) and v.dim() >= 1
+                       and v.shape[0] == n}
+    return snap
+
+
+def _select_state(optimizer, tensors, snap, ok, n) -> None:
+    """Restore a skipped rank's optimizer state (``ok[r]`` false): state
+    created by this step (the first momentum buffer) restores to zero,
+    what optax's init holds."""
+    for p in tensors:
+        old = snap[id(p)]
+        for k, v in optimizer.state[p].items():
+            if not (isinstance(v, torch.Tensor) and v.dim() >= 1
+                    and v.shape[0] == n):
+                continue
+            prev = old.get(k)
+            if prev is None:
+                prev = torch.zeros((), dtype=v.dtype, device=v.device)
+            torch.where(_ranks(ok, v), v, prev, out=v)
+
+
+def _observed_step(step_fn: Callable, labels: dict) -> Callable:
+    """Host-side observability of a built step: each call increments
+    ``bf_train_steps_total{comm_mode,overlap,guarded}`` and runs inside a
+    ``train_step`` span on the ``train`` track (nothing when
+    ``BLUEFOG_OBSERVE=0``).  The span measures host dispatch: torch is
+    asynchronous on the card, so synchronize before reading it as a step
+    time.  The JAX wrapper also bills ``bf_edge_bytes_total`` per edge;
+    that account needs ``observe/fleet.py`` (ROADMAP.md Queue 1, item
+    12)."""
+    from bluefog_tpu_torch import observe
+
+    def step(*args, **kwargs):
+        tr = observe.publish_tracer()
+        if tr is None:
+            return step_fn(*args, **kwargs)
+        observe.get_registry().counter(
+            "bf_train_steps_total", "train-step dispatches", **labels).inc()
+        with tr.span("train", "train_step"):
+            return step_fn(*args, **kwargs)
+
+    return step
+
+
+def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
+                   hierarchical_local_size, sp_axis, pp_axis, batch_specs,
+                   param_specs, opt_state_specs, compress, overlap,
+                   overlap_buckets, guard, moe):
+    """The JAX builder's checks, in its order and with its messages.
+    Returns (specs, hierarchical_local_size, compress, mix, fused)."""
     if comm_mode not in ("cta", "atc", "gradient_allreduce", "push_sum",
                          "none"):
         raise ValueError(f"unknown comm_mode {comm_mode!r}")
-    if comm_mode == "push_sum":
-        _not_ported("comm_mode='push_sum'")
-    if comm_mode in ("cta", "atc") and (topology is None) == (schedule is None):
+    needs_topo = comm_mode in ("cta", "atc", "push_sum")
+    if needs_topo and (topology is None) == (schedule is None):
         raise ValueError(
             "neighbor modes need exactly one of topology= or schedule=")
-    if guard is not None:
-        _not_ported("guard= (the guarded resilient step)")
-    if health is not None:
-        _not_ported("health= (the HealthVector output)")
-    if overlap not in ("none", "bucketed"):
-        raise ValueError(f"unknown overlap mode {overlap!r}")
-    if overlap == "bucketed":
-        _not_ported("overlap='bucketed'")
-    if hierarchical is not None or hierarchical_local_size is not None:
-        _not_ported("the hierarchical exchange (hierarchical=)")
-    if comm_mode in ("cta", "atc") and _config.hier_local_size() is not None:
-        _not_ported("the hierarchical exchange (BLUEFOG_HIER_LOCAL_SIZE)")
-    if moe is not None:
-        _not_ported("moe= (the expert-sharded step)", _LLAMA_ITEM)
+    hls = hierarchical_local_size
+    if hierarchical is not None:
+        # a PodSpec (duck-typed: machines / chips_per_machine) or a plain
+        # int local size: either way the intra-machine group width
+        hier_l = int(getattr(hierarchical, "chips_per_machine",
+                             hierarchical))
+        if hls is not None and int(hls) != hier_l:
+            raise ValueError(
+                f"hierarchical={hierarchical!r} (local size {hier_l}) "
+                f"conflicts with hierarchical_local_size={hls!r}")
+        hls = hier_l
+    if hls is None and comm_mode in ("cta", "atc"):
+        hls = _config.hier_local_size()
+    if comm_mode == "push_sum" and hls is not None:
+        raise ValueError(
+            "hierarchical_local_size is not supported with "
+            "comm_mode='push_sum' (flat rank-level push-sum only)")
+    specs = (list(schedule) if schedule is not None
+             else [topology] if topology is not None else [])
+    if hls is not None and comm_mode in ("cta", "atc"):
+        hls = int(hls)
+        C.validate_machine_decomposition(backend.size, hls, specs)
+        machines = getattr(hierarchical, "machines", None)
+        if machines is not None and int(machines) * hls != backend.size:
+            raise ValueError(
+                f"hierarchical pod of {machines} machines x {hls} chips "
+                f"does not cover the {backend.size}-rank backend")
+    elif comm_mode not in ("cta", "atc"):
+        hls = None
     if sp_axis is not None or pp_axis is not None:
-        _not_ported("sp_axis / pp_axis (sequence and pipeline parallelism)",
-                    _LLAMA_ITEM)
+        _not_ported("sp_axis / pp_axis (sequence and pipeline parallelism)")
     if any(s is not None for s in (batch_specs, param_specs,
                                    opt_state_specs)):
         _not_ported("model-parallel layouts (batch_specs / param_specs / "
-                    "opt_state_specs)", _LLAMA_ITEM)
-    if not _config.fuse_epilogues():
-        _not_ported("BLUEFOG_FUSE_EPILOGUES=0 (the JAX package's pre-fusion "
-                    "builders; the port has the fused pipeline's numerics "
-                    "only)")
+                    "opt_state_specs)")
     if compress is None and comm_mode in ("cta", "atc"):
         compress = _config.mix_compress()
-    if compress is not None and not isinstance(compress, str):
-        _not_ported("compress=MixCompressConfig (error-feedback top-k "
-                    "mixing)")
-    if compress in ("int8_sr", "topk"):
-        _not_ported(f"compress={compress!r}")
+    mix = None
+    if isinstance(compress, MixCompressConfig):
+        mix, compress = compress, None
+    elif compress == "topk":
+        env_ratio = _config.mix_compress_ratio()
+        mix = (MixCompressConfig() if env_ratio is None
+               else MixCompressConfig(ratio=env_ratio))
+        compress = None
+    if mix is not None:
+        if comm_mode not in ("cta", "atc"):
+            raise ValueError(
+                "compress='topk' (error-feedback compressed mixing) rides "
+                f"the cta/atc combine only (got comm_mode={comm_mode!r})")
+        if mix.values not in ("int8", "int8_sr", "none"):
+            raise ValueError(
+                f"unknown MixCompressConfig values mode {mix.values!r}")
+        if not mix.ratio > 0:
+            raise ValueError(
+                f"MixCompressConfig.ratio must be > 0, got {mix.ratio}")
+        if mix.ratio >= 1.0:
+            # keep-everything: the ordinary uncompressed exchange
+            mix = None
     if compress is not None:
-        if compress not in ("int8", "bf16"):
+        if compress not in ("int8", "int8_sr", "bf16"):
             raise ValueError(f"unknown compress mode {compress!r}")
         if comm_mode not in ("cta", "atc"):
             raise ValueError("compress= is only honored by the cta/atc "
                              f"combine (got comm_mode={comm_mode!r})")
-    return compress
+    if overlap not in ("none", "bucketed"):
+        raise ValueError(f"unknown overlap mode {overlap!r}")
+    if guard is not None and comm_mode == "push_sum":
+        raise ValueError(
+            "guard= does not compose with comm_mode='push_sum': the "
+            "(params, ps_weight) pair must mix as a unit, and a per-rank "
+            "skip would break the column-stochastic sum(ps) == n "
+            "invariant")
+    if moe is not None:
+        _not_ported("moe= (the expert-sharded step)")
+    if overlap == "bucketed":
+        if comm_mode not in ("cta", "atc", "push_sum"):
+            raise ValueError(
+                "overlap='bucketed' buckets the cta/atc/push_sum neighbor "
+                f"exchange only (got comm_mode={comm_mode!r}); "
+                "gradient_allreduce relies on XLA's all-reduce combiner")
+        if overlap_buckets < 1:
+            raise ValueError(
+                f"overlap_buckets must be >= 1, got {overlap_buckets}")
+    fused = _config.fuse_epilogues()
+    if not fused:
+        if mix is not None:
+            raise ValueError(
+                "compress='topk' (error-feedback compressed mixing) needs "
+                "the fused epilogue pipeline — unset "
+                "BLUEFOG_FUSE_EPILOGUES=0 (the pre-fusion builders have no "
+                "ef_encode/ef_decode stages)")
+        if comm_mode == "push_sum" and overlap == "bucketed":
+            raise ValueError(
+                "overlap='bucketed' with comm_mode='push_sum' needs the "
+                "fused epilogue pipeline (unset BLUEFOG_FUSE_EPILOGUES=0): "
+                "the unfused builder mixes the extended payload whole")
+    return specs, hls, compress, mix, fused
 
 
 def build_train_step(
@@ -182,11 +496,11 @@ def build_train_step(
     opt_state_specs: Any = None,
     donate: bool = True,
     has_aux: bool = False,
-    compress: Optional[str] = None,
+    compress: Union[str, MixCompressConfig, None] = None,
     overlap: str = "none",
     overlap_buckets: int = 4,
-    guard: Any = None,
-    health: Any = None,
+    guard: Optional[GuardConfig] = None,
+    health: Optional[HealthConfig] = None,
     moe: Any = None,
 ) -> Callable:
     """One decentralized optimizer step over ``backend``'s ranks.
@@ -198,22 +512,52 @@ def build_train_step(
     the step takes and returns the rank-major ``aux`` dict.
 
     ``optimizer``: a ``torch.optim.SGD``, ``Adam`` or ``AdamW`` built over
-    the rank-major param tensors.  ``comm_mode``, ``topology``/
-    ``schedule``, ``num_steps_per_communication`` and ``compress``
-    (``None``, ``"bf16"``, ``"int8"``; default ``BLUEFOG_MIX_COMPRESS``)
-    mean what they mean in the JAX package.  ``donate`` has no effect:
-    the state is always updated in place.
+    the rank-major param tensors.  The other arguments mean what they
+    mean in the JAX package:
+
+    * ``comm_mode``, ``topology``/``schedule``,
+      ``num_steps_per_communication``;
+    * ``compress``: ``None``, ``"bf16"``, ``"int8"``, ``"int8_sr"``
+      (stochastic rounding, one draw per (step, bucket), see
+      ``collectives.wire_generator``), ``"topk"`` or a
+      :class:`MixCompressConfig` (error-feedback top-k mixing; then
+      ``opt_state = (optimizer, train_step.init_mix_state(params))``);
+      default ``BLUEFOG_MIX_COMPRESS``;
+    * ``overlap="bucketed"`` / ``overlap_buckets``: one exchange per
+      size-balanced bucket (cta/atc/push_sum);
+    * ``guard=GuardConfig()``: a rank whose loss or update is non-finite
+      skips the step (params, aux and optimizer state keep their values,
+      selected elementwise, with no host branch); the combine stays
+      outside the select.  Under gradient_allreduce one rank's NaN
+      reaches every rank and all skip;
+    * ``health=HealthConfig()``: the step also returns a
+      :class:`HealthVector`;
+    * ``hierarchical=`` (an int or anything with ``chips_per_machine``)
+      / ``hierarchical_local_size=`` / ``BLUEFOG_HIER_LOCAL_SIZE``: the
+      exact intra-machine mean, then the machine-level exchange over the
+      MACHINE-level ``topology``/``schedule``;
+    * ``comm_mode="push_sum"``: ``opt_state = (optimizer,
+      push_sum_weights(backend))``.
+
+    ``BLUEFOG_FUSE_EPILOGUES=0`` takes the health reductions in the JAX
+    package's pre-fusion order (per leaf, over the whole tree) and
+    refuses top-k mixing and bucketed push-sum, as JAX does.  ``donate``
+    has no effect: the state is always updated in place.
 
     Returns ``train_step(params, aux, opt_state, batch, step) -> (params,
     aux, opt_state, loss)`` with ``has_aux``, else ``train_step(params,
-    opt_state, batch, step) -> (params, opt_state, loss)``; ``opt_state``
-    is ``optimizer`` and ``loss`` a float32 ``[n_ranks]`` tensor.
+    opt_state, batch, step) -> (params, opt_state, loss)``; ``loss`` is a
+    float32 ``[n_ranks]`` tensor.  Under ``guard=`` the step takes
+    ``comm_weights`` after ``step`` (``train_step.default_comm_weights``;
+    ``()`` without neighbor weights) and returns ``skipped`` ([n] int32)
+    after ``loss``; under ``health=`` the ``HealthVector`` comes last.
     """
-    del donate, overlap_buckets
-    compress = _check_config(
-        comm_mode, topology, schedule, hierarchical, hierarchical_local_size,
-        sp_axis, pp_axis, batch_specs, param_specs, opt_state_specs,
-        compress, overlap, guard, health, moe)
+    del donate
+    specs, hls, compress, mix, fused = _resolve_modes(
+        backend, comm_mode, topology, schedule, hierarchical,
+        hierarchical_local_size, sp_axis, pp_axis, batch_specs,
+        param_specs, opt_state_specs, compress, overlap, overlap_buckets,
+        guard, moe)
     if not isinstance(backend, StackedBackend):
         raise TypeError(f"backend must be a StackedBackend, got "
                         f"{type(backend).__name__} (the torch.distributed "
@@ -224,69 +568,226 @@ def build_train_step(
             "on rank-major tensors only "
             f"{[c.__name__ for c in ELEMENTWISE_OPTIMIZERS]} update each "
             "rank's slice with its own values")
+    adam = type(optimizer) is not torch.optim.SGD
+    if adam and any(g.get("amsgrad") for g in optimizer.param_groups):
+        raise ValueError("amsgrad=True is not supported by the port's "
+                         "per-rank Adam update")
     k_comm = int(num_steps_per_communication)
     if k_comm < 1:
         raise ValueError(f"num_steps_per_communication must be >= 1, got "
                          f"{k_comm}")
     n = backend.size
-    specs = (list(schedule) if schedule is not None
-             else [topology] if topology is not None else [])
-    neighbor = comm_mode in ("cta", "atc") and bool(specs)
+    unit = hls or 1
     for s in specs:
-        if s.size != n:
+        if s.size * unit != n:
             raise ValueError(f"topology of {s.size} ranks on a backend of "
                              f"{n}")
-    weights_host = comm_weight_inputs(specs) if neighbor else ()
-    weights_dev: Dict[tuple, list] = {}
+    neighbor = comm_mode in ("cta", "atc") and bool(specs)
+    push_sum = comm_mode == "push_sum"
+    guarded = guard is not None
+    want_health = health is not None
+    want_cons = want_health and health.consensus
+    bucketed = overlap == "bucketed"
+    n_buckets = int(overlap_buckets) if bucketed else None
+    wire_sr = compress == "int8_sr"
+    wire_compress = "int8" if wire_sr else compress
+    mix_on = mix is not None
+    mix_slots = [C.mix_mirror_slots(s) for s in specs] if mix_on else []
+    mix_offsets = [int(v) for v in np.cumsum([0] + mix_slots)]
+    stage_compress = compress if not mix_on else (
+        "int8" if mix.values in ("int8", "int8_sr") else None)
+    # per-bucket exchanges wherever a bucket carries its own state: an
+    # int8 scale, a stochastic-rounding draw, the top-k mixing rows
+    per_bucket = bucketed or wire_compress == "int8" or mix_on
+    default_w = comm_weight_inputs(specs) if neighbor else ()
     opt_params = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    weights_dev: Dict[tuple, tuple] = {}
+    plans: Dict[tuple, tuple] = {}
+    streams: Dict[str, Any] = {}
 
-    def round_weights(r: int, device, dtype):
-        key = (r, device, dtype)
-        if key not in weights_dev:
-            acc = C._accum_dtype(dtype)
-            cw, sw = weights_host[r]
-            weights_dev[key] = (cw.to(device=device, dtype=acc),
-                                sw.to(device=device, dtype=acc))
-        return weights_dev[key]
+    def plan_for(tensors):
+        """(exchange groups, compressible-bucket index per group) from the
+        EpiloguePlan, cached per leaf signature.  A group is (leaf
+        indices, plan bucket or None)."""
+        key = _fusion.leaf_signature(tensors)
+        got = plans.get(key)
+        if got is None:
+            plan = _fusion.EpiloguePlan.for_leaves(
+                tensors, n_buckets, compress=stage_compress, guard=guarded,
+                health=want_health, consensus=want_cons, mix=mix_on,
+                skip_leading_axis=True)
+            if per_bucket:
+                groups = [(list(b.leaves), b) for b in plan.buckets]
+            else:
+                rows = _fusion.bucket_signature(tensors, True)
+                groups = [(idx, None) for idx in
+                          _fusion.plan_groups(rows, _FLAT_BYTES)]
+            comp, ci = [], 0
+            for _, b in groups:
+                inexact = b is not None and b.dtype.startswith(
+                    ("float", "bfloat"))
+                comp.append(ci if mix_on and inexact else None)
+                ci += comp[-1] is not None
+            got = plans[key] = (groups, comp)
+        return got
 
-    def combine(params: Dict[str, torch.Tensor], step: int):
-        """Mix every param leaf with its neighbors, in place.  The combine
-        is elementwise, so without the int8 wire (whose absmax scale is
-        per tensor) the leaves of one dtype are mixed as one flat
-        ``[n, numel]`` buffer: the same arithmetic in a handful of
-        launches instead of several per leaf."""
-        if not neighbor or step % k_comm != 0:
-            return
+    def round_weights(r, comm_weights, device, dtype):
+        """Round r's weights on ``device`` in ``dtype``.  Host tables are
+        copied once per distinct value (a copy per step would stall the
+        stream); tensors already on the device are used as they are."""
+        cw, sw = comm_weights[r]
+        if cw.device == device and sw.device == device:
+            return cw.to(dtype), sw.to(dtype)
+        key = (r, cw.numpy().tobytes(), sw.numpy().tobytes(), str(device),
+               dtype)
+        got = weights_dev.get(key)
+        if got is None:
+            got = weights_dev[key] = (cw.to(device=device, dtype=dtype),
+                                      sw.to(device=device, dtype=dtype))
+        return got
+
+    def side_stream(device):
+        key = str(device)
+        if key not in streams:
+            streams[key] = torch.cuda.Stream(device=device)
+        return streams[key]
+
+    def exchange(pre, spec, r, bucket, ci, step, comm_weights, mix_state):
+        """One bucket's (or one dtype group's) exchange stage."""
+        dev = pre.device
+        if ci is not None:
+            cw, sw = round_weights(r, comm_weights, dev, torch.float32)
+            off, rows = mix_offsets[r], mix_slots[r]
+            numel = pre[0].numel()
+            out, nr, nm, ne = backend.mix_compress_exchange(
+                pre, spec, ref_row=mix_state.ref[ci][:, r],
+                mirrors=mix_state.mirror[ci][:, off:off + rows],
+                err=mix_state.err[ci], ratio=mix_state.ratio,
+                k=_resolve_k(None, mix.ratio, numel), values=mix.values,
+                error_feedback=mix.error_feedback, class_weights=cw,
+                self_weights=sw,
+                generator=(C.wire_generator(dev, step, bucket.index)
+                           if mix.values == "int8_sr" else None),
+                hierarchical_local_size=hls)
+            mix_state.ref[ci][:, r].copy_(nr)
+            mix_state.mirror[ci][:, off:off + rows].copy_(nm)
+            mix_state.err[ci].copy_(ne)
+            return out
+        cw, sw = round_weights(r, comm_weights, dev,
+                               C._accum_dtype(pre.dtype))
+        gen = (C.wire_generator(dev, step, bucket.index) if wire_sr
+               else None)
+        if hls is not None:
+            return backend.hierarchical_neighbor_allreduce(
+                pre, spec, hls, compress=wire_compress, class_weights=cw,
+                self_weights=sw, generator=gen)
+        return backend.neighbor_allreduce(
+            pre, spec, compress=wire_compress, class_weights=cw,
+            self_weights=sw, generator=gen)
+
+    def cons_part(pre, out, tensors, idx):
+        if not fused:
+            return _leaf_cons_sq(pre, out, tensors, idx, n)
+        return _sq_rows(pre.float() - out.float())
+
+    def combine_group(tensors, g, step, comm_weights, mix_state):
+        """Pack, exchange and consensus partial of exchange group ``g``:
+        (out buffer, partial or None)."""
+        groups, comp = plan_for(tensors)
+        idx, bucket = groups[g]
         r = step % len(specs)
-        spec = specs[r]
-        if compress == "int8":
-            groups = [[p] for p in params.values()]
-        else:
-            by_dtype: Dict[torch.dtype, list] = {}
-            for p in params.values():
-                by_dtype.setdefault(p.dtype, []).append(p)
-            groups = list(by_dtype.values())
-        with torch.no_grad():
-            for group in groups:
-                flat = (group[0] if len(group) == 1 else
-                        torch.cat([p.reshape(n, -1) for p in group], dim=1))
-                cw, sw = round_weights(r, flat.device, flat.dtype)
-                mixed = backend.neighbor_allreduce(
-                    flat, spec, compress=compress, class_weights=cw,
-                    self_weights=sw)
-                if len(group) == 1:
-                    group[0].copy_(mixed)
-                    continue
-                off = 0
-                for p in group:
-                    k = p[0].numel()
-                    p.copy_(mixed[:, off:off + k].view_as(p))
-                    off += k
+        pre = _fusion.pack_bucket(tensors, idx)
+        out = exchange(pre, specs[r], r, bucket, comp[g], step,
+                       comm_weights, mix_state)
+        part = None
+        if want_cons and pre.dtype.is_floating_point:
+            part = cons_part(pre, out, tensors, idx)
+        return out, part
 
-    def run(params, aux, opt_state, batch, step):
-        if opt_state is not optimizer:
-            raise ValueError("opt_state must be the optimizer the step was "
-                             "built with (it holds the optimizer state)")
+    def combine(tensors, step, comm_weights, mix_state, on_side=False):
+        """Every exchange group of ``tensors`` into its own out buffer;
+        returns (outs, consensus sq [n]).  ``on_side``: on the CUDA side
+        stream, which first waits for the main stream's work so far."""
+        dev = tensors[0].device
+        cons = torch.zeros(n, dtype=torch.float32, device=dev)
+        groups, _ = plan_for(tensors)
+        if on_side:
+            main, side = torch.cuda.current_stream(dev), side_stream(dev)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                outs, cons = combine(tensors, step, comm_weights, mix_state)
+            for o in outs:
+                o.record_stream(main)
+            cons.record_stream(main)
+            return outs, cons
+        outs = []
+        for g in range(len(groups)):
+            out, part = combine_group(tensors, g, step, comm_weights,
+                                      mix_state)
+            outs.append(out)
+            if part is not None:
+                cons = cons + part
+        return outs, cons
+
+    def commit(tensors, outs):
+        groups, _ = plan_for(tensors)
+        with torch.no_grad():
+            for (idx, _), out in zip(groups, outs):
+                _unpack_into(out, tensors, idx)
+
+    def apply_update(tensors, grads, subset=None):
+        """The optimizer's update of ``tensors`` (or of the leaf indices
+        ``subset``) with ``grads``."""
+        sel = range(len(tensors)) if subset is None else subset
+        if adam:
+            _rank_adam(optimizer, [tensors[i] for i in sel],
+                       [grads[i] for i in sel], n)
+            return
+        for i in sel:
+            tensors[i].grad = grads[i]
+        optimizer.step()
+        for i in sel:
+            tensors[i].grad = None
+
+    def push_sum_round(tensors, ps, step):
+        """Re-bias, mix and de-bias the params in place (f32 throughout);
+        returns the consensus partial [n]."""
+        groups, _ = plan_for(tensors)
+        spec = specs[step % len(specs)]
+        bufs = [_fusion.pack_bucket(tensors, idx) for idx, _ in groups]
+        ps_b = lambda x: _ranks(ps, x)  # noqa: E731
+        biased = [buf.float() * ps_b(buf) for buf in bufs]
+        mixed, mixed_ps = backend.push_sum_mix(biased, ps, spec)
+        cons = torch.zeros(n, dtype=torch.float32, device=ps.device)
+        outs = []
+        for (idx, _), pre, mixed_b in zip(groups, bufs, mixed):
+            deb = (mixed_b / _ranks(mixed_ps, mixed_b)).to(pre.dtype)
+            if want_cons and pre.dtype.is_floating_point:
+                cons = cons + cons_part(pre, deb, tensors, idx)
+            outs.append(deb)
+        commit(tensors, outs)
+        ps.copy_(mixed_ps)
+        return cons
+
+    def run(params, aux, opt_state, batch, step, comm_weights):
+        mix_state = ps = None
+        if mix_on or push_sum:
+            if not (isinstance(opt_state, tuple) and len(opt_state) == 2):
+                raise ValueError(
+                    "opt_state must be (optimizer, " + (
+                        "train_step.init_mix_state(params))" if mix_on
+                        else "push_sum_weights(backend))"))
+            opt, extra = opt_state
+            if mix_on:
+                mix_state = extra
+            else:
+                ps = extra
+        else:
+            opt = opt_state
+        if opt is not optimizer:
+            raise ValueError("opt_state must hold the optimizer the step "
+                             "was built with (it holds the optimizer "
+                             "state)")
         step = int(step)
         tensors = list(params.values())
         for name, p in params.items():
@@ -296,9 +797,23 @@ def build_train_step(
             if p.shape[0] != n:
                 raise ValueError(f"param {name!r} has {p.shape[0]} ranks, "
                                  f"the backend {n}")
+        dev = tensors[0].device
+        on_cycle = step % k_comm == 0
+        overlap_dev = bucketed and dev.type == "cuda"
+        groups, _ = plan_for(tensors)
+        zero = torch.zeros(n, dtype=torch.float32, device=dev)
+        cons = zero
+        # cta + bucketed: the exchange reads the step's starting params,
+        # so it starts now (on the side stream on CUDA) and writes into
+        # its own buffers while the forward and backward run
+        early = None
+        if neighbor and comm_mode == "cta" and bucketed and on_cycle:
+            early = combine(tensors, step, comm_weights, mix_state,
+                            on_side=overlap_dev)
+        aux_old = ({k: v.clone() for k, v in aux.items()}
+                   if guarded and has_aux else None)
         grads = [torch.empty_like(p) for p in tensors]
-        losses = torch.empty(n, dtype=torch.float32,
-                             device=tensors[0].device)
+        losses = torch.empty(n, dtype=torch.float32, device=dev)
         for r in range(n):
             p_r = {k: v[r].detach().requires_grad_(True)
                    for k, v in params.items()}
@@ -317,28 +832,204 @@ def build_train_step(
                     for k, v in new_aux.items():
                         aux[k][r].copy_(v)
             del loss, gs, p_r
-        if comm_mode == "gradient_allreduce":
-            grads = [backend.allreduce(g, average=True) for g in grads]
-        if comm_mode == "cta":
-            combine(params, step)
-        for p, g in zip(tensors, grads):
-            p.grad = g
-        optimizer.step()
-        for p in tensors:
-            p.grad = None
-        if comm_mode == "atc":
-            combine(params, step)
-        return params, aux, optimizer, losses
+        with torch.no_grad():
+            grad_sq = None
+            if want_health:
+                grad_sq = zero
+                for g in grads:
+                    if g.dtype.is_floating_point:
+                        grad_sq = grad_sq + _sq_rows(g)
+            if comm_mode == "gradient_allreduce":
+                grads = [backend.allreduce(g, average=True) for g in grads]
+            if push_sum and on_cycle:
+                cons = push_sum_round(tensors, ps, step)
+            if neighbor and comm_mode == "cta" and on_cycle:
+                if early is None:
+                    outs, cons = combine(tensors, step, comm_weights,
+                                         mix_state)
+                else:
+                    outs, cons = early
+                    if overlap_dev:
+                        torch.cuda.current_stream(dev).wait_stream(
+                            side_stream(dev))
+                commit(tensors, outs)
+            track = guarded or want_health
+            old = [p.clone() for p in tensors] if track else None
+            snap = _snapshot_state(optimizer, tensors, n) if guarded else None
+            interleave = (neighbor and comm_mode == "atc" and bucketed
+                          and not guarded and on_cycle)
+            upd_sq = zero if want_health else None
+            ok = torch.isfinite(losses)
+            if interleave:
+                # bucket i's update, then its exchange (on the side stream
+                # on CUDA) while bucket i+1's update is applied
+                main = torch.cuda.current_stream(dev) if overlap_dev else None
+                parts = []
+                for g, (idx, _) in enumerate(groups):
+                    apply_update(tensors, grads, idx)
+                    if track:
+                        for i in idx:
+                            u = tensors[i] - old[i]
+                            ok = ok & _finite_rows(u)
+                            if want_health:
+                                upd_sq = upd_sq + _sq_rows(u)
+                    if overlap_dev:
+                        side = side_stream(dev)
+                        side.wait_stream(main)
+                        with torch.cuda.stream(side):
+                            out, part = combine_group(
+                                tensors, g, step, comm_weights, mix_state)
+                            _unpack_into(out, tensors, idx)
+                        if part is not None:
+                            part.record_stream(main)
+                    else:
+                        out, part = combine_group(tensors, g, step,
+                                                  comm_weights, mix_state)
+                        _unpack_into(out, tensors, idx)
+                    if part is not None:
+                        parts.append(part)
+                if overlap_dev:
+                    main.wait_stream(side_stream(dev))
+                for part in parts:
+                    cons = cons + part
+            else:
+                apply_update(tensors, grads)
+                if track:
+                    for p, o in zip(tensors, old):
+                        if p.dtype.is_floating_point:
+                            u = p - o
+                            ok = ok & _finite_rows(u)
+                            if want_health:
+                                upd_sq = upd_sq + _sq_rows(u)
+            skipped = None
+            if guarded:
+                # the skip guard: an elementwise select over params, aux
+                # and optimizer state, no host branch; with every rank
+                # healthy it writes the update's own bits back
+                for p, o in zip(tensors, old):
+                    torch.where(_ranks(ok, p), p, o, out=p)
+                if has_aux:
+                    for k, v in aux.items():
+                        torch.where(_ranks(ok, v), v, aux_old[k], out=v)
+                _select_state(optimizer, tensors, snap, ok, n)
+                skipped = (~ok).to(torch.int32)
+            del old, snap
+            if neighbor and comm_mode == "atc" and on_cycle \
+                    and not interleave:
+                outs, cons = combine(tensors, step, comm_weights, mix_state)
+                commit(tensors, outs)
+            hv = None
+            if want_health:
+                hv = HealthVector(
+                    loss=losses, grad_norm=grad_sq.sqrt(),
+                    update_norm=upd_sq.sqrt(),
+                    skipped=((~ok).float() if skipped is None
+                             else skipped.float()),
+                    consensus=cons.sqrt())
+        return params, aux, opt_state, losses, skipped, hv
 
-    if has_aux:
+    def outputs(res, with_aux):
+        params, aux, opt_state, loss, skipped, hv = res
+        outs = ((params, aux, opt_state, loss) if with_aux
+                else (params, opt_state, loss))
+        if guarded:
+            outs = outs + (skipped,)
+        if want_health:
+            outs = outs + (hv,)
+        return outs
+
+    if guarded:
+        if has_aux:
+            def train_step(params, aux, opt_state, batch, step,
+                           comm_weights):
+                return outputs(run(params, aux, opt_state, batch, step,
+                                   comm_weights), True)
+        else:
+            def train_step(params, opt_state, batch, step, comm_weights):
+                return outputs(run(params, None, opt_state, batch, step,
+                                   comm_weights), False)
+    elif has_aux:
         def train_step(params, aux, opt_state, batch, step):
-            return run(params, aux, opt_state, batch, step)
+            return outputs(run(params, aux, opt_state, batch, step,
+                               default_w), True)
     else:
         def train_step(params, opt_state, batch, step):
-            params, _, opt_state, loss = run(params, None, opt_state,
-                                             batch, step)
-            return params, opt_state, loss
+            return outputs(run(params, None, opt_state, batch, step,
+                               default_w), False)
 
-    # the in-place combine(params, step) the step runs, exposed for timing
-    train_step.combine = combine
-    return train_step
+    step_fn = _observed_step(train_step, dict(
+        comm_mode=comm_mode, overlap="bucketed" if bucketed else "none",
+        guarded="true" if guarded else "false"))
+
+    def init_mix_state(params) -> MixState:
+        """The MixState for rank-major ``params``: ``err`` zero, ``ref``
+        and ``mirror`` each rank's OWN packed params (exact when every
+        rank starts from the same params, the ``rank_major`` init; ranks
+        that start diverged should zero them instead)."""
+        tensors = list(params.values())
+        R, G = len(specs), int(sum(mix_slots))
+        groups, comp = plan_for(tensors)
+        errs, refs, mirs = [], [], []
+        for (idx, _), ci in zip(groups, comp):
+            if ci is None:
+                continue
+            flat = _fusion.pack_bucket(tensors, idx).reshape(n, -1).float()
+            errs.append(torch.zeros_like(flat))
+            refs.append(flat[:, None, :].expand(n, R, -1).clone())
+            mirs.append(flat[:, None, :].expand(n, G, -1).clone())
+        return MixState(
+            ratio=torch.full((n,), float(mix.ratio), dtype=torch.float32,
+                             device=tensors[0].device),
+            err=tuple(errs), ref=tuple(refs), mirror=tuple(mirs))
+
+    def mix_wire_layout(params) -> tuple:
+        """Per compressible bucket: ``{bucket, numel, k, wire_bytes}``,
+        the bytes one permute of that bucket moves per rank."""
+        tensors = list(params.values())
+        groups, comp = plan_for(tensors)
+        rows = []
+        for (idx, b), ci in zip(groups, comp):
+            if ci is None:
+                continue
+            numel = sum(tensors[i][0].numel() for i in idx)
+            k = _resolve_k(None, mix.ratio, numel)
+            rows.append(dict(bucket=b.index, numel=numel, k=k,
+                             wire_bytes=C.mix_wire_bytes(numel, k,
+                                                         mix.values)))
+        return tuple(rows)
+
+    def set_mix_ratio(opt_state, ratio):
+        """A new opt_state with every rank's LIVE ratio set to ``ratio``
+        (data only: ``k_live`` masks the top-k prefix)."""
+        base, ms = opt_state
+        return (base, ms._replace(ratio=torch.full_like(ms.ratio,
+                                                        float(ratio))))
+
+    def combine_params(params, step, mix_state=None, comm_weights=None):
+        """The neighbor combine the step runs, in place on ``params``
+        (for timing); returns the consensus sq partials [n]."""
+        tensors = list(params.values())
+        with torch.no_grad():
+            outs, cons = combine(tensors, int(step), comm_weights or
+                                 default_w, mix_state)
+            commit(tensors, outs)
+        return cons
+
+    step_fn.has_aux = has_aux
+    step_fn.health_config = health
+    step_fn.epilogue_stages = _fusion.epilogue_stages(
+        compress=stage_compress, guard=guarded, health=want_health,
+        consensus=want_cons, mix=mix_on)
+    step_fn.hierarchical_local_size = hls if neighbor else None
+    step_fn.mix_config = mix
+    if neighbor:
+        step_fn.combine = combine_params
+    if mix_on:
+        step_fn.init_mix_state = init_mix_state
+        step_fn.mix_wire_layout = mix_wire_layout
+        step_fn.set_mix_ratio = set_mix_ratio
+    if guarded:
+        step_fn.guard_config = guard
+    if guarded or neighbor:
+        step_fn.default_comm_weights = default_w
+    return step_fn

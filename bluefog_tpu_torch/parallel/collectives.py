@@ -41,9 +41,19 @@ __all__ = [
     "allreduce",
     "broadcast",
     "neighbor_allreduce",
+    "neighbor_allreduce_buckets",
     "edge_structure",
     "class_recv_weights",
     "self_weight_vector",
+    "wire_generator",
+    "push_sum_structure",
+    "push_sum_mix",
+    "machine_groups",
+    "validate_machine_decomposition",
+    "hierarchical_neighbor_allreduce",
+    "mix_compress_exchange",
+    "mix_wire_bytes",
+    "mix_mirror_slots",
 ]
 
 
@@ -134,16 +144,72 @@ def _permute(x: torch.Tensor, perm: Sequence[Tuple[int, int]]
     return out
 
 
-def _wire_quantize_int8(x: torch.Tensor):
-    """Per-tensor (per rank) absmax int8 quantization of the payload,
-    rounding to nearest (half to even, as ``jnp.round``).  Returns
-    (q int8 [n, ...], scale f32 [n])."""
+def _fused_pairs(classes):
+    """The sorted (src, dst) pairs of a round's shift classes when every
+    src and every dst appears once across all of them (each rank has at
+    most one in-edge: the round fuses into ONE permute with mixed shifts,
+    as the JAX package fuses it into one collective-permute), else
+    ``None``."""
+    if len(classes) <= 1:
+        return None
+    pairs = [p for cls in classes for p in cls.perm]
+    if (len({s for s, _ in pairs}) == len(pairs)
+            and len({d for _, d in pairs}) == len(pairs)):
+        return tuple(sorted(pairs))
+    return None
+
+
+def _fused_recv_weights(classes, class_weights, size, dtype, device):
+    """The per-destination weight of a fused round: the classes' weight
+    rows summed (each destination has at most one nonzero among them), on
+    the host from the spec, or from runtime ``class_weights`` through a
+    mask of each class's destinations."""
+    if class_weights is None:
+        return np.sum([cls.recv_weights for cls in classes], axis=0)
+    masks = tuple(tuple(1.0 if d in {p[1] for p in cls.perm} else 0.0
+                        for d in range(size)) for cls in classes)
+    return (class_weights.to(device=device, dtype=dtype)
+            * _device_const(masks, device, dtype)).sum(0)
+
+
+# base seed of the stochastic-rounding wire: the JAX package's
+# ``PRNGKey(0x51EED)``, folded with the step and the bucket index
+_WIRE_SEED = 0x51EED
+
+
+def wire_generator(device, step: int, bucket: int = 0) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` for the stochastic-rounding
+    wire of bucket ``bucket`` at train step ``step``: one seed per (step,
+    bucket), mixed from ``(0x51EED, step, bucket)`` as the JAX package
+    folds ``PRNGKey(0x51EED)`` with the step and then the bucket.  The
+    draws are deterministic per (step, bucket); they are not the JAX
+    package's bits (another generator)."""
+    seed = int(np.random.SeedSequence(
+        [_WIRE_SEED, int(step), int(bucket)]).generate_state(
+            1, np.uint64)[0] >> np.uint64(1))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _wire_quantize_int8(x: torch.Tensor,
+                        generator: Optional[torch.Generator] = None):
+    """Per-tensor (per rank) absmax int8 quantization of the payload.
+    Without ``generator`` it rounds to nearest (half to even, as
+    ``jnp.round``): deterministic but biased, so in iterated averaging the
+    snaps can build a consensus floor.  With ``generator`` it rounds
+    stochastically, ``floor(y + u)`` with u ~ U[0, 1) drawn for the whole
+    ``[n, ...]`` payload at once (each rank's row its own stream), so
+    E[q] = y.  Returns (q int8 [n, ...], scale f32 [n])."""
     x32 = x.float()
     n = x.shape[0]
     scale = x32.abs().reshape(n, -1).amax(dim=1) / 127.0
     safe = torch.where(scale == 0.0, torch.ones_like(scale), scale)
     y = x32 / safe.reshape(_rank_shape(x))
-    q = torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+    if generator is None:
+        q = torch.round(y)
+    else:
+        q = torch.floor(y + torch.rand(y.shape, generator=generator,
+                                       device=y.device, dtype=y.dtype))
+    q = torch.clamp(q, -127, 127).to(torch.int8)
     return q, scale
 
 
@@ -161,6 +227,7 @@ def neighbor_allreduce(
     compress: Optional[str] = None,
     class_weights: Optional[torch.Tensor] = None,
     self_weights: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Weighted neighbor averaging of a rank-major ``x`` ([n, ...]):
 
@@ -175,9 +242,15 @@ def neighbor_allreduce(
     combine weights as runtime tensors; ``spec`` then contributes only the
     edge structure.  In-degree-1 classes that are pairwise disjoint (each
     round of a one-peer schedule) fuse into ONE gather with mixed shifts,
-    as the JAX package fuses them into one collective-permute."""
+    as the JAX package fuses them into one collective-permute.
+
+    ``generator`` (int8 only) switches the wire to unbiased stochastic
+    rounding (the JAX package's ``wire_key``; see
+    :func:`wire_generator`)."""
     if compress not in (None, "int8", "bf16"):
         raise ValueError(f"unknown compress mode {compress!r}")
+    if generator is not None and compress != "int8":
+        raise ValueError("generator= requires compress='int8'")
     if x.shape[0] != spec.size:
         raise ValueError(f"rank-major tensor has {x.shape[0]} ranks, the "
                          f"topology {spec.size}")
@@ -204,32 +277,447 @@ def neighbor_allreduce(
         return _permute(x, perm)
 
     if compress == "int8":
-        q, scale = _wire_quantize_int8(x)
-    if len(classes) > 1:
-        all_pairs = [p for cls in classes for p in cls.perm]
-        srcs = [s for s, _ in all_pairs]
-        dsts = [d for _, d in all_pairs]
-        if len(set(srcs)) == len(srcs) and len(set(dsts)) == len(dsts):
-            merged = tuple(sorted(all_pairs))
-            if class_weights is None:
-                w_fused = _as_weights(
-                    np.sum([cls.recv_weights for cls in classes], axis=0),
-                    acc, dev)
-            else:
-                masks = tuple(tuple(1.0 if d in {p[1] for p in cls.perm}
-                                    else 0.0 for d in range(spec.size))
-                              for cls in classes)
-                w_fused = (class_weights.to(device=dev, dtype=acc)
-                           * _device_const(masks, dev, acc)).sum(0)
-            out = (x.to(acc) * self_w
-                   + wire(merged).to(acc) * w_fused.reshape(bshape))
-            return out.to(x.dtype)
+        q, scale = _wire_quantize_int8(x, generator)
+    merged = _fused_pairs(classes)
+    if merged is not None:
+        w_fused = _as_weights(_fused_recv_weights(
+            classes, class_weights, spec.size, acc, dev), acc, dev)
+        out = (x.to(acc) * self_w
+               + wire(merged).to(acc) * w_fused.reshape(bshape))
+        return out.to(x.dtype)
 
     out = x.to(acc) * self_w
     for c, cls in enumerate(classes):
         # out + recv * w, one pass (the JAX package's multiply-add chain)
         out.addcmul_(wire(cls.perm).to(acc), recv_w(c, cls))
     return out.to(x.dtype)
+
+
+def neighbor_allreduce_buckets(
+    buffers: Sequence[torch.Tensor],
+    spec: CommSpec,
+    compress: Optional[str] = None,
+    wire_step: Optional[int] = None,
+    hierarchical_local_size: Optional[int] = None,
+    class_weights: Optional[torch.Tensor] = None,
+    self_weights: Optional[torch.Tensor] = None,
+) -> list:
+    """One weighted neighbor combine per bucket buffer: the data plane of
+    ``build_train_step(overlap="bucketed")``.  Each bucket is an
+    independent exchange over the same topology.
+
+    ``wire_step`` (with ``compress="int8"``) switches to stochastic
+    rounding, bucket ``i`` drawing from ``wire_generator(device,
+    wire_step, i)``; ``hierarchical_local_size`` routes the buckets
+    through the machine-level combine (``spec`` and the weights are then
+    machine-level, compression on the DCN leg only).  Per element the
+    numerics are those of one ``neighbor_allreduce`` per leaf, except the
+    int8 absmax scale, which is per bucket."""
+    outs = []
+    for i, buf in enumerate(buffers):
+        gen = (wire_generator(buf.device, wire_step, i)
+               if wire_step is not None else None)
+        if hierarchical_local_size is not None:
+            outs.append(hierarchical_neighbor_allreduce(
+                buf, spec, hierarchical_local_size, compress=compress,
+                class_weights=class_weights, self_weights=self_weights,
+                generator=gen))
+        else:
+            outs.append(neighbor_allreduce(
+                buf, spec, compress=compress, class_weights=class_weights,
+                self_weights=self_weights, generator=gen))
+    return outs
+
+
+def push_sum_structure(spec: CommSpec):
+    """(out_degrees, filtered perms): only edges with nonzero combine
+    weight count as push-sum out-edges (a 0.0-weight edge of a
+    DynamicTopology is declared but carries nothing)."""
+    deg = np.zeros(spec.size, dtype=np.int64)
+    perms = []
+    for cls in spec.shift_classes:
+        pairs = tuple((src, dst) for src, dst in cls.perm
+                      if cls.recv_weights[dst] != 0.0)
+        if not pairs:
+            continue
+        perms.append(pairs)
+        for src, _ in pairs:
+            deg[src] += 1
+    return deg, perms
+
+
+def push_sum_mix(tree, ps_weight: torch.Tensor, spec: CommSpec):
+    """One push-sum round: column-stochastic mixing of the extended
+    payload.  Every rank j scales its payload (each rank-major leaf of
+    ``tree``, a list/tuple/dict, and its entry of ``ps_weight`` [n]) by
+    ``a_j = 1 / (out_degree_j + 1)`` and pushes it along every out-edge;
+    receivers sum what arrives plus their own scaled payload.  Columns of
+    the mixing matrix sum to 1, so ``sum(ps_weight) == n`` is kept.  Only
+    the edge STRUCTURE is used (the reference's push-sum optimizer).
+    Mixing runs in the accumulation dtype and is returned in it.
+
+    Returns ``(mixed_tree, mixed_ps)``, still biased: de-bias with
+    ``z = x / ps``."""
+    deg, perms = push_sum_structure(spec)
+    a = _device_const(tuple(float(v) for v in 1.0 / (deg + 1.0)),
+                      ps_weight.device, torch.float32)
+
+    def mix_leaf(x):
+        scaled = x.to(_accum_dtype(x.dtype)) * a.reshape(_rank_shape(x))
+        acc = scaled
+        for perm in perms:
+            acc = acc + _permute(scaled, perm)
+        return acc
+
+    if isinstance(tree, dict):
+        mixed = {k: mix_leaf(v) for k, v in tree.items()}
+    else:
+        mixed = type(tree)(mix_leaf(v) for v in tree)
+    return mixed, mix_leaf(ps_weight)
+
+
+def machine_groups(size: int, local_size: int) -> list:
+    """Partition ranks [0, size) into machines of ``local_size`` ranks."""
+    local_size = int(local_size)
+    if local_size < 1:
+        raise ValueError(f"local_size must be >= 1, got {local_size}")
+    if size % local_size != 0:
+        raise ValueError(
+            f"rank count {size} is not divisible by local_size {local_size}")
+    return [list(range(m * local_size, (m + 1) * local_size))
+            for m in range(size // local_size)]
+
+
+def validate_machine_decomposition(n_ranks: int, local_size: int,
+                                   machine_specs: Sequence[CommSpec] = ()
+                                   ) -> list:
+    """The rank count must tile into machines of ``local_size``, and every
+    machine-level spec must be sized to the MACHINE count.  Returns the
+    intra-machine rank groups."""
+    groups = machine_groups(n_ranks, local_size)
+    m = len(groups)
+    for s in machine_specs:
+        if s.size != m:
+            raise ValueError(
+                f"machine schedule of size {s.size} does not match "
+                f"{m} machines ({n_ranks} ranks / local_size "
+                f"{int(local_size)})")
+    return groups
+
+
+def _machine_mean(x: torch.Tensor, local_size: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The exact intra-machine mean of rank-major ``x`` in ``dtype``,
+    broadcast back to every rank of the machine (``[n, ...]``): the JAX
+    package's grouped ``psum`` over each machine, then ``/ local_size``."""
+    n = x.shape[0]
+    grouped = x.to(dtype).reshape((n // local_size, local_size)
+                                  + tuple(x.shape[1:]))
+    mean = grouped.sum(dim=1, keepdim=True) / local_size
+    return mean.expand_as(grouped).reshape(x.shape)
+
+
+def _expand_pairs(perm, local_size: int):
+    """Machine edge (ms, md) -> rank pairs (ms*L + j, md*L + j): every
+    rank talks to its counterpart on the neighbor machine."""
+    return tuple((ms * local_size + j, md * local_size + j)
+                 for (ms, md) in perm for j in range(local_size))
+
+
+def _unit_weights(w, unit, acc, device) -> torch.Tensor:
+    """Per-rank weights from per-unit ones (``unit`` = rank // L): host
+    values become a cached device constant, runtime tensors are gathered
+    on the device."""
+    if not isinstance(w, torch.Tensor):
+        w = np.asarray(w, np.float64)
+        return _device_const(tuple(float(w[u]) for u in unit), device, acc)
+    w = w.to(device=device, dtype=acc)
+    return w.index_select(0, _device_const(tuple(unit), device))
+
+
+def hierarchical_neighbor_allreduce(
+    x: torch.Tensor,
+    machine_spec: CommSpec,
+    local_size: int,
+    compress: Optional[str] = None,
+    class_weights: Optional[torch.Tensor] = None,
+    self_weights: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Machine-level neighbor averaging, ``W_machine ⊗ exact-local-mean``:
+    (1) the exact mean over each machine's ``local_size`` ranks (full
+    precision), (2) the machine means mixed over ``machine_spec``, every
+    rank exchanging with its counterpart on the neighbor machine, so every
+    rank of a machine ends with the machine's result.
+
+    ``compress`` ("int8"/"bf16") and ``generator`` (stochastic rounding)
+    apply to the inter-machine leg only.  ``class_weights``
+    ([n_machine_classes, n_machines]) and ``self_weights`` ([n_machines])
+    supply machine-level weights as runtime tensors.  With
+    ``local_size == 1`` it is :func:`neighbor_allreduce`, bit for bit."""
+    if compress not in (None, "int8", "bf16"):
+        raise ValueError(f"unknown compress mode {compress!r}")
+    if generator is not None and compress != "int8":
+        raise ValueError("generator= requires compress='int8'")
+    L = int(local_size)
+    n = machine_spec.size * L
+    validate_machine_decomposition(n, L, (machine_spec,))
+    if x.shape[0] != n:
+        raise ValueError(f"rank-major tensor has {x.shape[0]} ranks, the "
+                         f"machine schedule covers {n}")
+    acc = _accum_dtype(x.dtype)
+    dev = x.device
+    bshape = _rank_shape(x)
+    unit = [r // L for r in range(n)]
+    local_mean = _machine_mean(x, L, acc)
+    self_w = _unit_weights(self_weights_of(machine_spec)
+                           if self_weights is None else self_weights,
+                           unit, acc, dev).reshape(bshape)
+    # the machine mean goes on the wire in the payload dtype (exact at
+    # local_size 1), or compressed; the self term keeps full precision
+    wire_x = local_mean.to(x.dtype)
+    if compress == "int8":
+        q, scale = _wire_quantize_int8(wire_x, generator)
+
+    def wire(perm):
+        if compress == "int8":
+            return (_permute(q, perm).float()
+                    * _permute(scale, perm).reshape(bshape))
+        if compress == "bf16" and x.dtype != torch.bfloat16:
+            return _permute(wire_x.to(torch.bfloat16), perm)
+        return _permute(wire_x, perm)
+
+    def recv_w(c, cls):
+        w = cls.recv_weights if class_weights is None else class_weights[c]
+        return _unit_weights(w, unit, acc, dev).reshape(bshape)
+
+    classes = machine_spec.shift_classes
+    merged = _fused_pairs(classes)
+    if merged is not None:
+        w_fused = _unit_weights(_fused_recv_weights(
+            classes, class_weights, machine_spec.size, acc, dev),
+            unit, acc, dev)
+        out = (local_mean * self_w + wire(_expand_pairs(merged, L)).to(acc)
+               * w_fused.reshape(bshape))
+        return out.to(x.dtype)
+
+    out = local_mean * self_w
+    for c, cls in enumerate(classes):
+        out.addcmul_(wire(_expand_pairs(cls.perm, L)).to(acc),
+                     recv_w(c, cls))
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ #
+# error-feedback compressed mixing: sparse deltas on the wire
+# ------------------------------------------------------------------ #
+def mix_wire_bytes(numel: int, k: int, values: str = "int8") -> int:
+    """Bytes of one compressed-mixing wire buffer (per rank, per bucket,
+    per permute): ``k`` values (1 byte under int8, 4 under ``"none"``),
+    the packed keep-mask (8 entries a byte) and, under int8, the 4-byte
+    f32 scale."""
+    numel, k = int(numel), int(k)
+    mask_bytes = (numel + 7) // 8
+    if values in ("int8", "int8_sr"):
+        return k + mask_bytes + 4
+    return 4 * k + mask_bytes
+
+
+def mix_mirror_slots(spec: CommSpec) -> int:
+    """Receiver-side mirror rows one round of ``spec`` needs: 1 when its
+    shift classes fuse into a single permute (every src and dst unique
+    across all classes), else one per class."""
+    classes = spec.shift_classes
+    if len(classes) <= 1:
+        return max(len(classes), 1)
+    return 1 if _fused_pairs(classes) is not None else len(classes)
+
+
+_BIT_SHIFTS: dict = {}
+
+
+def _bit_shifts(device) -> torch.Tensor:
+    key = str(device)
+    t = _BIT_SHIFTS.get(key)
+    if t is None:
+        t = _BIT_SHIFTS[key] = torch.arange(7, -1, -1, dtype=torch.uint8,
+                                            device=device)
+    return t
+
+
+def _pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """``np.packbits`` of each row of a bool ``[n, numel]`` mask (first
+    entry in the high bit): ``[n, ceil(numel / 8)]`` uint8."""
+    n, numel = mask.shape
+    bits = torch.nn.functional.pad(mask.to(torch.uint8),
+                                   (0, (-numel) % 8)).reshape(n, -1, 8)
+    return (bits << _bit_shifts(mask.device)).sum(dim=2, dtype=torch.uint8)
+
+
+def _unpack_bits(packed: torch.Tensor, count: int) -> torch.Tensor:
+    """The inverse of :func:`_pack_bits`: bool ``[n, count]``."""
+    n = packed.shape[0]
+    bits = (packed.unsqueeze(2) >> _bit_shifts(packed.device)) & 1
+    return bits.reshape(n, -1)[:, :count].bool()
+
+
+def _mix_decode_wire(wire: torch.Tensor, numel: int, k: int,
+                     values: str) -> torch.Tensor:
+    """Dense f32 ``[n, numel]`` deltas from wire rows ``[n, bytes]``.  A
+    rank that received nothing holds zero bytes: the zero mask decodes to
+    an exactly-zero delta."""
+    from bluefog_tpu_torch.compressor import topk_mask_decode
+
+    n = wire.shape[0]
+    mask_bytes = (numel + 7) // 8
+    if values in ("int8", "int8_sr"):
+        q = wire[:, :k].contiguous().view(torch.int8)
+        packed = wire[:, k:k + mask_bytes]
+        scale = wire[:, k + mask_bytes:k + mask_bytes + 4].contiguous(
+        ).view(torch.float32)
+        vals = q.float() * scale.reshape(n, 1)
+    else:
+        vals = wire[:, :4 * k].contiguous().view(torch.float32)
+        packed = wire[:, 4 * k:4 * k + mask_bytes]
+    return topk_mask_decode(_unpack_bits(packed, numel), vals)
+
+
+def _mix_encode_wire(target: torch.Tensor, k: int, k_live: torch.Tensor,
+                     values: str, generator: Optional[torch.Generator]):
+    """(wire uint8 [n, mix_wire_bytes], own delta f32 [n, numel]): top-k
+    select each row's delta, quantize the kept values, pack everything
+    into ONE byte row per rank, and decode it back, so the sender's own
+    delta is bit for bit what every receiver decodes."""
+    from bluefog_tpu_torch.compressor import topk_mask_encode
+
+    n, numel = target.shape
+    mask, vals = topk_mask_encode(target, k, k_live)
+    packed = _pack_bits(mask)
+    if values in ("int8", "int8_sr"):
+        q, scale = _wire_quantize_int8(vals, generator)
+        wire = torch.cat([q.view(torch.uint8), packed,
+                          scale.contiguous().view(torch.uint8).reshape(n, 4)],
+                         dim=1)
+    else:
+        wire = torch.cat([vals.float().contiguous().view(torch.uint8),
+                          packed], dim=1)
+    return wire, _mix_decode_wire(wire, numel, k, values)
+
+
+def mix_compress_exchange(
+    x: torch.Tensor,
+    spec: CommSpec,
+    *,
+    ref_row: torch.Tensor,
+    mirrors: torch.Tensor,
+    err: torch.Tensor,
+    ratio: torch.Tensor,
+    k: int,
+    values: str = "int8",
+    error_feedback: bool = True,
+    class_weights: Optional[torch.Tensor] = None,
+    self_weights: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    hierarchical_local_size: Optional[int] = None,
+):
+    """ONE round of error-feedback compressed neighbor averaging of the
+    rank-major bucket ``x`` ([n, ...]).
+
+    The wire carries ``compress(x - ref + e)``: each rank keeps a
+    reference copy ``ref`` of what it has told this round's receivers
+    and an error accumulator ``e``; the payload is the top-k-by-magnitude
+    sparsification of the delta (packed keep-mask and int8 or f32 kept
+    values, :func:`mix_wire_bytes`), the residual goes into ``e``, and
+    every receiver rebuilds the sender's state as ``mirror + delta``.
+    The combine is the ordinary weighted average of those full-precision
+    reconstructions.
+
+    State (f32, rank-major): ``ref_row`` [n, numel] (this round's
+    cumulative sent deltas), ``mirrors`` [n, mix_mirror_slots(spec),
+    numel], ``err`` [n, numel], ``ratio`` [n] (each rank's LIVE ratio:
+    ``k_live = clip(floor(ratio * numel), 1, k)``).  ``values``:
+    ``"int8"``, ``"int8_sr"`` (stochastic rounding from ``generator``)
+    or ``"none"``.  Under ``hierarchical_local_size`` the exact machine
+    mean is exchanged and the state lives at machine-mean granularity.
+
+    Returns ``(out, new_ref_row, new_mirrors, new_err)``.  A rank with no
+    out-edge this round keeps ``ref``/``err``; one with no in-edge
+    receives zero bytes and keeps its mirror."""
+    if values not in ("int8", "int8_sr", "none"):
+        raise ValueError(f"unknown mix values mode {values!r}")
+    if generator is not None and values != "int8_sr":
+        raise ValueError("generator= requires values='int8_sr'")
+    if values == "int8_sr" and generator is None:
+        raise ValueError("values='int8_sr' needs a generator")
+    shape, dtype = x.shape, x.dtype
+    n = shape[0]
+    dev = x.device
+    xf = x.reshape(n, -1)
+    nb = xf.shape[1]
+    f32 = torch.float32
+    if hierarchical_local_size is not None:
+        L = int(hierarchical_local_size)
+        validate_machine_decomposition(spec.size * L, L, (spec,))
+        base = _machine_mean(xf, L, f32)
+    else:
+        L = 1
+        base = xf.float()
+    if spec.size * L != n:
+        raise ValueError(f"rank-major tensor has {n} ranks, the spec "
+                         f"covers {spec.size * L}")
+    unit = [r // L for r in range(n)]
+    self_w = _unit_weights(self_weights_of(spec) if self_weights is None
+                           else self_weights, unit, f32, dev).reshape(n, 1)
+    classes = spec.shift_classes
+    if not classes:
+        return (base * self_w).to(dtype).reshape(shape), ref_row, mirrors, err
+
+    # sender: encode the delta once per round (one wire to every
+    # out-edge), fold the residual into e, advance ref, for ranks with
+    # an out-edge this round only
+    target = base - ref_row + err
+    k_live = torch.clamp(torch.floor(ratio * nb).to(torch.int32), 1, k)
+    wire, d_own = _mix_encode_wire(target, k, k_live, values, generator)
+    has_out_unit = [False] * spec.size
+    for cls in classes:
+        for (s, _) in cls.perm:
+            has_out_unit[s] = True
+    has_out = _device_const(tuple(has_out_unit[u] for u in unit), dev
+                            ).reshape(n, 1)
+    new_ref = torch.where(has_out, ref_row + d_own, ref_row)
+    new_err = (torch.where(has_out, target - d_own, err) if error_feedback
+               else err)
+
+    def recv_w(w):
+        return _unit_weights(w, unit, f32, dev).reshape(n, 1)
+
+    # receiver: the class-fusion rule of the dense exchange; a fused or
+    # single-class round permutes the one wire once into one mirror row,
+    # a multi-class round permutes it per class into per-slot rows
+    merged = _fused_pairs(classes)
+    acc = base * self_w
+    new_mirrors = mirrors.clone()
+    if merged is not None or len(classes) == 1:
+        if merged is not None:
+            perm = _expand_pairs(merged, L)
+            w = recv_w(_fused_recv_weights(classes, class_weights,
+                                           spec.size, f32, dev))
+        else:
+            perm = _expand_pairs(classes[0].perm, L)
+            w = recv_w(classes[0].recv_weights if class_weights is None
+                       else class_weights[0])
+        rd = _mix_decode_wire(_permute(wire, perm), nb, k, values)
+        new_mirrors[:, 0] += rd
+        acc = acc + new_mirrors[:, 0] * w
+    else:
+        for c, cls in enumerate(classes):
+            rd = _mix_decode_wire(_permute(wire, _expand_pairs(cls.perm, L)),
+                                  nb, k, values)
+            new_mirrors[:, c] += rd
+            w = recv_w(cls.recv_weights if class_weights is None
+                       else class_weights[c])
+            acc = acc + new_mirrors[:, c] * w
+    return acc.to(dtype).reshape(shape), new_ref, new_mirrors, new_err
 
 
 def allreduce(x: torch.Tensor, average: bool = True) -> torch.Tensor:
@@ -279,10 +767,34 @@ class StackedBackend:
                 for k, v in tree.items()}
 
     def neighbor_allreduce(self, x, spec, compress=None, class_weights=None,
-                           self_weights=None):
+                           self_weights=None, generator=None):
         return neighbor_allreduce(x, spec, compress=compress,
                                   class_weights=class_weights,
-                                  self_weights=self_weights)
+                                  self_weights=self_weights,
+                                  generator=generator)
+
+    def neighbor_allreduce_buckets(self, buffers, spec, compress=None,
+                                   wire_step=None,
+                                   hierarchical_local_size=None,
+                                   class_weights=None, self_weights=None):
+        return neighbor_allreduce_buckets(
+            buffers, spec, compress=compress, wire_step=wire_step,
+            hierarchical_local_size=hierarchical_local_size,
+            class_weights=class_weights, self_weights=self_weights)
+
+    def hierarchical_neighbor_allreduce(self, x, machine_spec, local_size,
+                                        compress=None, class_weights=None,
+                                        self_weights=None, generator=None):
+        return hierarchical_neighbor_allreduce(
+            x, machine_spec, local_size, compress=compress,
+            class_weights=class_weights, self_weights=self_weights,
+            generator=generator)
+
+    def push_sum_mix(self, tree, ps_weight, spec):
+        return push_sum_mix(tree, ps_weight, spec)
+
+    def mix_compress_exchange(self, x, spec, **kw):
+        return mix_compress_exchange(x, spec, **kw)
 
     def allreduce(self, x, average: bool = True):
         return allreduce(x, average=average)

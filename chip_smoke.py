@@ -30,6 +30,27 @@ Phases (any failure raises and exits non-zero, printing no result):
       two cuBLAS products dy @ w.T and x.T @ dy as the library
       yardstick, each shape's launches per rank-step, and the sums of
       kernel, bound and cuBLAS ms over a rank-step's 20 launches.
+   c. K2, K3a, K3b flash attention forward, dQ and dK/dV at the Llama
+      training shape (B=4, T=2048, H=32, KV=8, D=128, causal, bf16), the
+      ViT-B/16 shape (B=128, T=200, H=12, D=64, non-causal, bf16), the
+      Llama-1B shape (D=64) and at small odd shapes (f32; D 16 and 64; T
+      100 and 1000; rep 1, 2, 4; non-causal; every row masked by
+      kv_offset=64; q_offset=128): max |err| per output, every output
+      bit-equal across two runs; K2 (the wgmma kernel in bf16 at D 64 and
+      128) and SDPA's forward timed at every shape; at the three model
+      shapes K3a's and K3b's (wgmma) kernel, plain, bound and library ms
+      (SDPA's backward for K3a + K3b together), K2's at the training
+      shape (SDPA's forward), and there three planted faults in K3a's
+      key tiles.
+   d. K5, splash attention's fused one-pass backward, at the Llama-1B
+      training shape (B=4, T=2048, H=32, KV=8, D=64, causal, bf16), at
+      8B width (D=128) and at small odd shapes (f32 D 16 and 64, bf16
+      D 32; T 100, 128, 1000; rep 1, 2, 4): each dQ/dK/dV entry within
+      its bound, bit-equal across two runs; at the 1B shape the bound
+      rejects K5's planted faults at the kernel's own dQ span and query
+      step (256 keys and 64 rows for the wgmma kernel); at both training
+      shapes K5 (its main kernel and dQ sum apart, with the partials'
+      count and bytes), K3a + K3b, plain, SDPA's backward and bound ms.
 3. Serving: Llama-3.1-8B at full width (32 layers, random bf16 weights
    from --seed at flax's initializer scales) through ServingEngine
    (capacity 8, max_len 2048, prefill chunk 256): 16 requests, prompt
@@ -56,30 +77,30 @@ Phases (any failure raises and exits non-zero, printing no result):
    (CUDA events); K1 launched 20 x 4 x steps times; and after 3 steps
    from one state on the same per-rank data (batch 16), the consensus
    distance under atc is below that of comm_mode="none".
-   c. K2, K3a, K3b flash attention forward, dQ and dK/dV at the Llama
-      training shape (B=4, T=2048, H=32, KV=8, D=128, causal, bf16), the
-      ViT-B/16 shape (B=128, T=200, H=12, D=64, non-causal, bf16), the
-      Llama-1B shape (D=64) and at small odd shapes (f32; D 16 and 64; T
-      100 and 1000; rep 1, 2, 4; non-causal; every row masked by
-      kv_offset=64; q_offset=128): max |err| per output, every output
-      bit-equal across two runs; K2 (the wgmma kernel in bf16 at D 64 and
-      128) and SDPA's forward timed at every shape; at the three model
-      shapes K3a's and K3b's (wgmma) kernel, plain, bound and library ms
-      (SDPA's backward for K3a + K3b together), K2's at the training
-      shape (SDPA's forward), and there three planted faults in K3a's
-      key tiles.
-   d. K5, splash attention's fused one-pass backward, at the Llama-1B
-      training shape (B=4, T=2048, H=32, KV=8, D=64, causal, bf16), at
-      8B width (D=128) and at small odd shapes (f32 D 16 and 64, bf16
-      D 32; T 100, 128, 1000; rep 1, 2, 4): each dQ/dK/dV entry within
-      its bound, bit-equal across two runs; at the 1B shape the bound
-      rejects K5's planted faults at the kernel's own dQ span and query
-      step (256 keys and 64 rows for the wgmma kernel); at both training
-      shapes K5 (its main kernel and dQ sum apart, with the partials'
-      count and bytes), K3a + K3b, plain, SDPA's backward and bound ms.
+6b. Train-step modes, 4 ranks stacked, ResNet-50 at full width, batch
+   128 per rank, each mode its own build (2 warm-up, 3 timed steps, then
+   one step under torch.profiler for the device-busy ms), plain atc
+   first as the yardstick, then: atc with guard= and health= (a NaN in rank 2's images at step 3: skipped
+   [0, 0, 1, 0], rank 2's momentum and batch statistics kept bit for bit,
+   params finite, HealthVector finite but for the planted rank's loss,
+   grad and update norms), cta with overlap="bucketed" (4 buckets;
+   bit-equal to plain cta after 2 steps from one state), atc with
+   compress="int8_sr", atc with MixCompressConfig(0.25, "int8"), atc
+   with hierarchical_local_size=2 over ExponentialTwoGraph(2), and
+   push_sum (ps weights sum to 4).  img/s per card, step ms, peak
+   memory, the combine's ms where the step exposes it, MixState bytes;
+   K1 launched 20 x 4 x steps times and no other kernel; the host syncs
+   of one steady step (torch.cuda.set_sync_debug_mode) no more than plain
+   atc's; under int8_sr and top-k, phase 6's consensus check.
 7. Reference (training): a tiny f32 ResNet trained 3 atc steps over 4
    ranks on the card (kernel) and on the CPU (plain version) gives the
    same params, batch statistics and losses within f32 tolerance.
+7b. Reference (train-step modes): the tiny f32 ResNet of phase 7, 3
+   steps over 4 ranks, card against host, for the guard with health,
+   bucketed cta, top-k mixing, the hierarchical exchange and push-sum:
+   params, statistics, losses, skip flags and HealthVector within phase
+   7's tolerance; int8_sr on the card only, finite and bit-equal across
+   two runs from one seed.
 8. Llama train, 1 rank: Llama-3.1-8B's width (dim 4096, 32 heads, 8 kv
    heads, ffn 14336, vocab 128256, llama3 rope) cut to 4 layers,
    attn_impl="flash", f32 master params and bf16 compute, SGD(1e-3,
@@ -1227,6 +1248,450 @@ def phase_train_reference(seed):
         f"{loss_err:.3g}")
 
 
+# the train-step modes of phases 6b and 7b, in the docstring's order
+TRAIN_MODES = ("guard_health", "cta_bucketed", "int8_sr", "topk",
+               "hierarchical", "push_sum")
+
+
+def _mode_config(name, n_ranks=4):
+    """(comm_mode, build_train_step keywords) of one train-step mode over
+    ``n_ranks`` stacked ranks: ExponentialTwoGraph over the ranks, or over
+    the machines of 2 ranks for the hierarchical exchange.  ``"atc"`` is
+    plain atc, the yardstick."""
+    import bluefog_tpu_torch as bt
+
+    topo = bt.uniform_topology_spec(bt.ExponentialTwoGraph(n_ranks))
+    return {
+        "atc": ("atc", dict(topology=topo)),
+        "guard_health": ("atc", dict(topology=topo, guard=bt.GuardConfig(),
+                                     health=bt.HealthConfig())),
+        "cta_bucketed": ("cta", dict(topology=topo, overlap="bucketed",
+                                     overlap_buckets=4)),
+        "int8_sr": ("atc", dict(topology=topo, compress="int8_sr")),
+        "topk": ("atc", dict(topology=topo,
+                             compress=bt.MixCompressConfig(0.25, "int8"))),
+        "hierarchical": ("atc", dict(
+            topology=bt.uniform_topology_spec(
+                bt.ExponentialTwoGraph(n_ranks // 2)),
+            hierarchical_local_size=2)),
+        "push_sum": ("push_sum", dict(topology=topo)),
+    }[name]
+
+
+def _mode_opt_state(step, opt, params, comm_mode):
+    """The opt_state a mode's step takes: the optimizer, or (optimizer,
+    MixState) under top-k mixing, or (optimizer, ps weights) under
+    push-sum."""
+    import bluefog_tpu_torch as bt
+
+    if step.mix_config is not None:
+        return (opt, step.init_mix_state(params))
+    if comm_mode == "push_sum":
+        n = next(iter(params.values())).shape[0]
+        dev = next(iter(params.values())).device
+        return (opt, bt.push_sum_weights(bt.StackedBackend(n, device=dev)))
+    return opt
+
+
+def _mode_call(step, params, stats, opt_state, batch, i):
+    """One step of any mode: (params, stats, opt_state, loss, skipped or
+    None, HealthVector or None)."""
+    guarded = hasattr(step, "guard_config")
+    args = (params, stats, opt_state, batch, i)
+    out = step(*(args + (step.default_comm_weights,) if guarded else args))
+    params, stats, opt_state, loss = out[:4]
+    rest = list(out[4:])
+    skipped = rest.pop(0) if guarded else None
+    hv = rest.pop(0) if step.health_config is not None else None
+    return params, stats, opt_state, loss, skipped, hv
+
+
+def _count_syncs(fn):
+    """The host syncs ``fn()`` makes: the "called a synchronizing CUDA
+    operation" warnings of torch.cuda.set_sync_debug_mode("warn") (not
+    the one-time notice that the mode is a prototype)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def _profile_step(call, what, top=4):
+    """torch.profiler over one ``call()``: (wall ms, device-busy ms); logs
+    the ``top`` kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = _device_kernels(prof)
+    for e in sorted(events, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:top]:
+        log(f"[profile] {what}: {e.self_device_time_total / 1e3:8.3f} ms "
+            f"{e.count:5d} calls  {e.key[:80]}")
+    busy = sum(e.self_device_time_total for e in events)
+    return wall_us / 1e3, busy / 1e3
+
+
+def _time_combine(step, params, opt_state):
+    """Median CUDA-event ms of the step's neighbor combine alone, on
+    copies of the params (and of the MixState), 6 runs less the first."""
+    copy = {k: v.clone() for k, v in params.items()}
+    mix = None
+    if step.mix_config is not None:
+        ms = opt_state[1]
+        mix = ms._replace(err=tuple(t.clone() for t in ms.err),
+                          ref=tuple(t.clone() for t in ms.ref),
+                          mirror=tuple(t.clone() for t in ms.mirror))
+    times = []
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step.combine(copy, 0, mix_state=mix)
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in times[1:])
+
+
+def _spread_after_3(seed, comm_mode, kw, batch=16):
+    """Phase 6's consensus check: the consensus distance after 3 steps
+    from one state on the same per-rank data."""
+    import bluefog_tpu_torch as bt
+
+    step, params, stats, opt, b = _resnet_step(4, comm_mode, seed, batch,
+                                               **kw)
+    opt_state = _mode_opt_state(step, opt, params, comm_mode)
+    for i in range(3):
+        params, stats, opt_state, *_ = _mode_call(step, params, stats,
+                                                  opt_state, b, i)
+    spread = float(bt.consensus_distance(params))
+    del step, params, stats, opt, opt_state, b
+    torch.cuda.empty_cache()
+    return spread
+
+
+def _cta_bit_equal(seed):
+    """Plain and bucketed cta from one state, 2 steps (batch 16, cuDNN in
+    its deterministic mode): the params must be bit-equal.  On a
+    mismatch, a second plain run says whether the card's own training
+    repeats bit for bit."""
+    import bluefog_tpu_torch as bt
+
+    topo = bt.uniform_topology_spec(bt.ExponentialTwoGraph(4))
+    bench, det = torch.backends.cudnn.benchmark, \
+        torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for kw in (dict(), dict(overlap="bucketed", overlap_buckets=4),
+                   dict()):
+            step, params, stats, opt, b = _resnet_step(
+                4, "cta", seed, 16, topology=topo, **kw)
+            for i in range(2):
+                params, stats, opt, _ = step(params, stats, opt, b, i)
+            runs.append({k: v.clone() for k, v in params.items()})
+            del step, params, stats, opt, b
+            if len(runs) == 2:
+                same = all(torch.equal(runs[0][k], runs[1][k])
+                           for k in runs[0])
+                if same:
+                    break
+        if not same:
+            control = all(torch.equal(runs[0][k], runs[2][k])
+                          for k in runs[0])
+            raise AssertionError(
+                "bucketed cta is not bit-equal to plain cta after 2 steps "
+                f"(plain against plain: {'equal' if control else 'unequal'})")
+    finally:
+        torch.backends.cudnn.benchmark = bench
+        torch.backends.cudnn.deterministic = det
+        torch.cuda.empty_cache()
+
+
+def phase_train_modes(seed):
+    """Phase 6b: plain atc, then each train-step mode, on ResNet-50 at
+    full width, 4 stacked ranks, batch 128 per rank, each its own build,
+    2 warm-up and 3 timed steps, then one profiled step (device-busy ms)
+    and one step under the sync debug mode; K1 20 x 4 x 5 launches and no
+    other kernel; no mode makes more host syncs than plain atc."""
+    timed, warmup = 3, 2
+    spread_none = _spread_after_3(seed, "none", {})
+    rows = {}
+    for name in ("atc",) + TRAIN_MODES:
+        comm_mode, kw = _mode_config(name)
+        step, params, stats, opt, batch = _resnet_step(4, comm_mode, seed,
+                                                       BATCH, **kw)
+        opt_state = _mode_opt_state(step, opt, params, comm_mode)
+        poisoned = None
+        if name == "guard_health":
+            poisoned = (batch[0].clone(), batch[1])
+            poisoned[0][2, 0, 0, 0, 0] = float("nan")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        kept = {}
+        hvs, skips, losses = [], [], []
+        for i in range(warmup + timed):
+            if i == warmup:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            b = poisoned if (poisoned is not None and i == 3) else batch
+            if poisoned is not None and i == 3:
+                kept["before"] = (
+                    {k: opt.state[v]["momentum_buffer"][2].clone()
+                     for k, v in params.items()},
+                    {k: v[2].clone() for k, v in stats.items()})
+            params, stats, opt_state, loss, skipped, hv = _mode_call(
+                step, params, stats, opt_state, b, i)
+            if poisoned is not None and i == 3:
+                kept["after"] = (
+                    {k: opt.state[v]["momentum_buffer"][2].clone()
+                     for k, v in params.items()},
+                    {k: v[2].clone() for k, v in stats.items()})
+            losses.append(loss)
+            skips.append(skipped)
+            hvs.append(hv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = _expect_launches(f"mode {name}", {
+            "conv1x1_backward":
+                K1_LAUNCHES_PER_RANK_STEP * 4 * (warmup + timed)
+        })["conv1x1_backward"]
+        if not all(torch.isfinite(v).all() for v in params.values()):
+            raise AssertionError(f"mode {name}: non-finite params")
+        loss_all = torch.stack(losses)
+        extra = ""
+        if name == "guard_health":
+            want = [[0, 0, 1, 0] if i == 3 else [0] * 4
+                    for i in range(warmup + timed)]
+            got = torch.stack(skips).tolist()
+            if got != want:
+                raise AssertionError(f"guard: skipped {got}, want {want}")
+            for part in (0, 1):
+                for k, v in kept["before"][part].items():
+                    if not torch.equal(v, kept["after"][part][k]):
+                        raise AssertionError(
+                            f"guard: rank 2's {('momentum', 'stat')[part]} "
+                            f"{k} changed in its skipped step")
+            # the planted rank's loss, gradients and update are NaN at
+            # step 3, so are its loss, grad and update norms (in JAX too)
+            for i, hv in enumerate(hvs):
+                for f, v in hv._asdict().items():
+                    ok = torch.isfinite(v)
+                    if f in ("loss", "grad_norm", "update_norm") and i == 3:
+                        ok = ok | (torch.arange(4, device=v.device) == 2)
+                    if not ok.all():
+                        raise AssertionError(f"guard: HealthVector.{f} of "
+                                             f"step {i}: {v.tolist()}")
+            finite = torch.isfinite(loss_all)
+            if finite.sum().item() != loss_all.numel() - 1 \
+                    or finite[3, 2].item():
+                raise AssertionError(f"guard: losses {loss_all.tolist()}")
+            last = hvs[-1]
+            extra = (f", skipped {got[3]} at step 3 (rank 2's momentum and "
+                     f"statistics kept bit for bit), last HealthVector: "
+                     f"grad_norm {[round(x, 4) for x in last.grad_norm.tolist()]}, "
+                     f"update_norm {[round(x, 4) for x in last.update_norm.tolist()]}, "
+                     f"consensus {[round(x, 4) for x in last.consensus.tolist()]}")
+        elif not torch.isfinite(loss_all).all():
+            raise AssertionError(f"mode {name}: losses {loss_all.tolist()}")
+        if name == "push_sum":
+            total = opt_state[1].sum().item()
+            if abs(total - 4.0) > 1e-5:
+                raise AssertionError(f"push_sum: ps weights sum to {total}")
+            extra = f", ps weights {opt_state[1].tolist()} (sum {total:.7f})"
+        if name == "topk":
+            mix_bytes = sum(t.numel() * t.element_size()
+                            for t in (opt_state[1].ratio,) + opt_state[1].err
+                            + opt_state[1].ref + opt_state[1].mirror)
+            extra = (f", MixState {mix_bytes / 1e9:.3f} GB "
+                     f"({len(opt_state[1].err)} buckets), wire "
+                     f"{sum(r['wire_bytes'] for r in step.mix_wire_layout(params)) / 1e6:.2f}"
+                     " MB per rank per permute")
+        combine = (f"{_time_combine(step, params, opt_state):.3f} ms"
+                   if hasattr(step, "combine") else "n/a (push-sum)")
+        prof_wall, busy = _profile_step(lambda: _mode_call(
+            step, params, stats, opt_state, batch, warmup + timed), name)
+        syncs = _count_syncs(lambda: _mode_call(
+            step, params, stats, opt_state, batch, warmup + timed + 1))
+        base_syncs = rows["atc"]["syncs"] if rows else syncs
+        step_ms = wall / timed * 1e3
+        rows[name] = dict(step_ms=step_ms, syncs=syncs, busy_ms=busy)
+        log(f"[modes] {name} ({comm_mode}): "
+            f"{4 * BATCH * timed / wall:.1f} img/s per card, step "
+            f"{step_ms:.2f} ms, device busy {busy:.2f} ms in a profiled "
+            f"step of {prof_wall:.2f} ms ({100 * busy / prof_wall:.1f}%), "
+            f"peak memory {peak:.2f} GiB, combine {combine}, K1 launches "
+            f"{launches} = 20 x 4 ranks x {warmup + timed} steps, host "
+            f"syncs in a steady step {syncs} (plain atc {base_syncs})"
+            f"{extra}")
+        if syncs > base_syncs:
+            raise AssertionError(f"mode {name}: {syncs} host syncs a step, "
+                                 f"plain atc {base_syncs}")
+        del step, params, stats, opt, opt_state, batch, poisoned, kept, b
+        del hvs, skips, losses, loss_all, loss, skipped, hv
+        torch.cuda.empty_cache()
+        if name == "cta_bucketed":
+            _cta_bit_equal(seed)
+            log("[modes] cta_bucketed: bit-equal to plain cta after 2 steps "
+                "from one state (batch 16, deterministic cuDNN)")
+        if name in ("int8_sr", "topk"):
+            spread = _spread_after_3(seed, comm_mode, kw)
+            if not spread < spread_none:
+                raise AssertionError(f"mode {name}: consensus distance "
+                                     f"{spread} not below none's "
+                                     f"{spread_none}")
+            log(f"[modes] {name}: consensus distance after 3 steps (batch "
+                f"16 per rank) {spread:.4g} < none {spread_none:.4g}")
+    return rows
+
+
+def _tiny_mode_run(name, dev, seed, init, x, y, nan_at=None):
+    """A tiny f32 ResNet (K1 on the card, its plain version on the host)
+    trained 3 steps over 4 ranks in one mode: params, statistics, losses,
+    skip flags, HealthVector fields, the ps weights (host copies)."""
+    import torch.nn.functional as F
+
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.models import BottleneckBlock
+
+    model = bt.ResNet((1, 1), BottleneckBlock, num_classes=10,
+                      num_filters=8, dtype=torch.float32,
+                      pallas_conv1x1=True, device=dev,
+                      generator=torch.Generator(dev).manual_seed(seed))
+    model.load_state_dict(init)
+    backend = bt.StackedBackend(4, device=dev)
+    p0, s0 = model.state()
+    params, stats = bt.rank_major(p0, backend), bt.rank_major(s0, backend)
+    opt = torch.optim.SGD(params.values(), lr=0.1, momentum=0.9)
+
+    def loss_fn(p, s, b):
+        logits, new = model.apply(p, s, b[0], train=True)
+        return F.cross_entropy(logits, b[1]), new
+
+    comm_mode, kw = _mode_config(name)
+    step = bt.build_train_step(loss_fn, opt, backend, comm_mode=comm_mode,
+                               has_aux=True, **kw)
+    opt_state = _mode_opt_state(step, opt, params, comm_mode)
+    out = dict(loss=[], skipped=[], hv=[])
+    for i in range(3):
+        xi = x.clone()
+        if nan_at is not None and i == nan_at[0]:
+            xi[nan_at[1], 0, 0, 0, 0] = float("nan")
+        params, stats, opt_state, loss, skipped, hv = _mode_call(
+            step, params, stats, opt_state, (xi.to(dev), y.to(dev)), i)
+        out["loss"].append(loss.cpu())
+        if skipped is not None:
+            out["skipped"].append(skipped.cpu())
+        if hv is not None:
+            out["hv"].append({f: v.cpu() for f, v in hv._asdict().items()})
+    out["params"] = {k: v.cpu() for k, v in params.items()}
+    out["stats"] = {k: v.cpu() for k, v in stats.items()}
+    if comm_mode == "push_sum":
+        out["ps"] = opt_state[1].cpu()
+    return out
+
+
+def phase_train_modes_reference(seed):
+    """Phase 7b: the tiny f32 ResNet of phase 7, 3 steps over 4 ranks on
+    the card (K1) and on the host (plain version), for the guard with
+    health (a NaN in rank 2's images at step 1), bucketed cta, top-k
+    mixing, the hierarchical exchange and push-sum: params, batch
+    statistics, losses, skip flags and HealthVector agree within phase
+    7's tolerance (5e-4 of each leaf's or field's largest entry plus
+    5e-7; losses 1e-5).  int8_sr on the card only: finite, and bit-equal
+    across two runs from one seed."""
+    from bluefog_tpu_torch.models import BottleneckBlock
+
+    import bluefog_tpu_torch as bt
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(4, 4, 32, 32, 3).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, (4, 4)))
+    init = {k: v.cpu() for k, v in bt.ResNet(
+        (1, 1), BottleneckBlock, num_classes=10, num_filters=8,
+        dtype=torch.float32, pallas_conv1x1=True, device="cpu",
+        generator=torch.Generator("cpu").manual_seed(seed)
+    ).state_dict().items()}
+
+    def close(got, want, what):
+        """Within 5e-4 of the largest entry plus 5e-7; NaN where the host
+        has NaN (the planted rank's norms) and nowhere else."""
+        nan = torch.isnan(want)
+        if not torch.equal(torch.isnan(got), nan):
+            raise AssertionError(f"{what}: NaN at {torch.isnan(got)}, host "
+                                 f"{nan}")
+        got, want = got[~nan], want[~nan]
+        scale = want.abs().max().item() if want.numel() else 0.0
+        err = (got - want).abs().max().item() if want.numel() else 0.0
+        if not err <= 5e-4 * scale + 5e-7:
+            raise AssertionError(f"{what} differs by {err} (largest entry "
+                                 f"{scale})")
+        return err / max(scale, 1e-12)
+
+    for name in ("guard_health", "cta_bucketed", "topk", "hierarchical",
+                 "push_sum"):
+        nan_at = (1, 2) if name == "guard_health" else None
+        card = _tiny_mode_run(name, "cuda", seed, init, x, y, nan_at)
+        host = _tiny_mode_run(name, "cpu", seed, init, x, y, nan_at)
+        worst = 0.0
+        for part in ("params", "stats"):
+            for k, want in host[part].items():
+                worst = max(worst, close(card[part][k], want,
+                                         f"7b {name}: {k}"))
+        lc, lh = torch.stack(card["loss"]), torch.stack(host["loss"])
+        if not torch.equal(torch.isnan(lc), torch.isnan(lh)) or \
+                (lc - lh).nan_to_num().abs().max().item() > 1e-5:
+            raise AssertionError(f"7b {name}: losses {lc.tolist()} vs "
+                                 f"{lh.tolist()}")
+        if card["skipped"] != [] and not all(
+                torch.equal(a, b) for a, b in zip(card["skipped"],
+                                                  host["skipped"])):
+            raise AssertionError(f"7b {name}: skipped {card['skipped']} vs "
+                                 f"{host['skipped']}")
+        for i, (hc, hh) in enumerate(zip(card["hv"], host["hv"])):
+            for f in hh:
+                if f == "loss":
+                    continue   # the losses above, NaN included
+                worst = max(worst, close(hc[f], hh[f],
+                                         f"7b {name}: HealthVector.{f} "
+                                         f"step {i}"))
+        if "ps" in host:
+            close(card["ps"], host["ps"], f"7b {name}: ps weights")
+        if name == "guard_health" and [s.tolist() for s in card["skipped"]] \
+                != [[0, 0, 0, 0], [0, 0, 1, 0], [0, 0, 0, 0]]:
+            raise AssertionError(f"7b guard: skipped {card['skipped']}")
+        log(f"[reference] 7b {name}: card vs host within {worst:.3g} of "
+            "each leaf's (and HealthVector field's) largest entry, losses "
+            f"within {(lc - lh).nan_to_num().abs().max().item():.3g}")
+    runs = [_tiny_mode_run("int8_sr", "cuda", seed, init, x, y)
+            for _ in range(2)]
+    for k, v in runs[0]["params"].items():
+        if not torch.isfinite(v).all() or not torch.equal(
+                v, runs[1]["params"][k]):
+            raise AssertionError(f"7b int8_sr: {k} not finite or not "
+                                 "repeated bit for bit")
+    log("[reference] 7b int8_sr (card only): 3 atc steps finite and "
+        "bit-equal across two runs from one seed")
+
+
 FLASH_KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
 
 
@@ -1769,8 +2234,10 @@ def main() -> int:
     torch.backends.cudnn.benchmark = True   # the training path's convs
     launches["conv1x1_backward"] = phase_train_1rank(args.seed)
     phase_train_4ranks(args.seed)
+    phase_train_modes(args.seed)
     torch.backends.cudnn.benchmark = False
     phase_train_reference(args.seed)
+    phase_train_modes_reference(args.seed)
     launches.update(phase_llama_train_1rank(args.seed))
     phase_llama_train_2ranks(args.seed)
     phase_llama_reference(args.seed)

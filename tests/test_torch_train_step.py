@@ -205,14 +205,6 @@ def test_no_aux_step_and_adam():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(guard=object()), "item 5"),
-    (dict(health=object()), "item 5"),
-    (dict(overlap="bucketed"), "item 5"),
-    (dict(compress="int8_sr"), "item 5"),
-    (dict(compress="topk"), "item 5"),
-    (dict(hierarchical=2), "item 5"),
-    (dict(hierarchical_local_size=2), "item 5"),
-    (dict(comm_mode="push_sum"), "item 5"),
     (dict(moe=object()), "item 10"),
     (dict(sp_axis="sp"), "item 10"),
     (dict(pp_axis="pp"), "item 10"),
@@ -226,14 +218,52 @@ def test_unported_features_raise(kw, item):
         _tiny_step(**kw)
 
 
+def _knob_run(env_monkeypatch, env, value, **kw):
+    """Params after 2 steps of the tiny problem, and the step, with
+    ``env=value`` set (or not) and the builder keywords ``kw``."""
+    if env is not None:
+        env_monkeypatch.setenv(env, value)
+    params, opt, step = _tiny_step(**kw)
+    if env is not None:
+        env_monkeypatch.delenv(env)
+    state = (opt, step.init_mix_state(params)) if step.mix_config else opt
+    batch = torch.arange(N * 3, dtype=torch.float32).reshape(N, 3)
+    for s in range(2):
+        params, state, _ = step(params, state, batch, s)
+    return params, step
+
+
 @pytest.mark.parametrize("env,value", [
     ("BLUEFOG_FUSE_EPILOGUES", "0"), ("BLUEFOG_HIER_LOCAL_SIZE", "2"),
     ("BLUEFOG_MIX_COMPRESS", "topk")])
 def test_unported_env_knobs_raise(monkeypatch, env, value):
-    monkeypatch.setenv(env, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _tiny_step(comm_mode="atc", topology=TT.uniform_topology_spec(
-            TT.ExponentialTwoGraph(N)))
+    """The three knobs the port once refused now take effect, each equal
+    to the builder keyword it stands for: BLUEFOG_HIER_LOCAL_SIZE=2 is
+    hierarchical_local_size=2 (over a machine-level topology),
+    BLUEFOG_MIX_COMPRESS=topk is compress="topk", and
+    BLUEFOG_FUSE_EPILOGUES=0 (no keyword) selects the pre-fusion order,
+    which gives the plain step's params and refuses top-k mixing as
+    the JAX package does."""
+    if env == "BLUEFOG_HIER_LOCAL_SIZE":
+        topo = TT.uniform_topology_spec(TT.ExponentialTwoGraph(N // 2))
+        got, step = _knob_run(monkeypatch, env, value, comm_mode="atc",
+                              topology=topo)
+        want, _ = _knob_run(monkeypatch, None, None, comm_mode="atc",
+                            topology=topo, hierarchical_local_size=2)
+        assert step.hierarchical_local_size == 2
+    else:
+        topo = TT.uniform_topology_spec(TT.ExponentialTwoGraph(N))
+        got, step = _knob_run(monkeypatch, env, value, comm_mode="atc",
+                              topology=topo)
+        want, ref = _knob_run(
+            monkeypatch, None, None, comm_mode="atc", topology=topo,
+            **({"compress": "topk"} if value == "topk" else {}))
+        assert step.mix_config == ref.mix_config
+        if env == "BLUEFOG_FUSE_EPILOGUES":
+            monkeypatch.setenv(env, value)
+            with pytest.raises(ValueError, match="BLUEFOG_FUSE_EPILOGUES"):
+                _tiny_step(comm_mode="atc", topology=topo, compress="topk")
+    assert torch.equal(got["w"], want["w"])
 
 
 def test_refuses_rank_mixing_optimizers_and_bad_config():
