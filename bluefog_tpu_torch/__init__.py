@@ -2,7 +2,11 @@
 
 A second package beside the JAX one, with the same module paths, run on
 an NVIDIA H100.  It imports torch and numpy, never jax, networkx or the
-JAX package.  Ported so far: serving Llama through the
+JAX package.  Its public surface is the JAX package's eager,
+BlueFog-compatible API (``api``, re-exported here: ``bf.init(size=,
+device=)``, ``bf.neighbor_allreduce``, ``bf.win_put``, ... on rank-major
+tensors of ``size`` ranks stacked on one card; ``context``, ``windows``)
+and its optimizer wrappers (``optim.wrappers``).  Ported so far: serving Llama through the
 continuous-batching engine (``serving``, ``models``, kernel
 ``parallel.decode_attention``), and decentralized training
 (``topology``, ``parallel.collectives``, ``optim.build_train_step``)
@@ -18,6 +22,47 @@ CUDA sources live in ``csrc/``.  Entry points take ``device=`` (default
 """
 
 from bluefog_tpu_torch import models, optim, serving, topology  # noqa: F401
+# Flat API re-exports (reference: bluefog/torch/__init__.py:34-110).
+from bluefog_tpu_torch.api import (  # noqa: F401
+    init, shutdown, is_initialized, size, local_size, rank, local_rank,
+    machine_size, machine_rank, load_topology, set_topology,
+    is_topo_weighted, load_machine_topology, set_machine_topology,
+    is_machine_topo_weighted, in_neighbor_ranks, out_neighbor_ranks,
+    in_neighbor_machine_ranks, out_neighbor_machine_ranks, is_homogeneous,
+    suspend, resume, set_skip_negotiate_stage, get_skip_negotiate_stage,
+    mpi_threads_supported, unified_mpi_window_model_supported, nccl_built,
+    # collectives
+    allreduce, allreduce_nonblocking, allreduce_, allreduce_nonblocking_,
+    allgather, allgather_nonblocking, broadcast, broadcast_nonblocking,
+    broadcast_, broadcast_nonblocking_, neighbor_allgather,
+    neighbor_allgather_nonblocking, neighbor_allreduce,
+    neighbor_allreduce_nonblocking, hierarchical_neighbor_allreduce,
+    hierarchical_neighbor_allreduce_nonblocking, pair_gossip,
+    pair_gossip_nonblocking, barrier, poll, synchronize, wait,
+    # windows
+    win_create, win_free, win_update, win_update_then_collect, win_put,
+    win_put_nonblocking, win_get, win_get_nonblocking, win_accumulate,
+    win_accumulate_nonblocking, win_set_value, win_wait, win_poll,
+    win_mutex, win_lock, win_unlock, win_fence, get_win_version,
+    get_current_created_window_names, win_associated_p,
+    turn_on_win_ops_with_associated_p, turn_off_win_ops_with_associated_p,
+    # timeline
+    timeline_start_activity, timeline_end_activity, timeline_context,
+    # rank-major tensor helpers
+    rank_sharded, from_rank_values, to_rank_values,
+)
+from bluefog_tpu_torch.utility import (  # noqa: F401
+    allreduce_parameters, broadcast_optimizer_state, broadcast_parameters)
+from bluefog_tpu_torch.compressor import (  # noqa: F401
+    CompressedOptimizer, QuantizedCompressor, RandomKCompressor,
+    TopKCompressor)
+from bluefog_tpu_torch.optim.wrappers import (  # noqa: F401
+    CommunicationType, DistributedAdaptThenCombineOptimizer,
+    DistributedAdaptWithCombineOptimizer, DistributedAllreduceOptimizer,
+    DistributedGradientAllreduceOptimizer,
+    DistributedHierarchicalNeighborAllreduceOptimizer,
+    DistributedNeighborAllreduceOptimizer, DistributedPullGetOptimizer,
+    DistributedPushSumOptimizer, DistributedWinPutOptimizer)
 from bluefog_tpu_torch.models import (MLP, Llama, LlamaConfig, MnistNet,
                                       ResNet, ResNet18, ResNet34, ResNet50,
                                       ResNet101, ResNet152, ViT, ViT_B16,
@@ -32,8 +77,33 @@ from bluefog_tpu_torch.parallel.collectives import StackedBackend
 from bluefog_tpu_torch.serving import Request, ServingEngine
 from bluefog_tpu_torch.topology import (ExponentialTwoGraph, Topology,
                                         DynamicTopology,
+                                        InferDestinationFromSourceRanks,
+                                        InferSourceFromDestinationRanks,
                                         one_peer_dynamic_schedule,
                                         uniform_topology_spec)
+
+
+
+def _waits_for(name: str, item: str):
+    """A name the JAX package exports and the port has not ported yet:
+    calling it raises, naming the ROADMAP.md item that ports it."""
+    def stub(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name} is not ported to bluefog_tpu_torch yet; see ROADMAP.md "
+            f"Queue 1, item {item}")
+    stub.__name__ = stub.__qualname__ = name
+    return stub
+
+
+# the JAX package's data loaders (item 7) and default pod schedule (the
+# torus module, item 12)
+DataLoader = _waits_for("DataLoader", "7 (data, checkpoints)")
+DistributedSampler = _waits_for("DistributedSampler", "7 (data, checkpoints)")
+device_prefetch = _waits_for("device_prefetch", "7 (data, checkpoints)")
+load_mnist = _waits_for("load_mnist", "7 (data, checkpoints)")
+load_cifar10 = _waits_for("load_cifar10", "7 (data, checkpoints)")
+default_pod_schedule = _waits_for("default_pod_schedule",
+                                  "12 (topology/torus.py)")
 
 __all__ = ["models", "optim", "serving", "topology", "Llama",
            "LlamaConfig", "init_cache", "llama_generate", "llama_loss_fn",
@@ -44,4 +114,5 @@ __all__ = ["models", "optim", "serving", "topology", "Llama",
            "consensus_distance", "push_sum_weights", "GuardConfig",
            "HealthConfig", "HealthVector", "MixCompressConfig", "MixState", "StackedBackend", "ExponentialTwoGraph",
            "Topology", "DynamicTopology", "one_peer_dynamic_schedule",
-           "uniform_topology_spec"]
+           "uniform_topology_spec", "InferDestinationFromSourceRanks",
+           "InferSourceFromDestinationRanks"]

@@ -1,11 +1,21 @@
-"""Top-k selection of the port, cut to what the train step's
-error-feedback compressed mixing needs.
+"""Gradient compression of the port.
 
-Port of ``bluefog_tpu/compressor.py``'s k-resolution rule
-(``_resolve_k``) and its top-k kernel (``topk_mask_encode`` /
-``topk_mask_decode``), on rank-major rows: every function takes a
-``[n, numel]`` tensor and works on each rank's row.  The eager gradient
-compressors wait for ROADMAP.md Queue 1, item 4.
+Port of ``bluefog_tpu/compressor.py`` (reference
+compressor/Compressor.py: TopKCompressor, RandomKCompressor,
+QuantizedCompressor; compressor/CompressedOptimizer.py), on rank-major
+tensors: every compressor takes a ``[n, ...]`` tensor and compresses each
+rank's slice on its own (a compressed gradient is dense, all but k
+entries of each rank's slice zeroed).  :class:`CompressedOptimizer`
+applies a compressor to every ``.grad`` before the wrapped optimizer's
+step: the eager counterpart of JAX's ``compress_gradients`` optax
+transform.  Random draws come from explicit ``torch.Generator``s, one
+seeded per (seed, step); they are not the JAX package's bits.
+
+There is ONE top-k kernel and ONE k-resolution rule in the port:
+:func:`topk_mask_encode` / :func:`topk_mask_decode` (with
+:func:`_resolve_k`) back both the gradient compressors and the train
+step's error-feedback compressed mixing
+(``parallel.collectives.mix_compress_exchange``).
 
 Ties: ``lax.top_k`` breaks ties of equal magnitude by the lowest index;
 ``torch.topk`` does not promise an order.  Exact zeros are harmless (a
@@ -19,7 +29,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["topk_mask_encode", "topk_mask_decode"]
+__all__ = ["TopKCompressor", "RandomKCompressor", "QuantizedCompressor",
+           "CompressedOptimizer", "compress_gradients",
+           "topk_mask_encode", "topk_mask_decode"]
 
 
 def _resolve_k(k: Optional[int], percentage: Optional[float],
@@ -97,3 +109,106 @@ def topk_mask_decode(mask: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     safe = cum.clamp(0, vals.shape[1] - 1).long()
     return torch.where(mask, vals.gather(1, safe),
                        torch.zeros((), dtype=vals.dtype, device=vals.device))
+
+
+class TopKCompressor:
+    """Keep the k largest-magnitude entries of each rank's slice, zero the
+    rest (dense)."""
+
+    def __init__(self, *, k: Optional[int] = None,
+                 percentage: Optional[float] = None):
+        _resolve_k(k, percentage, 1 << 30)  # validate eagerly
+        self.k = k
+        self.percentage = percentage
+
+    def __call__(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        flat = x.reshape(x.shape[0], -1)
+        kk = _resolve_k(self.k, self.percentage, flat.shape[1])
+        return topk_mask_decode(*topk_mask_encode(flat, kk)).reshape(x.shape)
+
+
+class RandomKCompressor:
+    """Keep k uniformly random entries of each rank's slice, zero the rest
+    (dense)."""
+
+    def __init__(self, *, k: Optional[int] = None,
+                 percentage: Optional[float] = None):
+        _resolve_k(k, percentage, 1 << 30)
+        self.k = k
+        self.percentage = percentage
+
+    def __call__(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        if generator is None:
+            raise ValueError("RandomKCompressor needs an explicit "
+                             "torch.Generator")
+        flat = x.reshape(x.shape[0], -1)
+        kk = _resolve_k(self.k, self.percentage, flat.shape[1])
+        # k distinct positions per row: the k largest of uniform keys
+        keys = torch.rand(flat.shape, generator=generator,
+                          device=flat.device)
+        idx = torch.topk(keys, kk, dim=1).indices
+        out = torch.zeros_like(flat).scatter_(1, idx, flat.gather(1, idx))
+        return out.reshape(x.shape)
+
+
+class QuantizedCompressor:
+    """QSGD-style stochastic quantization of each rank's slice to ``s``
+    levels of its absmax (reference Compressor.py:80-108)."""
+
+    def __init__(self, s: int):
+        self.s = int(s)
+
+    def __call__(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        if generator is None:
+            raise ValueError("QuantizedCompressor needs an explicit "
+                             "torch.Generator")
+        flat = x.reshape(x.shape[0], -1).float()
+        norm = flat.abs().amax(dim=1, keepdim=True)
+        safe = torch.where(norm == 0, torch.ones_like(norm), norm)
+        scale = flat.abs() / safe * self.s
+        lower = torch.clamp(torch.floor(scale), 0, self.s - 1)
+        bump = (torch.rand(flat.shape, generator=generator,
+                           device=flat.device) < scale - lower).float()
+        out = norm * torch.sign(flat) * (lower + bump) / self.s
+        return out.reshape(x.shape).to(x.dtype)
+
+
+def compress_gradients(compressor, params, generator=None) -> None:
+    """Replace every ``.grad`` of ``params`` (rank-major tensors) by its
+    compressed value, in place."""
+    with torch.no_grad():
+        for p in params:
+            if p.grad is not None:
+                p.grad.copy_(compressor(p.grad, generator=generator))
+
+
+class CompressedOptimizer:
+    """Compress every rank-major ``.grad`` with ``compressor``, then run
+    the wrapped optimizer's step (a ``torch.optim`` optimizer or one of
+    the distributed wrappers): the reference's CompressedOptimizer
+    (CompressedOptimizer.py:9-28).  Step ``t`` draws from a generator
+    seeded ``(seed, t)`` on the params' device."""
+
+    def __init__(self, optimizer, compressor, seed: int = 0):
+        self.optimizer = optimizer
+        self.compressor = compressor
+        self.seed = int(seed)
+        self._count = 0
+
+    @property
+    def param_groups(self):
+        return self.optimizer.param_groups
+
+    def zero_grad(self, set_to_none: bool = True):
+        self.optimizer.zero_grad(set_to_none=set_to_none)
+
+    def step(self, closure=None):
+        params = [p for g in self.optimizer.param_groups
+                  for p in g["params"]]
+        gen = None
+        if params:
+            gen = torch.Generator(device=params[0].device).manual_seed(
+                self.seed * 1_000_003 + self._count)
+        compress_gradients(self.compressor, params, gen)
+        self._count += 1
+        self.optimizer.step()

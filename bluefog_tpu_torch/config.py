@@ -1,8 +1,11 @@
 """Environment-variable configuration of the port.
 
-Port of ``bluefog_tpu/config.py``, cut to the knobs this slice reads
+Port of ``bluefog_tpu/config.py``, cut to the knobs the port reads
 (the serving engine's slot pool, the observe switch, the Python
-timeline writer, and the knobs ``build_train_step`` reads).  The
+timeline writer, the knobs ``build_train_step`` reads, and the eager
+op layer's: logging, the timeline path, fusion, the stall watchdog,
+the op timeout, ``BLUEFOG_OPS_ON_CPU`` and the launcher's process
+identity).  The
 environment-variable names and defaults are the JAX package's, so one
 environment configures both packages.  Every environment read of the
 port lives in this module.
@@ -13,6 +16,18 @@ from __future__ import annotations
 import os
 
 __all__ = [
+    "log_level",
+    "log_hide_time",
+    "log_format",
+    "timeline_path",
+    "fusion_threshold",
+    "skip_negotiate_default",
+    "stall_warning_time",
+    "op_timeout",
+    "ops_on_cpu",
+    "coordinator",
+    "num_processes",
+    "process_id",
     "observe_raw",
     "timeline_flush_every",
     "timeline_queue_capacity",
@@ -26,6 +41,100 @@ __all__ = [
 
 def _env(name: str, default: str = "") -> str:
     return os.environ.get(name, default)
+
+
+def log_level() -> str:
+    """BLUEFOG_LOG_LEVEL: trace|debug|info|warn|error|fatal (reference
+    logging.h:75, docs/env_variable.rst:9-16)."""
+    return _env("BLUEFOG_LOG_LEVEL", "warn").lower()
+
+
+def log_hide_time() -> bool:
+    """BLUEFOG_LOG_HIDE_TIME (reference logging.h:76)."""
+    return _env("BLUEFOG_LOG_HIDE_TIME", "0") in ("1", "true", "True")
+
+
+def log_format() -> str:
+    """BLUEFOG_LOG_FORMAT: ``text`` (default, human-readable) or
+    ``json`` — one JSON object per line with rank/timestamp/level, the
+    shape log aggregators ingest without a parse rule."""
+    return _env("BLUEFOG_LOG_FORMAT", "text").lower()
+
+
+def timeline_path() -> str:
+    """BLUEFOG_TIMELINE: path prefix for per-process Chrome-trace files
+    (reference operations.cc:464-473); ``bf.init`` starts the timeline
+    when it is set."""
+    return _env("BLUEFOG_TIMELINE", "")
+
+
+def fusion_threshold() -> int:
+    """BLUEFOG_FUSION_THRESHOLD: max bytes of per-rank payload packed into
+    one flat fusion buffer by the eager optimizers' communication
+    (reference operations.cc:42-44 default 8 MB + tensor_queue.h:75-124).
+    0 disables fusion (one collective per parameter leaf)."""
+    return int(_env("BLUEFOG_FUSION_THRESHOLD", str(8 * 1024 * 1024)))
+
+
+def skip_negotiate_default() -> bool:
+    """BLUEFOG_SKIP_NEGOTIATE_STAGE — there is no negotiation stage on
+    the stacked backend; the flag is kept so scripts that set it keep
+    working (reference operations.cc:1149-1183)."""
+    return _env("BLUEFOG_SKIP_NEGOTIATE_STAGE", "0") in ("1", "true", "True")
+
+
+def stall_warning_time() -> float:
+    """BLUEFOG_STALL_WARNING_TIME (seconds, default 60; <=0 disables) — how
+    long a blocking wait may run before the stall watchdog logs a warning
+    (reference STALL_WARNING_TIME operations.cc:47, watchdog :388-433)."""
+    try:
+        return float(_env("BLUEFOG_STALL_WARNING_TIME", "60"))
+    except ValueError:
+        return 60.0
+
+
+def op_timeout() -> float:
+    """BLUEFOG_OP_TIMEOUT (seconds, default 0; <=0 disables) — hard ceiling
+    on any blocking wait (synchronize/barrier/win_wait/win_fence).  Where
+    the stall watchdog only *warns* (BLUEFOG_STALL_WARNING_TIME), this
+    RAISES ``BluefogError`` naming the stalled op, so a wedged wait fails
+    fast instead of hanging the job forever."""
+    try:
+        return float(_env("BLUEFOG_OP_TIMEOUT", "0"))
+    except ValueError:
+        return 0.0
+
+
+def ops_on_cpu() -> bool:
+    """BLUEFOG_OPS_ON_CPU — run the eager ops on the host CPU instead of
+    the card (reference torch/mpi_ops.cc:48-50).  An explicit request for
+    ``device="cpu"``, never a fallback: ``bf.init`` reads it only when the
+    caller passed no ``device=``."""
+    return _env("BLUEFOG_OPS_ON_CPU", "0") in ("1", "true", "True")
+
+
+def coordinator() -> str:
+    """BLUEFOG_TPU_COORDINATOR: ``host:port`` of the multi-process job
+    ``bfrun`` launched; empty when not launched by bfrun (one process)."""
+    return _env("BLUEFOG_TPU_COORDINATOR", "")
+
+
+def num_processes() -> int:
+    """BLUEFOG_TPU_NUM_PROCESSES (default 1): job size bfrun exported."""
+    try:
+        return int(_env("BLUEFOG_TPU_NUM_PROCESSES", "1"))
+    except ValueError:
+        return 1
+
+
+def process_id():
+    """BLUEFOG_TPU_PROCESS_ID as an int, or ``None`` when unset (or
+    unparsable); the log formatter falls back to rank 0."""
+    raw = _env("BLUEFOG_TPU_PROCESS_ID", "")
+    try:
+        return int(raw)
+    except ValueError:
+        return None
 
 
 def observe_raw() -> bool:

@@ -1,11 +1,12 @@
 """Decentralized optimizers of the port (``bluefog_tpu.optim``'s
-counterpart): the functional train step over the stacked backend with
-every mode of the JAX builder but MoE, sequence and pipeline parallelism
+counterpart): the eager ``torch.optim`` wrappers over the ``bf.*`` API
+(``wrappers``: gradient allreduce, CTA, ATC, win-put, pull-get,
+push-sum), the functional train step over the stacked backend with every
+mode of the JAX builder but MoE, sequence and pipeline parallelism
 (ROADMAP.md Queue 1, item 10), and the shared bucket planner
-(``fusion``).  The eager ``torch.optim`` wrappers wait for a later slice
-(ROADMAP.md Queue 1, item 4)."""
+(``fusion``)."""
 
-from bluefog_tpu_torch.optim import functional, fusion  # noqa: F401
+from bluefog_tpu_torch.optim import functional, fusion, wrappers  # noqa: F401
 from bluefog_tpu_torch.optim.functional import (ELEMENTWISE_OPTIMIZERS,
                                                 GuardConfig, HealthConfig,
                                                 HealthVector,
@@ -17,8 +18,23 @@ from bluefog_tpu_torch.optim.functional import (ELEMENTWISE_OPTIMIZERS,
                                                 rank_major)
 from bluefog_tpu_torch.optim.fusion import (FusionPlan, plan_groups,
                                             size_balanced_threshold)
+from bluefog_tpu_torch.optim.wrappers import (
+    CommunicationType, DistributedAdaptThenCombineOptimizer,
+    DistributedAdaptWithCombineOptimizer, DistributedAllreduceOptimizer,
+    DistributedGradientAllreduceOptimizer,
+    DistributedHierarchicalNeighborAllreduceOptimizer,
+    DistributedNeighborAllreduceOptimizer, DistributedPullGetOptimizer,
+    DistributedPushSumOptimizer, DistributedWinPutOptimizer)
 
-__all__ = ["functional", "fusion", "build_train_step", "rank_major",
+__all__ = ["functional", "fusion", "wrappers", "CommunicationType",
+           "DistributedGradientAllreduceOptimizer",
+           "DistributedAdaptWithCombineOptimizer",
+           "DistributedAdaptThenCombineOptimizer",
+           "DistributedAllreduceOptimizer",
+           "DistributedNeighborAllreduceOptimizer",
+           "DistributedHierarchicalNeighborAllreduceOptimizer",
+           "DistributedWinPutOptimizer", "DistributedPullGetOptimizer",
+           "DistributedPushSumOptimizer", "build_train_step", "rank_major",
            "consensus_distance", "comm_weight_inputs", "push_sum_weights",
            "GuardConfig", "HealthConfig", "HealthVector",
            "MixCompressConfig", "MixState", "ELEMENTWISE_OPTIMIZERS",

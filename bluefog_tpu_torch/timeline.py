@@ -139,9 +139,8 @@ class Timeline:
     With ``tracer=None`` the timeline owns a private tracer (standalone
     use, e.g. tests); ``start_timeline`` passes the process-global
     tracer instead, making the file a live export of everything the
-    framework publishes.  (The JAX timeline's legacy span methods,
-    ``start_activity``/``end_activity``/``instant``, serve its eager op
-    layer and wait with it.)"""
+    framework publishes.  ``start_activity``/``end_activity``/``instant``
+    are the eager op layer's span calls (``api.timeline_*``)."""
 
     def __init__(self, path: str, rank: int = 0, tracer=None):
         self.path = f"{path}{rank}.json"
@@ -153,6 +152,15 @@ class Timeline:
         self.tracer.add_sink(self._writer)
         self._closed = False
         atexit.register(self.close)
+
+    def start_activity(self, tensor_name: str, activity: str):
+        self.tracer.begin(tensor_name, activity)
+
+    def end_activity(self, tensor_name: str):
+        self.tracer.end(tensor_name)
+
+    def instant(self, name: str):
+        self.tracer.instant(name)
 
     def dropped_events(self) -> int:
         return self._writer.dropped()

@@ -1,9 +1,10 @@
 """Virtual topology library of the port: static graph generators,
-weights, dynamic schedules, and the device-ready ``Topology`` spec
-(``bluefog_tpu.topology``'s counterpart, numpy only).
+weights, dynamic schedules, reverse-edge inference (``infer``) and the
+device-ready ``Topology`` spec (``bluefog_tpu.topology``'s counterpart,
+numpy only).
 
-``infer``, ``torus``, ``compiler`` and ``control`` wait for later
-slices (ROADMAP.md, Queue 1, items 3 and 12).
+``torus``, ``compiler`` and ``control`` wait for a later slice
+(ROADMAP.md, Queue 1, item 12).
 """
 
 from bluefog_tpu_torch.topology.graphs import (  # noqa: F401
@@ -38,4 +39,8 @@ from bluefog_tpu_torch.topology.spec import (  # noqa: F401
     ShiftClass,
     self_weights_of,
     uniform_topology_spec,
+)
+from bluefog_tpu_torch.topology.infer import (  # noqa: F401
+    InferDestinationFromSourceRanks,
+    InferSourceFromDestinationRanks,
 )

@@ -139,6 +139,30 @@ Phases (any failure raises and exits non-zero, printing no result):
    10 timed steps: img/s, step ms, peak memory, 12 x 13 launches of
    each kernel; then a tiny f32 ViT after 3 atc steps over 2 ranks, card
    against host.
+15. The eager bf.* API: every op of the flat API (allreduce average and
+   sum, broadcast, allgather uniform and variable, neighbor_allreduce
+   static, weighted and dynamic with dst_weights, the hierarchical form
+   at local_size 2, neighbor_allgather regular and ragged, pair_gossip,
+   win_put / win_get / win_accumulate / win_update /
+   win_update_then_collect with versions and associated p) on 8 ranks
+   stacked on the card against the same calls on the host, f32 and bf16
+   from --seed: the worst |err| over its tolerance per op; poll behind a
+   device spin reads False then True and never blocks; a nonblocking
+   dynamic neighbor_allreduce with new weight values makes 0 host syncs
+   before its synchronize.
+16. Eager wrappers: ResNet-50 at full width, 4 stacked ranks over
+   ExponentialTwoGraph(4), batch 128 per rank, SGD(0.1, momentum 0.9)
+   wrapped in the ATC, CTA (neighbor allreduce), gradient-allreduce,
+   win-put and push-sum optimizers; each rank's forward and backward
+   through ResNet.apply, .grad written rank-major, opt.step(); 2 warm-up
+   and 3 timed steps, then one profiled step: img/s per card, step ms,
+   device-busy ms and share, peak memory, window bytes; K1 20 x 4 x 6
+   launches and no other kernel; push-sum's weights sum to 4; the eager
+   ATC wrapper and build_train_step(comm_mode="atc") from one state on
+   the same data agree after 2 steps (and whether bit-equal).
+17. Reference (eager wrappers): the tiny f32 ResNet of phase 7, 3 eager
+   steps over 4 ranks, card (K1) against host, for the six wrappers and
+   CompressedOptimizer(TopK) over ATC, within phase 7's tolerance.
 
 The line before the last is a JSON object with one entry per kernel
 (seven); the last line is {"ok": true, "device": {...}}.
@@ -1325,14 +1349,17 @@ def _count_syncs(fn):
                for w in caught)
 
 
-def _profile_step(call, what, top=4):
+def _profile_step(call, what, top=4, host_ops=True):
     """torch.profiler over one ``call()``: (wall ms, device-busy ms); logs
-    the ``top`` kernels by device time."""
+    the ``top`` kernels by device time.  ``host_ops=False`` traces the
+    device only (a step of thousands of small ops profiles faster)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
@@ -2212,6 +2239,414 @@ def phase_vit(seed):
         f"({worst_key}), losses within {loss_err:.3g}")
     return launches
 
+# ------------------------------------------------------------------ #
+# phases 15-17: the eager bf.* API, windows and the optimizer wrappers
+# ------------------------------------------------------------------ #
+EAGER_WRAPPERS = ("DistributedAdaptThenCombineOptimizer",
+                  "DistributedNeighborAllreduceOptimizer",
+                  "DistributedGradientAllreduceOptimizer",
+                  "DistributedWinPutOptimizer",
+                  "DistributedPullGetOptimizer",
+                  "DistributedPushSumOptimizer")
+EAGER_FULL_WIDTH = ("DistributedAdaptThenCombineOptimizer",
+                    "DistributedNeighborAllreduceOptimizer",
+                    "DistributedGradientAllreduceOptimizer",
+                    "DistributedWinPutOptimizer",
+                    "DistributedPushSumOptimizer")
+
+
+def eager_ops(dev, dtype, seed, n=8, shape=(64, 33)):
+    """Every eager op of the flat API on ``n`` ranks stacked on ``dev``,
+    from seeded f32 inputs cast to ``dtype``: {op: rank-major tensor}
+    (ragged gathers as one tensor per rank, versions and associated p as
+    tensors).  Re-initializes the global context and shuts it down."""
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch import topology as T
+
+    rng = np.random.default_rng(seed)
+    x_np = rng.standard_normal((n,) + tuple(shape)).astype(np.float32)
+    out = {}
+    bf.init(size=n, device=dev, local_size=2)
+    try:
+        x = torch.from_numpy(x_np).to(device=dev, dtype=dtype)
+        out["allreduce_average"] = bf.allreduce(x)
+        out["allreduce_sum"] = bf.allreduce(x, average=False)
+        out["broadcast"] = bf.broadcast(x, 3)
+        out["allgather"] = bf.allgather(x)
+        out["allgather_variable"] = bf.allgather(
+            [x[r, :r + 1] for r in range(n)])
+        bf.set_topology(T.ExponentialTwoGraph(n))
+        out["neighbor_allreduce_static"] = bf.neighbor_allreduce(x)
+        out["neighbor_allgather_regular"] = bf.neighbor_allgather(x)
+        bf.set_topology(T.MeshGrid2DGraph(n), is_weighted=True)
+        out["neighbor_allreduce_weighted"] = bf.neighbor_allreduce(x)
+        out["neighbor_allreduce_dynamic"] = bf.neighbor_allreduce(
+            x, self_weight=0.5,
+            src_weights=[{(r - 2) % n: 0.25} for r in range(n)],
+            dst_weights=[{(r + 2) % n: 2.0} for r in range(n)])
+        assert bf.set_machine_topology(T.RingGraph(n // 2))
+        out["hierarchical_neighbor_allreduce"] = \
+            bf.hierarchical_neighbor_allreduce(x)
+        bf.set_topology(T.StarGraph(n))
+        for r, t in enumerate(bf.neighbor_allgather(x)):
+            out[f"neighbor_allgather_ragged.{r}"] = t
+        out["pair_gossip"] = bf.pair_gossip(x, [r ^ 1 for r in range(n)],
+                                            0.75, 0.25)
+        bf.set_topology(T.ExponentialTwoGraph(n))
+        bf.turn_on_win_ops_with_associated_p()
+        assert bf.win_create(x, "w", zero_init=True)
+        assert bf.win_put(x, "w", self_weight=0.5, dst_weights=[
+            {(r + 1) % n: 0.5} for r in range(n)])
+        out["win_put"] = bf.api._wm().window("w").mailbox.clone()
+        assert bf.win_get("w", src_weights=[{(r - 2) % n: 0.25}
+                                            for r in range(n)])
+        out["win_get"] = bf.api._wm().window("w").mailbox.clone()
+        assert bf.win_accumulate(x, "w")
+        out["win_accumulate"] = bf.api._wm().window("w").mailbox.clone()
+        out["win_versions"] = bf.api._wm().window("w").versions.clone()
+        out["win_update"] = bf.win_update("w")
+        assert bf.win_accumulate(x, "w", self_weight=0.25, dst_weights=[
+            {d: 0.25 for d in bf.out_neighbor_ranks(r)} for r in range(n)])
+        out["win_update_then_collect"] = bf.win_update_then_collect("w")
+        out["win_associated_p"] = bf.api._wm().window("w").p.clone()
+        bf.turn_off_win_ops_with_associated_p()
+        bf.win_free()
+    finally:
+        bf.shutdown()
+    return out
+
+
+def eager_ops_worst(card, host, dtype):
+    """{op: max |card - host| over its tolerance}: f32 within 1e-6 of the
+    largest entry; bf16 within one bf16 step of the largest entry (both
+    sides accumulate in f32 and round once to bf16, so an f32 difference
+    at a rounding edge lands one bf16 step apart); integer versions and
+    float64 p exactly and within 1e-12."""
+    worst = {}
+    for k, want in host.items():
+        got = card[k].cpu()
+        if not want.dtype.is_floating_point:
+            worst[k] = float((got != want).sum())
+            continue
+        scale = max(want.abs().max().item(), 1e-30) if want.numel() else 1
+        tol = {torch.float64: 1e-12, torch.bfloat16: 2.0 ** -7}.get(
+            want.dtype, 1e-6) * scale
+        err = (got.double() - want.double()).abs().max().item() \
+            if want.numel() else 0.0
+        worst[k] = err / tol
+    return worst
+
+
+def _eager_syncs_and_poll():
+    """(host syncs of one nonblocking dynamic neighbor_allreduce with new
+    weight values, before its synchronize; the polls of an op queued
+    behind a device spin, and the longest poll in ms)."""
+    import bluefog_tpu_torch as bf
+
+    n = 8
+    bf.init(size=n, device="cuda")
+    try:
+        x = torch.randn(n, 1 << 20, device="cuda")
+
+        def call(w, shift):
+            return bf.neighbor_allreduce_nonblocking(
+                x, self_weight=1.0 - w,
+                src_weights=[{(r - shift) % n: w} for r in range(n)],
+                dst_weights=[[(r + shift) % n] for r in range(n)])
+
+        bf.synchronize(call(0.5, 1))          # warm: the index tables
+        handles = []
+        syncs = _count_syncs(lambda: handles.append(call(0.3125, 1)))
+        got = bf.synchronize(handles[0])
+        want = 0.6875 * x + 0.3125 * x.roll(1, 0)
+        if not torch.allclose(got, want, rtol=1e-6, atol=1e-6):
+            raise AssertionError("dynamic neighbor_allreduce: wrong values")
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)        # keep the device busy
+        h = bf.allreduce_nonblocking(x)
+        polls, longest = [], 0.0
+        while True:
+            t0 = time.perf_counter()
+            ready = bf.poll(h)
+            longest = max(longest, (time.perf_counter() - t0) * 1e3)
+            if not polls or polls[-1] != ready:
+                polls.append(ready)
+            if ready:
+                break
+            time.sleep(0.001)
+        bf.synchronize(h)
+    finally:
+        bf.shutdown()
+    return syncs, polls, longest
+
+
+def phase_eager_ops(seed):
+    """Phase 15: every eager op on the card against the host, in f32 and
+    bf16; poll never blocks; a nonblocking dynamic neighbor_allreduce
+    makes no host sync before its synchronize."""
+    for dtype in (torch.float32, torch.bfloat16):
+        card = eager_ops("cuda", dtype, seed)
+        host = eager_ops("cpu", dtype, seed)
+        worst = eager_ops_worst(card, host, dtype)
+        bad = {k: v for k, v in worst.items() if v > 1}
+        if bad:
+            raise AssertionError(f"eager ops {dtype}: card vs host beyond "
+                                 f"tolerance {bad}")
+        merged = {}
+        for k, v in worst.items():
+            op = k.split(".")[0]
+            merged[op] = max(merged.get(op, 0.0), v)
+        log(f"[eager] {str(dtype)[6:]}, 8 ranks: card vs host worst |err| "
+            "/ tolerance per op: " + ", ".join(
+                f"{k} {v:.3g}" for k, v in merged.items()))
+    syncs, polls, longest = _eager_syncs_and_poll()
+    if syncs != 0:
+        raise AssertionError(f"nonblocking dynamic neighbor_allreduce made "
+                             f"{syncs} host syncs before synchronize")
+    if polls not in ([False, True], [True]) or longest > 50:
+        raise AssertionError(f"poll read {polls}, longest {longest:.2f} ms")
+    log(f"[eager] nonblocking dynamic neighbor_allreduce with new weight "
+        f"values: {syncs} host syncs before synchronize; poll behind a "
+        f"device spin read {polls}, longest poll {longest:.3f} ms")
+
+
+def eager_step(model, params, stats, opt, batch):
+    """One eager training step: every rank's forward and backward through
+    ``model.apply``, the gradients written rank-major into ``.grad``, then
+    ``opt.step()``.  Returns the per-rank losses ([n] f32)."""
+    import torch.nn.functional as F
+
+    images, labels = batch
+    n = images.shape[0]
+    grads = {k: torch.empty_like(v) for k, v in params.items()}
+    losses = torch.empty(n, dtype=torch.float32, device=images.device)
+    for r in range(n):
+        p_r = {k: v[r].detach().requires_grad_(True)
+               for k, v in params.items()}
+        with torch.enable_grad():
+            logits, new = model.apply(p_r, {k: v[r] for k, v in
+                                            stats.items()}, images[r],
+                                      train=True)
+            loss = F.cross_entropy(logits, labels[r])
+            gs = torch.autograd.grad(loss, list(p_r.values()))
+        with torch.no_grad():
+            for k, g in zip(p_r, gs):
+                grads[k][r].copy_(g)
+            for k, v in new.items():
+                stats[k][r].copy_(v)
+            losses[r] = loss.detach().float()
+        del loss, gs, p_r
+    for k, v in params.items():
+        v.grad = grads[k]
+    opt.step()
+    return losses
+
+
+def eager_setup(wrapper, p0, s0, n, dev, compress=False):
+    """Rank-major copies of ``p0``/``s0`` on ``dev`` and the named wrapper
+    over SGD(0.1, momentum 0.9) (under ``compress``, wrapped in a
+    CompressedOptimizer keeping half of each rank's gradient).  The
+    global context must be initialized."""
+    import bluefog_tpu_torch as bf
+
+    def stack(t):
+        t = t.detach().to(dev)
+        return t.unsqueeze(0).repeat((n,) + (1,) * t.dim()).contiguous()
+
+    params = {k: stack(v) for k, v in p0.items()}
+    stats = {k: stack(v) for k, v in s0.items()}
+    base = torch.optim.SGD(params.values(), lr=0.1, momentum=0.9)
+    opt = getattr(bf, wrapper)(base, params)
+    if compress:
+        opt = bf.CompressedOptimizer(opt, bf.TopKCompressor(percentage=0.5),
+                                     seed=0)
+    return params, stats, opt
+
+
+def phase_eager_resnet(seed):
+    """Phase 16: ResNet-50 at full width, 4 stacked ranks, batch 128 per
+    rank, trained through five eager wrappers (2 warm-up and 3 timed
+    steps, then one profiled step): img/s, step ms, device-busy ms,
+    peak memory, K1 20 x 4 x 6 launches and no other kernel; the eager
+    ATC wrapper against build_train_step(comm_mode="atc") after 2 steps;
+    push-sum's weights sum to 4."""
+    import bluefog_tpu_torch as bf
+
+    n, warmup, timed = 4, 2, 3
+    model = bf.ResNet50(num_classes=1000, pallas_conv1x1=True,
+                        device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(seed))
+    p0, s0 = model.state()
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    images = torch.randn(n, BATCH, 224, 224, 3, generator=g, device="cuda",
+                         dtype=torch.bfloat16)
+    labels = torch.randint(0, 1000, (n, BATCH), generator=g, device="cuda")
+    batch = (images, labels)
+    n_params = sum(v.numel() for v in p0.values())
+    rows = {}
+    for wrapper in EAGER_FULL_WIDTH:
+        t_start = time.perf_counter()
+        bf.init(size=n, device="cuda")
+        bf.set_topology(bf.ExponentialTwoGraph(n))
+        params, stats, opt = eager_setup(wrapper, p0, s0, n, "cuda")
+        win_bytes = sum(w.nbytes() for w in
+                        bf.api._wm().ctx.windows.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        for i in range(warmup + timed):
+            if i == warmup:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            loss = eager_step(model, params, stats, opt, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / timed
+        t_prof = time.perf_counter()
+        prof_wall, busy = _profile_step(
+            lambda: eager_step(model, params, stats, opt, batch),
+            wrapper[11:], top=3, host_ops=False)
+        t_prof = time.perf_counter() - t_prof
+        steps = warmup + timed + 1
+        launches = _expect_launches(f"eager {wrapper}", {
+            "conv1x1_backward": K1_LAUNCHES_PER_RANK_STEP * n * steps}
+        )["conv1x1_backward"]
+        if not torch.isfinite(loss).all():
+            raise AssertionError(f"{wrapper}: non-finite loss "
+                                 f"{loss.tolist()}")
+        extra = ""
+        if wrapper == "DistributedPushSumOptimizer":
+            ps = opt.ps_weights().double().sum().item()
+            if abs(ps - n) > 1e-4 * n:
+                raise AssertionError(f"push-sum weights sum to {ps}")
+            extra = f", push-sum weights sum {ps:.7f}"
+        rows[wrapper] = wall
+        log(f"[eager16] {wrapper}: {n * BATCH / wall:.1f} img/s per card, "
+            f"step {wall * 1e3:.2f} ms, profiled step wall "
+            f"{prof_wall:.2f} ms, device busy {busy:.2f} ms "
+            f"({100 * busy / prof_wall:.1f}%), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, window "
+            f"state {win_bytes / 1e6:.1f} MB, K1 launches {launches} = 20 x "
+            f"{n} ranks x {steps} steps{extra} ({time.perf_counter() - t_start:.1f}"
+            f" s, the profile {t_prof:.1f} s)")
+        bf.win_free()
+        bf.shutdown()
+        del params, stats, opt
+        torch.cuda.empty_cache()
+
+    # the eager ATC wrapper against build_train_step(comm_mode="atc"):
+    # one start, the same data, 2 steps
+    topo = bf.uniform_topology_spec(bf.ExponentialTwoGraph(n))
+    backend = bf.StackedBackend(n, device="cuda")
+    ref = bf.rank_major(p0, backend)
+    ref_stats = bf.rank_major(s0, backend)
+    ref_opt = torch.optim.SGD(ref.values(), lr=0.1, momentum=0.9)
+
+    def loss_fn(p, s, b):
+        import torch.nn.functional as F
+        logits, new = model.apply(p, s, b[0], train=True)
+        return F.cross_entropy(logits, b[1]), new
+
+    step = bf.build_train_step(loss_fn, ref_opt, backend, comm_mode="atc",
+                               topology=topo, has_aux=True)
+    for i in range(2):
+        ref, ref_stats, ref_opt, ref_loss = step(ref, ref_stats, ref_opt,
+                                                 batch, i)
+    bf.init(size=n, device="cuda")
+    bf.set_topology(bf.ExponentialTwoGraph(n))
+    params, stats, opt = eager_setup(EAGER_WRAPPERS[0], p0, s0, n, "cuda")
+    for i in range(2):
+        loss = eager_step(model, params, stats, opt, batch)
+    bf.shutdown()
+    worst, equal = 0.0, True
+    for k, want in ref.items():
+        got = params[k]
+        equal = equal and torch.equal(got, want)
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        worst = max(worst, err / (5e-4 * scale + 5e-7))
+    if worst > 1 or not torch.allclose(loss, ref_loss, rtol=0, atol=1e-3):
+        raise AssertionError(f"eager ATC vs build_train_step(atc): params "
+                             f"{worst:.3g} of the tolerance, losses "
+                             f"{loss.tolist()} vs {ref_loss.tolist()}")
+    log(f"[eager16] eager ATC wrapper vs build_train_step(comm_mode='atc') "
+        f"after 2 steps: params within {worst:.3g} of the tolerance "
+        f"(5e-4 of each leaf's largest entry + 5e-7), bit-equal: {equal}; "
+        f"{n_params} params per rank")
+    del ref, ref_stats, ref_opt, step, params, stats, opt, model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def eager_tiny_run(dev, seed, wrapper, compress=False, steps=3):
+    """A tiny f32 ResNet (one Bottleneck per stage of (1, 1), 8 filters,
+    pallas_conv1x1=True) trained ``steps`` steps over 4 ranks on ``dev``
+    through ``wrapper``: (params, stats, losses [steps, 4]) on the host,
+    and K1's launches."""
+    import bluefog_tpu_torch as bf
+    from bluefog_tpu_torch.models import BottleneckBlock
+    from bluefog_tpu_torch.parallel import conv1x1 as k1
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(4, 4, 32, 32, 3).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, (4, 4)))
+    def build(d):
+        return bf.ResNet((1, 1), BottleneckBlock, num_classes=10,
+                         num_filters=8, dtype=torch.float32,
+                         pallas_conv1x1=True, device=d,
+                         generator=torch.Generator(d).manual_seed(seed))
+
+    p0, s0 = build("cpu").state()       # one start for both devices
+    model = build(dev)
+    bf.init(size=4, device=dev)
+    try:
+        bf.set_topology(bf.ExponentialTwoGraph(4))
+        params, stats, opt = eager_setup(wrapper, p0, s0, 4, dev, compress)
+        k1.reset_launch_counts()
+        losses = [eager_step(model, params, stats, opt,
+                             (x.to(dev), y.to(dev))).cpu()
+                  for _ in range(steps)]
+        launches = k1.conv1x1_backward.launches
+    finally:
+        bf.win_free()
+        bf.shutdown()
+    return ({k: v.cpu() for k, v in params.items()},
+            {k: v.cpu() for k, v in stats.items()},
+            torch.stack(losses), launches)
+
+
+def phase_eager_reference(seed):
+    """Phase 17: the tiny f32 ResNet, 3 steps over 4 ranks, card (K1)
+    against host (plain version) for each of the six wrappers and the
+    CompressedOptimizer: params, batch statistics and losses within phase
+    7's tolerance."""
+    rows = []
+    for wrapper, compress in ([(w, False) for w in EAGER_WRAPPERS]
+                              + [(EAGER_WRAPPERS[0], True)]):
+        card = eager_tiny_run("cuda", seed, wrapper, compress)
+        host = eager_tiny_run("cpu", seed, wrapper, compress)
+        if card[3] != 4 * 4 * 3 or host[3] != 0:
+            raise AssertionError(f"{wrapper}: K1 launched {card[3]} times "
+                                 f"on the card, {host[3]} on the host")
+        worst = 0.0
+        for which in (0, 1):
+            for k, want in host[which].items():
+                got = card[which][k]
+                scale = want.abs().max().item()
+                err = (got - want).abs().max().item()
+                worst = max(worst, err / (5e-4 * scale + 5e-7))
+        loss_err = (card[2] - host[2]).abs().max().item()
+        label = ("CompressedOptimizer(" + wrapper[11:] + ")" if compress
+                 else wrapper[11:])
+        if worst > 1 or loss_err > 1e-5:
+            raise AssertionError(f"tiny eager reference {label}: params/"
+                                 f"stats {worst:.3g} of the tolerance, "
+                                 f"losses {loss_err:.3g}")
+        rows.append(f"{label} {worst:.3g}/{loss_err:.2g}")
+    log("[eager17] tiny f32 ResNet, 3 eager steps over 4 ranks, card (K1, "
+        "48 launches each) vs host: worst params/stats error over its "
+        "tolerance / worst loss error: " + ", ".join(rows))
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2220,6 +2655,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    if os.environ.get("BLUEFOG_OPS_ON_CPU", "0") in ("1", "true", "True"):
+        print("chip_smoke: BLUEFOG_OPS_ON_CPU asks the eager ops for the "
+              "host; unset it to measure the card", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2245,6 +2684,11 @@ def main() -> int:
     phase_llama1b_2ranks(args.seed)
     phase_llama_reference(args.seed, attn_impl="splash", seq=128)
     phase_vit(args.seed)
+    phase_eager_ops(args.seed)
+    torch.backends.cudnn.benchmark = True   # the training path's convs
+    phase_eager_resnet(args.seed)
+    torch.backends.cudnn.benchmark = False
+    phase_eager_reference(args.seed)
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):
         entries.append(dict(

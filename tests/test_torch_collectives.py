@@ -194,3 +194,55 @@ def test_stacked_backend_methods_and_checks():
         TC.broadcast(x, N)
     with pytest.raises(ValueError):
         TC.StackedBackend(0, device="cpu")
+
+
+# ------------------------------------------------------------------ #
+# the gathers and pair gossip the eager API calls
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("name", SPECS)
+def test_neighbor_allgather_dense_and_padded_match_jax(name):
+    x = _x()
+    js, ts = _spec(name, JT), _spec(name, TT)
+    backend = TC.StackedBackend(N, device="cpu")
+    assert TC.in_neighbor_lists(ts) == JC.in_neighbor_lists(js)
+    dense = _jax_per_rank(lambda v: JC.neighbor_allgather(v, js, "bf"), x)
+    got = backend.neighbor_allgather(torch.from_numpy(x), ts)
+    np.testing.assert_array_equal(got.numpy(), dense)
+    padded = _jax_per_rank(
+        lambda v: JC.neighbor_allgather_padded(v, js, "bf"), x)
+    got = backend.neighbor_allgather_padded(torch.from_numpy(x), ts)
+    np.testing.assert_array_equal(got.numpy(), padded)
+
+
+def test_allgather_allgatherv_and_pair_gossip_match_jax():
+    x = _x()
+    backend = TC.StackedBackend(N, device="cpu")
+    xt = torch.from_numpy(x)
+    want = _jax_per_rank(lambda v: JC.allgather(v, "bf"), x)
+    np.testing.assert_array_equal(backend.allgather(xt).numpy(), want)
+    sizes = [(r * 3) % 7 for r in range(N)]          # includes 0 rows
+    want = _jax_per_rank(lambda v: JC.allgatherv(v, sizes, "bf"), x)
+    np.testing.assert_array_equal(backend.allgatherv(xt, sizes).numpy(),
+                                  want)
+    targets = [1, 0, 3, 2, 4, 6, 5, 7]               # 4 and 7 keep theirs
+    want = _jax_per_rank(
+        lambda v: JC.pair_gossip(v, targets, "bf", 0.75, 0.25), x)
+    np.testing.assert_allclose(backend.pair_gossip(xt, targets, 0.75,
+                                                   0.25).numpy(), want,
+                               rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="two ranks"):
+        backend.pair_gossip(xt, [1, 0, 1, 2, 4, 6, 5, 7])
+
+
+@pytest.mark.parametrize("average", [True, False])
+def test_machine_allreduce_matches_jax(average):
+    x = _x()
+    groups = TC.machine_groups(N, 2)
+
+    def grouped(v):
+        acc = jax.lax.psum(v, "bf", axis_index_groups=groups)
+        return acc / 2 if average else acc
+
+    want = _jax_per_rank(grouped, x)
+    got = TC.allreduce(torch.from_numpy(x), average, local_size=2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)

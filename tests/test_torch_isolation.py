@@ -42,6 +42,10 @@ def _imported_roots(path):
 def test_no_port_file_imports_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 15 and (ROOT / "chip_smoke.py").exists()
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {f"bluefog_tpu_torch/{m}.py" for m in (
+        "api", "context", "windows", "utility", "logging_util",
+        "optim/wrappers", "topology/infer")} <= names
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
            for p in files}
@@ -75,6 +79,7 @@ def _entry_points():
                                            mlp_params_from_flax,
                                            resnet_params_from_flax,
                                            vit_params_from_flax)
+    from bluefog_tpu_torch.context import BluefogContext
     from bluefog_tpu_torch.serving import SlotPool
 
     cfg = bt.LlamaConfig.tiny(dtype=torch.float32)
@@ -106,6 +111,8 @@ def _entry_points():
             tree, bt.ViT(bt.ViTConfig.tiny(), device="cpu")),
         "mlp_params_from_flax": lambda: mlp_params_from_flax(
             tree, bt.MnistNet(device="cpu")),
+        "init": lambda: bt.init(size=4),
+        "BluefogContext": lambda: BluefogContext(4),
     }
 
 
@@ -116,7 +123,8 @@ def _entry_points():
                                   "resnet_params_from_flax", "ViT",
                                   "ViT_B16", "MLP", "MnistNet",
                                   "vit_params_from_flax",
-                                  "mlp_params_from_flax"])
+                                  "mlp_params_from_flax", "init",
+                                  "BluefogContext"])
 def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is valid here")
