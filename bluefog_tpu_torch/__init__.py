@@ -5,8 +5,10 @@ an NVIDIA H100.  It imports torch and numpy, never jax, networkx or the
 JAX package.  Its public surface is the JAX package's eager,
 BlueFog-compatible API (``api``, re-exported here: ``bf.init(size=,
 device=)``, ``bf.neighbor_allreduce``, ``bf.win_put``, ... on rank-major
-tensors of ``size`` ranks stacked on one card; ``context``, ``windows``)
-and its optimizer wrappers (``optim.wrappers``).  Ported so far: serving Llama through the
+tensors of ``size`` ranks stacked on one card, or, under the ``bfrun``
+launcher ``python -m bluefog_tpu_torch.run``, of each process's ranks in
+a ``torch.distributed`` job; ``context``, ``windows``) and its optimizer
+wrappers (``optim.wrappers``).  Ported so far: serving Llama through the
 continuous-batching engine (``serving``, ``models``, kernel
 ``parallel.decode_attention``), and decentralized training
 (``topology``, ``parallel.collectives``, ``optim.build_train_step``)
@@ -73,7 +75,8 @@ from bluefog_tpu_torch.optim import (GuardConfig, HealthConfig,
                                      MixState, build_train_step,
                                      consensus_distance, push_sum_weights,
                                      rank_major)
-from bluefog_tpu_torch.parallel.collectives import StackedBackend
+from bluefog_tpu_torch.parallel.collectives import (ProcessBackend,
+                                                    StackedBackend)
 from bluefog_tpu_torch.serving import Request, ServingEngine
 from bluefog_tpu_torch.topology import (ExponentialTwoGraph, Topology,
                                         DynamicTopology,
@@ -112,7 +115,8 @@ __all__ = ["models", "optim", "serving", "topology", "Llama",
            "ResNet101", "ResNet152", "ViT", "ViTConfig", "ViT_S16",
            "ViT_B16", "MLP", "MnistNet", "build_train_step", "rank_major",
            "consensus_distance", "push_sum_weights", "GuardConfig",
-           "HealthConfig", "HealthVector", "MixCompressConfig", "MixState", "StackedBackend", "ExponentialTwoGraph",
+           "HealthConfig", "HealthVector", "MixCompressConfig", "MixState", "StackedBackend", "ProcessBackend",
+           "ExponentialTwoGraph",
            "Topology", "DynamicTopology", "one_peer_dynamic_schedule",
            "uniform_topology_spec", "InferDestinationFromSourceRanks",
            "InferSourceFromDestinationRanks"]

@@ -3,8 +3,9 @@
 Port of ``bluefog_tpu/api.py`` (itself mirroring ``bluefog.torch``'s
 public surface, reference bluefog/torch/__init__.py:34-110,
 bluefog/torch/mpi_ops.py, bluefog/common/basics.py) on rank-major
-tensors of the stacked backend: every tensor argument and result has
-shape ``[size, ...]`` on the context's device, slice r being rank r's
+tensors: every tensor argument and result has a leading axis of the
+ranks this process holds on the context's device (``[size, ...]`` when
+one process holds every rank), slice i being rank ``rank() + i``'s
 tensor.  Nonblocking variants return an int handle;
 ``synchronize(handle)`` waits for the op's CUDA event and gives the
 result.
@@ -14,8 +15,10 @@ result.
     x = bf.from_rank_values(lambda r: np.full(3, float(r), np.float32))
     x = bf.neighbor_allreduce(x)         # one gossip round
 
-Multi-process jobs launched by ``bfrun`` (one process per card) wait for
-the process backend (ROADMAP.md Queue 1, item 6).
+Under ``bfrun`` (``python -m bluefog_tpu_torch.run -np P ...``) ``init``
+joins the ``torch.distributed`` job the launcher describes: one process
+per card, NCCL between cards (gloo on the CPU), each process holding
+``BLUEFOG_TPU_RANKS_PER_PROCESS`` ranks (default 1).
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ import torch
 from bluefog_tpu_torch import config as bfconfig
 from bluefog_tpu_torch import context as ctx_mod
 from bluefog_tpu_torch import timeline as timeline_mod
-from bluefog_tpu_torch.context import (PROCESS_BACKEND_ITEM, BluefogContext,
-                                       BluefogError, WeightArg, get_context)
+from bluefog_tpu_torch._device import resolve_device
+from bluefog_tpu_torch.context import (BluefogContext, BluefogError,
+                                       WeightArg, get_context)
 from bluefog_tpu_torch.parallel import collectives as C
 from bluefog_tpu_torch.topology.graphs import ExponentialGraph
 from bluefog_tpu_torch.topology.spec import DynamicTopology
@@ -38,19 +42,107 @@ from bluefog_tpu_torch.windows import (WindowManager, win_lock_ctx,
                                        win_mutex_ctx)
 
 _win_manager: Optional[WindowManager] = None
+# the torch.distributed job init() joined: its store (for the
+# heartbeats) and whether init() created the group (shutdown destroys
+# only a group it created)
+_job: dict = {}
 
 
 # ------------------------------------------------------------------ #
 # lifecycle (reference basics.py:49-76)
 # ------------------------------------------------------------------ #
-def _refuse_distributed() -> None:
-    """A ``bfrun`` job (the BLUEFOG_TPU_* variables of a multi-process
-    launch) needs the process backend, which is not ported yet."""
-    if bfconfig.coordinator() and bfconfig.num_processes() > 1:
-        raise NotImplementedError(
-            "multi-process jobs (bfrun, BLUEFOG_TPU_COORDINATOR with "
-            f"{bfconfig.num_processes()} processes) are not ported to "
-            f"bluefog_tpu_torch yet; see {PROCESS_BACKEND_ITEM}")
+def _store_for(coordinator: str, process_id: int, num_processes: int,
+               timeout):
+    """The c10d store of ``--coordinator``: ``file://path`` is a file
+    store, ``host:port`` a TCP store that process 0 serves."""
+    import torch.distributed as dist
+
+    if coordinator.startswith("file://"):
+        return dist.FileStore(coordinator[len("file://"):], num_processes)
+    host, _, port = coordinator.rpartition(":")
+    if not port.isdigit():
+        raise BluefogError(f"BLUEFOG_TPU_COORDINATOR {coordinator!r} is "
+                           "neither host:port nor file://path")
+    return dist.TCPStore(host or "127.0.0.1", int(port), num_processes,
+                         process_id == 0, timeout=timeout)
+
+
+def _default_store():
+    """The default group's store, for the heartbeats of a group init()
+    adopted (None where this torch does not expose it)."""
+    try:
+        from torch.distributed import distributed_c10d
+
+        return distributed_c10d._get_default_store()
+    except Exception:  # noqa: BLE001 - heartbeats are optional
+        return None
+
+
+def _group_exists() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _in_job() -> bool:
+    """Whether this process belongs to a multi-process job: bfrun's
+    variables are set, or a default group exists."""
+    return bool(bfconfig.coordinator()) or _group_exists()
+
+
+def _maybe_init_distributed(device: torch.device) -> None:
+    """Join the ``torch.distributed`` job of this process, after the JAX
+    package's ``_maybe_init_distributed`` (api.py:43-64): adopt a default
+    group that already exists, else create one from the
+    BLUEFOG_TPU_{COORDINATOR,NUM_PROCESSES,PROCESS_ID} variables bfrun
+    sets: NCCL when the process's device is a card, gloo when it is the
+    CPU."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if _group_exists():
+        _job.update(created=False, store=_default_store())
+        return
+    if not dist.is_available():
+        raise BluefogError("BLUEFOG_TPU_COORDINATOR is set, but this torch "
+                           "has no torch.distributed")
+    coord = bfconfig.coordinator()
+    nproc = bfconfig.num_processes()
+    pid = bfconfig.process_id()
+    if pid is None:
+        if nproc > 1:
+            raise BluefogError(
+                "BLUEFOG_TPU_COORDINATOR and BLUEFOG_TPU_NUM_PROCESSES are "
+                "set but BLUEFOG_TPU_PROCESS_ID is missing; every process "
+                "must export its id (bfrun sets all three).")
+        pid = 0
+    timeout = datetime.timedelta(seconds=bfconfig.process_group_timeout())
+    store = _store_for(coord, pid, nproc, timeout)
+    if device.type == "cuda":
+        # NCCL binds a process's communicators to its current card
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=store, rank=pid, world_size=nproc,
+                            timeout=timeout)
+    _job.update(created=True, store=store)
+
+
+def _job_device(device) -> torch.device:
+    """The device of this process in a job: ``device`` as passed, else
+    ``cuda:{local index}`` (the process's index on its host), or the
+    CPU under BLUEFOG_OPS_ON_CPU."""
+    if device is not None:
+        return resolve_device(device)
+    if bfconfig.ops_on_cpu():
+        return torch.device("cpu")
+    resolve_device("cuda")   # raises without CUDA: no silent CPU path
+    local = bfconfig.local_process_id()
+    if local >= torch.cuda.device_count():
+        raise BluefogError(
+            f"process {local} of this host has no card of its own "
+            f"({torch.cuda.device_count()} visible); pass device=")
+    return torch.device("cuda", local)
 
 
 def init(topology_fn=None, is_weighted: bool = False, *,
@@ -64,16 +156,38 @@ def init(topology_fn=None, is_weighted: bool = False, *,
     passed).  ``local_size`` groups the ranks into machines for the
     hierarchical ops (default: one machine).
 
+    In a multi-process job (bfrun's BLUEFOG_TPU_* variables, or a default
+    ``torch.distributed`` group the caller created) the context is a
+    ``ProcessBackend``'s: this process holds ``size / processes`` ranks
+    (default BLUEFOG_TPU_RANKS_PER_PROCESS, 1) on ``device`` (default
+    ``cuda:<local index>``), a machine is a process unless
+    ``local_size`` says otherwise, and the liveness heartbeats start when
+    the stall watchdog is on.
+
     ``topology_fn``: callable returning the virtual topology; called with
     the world size if it accepts an argument (reference basics.py:49-69 —
     default ExponentialGraph).
     """
     global _win_manager
-    _refuse_distributed()
-    if device is None:
-        device = "cpu" if bfconfig.ops_on_cpu() else "cuda"
-    ctx = BluefogContext(1 if size is None else size, device=device,
-                         local_size=local_size)
+    if _in_job():
+        import torch.distributed as dist
+
+        job_device = _job_device(device)
+        _maybe_init_distributed(job_device)
+        k = bfconfig.ranks_per_process()
+        if size is not None:
+            if size % dist.get_world_size():
+                raise BluefogError(
+                    f"size {size} is not a multiple of the job's "
+                    f"{dist.get_world_size()} processes")
+            k = size // dist.get_world_size()
+        ctx = BluefogContext(local_size=local_size,
+                             backend=C.ProcessBackend(k, job_device))
+    else:
+        if device is None:
+            device = "cpu" if bfconfig.ops_on_cpu() else "cuda"
+        ctx = BluefogContext(1 if size is None else size, device=device,
+                             local_size=local_size)
     ctx_mod.set_context(ctx)
     _win_manager = WindowManager(ctx)
     if topology_fn is not None:
@@ -85,16 +199,35 @@ def init(topology_fn=None, is_weighted: bool = False, *,
         topo = ExponentialGraph(ctx.size())
     if not ctx.set_topology(topo, is_weighted):
         raise BluefogError("Failed to set initial topology.")
+    backend = ctx.backend
+    process = getattr(backend, "process_index", 0)
     tl_path = bfconfig.timeline_path()
     if tl_path:
-        ctx.timeline = timeline_mod.start_timeline(tl_path, rank=0)
+        ctx.timeline = timeline_mod.start_timeline(tl_path, rank=process)
+    count = getattr(backend, "process_count", 1)
+    if count > 1 and bfconfig.stall_warning_time() > 0 \
+            and _job.get("store") is not None:
+        # liveness beacons for the watchdog's process attribution
+        # (reference operations.cc:388-433 names the missing ranks);
+        # pointless when the watchdog, their only consumer, is off
+        interval = max(1.0, bfconfig.stall_warning_time() / 4)
+        ctx_mod._heartbeat.start(interval, _job["store"], process, count)
 
 
 def shutdown() -> None:
+    """Leave the job: stop the heartbeats and the timeline, and destroy
+    the ``torch.distributed`` group if ``init`` created it (an adopted
+    group belongs to the caller)."""
     global _win_manager
+    ctx_mod._heartbeat.stop()
     timeline_mod.stop_timeline()
     _win_manager = None
     ctx_mod.set_context(None)
+    if _job.pop("created", False) and _group_exists():
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    _job.clear()
 
 
 def is_initialized() -> bool:
@@ -205,9 +338,11 @@ def unified_mpi_window_model_supported() -> bool:
 
 
 def nccl_built() -> bool:
-    """Parity shim — the stacked backend moves data with gathers on one
-    card; NCCL comes with the process backend."""
-    return False
+    """Whether this torch can move data between cards with NCCL (the
+    process backend's wire for device tensors)."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_nccl_available()
 
 
 # ------------------------------------------------------------------ #
@@ -297,14 +432,17 @@ def allgather_nonblocking(tensor, name: Optional[str] = None) -> int:
 
     Equal per-rank shapes take the direct path.  Variable dim-0 sizes
     (reference allgatherv, mpi_controller.cc:136-168) are accepted as a
-    list/tuple of per-rank arrays: payloads are padded to the max row
-    count, gathered, and the pad rows dropped on the device by one row
-    gather (``collectives.allgatherv``).
+    list/tuple of per-rank arrays (every rank's, or this process's
+    ranks'): payloads are padded to the max row count, gathered, and the
+    pad rows dropped on the device by one row gather
+    (``collectives.allgatherv``).
     """
     ctx = get_context()
     if isinstance(tensor, (list, tuple)):
         parts = [torch.as_tensor(t) for t in tensor]
-        if len(parts) != ctx.size():
+        if len(parts) == ctx.size() != ctx.n_local():
+            parts = [parts[r] for r in ctx.backend.ranks]
+        if len(parts) != ctx.n_local():
             raise BluefogError(
                 f"variable-size allgather needs one tensor per rank "
                 f"({ctx.size()}), got {len(parts)}")
@@ -322,7 +460,7 @@ def allgather_nonblocking(tensor, name: Optional[str] = None) -> int:
             raise BluefogError(
                 f"variable-size allgather: dtypes must match, "
                 f"got {sorted(str(d) for d in dtypes)}")
-        sizes = tuple(p.shape[0] for p in parts)
+        sizes = tuple(ctx.backend.all_sizes([p.shape[0] for p in parts]))
         pad = max(sizes) if sizes else 0
         padded = torch.zeros((len(parts), pad) + tuple(parts[0].shape[1:]),
                              dtype=parts[0].dtype, device=ctx.device)
@@ -421,7 +559,8 @@ def neighbor_allgather(tensor, *, src_ranks=None, dst_ranks=None,
     """Concatenate in-neighbor tensors along dim 0 (reference
     torch/mpi_ops.py:400-476).  Returns a rank-major tensor
     ``[size, in_degree * d0, ...]`` when every rank has the same in-degree,
-    otherwise a list of per-rank tensors (ragged)."""
+    otherwise a list of per-rank tensors (ragged; this process's ranks
+    under bfrun)."""
     return synchronize(neighbor_allgather_nonblocking(
         tensor, src_ranks=src_ranks, dst_ranks=dst_ranks,
         enable_topo_check=enable_topo_check, name=name))
@@ -476,9 +615,11 @@ def neighbor_allgather_nonblocking(tensor, *, src_ranks=None, dst_ranks=None,
                               padded.shape[1] * padded.shape[2])
                              + tuple(padded.shape[3:]))
         return ctx.register_handle(name, "neighbor_allgather", out)
-    # ragged: each rank's first in-degree slots, on the device
-    per_rank = [padded[r, :len(in_lists[r])].reshape(
-        (-1,) + tuple(padded.shape[3:])) for r in range(n)]
+    # ragged: each rank's first in-degree slots, on the device (this
+    # process's ranks)
+    per_rank = [padded[i, :len(in_lists[r])].reshape(
+        (-1,) + tuple(padded.shape[3:]))
+        for i, r in enumerate(ctx.backend.ranks)]
     return ctx.register_handle(name, "neighbor_allgather", per_rank)
 
 

@@ -4,8 +4,8 @@ Port of ``bluefog_tpu/config.py``, cut to the knobs the port reads
 (the serving engine's slot pool, the observe switch, the Python
 timeline writer, the knobs ``build_train_step`` reads, and the eager
 op layer's: logging, the timeline path, fusion, the stall watchdog,
-the op timeout, ``BLUEFOG_OPS_ON_CPU`` and the launcher's process
-identity).  The
+the op timeout, ``BLUEFOG_OPS_ON_CPU``, and the launcher's job: the
+process identity, ranks per process and the group's timeout).  The
 environment-variable names and defaults are the JAX package's, so one
 environment configures both packages.  Every environment read of the
 port lives in this module.
@@ -28,6 +28,10 @@ __all__ = [
     "coordinator",
     "num_processes",
     "process_id",
+    "local_process_id",
+    "ranks_per_process",
+    "process_group_timeout",
+    "environ_passthrough",
     "observe_raw",
     "timeline_flush_every",
     "timeline_queue_capacity",
@@ -135,6 +139,46 @@ def process_id():
         return int(raw)
     except ValueError:
         return None
+
+
+def local_process_id() -> int:
+    """BLUEFOG_TPU_LOCAL_PROCESS_ID: this process's index among the
+    processes bfrun started on its host (its card is ``cuda:<index>``);
+    defaults to BLUEFOG_TPU_PROCESS_ID, then 0."""
+    raw = _env("BLUEFOG_TPU_LOCAL_PROCESS_ID", "")
+    try:
+        return int(raw)
+    except ValueError:
+        return process_id() or 0
+
+
+def ranks_per_process() -> int:
+    """BLUEFOG_TPU_RANKS_PER_PROCESS (default 1): the ranks each process
+    of a bfrun job stacks on its device (``bfrun --force-cpu-devices K``
+    sets K)."""
+    try:
+        return max(1, int(_env("BLUEFOG_TPU_RANKS_PER_PROCESS", "1")))
+    except ValueError:
+        return 1
+
+
+def process_group_timeout() -> float:
+    """BLUEFOG_TPU_PROCESS_GROUP_TIMEOUT seconds (default 600): how long
+    joining a job and every collective of its ``torch.distributed`` group
+    may wait before raising."""
+    try:
+        return float(_env("BLUEFOG_TPU_PROCESS_GROUP_TIMEOUT", "600"))
+    except ValueError:
+        return 600.0
+
+
+def environ_passthrough(base=None) -> dict:
+    """Snapshot of the process environment (or ``base`` when given) for
+    the launcher's pass-through forwarding: bfrun filters it by
+    ``PASS_PREFIXES`` when it builds a child's or a remote host's
+    environment.  The one whole-environment read outside the named
+    accessors, kept here so the environment surface stays auditable."""
+    return dict(os.environ if base is None else base)
 
 
 def observe_raw() -> bool:

@@ -1,13 +1,19 @@
 """Global BlueFog context of the port: ranks, topology state, eager op layer.
 
-Port of ``bluefog_tpu/context.py`` over the stacked backend
-(:class:`~bluefog_tpu_torch.parallel.collectives.StackedBackend`).  The
-JAX context holds a device mesh whose positions are the ranks, and user
-code works on *rank-major global arrays* ``[size, ...]``, slice ``r``
-being rank r's tensor (a single-controller program).  Here the same
-rank-major tensors live on ONE device, ``size`` ranks stacked along the
-leading axis: every op is a handful of gathers and reductions along
-that axis on the card.
+Port of ``bluefog_tpu/context.py``.  The JAX context holds a device mesh
+whose positions are the ranks, and user code works on *rank-major global
+arrays* ``[size, ...]``, slice ``r`` being rank r's tensor; in a
+multi-process job each process holds its addressable shards.  Here a
+context sits on a backend (``parallel.collectives``):
+
+* ``StackedBackend``: one process, ``size`` ranks stacked along the
+  leading axis on one device;
+* ``ProcessBackend``: a ``torch.distributed`` job (``bfrun``), each
+  process holding ``k`` consecutive ranks ``p·k .. p·k + k - 1``.  Every
+  rank-major tensor of a process is ``[k, ...]``, its own rows of the
+  global array: ``rank_sharded`` keeps those rows of a full host array,
+  ``to_rank_values`` gathers every rank's.  A machine is a process by
+  default (``local_size = k``), as a JAX machine is a process.
 
 ``*_nonblocking`` ops enqueue their work on the current CUDA stream and
 return an int handle backed by a CUDA event recorded after it:
@@ -17,9 +23,9 @@ the host before ``synchronize``: gather indices are cached on the device
 per edge structure, and dynamic weight values reach the card through
 pinned, non-blocking copies.
 
-Multi-process jobs (one process per card, the ``bfrun`` launcher) and
-the liveness heartbeats of ``_Heartbeat`` wait for the process backend
-(ROADMAP.md Queue 1, item 6).
+In a multi-process job the liveness heartbeats of ``_Heartbeat`` ride
+the job's c10d key-value store, so ``timed_wait`` and the stall watchdog
+name the processes that stopped beating.
 """
 
 from __future__ import annotations
@@ -40,34 +46,115 @@ from bluefog_tpu_torch.topology.spec import (DynamicTopology, Topology,
 
 logger = get_logger()
 
-PROCESS_BACKEND_ITEM = "ROADMAP.md Queue 1, item 6 (the process backend)"
-
-
 class BluefogError(RuntimeError):
     pass
 
 
 class _Heartbeat:
-    """Liveness beacons of a multi-process job: the JAX package's
-    heartbeats ride the ``jax.distributed`` key-value store, which has no
-    counterpart in one process.  One process has nothing to attribute a
-    stall to (``stale_processes`` is empty, as the JAX one is for a
-    single process); starting the beacons waits for the process
-    backend."""
+    """Per-process liveness beacon over the job's c10d key-value store
+    (JAX ``context.py:48-140``, which rides the ``jax.distributed``
+    store).  Every process periodically bumps a SEQUENCE NUMBER under
+    ``bf_heartbeat_<pid>`` (``store.add``); a stalled process reads all
+    of them and names the processes whose sequence has not advanced.
+    Sequence numbers (not wall times) make staleness a single-clock
+    judgment: the observer compares its OWN monotonic clock across two of
+    its own reads, so clock skew between hosts can neither accuse a live
+    process nor hide a silent one.  A sequence of 0 is a process that
+    never beat."""
 
-    def start(self, interval: float):
-        raise NotImplementedError(
-            "liveness heartbeats of a multi-process job are not ported to "
-            f"bluefog_tpu_torch yet; see {PROCESS_BACKEND_ITEM}")
+    KEY = "bf_heartbeat_{pid}"
+    # set by a process that saw an exchange fail: it was alive then, so
+    # a failure report clears it of being the dead process
+    FAILED = "bf_failed_{pid}"
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._store = None
+        self._pid = 0
+        self._count = 1
+        # pid -> (last seen sequence, observer-monotonic time it changed)
+        self._seen: Dict[int, Tuple[int, float]] = {}
+
+    def start(self, interval: float, store, process_index: int,
+              process_count: int):
+        """Beat every ``interval`` seconds into ``store`` as process
+        ``process_index`` of ``process_count``."""
+        if self._thread is not None:
+            return
+        self._store, self._count = store, int(process_count)
+        self._pid = int(process_index)
+        self._seen = {}
+        key = self.KEY.format(pid=int(process_index))
+
+        def beat():
+            while not self._stop.wait(interval):
+                try:
+                    store.add(key, 1)
+                except Exception:  # the store is gone: the job is ending
+                    return
+
+        store.add(key, 1)
+        self._stop.clear()
+        self._thread = threading.Thread(target=beat, daemon=True,
+                                        name="bf-heartbeat")
+        self._thread.start()
 
     def stop(self):
-        pass
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None
+        self._store = None
+        self._count = 1
+
+    def report_failure(self) -> None:
+        """Record in the store that this process saw an exchange fail."""
+        if self._store is not None:
+            try:
+                self._store.add(self.FAILED.format(pid=self._pid), 1)
+            except Exception:  # the store is gone
+                pass
+
+    def reported_failure(self, pid: int) -> bool:
+        """Whether process ``pid`` reported a failed exchange."""
+        try:
+            return int(self._store.add(self.FAILED.format(pid=pid), 0)) > 0
+        except Exception:  # no store, or it is gone
+            return False
 
     def observe(self) -> None:
-        pass
+        """Record one observation of every process's sequence number.
+        Called periodically by the watchdog loop while waits are active,
+        building the history ``stale_processes`` judges against."""
+        store = self._store
+        if store is None or self._count <= 1:
+            return
+        import time
+
+        now = time.monotonic()
+        for pid in range(self._count):
+            try:
+                seq = int(store.add(self.KEY.format(pid=pid), 0))
+            except Exception:  # the store is gone
+                return
+            prev = self._seen.get(pid)
+            if prev is None or prev[0] != seq:
+                self._seen[pid] = (seq, now)
 
     def stale_processes(self, threshold: float) -> List[int]:
-        return []
+        """Processes whose sequence number has not advanced for
+        ``threshold`` seconds of THIS process's monotonic clock (or that
+        never beat).  Empty when liveness cannot be judged (one process,
+        no store)."""
+        if self._store is None or self._count <= 1:
+            return []
+        import time
+
+        self.observe()
+        now = time.monotonic()
+        return [pid for pid, (seq, changed) in sorted(self._seen.items())
+                if seq <= 0 or now - changed > threshold]
 
 
 _heartbeat = _Heartbeat()
@@ -290,21 +377,25 @@ def record_event(device: torch.device):
 
 
 class BluefogContext:
-    """World state for one logical BlueFog job of ``size`` ranks stacked
-    on one device (``device``, default ``"cuda"``; raises without CUDA
-    unless ``"cpu"`` is passed).  ``local_size`` groups the ranks into
-    machines of that many ranks (default: one machine), as the JAX
-    package's test fixture fakes machines (reference
+    """World state for one logical BlueFog job: ``size`` ranks stacked on
+    one device (``device``, default ``"cuda"``; raises without CUDA
+    unless ``"cpu"`` is passed), or the ranks of a ``backend`` passed in
+    (a ``ProcessBackend``: this process's ``n_local`` of them).
+    ``local_size`` groups the ranks into machines of that many ranks
+    (default: one machine per process), as the JAX package's test
+    fixture fakes machines (reference
     test/torch_hierarchical_test.py:49-63)."""
 
     def __init__(self, size: int = 1,
                  device: Union[str, torch.device] = "cuda",
-                 local_size: Optional[int] = None):
-        self.backend = C.StackedBackend(int(size), device=device)
+                 local_size: Optional[int] = None,
+                 backend: Optional[C.RankBackend] = None):
+        self.backend = (C.StackedBackend(int(size), device=device)
+                        if backend is None else backend)
         self.device = self.backend.device
         self._size = self.backend.size
         if local_size is None:
-            local_size = self._size
+            local_size = self.backend.n_local
         if local_size < 1 or self._size % local_size != 0:
             raise BluefogError(
                 f"local_size {local_size} must divide world size {self._size}"
@@ -338,20 +429,25 @@ class BluefogContext:
     def size(self) -> int:
         return self._size
 
+    def n_local(self) -> int:
+        """The ranks this process holds: the leading axis of its
+        rank-major tensors."""
+        return self.backend.n_local
+
     def local_size(self) -> int:
         return self._local_size
 
     def rank(self) -> int:
-        return 0  # one process drives every rank
+        return self.backend.first_rank  # this process's first rank
 
     def local_rank(self) -> int:
-        return 0
+        return self.rank() % self._local_size
 
     def machine_size(self) -> int:
         return self._size // self._local_size
 
     def machine_rank(self) -> int:
-        return 0
+        return self.rank() // self._local_size
 
     def is_homogeneous(self) -> bool:
         return True  # every machine has local_size ranks
@@ -464,28 +560,41 @@ class BluefogContext:
     # rank-major tensor helpers
     # ------------------------------------------------------------------ #
     def rank_sharded(self, array) -> torch.Tensor:
-        """A ``[size, ...]`` tensor on this context's device (a tensor
-        already there is returned as it is; numpy and other devices are
-        copied)."""
+        """This process's rows of a rank-major array, on this context's
+        device: a ``[size, ...]`` array (every process passes the same
+        full array, the JAX package's SPMD contract) gives its own
+        ``[n_local, ...]`` rows; a ``[n_local, ...]`` array is taken as
+        those rows.  A tensor already on the device is used as it is."""
         t = torch.as_tensor(array, device=self.device)
-        if t.dim() == 0 or t.shape[0] != self._size:
+        k = self.backend.n_local
+        if t.dim() > 0 and t.shape[0] == self._size:
+            return self.backend.own(t)
+        if t.dim() == 0 or t.shape[0] != k:
             raise BluefogError(
-                f"rank-major arrays need leading dim {self._size}, "
-                f"got {tuple(t.shape)}")
+                f"rank-major arrays need leading dim {self._size}"
+                + (f" (or this process's {k})" if k != self._size else "")
+                + f", got {tuple(t.shape)}")
         return t
 
     def from_rank_values(self, values) -> torch.Tensor:
-        """Build a rank-major tensor from a callable ``rank -> array`` or
-        a sequence of per-rank arrays."""
+        """This process's rows of a rank-major tensor from a callable
+        ``rank -> array`` (called for this process's ranks only) or a
+        sequence of every rank's arrays."""
+        ranks = self.backend.ranks
         if callable(values):
-            values = [values(r) for r in range(self._size)]
+            values = [values(r) for r in ranks]
+        elif len(values) == self._size:
+            values = [values[r] for r in ranks]
         if all(isinstance(v, torch.Tensor) for v in values):
             return self.rank_sharded(torch.stack(
                 [v.to(self.device) for v in values]))
         return self.rank_sharded(np.stack([np.asarray(v) for v in values]))
 
     def to_rank_values(self, tensor) -> List[np.ndarray]:
-        return list(host_fetch(tensor))
+        """Every rank's value on the host (across processes a gather:
+        every process calls it)."""
+        return list(host_fetch(self.backend.gather_ranks(
+            self.rank_sharded(tensor))))
 
     def device_weights(self, *arrays) -> Tuple[torch.Tensor, ...]:
         """Host weight tensors on this device without a host sync: a
@@ -601,11 +710,9 @@ class BluefogContext:
 
     def barrier(self):
         """Block the host until all work dispatched to the device
-        completes (reference mpi_controller.cc:1185 /
-        mpi_ops.py:1002-1005)."""
-        if self.device.type == "cuda":
-            timed_wait("barrier",
-                       lambda: torch.cuda.synchronize(self.device))
+        completes and, across processes, every process has arrived
+        (reference mpi_controller.cc:1185 / mpi_ops.py:1002-1005)."""
+        timed_wait("barrier", self.backend.barrier)
 
     # ------------------------------------------------------------------ #
     # weight resolution for neighbor ops
@@ -731,7 +838,7 @@ class BluefogContext:
         self._suspended = False
 
     def set_skip_negotiate_stage(self, value: bool):
-        # There is no negotiation stage on the stacked backend; kept for
+        # There is no negotiation stage on either backend; kept for
         # API parity (reference operations.cc:1149-1183).
         self._skip_negotiate = bool(value)
 

@@ -307,7 +307,7 @@ def require_ported(cfg: LlamaConfig) -> None:
     if cfg.attn_mode in ("ring", "ulysses") or cfg.sp_axis is not None:
         later.append(f"attn_mode={cfg.attn_mode!r} (sequence parallelism): "
                      "ROADMAP.md Queue 1, item 10 (ring and Ulysses "
-                     "attention, after item 6's process backend)")
+                     "attention over the process backend)")
     if cfg.n_experts:
         later.append("MoE (n_experts > 0): ROADMAP.md Queue 1, item 10 "
                      "(moe/)")

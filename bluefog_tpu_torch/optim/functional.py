@@ -1,10 +1,12 @@
 """Decentralized train steps over rank-major state.
 
-Port of ``bluefog_tpu/optim/functional.py``'s ``build_train_step`` for
-the stacked backend (:class:`~bluefog_tpu_torch.parallel.collectives.
-StackedBackend`), in the place of the JAX package's one compiled SPMD
-program over a ``Mesh``.  Every state tensor is rank-major (leading
-``[n_ranks]`` axis, one device); one step
+Port of ``bluefog_tpu/optim/functional.py``'s ``build_train_step`` over
+a :class:`~bluefog_tpu_torch.parallel.collectives.RankBackend`, in the
+place of the JAX package's one compiled SPMD program over a ``Mesh``:
+every rank stacked on one device (``StackedBackend``), or ``k`` ranks in
+each process of a ``torch.distributed`` job (``ProcessBackend``).  Every
+state tensor is rank-major with a leading axis of the ranks this process
+holds (``backend.n_local``); one step
 
 1. runs forward and backward rank after rank (``loss_fn`` on rank r's
    slices, ``torch.autograd.grad``), so only one rank's activations are
@@ -79,7 +81,7 @@ from bluefog_tpu_torch import config as _config
 from bluefog_tpu_torch.compressor import _resolve_k
 from bluefog_tpu_torch.optim import fusion as _fusion
 from bluefog_tpu_torch.parallel import collectives as C
-from bluefog_tpu_torch.parallel.collectives import StackedBackend
+from bluefog_tpu_torch.parallel.collectives import RankBackend
 from bluefog_tpu_torch.topology.spec import DynamicTopology, Topology
 
 CommSpec = Union[Topology, DynamicTopology]
@@ -180,20 +182,27 @@ class MixState(NamedTuple):
 
 
 def rank_major(tree: Dict[str, torch.Tensor],
-               backend: StackedBackend) -> Dict[str, torch.Tensor]:
-    """Stack ``backend.size`` copies of every leaf of ``{name: tensor}``
-    along a new leading rank axis on the backend's device: the initial
-    state of decentralized training, every rank at the same point (the
-    reference gets this from broadcast_parameters)."""
+               backend: RankBackend) -> Dict[str, torch.Tensor]:
+    """Stack ``backend.n_local`` copies of every leaf of ``{name:
+    tensor}`` (one per rank this process holds) along a new leading rank
+    axis on the backend's device: the initial state of decentralized
+    training, every rank at the same point (the reference gets this from
+    broadcast_parameters)."""
     return backend.rank_major(tree)
 
 
-def consensus_distance(params: Dict[str, torch.Tensor]) -> torch.Tensor:
+def consensus_distance(params: Dict[str, torch.Tensor],
+                       backend: Optional[RankBackend] = None
+                       ) -> torch.Tensor:
     """Mean squared distance of each rank's parameters from the rank
-    mean (float32 scalar), over every leaf of rank-major ``params``."""
+    mean (float32 scalar), over every leaf of rank-major ``params``.
+    With a ``backend`` whose ranks span processes, every rank's rows are
+    gathered first (a collective: every process calls it)."""
     total = None
     count = 0
     for leaf in params.values():
+        if backend is not None:
+            leaf = backend.gather_ranks(leaf)
         leaf = leaf.float()
         mean = leaf.mean(dim=0, keepdim=True)
         part = ((leaf - mean) ** 2).sum()
@@ -210,11 +219,11 @@ def comm_weight_inputs(specs: Sequence[CommSpec]) -> tuple:
                  for s in specs)
 
 
-def push_sum_weights(backend: StackedBackend) -> torch.Tensor:
-    """The push-sum weight vector, 1 per rank (float32 ``[n]`` on the
-    backend's device): ``opt_state = (optimizer, push_sum_weights(b))``
-    for ``comm_mode="push_sum"``."""
-    return torch.ones(backend.size, dtype=torch.float32,
+def push_sum_weights(backend: RankBackend) -> torch.Tensor:
+    """The push-sum weight vector, 1 per rank this process holds
+    (float32 ``[n_local]`` on the backend's device): ``opt_state =
+    (optimizer, push_sum_weights(b))`` for ``comm_mode="push_sum"``."""
+    return torch.ones(backend.n_local, dtype=torch.float32,
                       device=backend.device)
 
 
@@ -481,7 +490,7 @@ def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
 def build_train_step(
     loss_fn: Callable,
     optimizer: torch.optim.Optimizer,
-    backend: StackedBackend,
+    backend: RankBackend,
     *,
     comm_mode: str = "cta",
     topology: Optional[CommSpec] = None,
@@ -547,7 +556,8 @@ def build_train_step(
     Returns ``train_step(params, aux, opt_state, batch, step) -> (params,
     aux, opt_state, loss)`` with ``has_aux``, else ``train_step(params,
     opt_state, batch, step) -> (params, opt_state, loss)``; ``loss`` is a
-    float32 ``[n_ranks]`` tensor.  Under ``guard=`` the step takes
+    float32 ``[n_local]`` tensor (the ranks this process holds).  Under
+    ``guard=`` the step takes
     ``comm_weights`` after ``step`` (``train_step.default_comm_weights``;
     ``()`` without neighbor weights) and returns ``skipped`` ([n] int32)
     after ``loss``; under ``health=`` the ``HealthVector`` comes last.
@@ -558,10 +568,9 @@ def build_train_step(
         hierarchical_local_size, sp_axis, pp_axis, batch_specs,
         param_specs, opt_state_specs, compress, overlap, overlap_buckets,
         guard, moe)
-    if not isinstance(backend, StackedBackend):
-        raise TypeError(f"backend must be a StackedBackend, got "
-                        f"{type(backend).__name__} (the torch.distributed "
-                        "backend is ROADMAP.md Queue 1, item 6)")
+    if not isinstance(backend, RankBackend):
+        raise TypeError(f"backend must be a StackedBackend or a "
+                        f"ProcessBackend, got {type(backend).__name__}")
     if type(optimizer) not in ELEMENTWISE_OPTIMIZERS:
         raise TypeError(
             f"{type(optimizer).__name__} is not an element-wise optimizer: "
@@ -576,12 +585,12 @@ def build_train_step(
     if k_comm < 1:
         raise ValueError(f"num_steps_per_communication must be >= 1, got "
                          f"{k_comm}")
-    n = backend.size
+    n = backend.n_local   # the leading axis of every state tensor
     unit = hls or 1
     for s in specs:
-        if s.size * unit != n:
+        if s.size * unit != backend.size:
             raise ValueError(f"topology of {s.size} ranks on a backend of "
-                             f"{n}")
+                             f"{backend.size}")
     neighbor = comm_mode in ("cta", "atc") and bool(specs)
     push_sum = comm_mode == "push_sum"
     guarded = guard is not None

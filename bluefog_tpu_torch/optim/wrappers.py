@@ -17,8 +17,9 @@ _DistributedPushSumOptimizer (:1026)    DistributedPushSumOptimizer
 
 Each wraps a base ``torch.optim`` optimizer (``SGD``, ``Adam`` or
 ``AdamW``: ``optim.functional.ELEMENTWISE_OPTIMIZERS``) built over
-RANK-MAJOR params (``[size, ...]`` tensors of the eager context, one
-slice per rank).  The caller writes each rank's gradient into ``.grad``
+RANK-MAJOR params (tensors of the eager context whose leading axis holds
+this process's ranks, one slice per rank; every rank when one process
+holds them all, and per process under bfrun).  The caller writes each rank's gradient into ``.grad``
 rank-major; ``step()`` reads it, communicates and updates the params IN
 PLACE.  Adam and AdamW keep one step count per rank, as in
 ``build_train_step``.  In the JAX package, optax returns new params;
@@ -158,7 +159,7 @@ class _DistributedOptimizerBase:
         live = [p for p in self._params if p.grad is not None]
         with torch.no_grad():
             _rank_adam(self.optimizer, live, [p.grad for p in live],
-                       get_context().size())
+                       get_context().n_local())
 
     def _pipelined(self, tensors: List[torch.Tensor],
                    launch: Callable[[torch.Tensor], int]

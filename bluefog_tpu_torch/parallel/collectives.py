@@ -1,20 +1,26 @@
-"""Rank-major collectives: the port's data plane (stacked backend).
+"""Rank-major collectives: the port's data plane.
 
 Port of ``bluefog_tpu/parallel/collectives.py``.  The JAX functions run
 per device shard under ``shard_map`` and move data with ``lax.ppermute``
-/ ``lax.psum``.  Here every tensor is RANK-MAJOR: a leading ``[n_ranks]``
-axis holds every rank's value on one device (the JAX package's own
-single-process contract, ``optim/functional.py:19-22``), so
+/ ``lax.psum``.  Here every tensor is RANK-MAJOR: a leading axis holds
+the values of the ranks this process owns (the JAX package's contract:
+a process holds its addressable shards of a global rank-major array,
+``optim/functional.py:19-22``).  Every function reduces to two
+primitives of a :class:`RankAxis`:
 
-* ``ppermute`` over one shift class is one gather along the rank axis:
-  ``out[dst] = x[src]`` for each (src, dst) of the class, and ZEROS for a
-  rank that receives nothing, as ``ppermute`` gives;
-* ``psum`` is a sum over the rank axis, broadcast back to every rank.
+* **permute** over global (src, dst) pairs, ``lax.ppermute``: ``out[dst]
+  = x[src]``, and ZEROS for a rank that receives nothing;
+* **gather** of every rank's rows (``gather_ranks``), from which a sum
+  over ranks is taken in rank order.
 
-:class:`StackedBackend` bundles these for ``build_train_step``, in the
-place of the JAX package's ``Mesh``.  A ``torch.distributed`` backend
-(one process per card, NCCL) is a later slice (ROADMAP.md, Queue 1,
-item 6); it implements the same methods on per-process tensors.
+:class:`StackedBackend` holds every rank on one device: a permute is one
+gather along the rank axis.  :class:`ProcessBackend` holds ``k``
+consecutive ranks per process of a ``torch.distributed`` job: pairs
+inside the process stay gathers, pairs across processes go as one
+``batch_isend_irecv`` per permute (NCCL for device tensors, gloo for
+host tensors, and gloo through pinned host buffers for device tensors).
+The math above the primitives is one copy for both, so a
+``ProcessBackend`` job gives the stacked backend's bits.
 
 The weighted combine ``w_self·x + Σ_c w_c·recv_c`` is accumulated in
 float32 for low-precision payloads (``_accum_dtype``), in the same
@@ -25,7 +31,7 @@ was slower and deleted, collectives.py:324-328).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,7 +43,11 @@ from bluefog_tpu_torch.topology.spec import (DynamicTopology, Topology,
 CommSpec = Union[Topology, DynamicTopology]
 
 __all__ = [
+    "RankAxis",
+    "RankBackend",
     "StackedBackend",
+    "ProcessBackend",
+    "WireGenerator",
     "allreduce",
     "broadcast",
     "allgather",
@@ -150,6 +160,74 @@ def _permute(x: torch.Tensor, perm: Sequence[Tuple[int, int]]
     return out
 
 
+class RankAxis:
+    """The rank axis of the rank-major tensors one process holds: ranks
+    ``first_rank .. first_rank + n_local - 1`` of a world of ``size``.
+    This base is the stacked layout, every rank in one process: a permute
+    is a gather along the axis and ``gather_ranks`` is the tensor itself.
+    :class:`ProcessBackend` overrides the primitives."""
+
+    def __init__(self, size: int, n_local: Optional[int] = None,
+                 first_rank: int = 0):
+        self.size = int(size)
+        self.n_local = self.size if n_local is None else int(n_local)
+        self.first_rank = int(first_rank)
+
+    @property
+    def ranks(self) -> range:
+        """The global ranks of this process's rows."""
+        return range(self.first_rank, self.first_rank + self.n_local)
+
+    def owns(self, rank: int) -> bool:
+        return self.first_rank <= rank < self.first_rank + self.n_local
+
+    def own(self, v: torch.Tensor) -> torch.Tensor:
+        """This process's rows of a per-rank ``[size, ...]`` tensor."""
+        if self.n_local == self.size:
+            return v
+        return v[self.first_rank:self.first_rank + self.n_local]
+
+    def permute(self, x: torch.Tensor, perm) -> torch.Tensor:
+        """``lax.ppermute`` over global (src, dst) pairs on this process's
+        rows ``x`` (``[n_local, ...]``)."""
+        return _permute(x, perm)
+
+    def gather_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows, ``[size, ...]``, in rank order."""
+        return x
+
+    def rank_row(self, x: torch.Tensor, rank: int) -> torch.Tensor:
+        """Global rank ``rank``'s row (``[1, ...]``) on every process."""
+        r = rank - self.first_rank
+        return x[r:r + 1]
+
+    def all_sizes(self, sizes: Sequence[int]) -> List[int]:
+        """Every rank's entry of a per-rank host list whose local
+        entries are ``sizes`` (this process's ranks, in order)."""
+        return [int(v) for v in sizes]
+
+    def machine_mean(self, x: torch.Tensor, local_size: int,
+                     dtype: torch.dtype, average: bool = True
+                     ) -> torch.Tensor:
+        """:func:`_machine_mean` over the machines of ``local_size``
+        consecutive global ranks, on this process's rows."""
+        return _machine_mean(x, local_size, dtype, average)
+
+
+def _axis(comm: Optional[RankAxis], x: torch.Tensor) -> RankAxis:
+    """``comm``, or the stacked axis of every rank of ``x``."""
+    return comm if comm is not None else RankAxis(x.shape[0])
+
+
+def _check_rows(ax: RankAxis, x: torch.Tensor, size: int, what: str):
+    if ax.size != size:
+        raise ValueError(f"rank-major tensor has {ax.size} ranks, {what} "
+                         f"{size}")
+    if x.shape[0] != ax.n_local:
+        raise ValueError(f"this process holds {ax.n_local} ranks, the "
+                         f"tensor {x.shape[0]}")
+
+
 def _fused_pairs(classes):
     """The sorted (src, dst) pairs of a round's shift classes when every
     src and every dst appears once across all of them (each rank has at
@@ -183,27 +261,50 @@ def _fused_recv_weights(classes, class_weights, size, dtype, device):
 _WIRE_SEED = 0x51EED
 
 
-def wire_generator(device, step: int, bucket: int = 0) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` for the stochastic-rounding
-    wire of bucket ``bucket`` at train step ``step``: one seed per (step,
-    bucket), mixed from ``(0x51EED, step, bucket)`` as the JAX package
-    folds ``PRNGKey(0x51EED)`` with the step and then the bucket.  The
-    draws are deterministic per (step, bucket); they are not the JAX
-    package's bits (another generator)."""
-    seed = int(np.random.SeedSequence(
-        [_WIRE_SEED, int(step), int(bucket)]).generate_state(
-            1, np.uint64)[0] >> np.uint64(1))
-    return torch.Generator(device=device).manual_seed(seed)
+class WireGenerator:
+    """The uniform draws of the stochastic-rounding wire of bucket
+    ``bucket`` at train step ``step``: one ``torch.Generator`` per GLOBAL
+    rank, seeded from ``(0x51EED, step, bucket, rank)`` as the JAX
+    package folds ``PRNGKey(0x51EED)`` with the step and then the bucket.
+    A rank's draws do not depend on which process holds it, so a
+    :class:`ProcessBackend` job rounds as the stacked backend does.  They
+    are not the JAX package's bits (another generator)."""
+
+    def __init__(self, device, step: int, bucket: int = 0):
+        self.device = torch.device(device)
+        self.step, self.bucket = int(step), int(bucket)
+
+    def generator(self, rank: int) -> torch.Generator:
+        seed = int(np.random.SeedSequence(
+            [_WIRE_SEED, self.step, self.bucket, int(rank)]).generate_state(
+                1, np.uint64)[0] >> np.uint64(1))
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def uniform(self, like: torch.Tensor, first_rank: int = 0
+                ) -> torch.Tensor:
+        """U[0, 1) shaped like the rank-major ``like``, row ``i`` from
+        global rank ``first_rank + i``'s stream."""
+        return torch.stack([
+            torch.rand(like.shape[1:], generator=self.generator(
+                first_rank + i), device=like.device, dtype=like.dtype)
+            for i in range(like.shape[0])])
+
+
+def wire_generator(device, step: int, bucket: int = 0) -> WireGenerator:
+    """The :class:`WireGenerator` of bucket ``bucket`` at train step
+    ``step``: deterministic per (step, bucket, rank)."""
+    return WireGenerator(device, step, bucket)
 
 
 def _wire_quantize_int8(x: torch.Tensor,
-                        generator: Optional[torch.Generator] = None):
+                        generator: Optional[WireGenerator] = None,
+                        first_rank: int = 0):
     """Per-tensor (per rank) absmax int8 quantization of the payload.
     Without ``generator`` it rounds to nearest (half to even, as
     ``jnp.round``): deterministic but biased, so in iterated averaging the
     snaps can build a consensus floor.  With ``generator`` it rounds
-    stochastically, ``floor(y + u)`` with u ~ U[0, 1) drawn for the whole
-    ``[n, ...]`` payload at once (each rank's row its own stream), so
+    stochastically, ``floor(y + u)`` with u ~ U[0, 1) drawn per rank from
+    that rank's stream (row ``i`` is global rank ``first_rank + i``), so
     E[q] = y.  Returns (q int8 [n, ...], scale f32 [n])."""
     x32 = x.float()
     n = x.shape[0]
@@ -213,8 +314,7 @@ def _wire_quantize_int8(x: torch.Tensor,
     if generator is None:
         q = torch.round(y)
     else:
-        q = torch.floor(y + torch.rand(y.shape, generator=generator,
-                                       device=y.device, dtype=y.dtype))
+        q = torch.floor(y + generator.uniform(y, first_rank))
     q = torch.clamp(q, -127, 127).to(torch.int8)
     return q, scale
 
@@ -233,7 +333,8 @@ def neighbor_allreduce(
     compress: Optional[str] = None,
     class_weights: Optional[torch.Tensor] = None,
     self_weights: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[WireGenerator] = None,
+    comm: Optional[RankAxis] = None,
 ) -> torch.Tensor:
     """Weighted neighbor averaging of a rank-major ``x`` ([n, ...]):
 
@@ -252,19 +353,19 @@ def neighbor_allreduce(
 
     ``generator`` (int8 only) switches the wire to unbiased stochastic
     rounding (the JAX package's ``wire_key``; see
-    :func:`wire_generator`)."""
+    :func:`wire_generator`).  ``comm`` is the rank axis ``x`` lies on
+    (default: every rank stacked in ``x``)."""
     if compress not in (None, "int8", "bf16"):
         raise ValueError(f"unknown compress mode {compress!r}")
     if generator is not None and compress != "int8":
         raise ValueError("generator= requires compress='int8'")
-    if x.shape[0] != spec.size:
-        raise ValueError(f"rank-major tensor has {x.shape[0]} ranks, the "
-                         f"topology {spec.size}")
+    ax = _axis(comm, x)
+    _check_rows(ax, x, spec.size, "the topology")
     acc = _accum_dtype(x.dtype)
     dev = x.device
     bshape = _rank_shape(x)
-    self_w = _as_weights(self_weights_of(spec) if self_weights is None
-                         else self_weights, acc, dev).reshape(bshape)
+    self_w = ax.own(_as_weights(self_weights_of(spec) if self_weights is None
+                                else self_weights, acc, dev)).reshape(bshape)
     classes = spec.shift_classes
 
     def recv_w(c, cls):
@@ -272,22 +373,22 @@ def neighbor_allreduce(
             w = _as_weights(cls.recv_weights, acc, dev)
         else:
             w = class_weights[c].to(device=dev, dtype=acc)
-        return w.reshape(bshape)
+        return ax.own(w).reshape(bshape)
 
     def wire(perm):
         if compress == "int8":
-            return (_permute(q, perm).float()
-                    * _permute(scale, perm).reshape(bshape))
+            return (ax.permute(q, perm).float()
+                    * ax.permute(scale, perm).reshape(bshape))
         if compress == "bf16" and x.dtype != torch.bfloat16:
-            return _permute(x.to(torch.bfloat16), perm)
-        return _permute(x, perm)
+            return ax.permute(x.to(torch.bfloat16), perm)
+        return ax.permute(x, perm)
 
     if compress == "int8":
-        q, scale = _wire_quantize_int8(x, generator)
+        q, scale = _wire_quantize_int8(x, generator, ax.first_rank)
     merged = _fused_pairs(classes)
     if merged is not None:
-        w_fused = _as_weights(_fused_recv_weights(
-            classes, class_weights, spec.size, acc, dev), acc, dev)
+        w_fused = ax.own(_as_weights(_fused_recv_weights(
+            classes, class_weights, spec.size, acc, dev), acc, dev))
         out = (x.to(acc) * self_w
                + wire(merged).to(acc) * w_fused.reshape(bshape))
         return out.to(x.dtype)
@@ -307,6 +408,7 @@ def neighbor_allreduce_buckets(
     hierarchical_local_size: Optional[int] = None,
     class_weights: Optional[torch.Tensor] = None,
     self_weights: Optional[torch.Tensor] = None,
+    comm: Optional[RankAxis] = None,
 ) -> list:
     """One weighted neighbor combine per bucket buffer: the data plane of
     ``build_train_step(overlap="bucketed")``.  Each bucket is an
@@ -327,11 +429,11 @@ def neighbor_allreduce_buckets(
             outs.append(hierarchical_neighbor_allreduce(
                 buf, spec, hierarchical_local_size, compress=compress,
                 class_weights=class_weights, self_weights=self_weights,
-                generator=gen))
+                generator=gen, comm=comm))
         else:
             outs.append(neighbor_allreduce(
                 buf, spec, compress=compress, class_weights=class_weights,
-                self_weights=self_weights, generator=gen))
+                self_weights=self_weights, generator=gen, comm=comm))
     return outs
 
 
@@ -352,7 +454,8 @@ def push_sum_structure(spec: CommSpec):
     return deg, perms
 
 
-def push_sum_mix(tree, ps_weight: torch.Tensor, spec: CommSpec):
+def push_sum_mix(tree, ps_weight: torch.Tensor, spec: CommSpec,
+                 comm: Optional[RankAxis] = None):
     """One push-sum round: column-stochastic mixing of the extended
     payload.  Every rank j scales its payload (each rank-major leaf of
     ``tree``, a list/tuple/dict, and its entry of ``ps_weight`` [n]) by
@@ -364,15 +467,17 @@ def push_sum_mix(tree, ps_weight: torch.Tensor, spec: CommSpec):
 
     Returns ``(mixed_tree, mixed_ps)``, still biased: de-bias with
     ``z = x / ps``."""
+    ax = _axis(comm, ps_weight)
+    _check_rows(ax, ps_weight, spec.size, "the topology")
     deg, perms = push_sum_structure(spec)
-    a = _device_const(tuple(float(v) for v in 1.0 / (deg + 1.0)),
-                      ps_weight.device, torch.float32)
+    a = ax.own(_device_const(tuple(float(v) for v in 1.0 / (deg + 1.0)),
+                             ps_weight.device, torch.float32))
 
     def mix_leaf(x):
         scaled = x.to(_accum_dtype(x.dtype)) * a.reshape(_rank_shape(x))
         acc = scaled
         for perm in perms:
-            acc = acc + _permute(scaled, perm)
+            acc = acc + ax.permute(scaled, perm)
         return acc
 
     if isinstance(tree, dict):
@@ -451,7 +556,8 @@ def hierarchical_neighbor_allreduce(
     compress: Optional[str] = None,
     class_weights: Optional[torch.Tensor] = None,
     self_weights: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[WireGenerator] = None,
+    comm: Optional[RankAxis] = None,
 ) -> torch.Tensor:
     """Machine-level neighbor averaging, ``W_machine ⊗ exact-local-mean``:
     (1) the exact mean over each machine's ``local_size`` ranks (full
@@ -471,14 +577,13 @@ def hierarchical_neighbor_allreduce(
     L = int(local_size)
     n = machine_spec.size * L
     validate_machine_decomposition(n, L, (machine_spec,))
-    if x.shape[0] != n:
-        raise ValueError(f"rank-major tensor has {x.shape[0]} ranks, the "
-                         f"machine schedule covers {n}")
+    ax = _axis(comm, x)
+    _check_rows(ax, x, n, "the machine schedule covers")
     acc = _accum_dtype(x.dtype)
     dev = x.device
     bshape = _rank_shape(x)
-    unit = [r // L for r in range(n)]
-    local_mean = _machine_mean(x, L, acc)
+    unit = [r // L for r in ax.ranks]
+    local_mean = ax.machine_mean(x, L, acc)
     self_w = _unit_weights(self_weights_of(machine_spec)
                            if self_weights is None else self_weights,
                            unit, acc, dev).reshape(bshape)
@@ -486,15 +591,15 @@ def hierarchical_neighbor_allreduce(
     # local_size 1), or compressed; the self term keeps full precision
     wire_x = local_mean.to(x.dtype)
     if compress == "int8":
-        q, scale = _wire_quantize_int8(wire_x, generator)
+        q, scale = _wire_quantize_int8(wire_x, generator, ax.first_rank)
 
     def wire(perm):
         if compress == "int8":
-            return (_permute(q, perm).float()
-                    * _permute(scale, perm).reshape(bshape))
+            return (ax.permute(q, perm).float()
+                    * ax.permute(scale, perm).reshape(bshape))
         if compress == "bf16" and x.dtype != torch.bfloat16:
-            return _permute(wire_x.to(torch.bfloat16), perm)
-        return _permute(wire_x, perm)
+            return ax.permute(wire_x.to(torch.bfloat16), perm)
+        return ax.permute(wire_x, perm)
 
     def recv_w(c, cls):
         w = cls.recv_weights if class_weights is None else class_weights[c]
@@ -582,17 +687,21 @@ def _mix_decode_wire(wire: torch.Tensor, numel: int, k: int,
     if values in ("int8", "int8_sr"):
         q = wire[:, :k].contiguous().view(torch.int8)
         packed = wire[:, k:k + mask_bytes]
-        scale = wire[:, k + mask_bytes:k + mask_bytes + 4].contiguous(
-        ).view(torch.float32)
+        # a copy: a one-row slice is contiguous at an odd byte offset,
+        # which no float view accepts
+        scale = wire[:, k + mask_bytes:k + mask_bytes + 4].reshape(
+            -1).clone().view(torch.float32)
         vals = q.float() * scale.reshape(n, 1)
     else:
-        vals = wire[:, :4 * k].contiguous().view(torch.float32)
+        vals = wire[:, :4 * k].reshape(-1).clone().view(
+            torch.float32).reshape(n, k)
         packed = wire[:, 4 * k:4 * k + mask_bytes]
     return topk_mask_decode(_unpack_bits(packed, numel), vals)
 
 
 def _mix_encode_wire(target: torch.Tensor, k: int, k_live: torch.Tensor,
-                     values: str, generator: Optional[torch.Generator]):
+                     values: str, generator: Optional[WireGenerator],
+                     first_rank: int = 0):
     """(wire uint8 [n, mix_wire_bytes], own delta f32 [n, numel]): top-k
     select each row's delta, quantize the kept values, pack everything
     into ONE byte row per rank, and decode it back, so the sender's own
@@ -603,7 +712,7 @@ def _mix_encode_wire(target: torch.Tensor, k: int, k_live: torch.Tensor,
     mask, vals = topk_mask_encode(target, k, k_live)
     packed = _pack_bits(mask)
     if values in ("int8", "int8_sr"):
-        q, scale = _wire_quantize_int8(vals, generator)
+        q, scale = _wire_quantize_int8(vals, generator, first_rank)
         wire = torch.cat([q.view(torch.uint8), packed,
                           scale.contiguous().view(torch.uint8).reshape(n, 4)],
                          dim=1)
@@ -626,8 +735,9 @@ def mix_compress_exchange(
     error_feedback: bool = True,
     class_weights: Optional[torch.Tensor] = None,
     self_weights: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[WireGenerator] = None,
     hierarchical_local_size: Optional[int] = None,
+    comm: Optional[RankAxis] = None,
 ):
     """ONE round of error-feedback compressed neighbor averaging of the
     rank-major bucket ``x`` ([n, ...]).
@@ -664,17 +774,15 @@ def mix_compress_exchange(
     xf = x.reshape(n, -1)
     nb = xf.shape[1]
     f32 = torch.float32
+    ax = _axis(comm, x)
+    L = 1 if hierarchical_local_size is None else int(
+        hierarchical_local_size)
     if hierarchical_local_size is not None:
-        L = int(hierarchical_local_size)
         validate_machine_decomposition(spec.size * L, L, (spec,))
-        base = _machine_mean(xf, L, f32)
-    else:
-        L = 1
-        base = xf.float()
-    if spec.size * L != n:
-        raise ValueError(f"rank-major tensor has {n} ranks, the spec "
-                         f"covers {spec.size * L}")
-    unit = [r // L for r in range(n)]
+    _check_rows(ax, x, spec.size * L, "the spec covers")
+    base = (xf.float() if hierarchical_local_size is None
+            else ax.machine_mean(xf, L, f32))
+    unit = [r // L for r in ax.ranks]
     self_w = _unit_weights(self_weights_of(spec) if self_weights is None
                            else self_weights, unit, f32, dev).reshape(n, 1)
     classes = spec.shift_classes
@@ -686,7 +794,8 @@ def mix_compress_exchange(
     # an out-edge this round only
     target = base - ref_row + err
     k_live = torch.clamp(torch.floor(ratio * nb).to(torch.int32), 1, k)
-    wire, d_own = _mix_encode_wire(target, k, k_live, values, generator)
+    wire, d_own = _mix_encode_wire(target, k, k_live, values, generator,
+                                   ax.first_rank)
     has_out_unit = [False] * spec.size
     for cls in classes:
         for (s, _) in cls.perm:
@@ -715,13 +824,13 @@ def mix_compress_exchange(
             perm = _expand_pairs(classes[0].perm, L)
             w = recv_w(classes[0].recv_weights if class_weights is None
                        else class_weights[0])
-        rd = _mix_decode_wire(_permute(wire, perm), nb, k, values)
+        rd = _mix_decode_wire(ax.permute(wire, perm), nb, k, values)
         new_mirrors[:, 0] += rd
         acc = acc + new_mirrors[:, 0] * w
     else:
         for c, cls in enumerate(classes):
-            rd = _mix_decode_wire(_permute(wire, _expand_pairs(cls.perm, L)),
-                                  nb, k, values)
+            rd = _mix_decode_wire(
+                ax.permute(wire, _expand_pairs(cls.perm, L)), nb, k, values)
             new_mirrors[:, c] += rd
             w = recv_w(cls.recv_weights if class_weights is None
                        else class_weights[c])
@@ -730,54 +839,65 @@ def mix_compress_exchange(
 
 
 def allreduce(x: torch.Tensor, average: bool = True,
-              local_size: Optional[int] = None) -> torch.Tensor:
+              local_size: Optional[int] = None,
+              comm: Optional[RankAxis] = None) -> torch.Tensor:
     """Every rank receives the sum (or mean) over ranks, accumulated in
-    f32 for low-precision payloads (reference mpi_controller.cc:169).
-    With ``local_size``, over each machine of that many ranks only (the
-    eager ``is_hierarchical_local`` allreduce)."""
+    f32 for low-precision payloads (reference mpi_controller.cc:169) and
+    summed in rank order over every rank's rows.  With ``local_size``,
+    over each machine of that many ranks only (the eager
+    ``is_hierarchical_local`` allreduce)."""
+    ax = _axis(comm, x)
     acc = _accum_dtype(x.dtype)
     if local_size is not None:
-        validate_machine_decomposition(x.shape[0], local_size)
-        return _machine_mean(x, int(local_size), acc, average).to(x.dtype)
-    total = x.to(acc).sum(0, keepdim=True)
+        validate_machine_decomposition(ax.size, local_size)
+        return ax.machine_mean(x, int(local_size), acc,
+                               average).to(x.dtype)
+    total = ax.gather_ranks(x).to(acc).sum(0, keepdim=True)
     if average:
-        total = total / x.shape[0]
+        total = total / ax.size
     return total.to(x.dtype).expand_as(x).clone()
 
 
-def broadcast(x: torch.Tensor, root_rank: int) -> torch.Tensor:
+def broadcast(x: torch.Tensor, root_rank: int,
+              comm: Optional[RankAxis] = None) -> torch.Tensor:
     """Every rank receives ``root_rank``'s value, exactly
     (reference mpi_controller.cc:193)."""
-    if not 0 <= root_rank < x.shape[0]:
-        raise ValueError(f"root rank {root_rank} outside 0..{x.shape[0] - 1}")
-    return x[root_rank:root_rank + 1].expand_as(x).clone()
+    ax = _axis(comm, x)
+    if not 0 <= root_rank < ax.size:
+        raise ValueError(f"root rank {root_rank} outside 0..{ax.size - 1}")
+    return ax.rank_row(x, root_rank).expand_as(x).clone()
 
 
-def allgather(x: torch.Tensor) -> torch.Tensor:
+def allgather(x: torch.Tensor, comm: Optional[RankAxis] = None
+              ) -> torch.Tensor:
     """Every rank receives all ranks' tensors concatenated along dim 0:
     ``[n, d0, ...] -> [n, n * d0, ...]`` (reference mpi_controller.cc:136;
     equal per-rank shapes, as the JAX package's ``all_gather``)."""
-    n = x.shape[0]
-    flat = x.reshape((1, n * x.shape[1]) + tuple(x.shape[2:]))
-    return flat.expand((n,) + tuple(flat.shape[1:])).clone()
+    ax = _axis(comm, x)
+    full = ax.gather_ranks(x)
+    flat = full.reshape((1, ax.size * x.shape[1]) + tuple(x.shape[2:]))
+    return flat.expand((x.shape[0],) + tuple(flat.shape[1:])).clone()
 
 
-def allgatherv(x: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:
+def allgatherv(x: torch.Tensor, sizes: Sequence[int],
+               comm: Optional[RankAxis] = None) -> torch.Tensor:
     """Variable-size allgather (reference allgatherv,
     mpi_controller.cc:136-168): rank r's payload arrives padded to
     ``max(sizes)`` rows (``x`` is ``[n, pad, ...]``) and ``sizes`` are the
-    true per-rank row counts.  Every rank receives the exact ragged
-    concatenation ``[sum(sizes), ...]``: one row gather drops the pad
-    rows (the displacements, computed on the host once per ``sizes``)."""
+    true per-rank row counts of every rank.  Every rank receives the
+    exact ragged concatenation ``[sum(sizes), ...]``: one row gather drops
+    the pad rows (the displacements, computed on the host once per
+    ``sizes``)."""
+    ax = _axis(comm, x)
     sizes = [int(s) for s in sizes]
-    n, pad = x.shape[0], x.shape[1]
+    pad = x.shape[1]
     if any(s > pad for s in sizes):
         raise ValueError(f"sizes {sizes} exceed the padded row count {pad}")
     rows = tuple(int(i) for r, s in enumerate(sizes)
                  for i in range(r * pad, r * pad + s))
-    flat = x.reshape((n * pad,) + tuple(x.shape[2:]))
+    flat = ax.gather_ranks(x).reshape((ax.size * pad,) + tuple(x.shape[2:]))
     out = flat.index_select(0, _device_const(rows, x.device, torch.long))
-    return out.unsqueeze(0).expand((n,) + tuple(out.shape)).clone()
+    return out.unsqueeze(0).expand((x.shape[0],) + tuple(out.shape)).clone()
 
 
 def in_neighbor_lists(spec: CommSpec) -> list:
@@ -793,21 +913,36 @@ def in_neighbor_lists(spec: CommSpec) -> list:
     return lists
 
 
-def neighbor_allgather(x: torch.Tensor, spec: CommSpec) -> torch.Tensor:
+def _gather_into(out: torch.Tensor, x: torch.Tensor, ax: RankAxis,
+                 triples) -> None:
+    """``out[dst, col] = x[src]`` for each (src, dst, col) of one shift
+    class whose ``dst`` this process owns: one permute of the class's
+    pairs, then one indexed write."""
+    recv = ax.permute(x, tuple(sorted((s, d) for s, d, _ in triples)))
+    mine = [(d - ax.first_rank, c) for _, d, c in triples if ax.owns(d)]
+    if not mine:
+        return
+    dst = _device_const(tuple(d for d, _ in mine), x.device)
+    col = _device_const(tuple(c for _, c in mine), x.device)
+    out.index_put_((dst, col), recv.index_select(0, dst))
+
+
+def neighbor_allgather(x: torch.Tensor, spec: CommSpec,
+                       comm: Optional[RankAxis] = None) -> torch.Tensor:
     """In-neighbor values in a dense per-source buffer: ``[n, n, ...]``,
     ``out[dst, src]`` holding rank src's value where (src -> dst) is an
     edge and zeros elsewhere (the JAX package's dense layout,
     collectives.py:387).  :func:`neighbor_allgather_padded` is the
     in-degree-bounded form the eager layer uses."""
-    n = spec.size
-    out = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    ax = _axis(comm, x)
+    _check_rows(ax, x, spec.size, "the topology")
+    out = torch.zeros((x.shape[0], spec.size) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
     for cls in spec.shift_classes:
-        pairs = [(s, d) for s, d in cls.perm if cls.recv_weights[d] != 0.0]
-        if not pairs:
-            continue
-        src = _device_const(tuple(s for s, _ in pairs), x.device)
-        dst = _device_const(tuple(d for _, d in pairs), x.device)
-        out.index_put_((dst, src), x.index_select(0, src))
+        triples = [(s, d, s) for s, d in cls.perm
+                   if cls.recv_weights[d] != 0.0]
+        if triples:
+            _gather_into(out, x, ax, triples)
     return out
 
 
@@ -824,7 +959,8 @@ def _slot_pairs(spec: CommSpec, in_lists) -> list:
     return out
 
 
-def neighbor_allgather_padded(x: torch.Tensor, spec: CommSpec
+def neighbor_allgather_padded(x: torch.Tensor, spec: CommSpec,
+                              comm: Optional[RankAxis] = None
                               ) -> torch.Tensor:
     """In-degree-sized neighbor gather: ``[n, d_max, ...]``, slot ``k`` of
     rank ``dst`` holding the value of its k-th smallest in-neighbor
@@ -832,24 +968,23 @@ def neighbor_allgather_padded(x: torch.Tensor, spec: CommSpec
     in-degree).  Memory is O(n * d_max * |x|), never the dense
     O(n^2 * |x|); for a graph of uniform in-degree the result reshaped to
     ``[n, d * d0, ...]`` is the reference's concat-by-source-rank layout
-    (torch/mpi_ops.py:440-476).  One gather per shift class."""
+    (torch/mpi_ops.py:440-476).  One permute per shift class."""
+    ax = _axis(comm, x)
+    _check_rows(ax, x, spec.size, "the topology")
     lists = in_neighbor_lists(spec)
     d_max = max((len(lst) for lst in lists), default=0)
     out = torch.zeros((x.shape[0], d_max) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
     for triples in _slot_pairs(spec, lists):
-        if not triples:
-            continue
-        src = _device_const(tuple(t[0] for t in triples), x.device)
-        dst = _device_const(tuple(t[1] for t in triples), x.device)
-        slot = _device_const(tuple(t[2] for t in triples), x.device)
-        out.index_put_((dst, slot), x.index_select(0, src))
+        if triples:
+            _gather_into(out, x, ax, triples)
     return out
 
 
 def pair_gossip(x: torch.Tensor, target_ranks: Sequence[int],
                 self_weight: Optional[float] = None,
-                pair_weight: Optional[float] = None) -> torch.Tensor:
+                pair_weight: Optional[float] = None,
+                comm: Optional[RankAxis] = None) -> torch.Tensor:
     """Randomized two-node averaging: ``out = self_weight * x +
     pair_weight * x[target]``, in the accumulation dtype.
     ``target_ranks[i]`` is rank i's pair (an involution, as the
@@ -858,48 +993,71 @@ def pair_gossip(x: torch.Tensor, target_ranks: Sequence[int],
     self_weight = 0.5 if self_weight is None else self_weight
     pair_weight = 0.5 if pair_weight is None else pair_weight
     targets = [int(t) for t in target_ranks]
-    n = len(targets)
-    if x.shape[0] != n:
-        raise ValueError(f"rank-major tensor has {x.shape[0]} ranks, "
-                         f"target_ranks {n}")
+    ax = _axis(comm, x)
+    _check_rows(ax, x, len(targets), "target_ranks")
     perm = tuple((i, t) for i, t in enumerate(targets) if t != i)
     if len({d for _, d in perm}) != len(perm):
         raise ValueError(f"target_ranks {targets} send two ranks' values "
                          "to one rank")
     acc = _accum_dtype(x.dtype)
     xa = x.to(acc)
-    out = self_weight * xa + pair_weight * _permute(x, perm).to(acc)
-    is_self = _device_const(tuple(t == i for i, t in enumerate(targets)),
+    out = self_weight * xa + pair_weight * ax.permute(x, perm).to(acc)
+    is_self = _device_const(tuple(targets[r] == r for r in ax.ranks),
                             x.device, torch.bool).reshape(_rank_shape(x))
     return torch.where(is_self, xa, out).to(x.dtype)
 
 
-class StackedBackend:
-    """``n_ranks`` ranks stacked on one device: the port's counterpart of
-    the JAX package's one-axis ``Mesh``.  Every rank-major tensor it
-    handles has a leading ``[n_ranks]`` axis on ``device``; forward and
-    backward of a train step run rank after rank, so only one rank's
-    activations are alive at a time.
+def _attribute_failure(name: str, exc: Exception) -> Exception:
+    """A ``BluefogError`` for an exchange whose transport failed, naming
+    the processes the liveness heartbeats judge dead (reference
+    operations.cc:388-433 names the missing ranks): it reports this
+    process's failure in the store, then watches the heartbeats for up to
+    three stall windows, long enough for a dead process's sequence
+    number to go stale.  A process that reported a failure of its own was
+    alive to see it; its heartbeat may stop when it exits, so it is not
+    named."""
+    import time
 
-    ``device`` defaults to ``"cuda"`` and raises without CUDA unless
-    ``"cpu"`` is passed."""
+    from bluefog_tpu_torch import config as bfconfig
+    from bluefog_tpu_torch.context import BluefogError, _heartbeat
+    from bluefog_tpu_torch.logging_util import get_logger
 
-    def __init__(self, n_ranks: int,
-                 device: Union[str, torch.device] = "cuda"):
-        if n_ranks < 1:
-            raise ValueError(f"n_ranks must be >= 1, got {n_ranks}")
-        self.size = int(n_ranks)
-        self.device = resolve_device(device)
+    window = bfconfig.stall_warning_time()
+    stale: list = []
+    _heartbeat.report_failure()
+    if window > 0:
+        deadline = time.monotonic() + 3 * window
+        while not stale and time.monotonic() < deadline:
+            stale = [p for p in _heartbeat.stale_processes(0.7 * window)
+                     if not _heartbeat.reported_failure(p)]
+            if not stale:
+                time.sleep(min(0.25, window / 4))
+    if not stale:
+        return BluefogError(
+            f"Operation '{name}' failed ({exc}); no stale heartbeat "
+            "names a dead process (heartbeats are off without "
+            "BLUEFOG_STALL_WARNING_TIME, or every process still beats).")
+    msg = (f"Operation '{name}' failed on missing process(es) {stale} — "
+           "their liveness heartbeat is stale or absent (reference "
+           f"operations.cc:388-433): {exc}")
+    get_logger().warning(msg)
+    return BluefogError(msg)
 
-    def __repr__(self) -> str:
-        return f"StackedBackend(n_ranks={self.size}, device={self.device})"
+
+class RankBackend(RankAxis):
+    """The collectives ``build_train_step``, the eager API and the
+    wrappers call, on this process's rows of rank-major tensors (leading
+    axis ``n_local``) on ``device``.  One copy of the math for every
+    backend: each method is the module function over this rank axis."""
+
+    device: torch.device
 
     def rank_major(self, tree: dict) -> dict:
-        """A copy of every leaf of ``{name: tensor}`` for each rank,
-        stacked along a new leading axis on this backend's device: every
-        rank starts from the same point."""
+        """A copy of every leaf of ``{name: tensor}`` for each rank this
+        process holds, stacked along a new leading axis on the device:
+        every rank starts from the same point."""
         return {k: v.detach().to(self.device).unsqueeze(0)
-                .repeat((self.size,) + (1,) * v.dim())
+                .repeat((self.n_local,) + (1,) * v.dim())
                 for k, v in tree.items()}
 
     def neighbor_allreduce(self, x, spec, compress=None, class_weights=None,
@@ -907,7 +1065,7 @@ class StackedBackend:
         return neighbor_allreduce(x, spec, compress=compress,
                                   class_weights=class_weights,
                                   self_weights=self_weights,
-                                  generator=generator)
+                                  generator=generator, comm=self)
 
     def neighbor_allreduce_buckets(self, buffers, spec, compress=None,
                                    wire_step=None,
@@ -916,7 +1074,8 @@ class StackedBackend:
         return neighbor_allreduce_buckets(
             buffers, spec, compress=compress, wire_step=wire_step,
             hierarchical_local_size=hierarchical_local_size,
-            class_weights=class_weights, self_weights=self_weights)
+            class_weights=class_weights, self_weights=self_weights,
+            comm=self)
 
     def hierarchical_neighbor_allreduce(self, x, machine_spec, local_size,
                                         compress=None, class_weights=None,
@@ -924,32 +1083,244 @@ class StackedBackend:
         return hierarchical_neighbor_allreduce(
             x, machine_spec, local_size, compress=compress,
             class_weights=class_weights, self_weights=self_weights,
-            generator=generator)
+            generator=generator, comm=self)
 
     def push_sum_mix(self, tree, ps_weight, spec):
-        return push_sum_mix(tree, ps_weight, spec)
+        return push_sum_mix(tree, ps_weight, spec, comm=self)
 
     def mix_compress_exchange(self, x, spec, **kw):
-        return mix_compress_exchange(x, spec, **kw)
+        return mix_compress_exchange(x, spec, comm=self, **kw)
 
     def allreduce(self, x, average: bool = True, local_size=None):
-        return allreduce(x, average=average, local_size=local_size)
+        return allreduce(x, average=average, local_size=local_size,
+                         comm=self)
 
     def broadcast(self, x, root_rank: int):
-        return broadcast(x, root_rank)
+        return broadcast(x, root_rank, comm=self)
 
     def allgather(self, x):
-        return allgather(x)
+        return allgather(x, comm=self)
 
     def allgatherv(self, x, sizes):
-        return allgatherv(x, sizes)
+        return allgatherv(x, sizes, comm=self)
 
     def neighbor_allgather(self, x, spec):
-        return neighbor_allgather(x, spec)
+        return neighbor_allgather(x, spec, comm=self)
 
     def neighbor_allgather_padded(self, x, spec):
-        return neighbor_allgather_padded(x, spec)
+        return neighbor_allgather_padded(x, spec, comm=self)
 
     def pair_gossip(self, x, target_ranks, self_weight=None,
                     pair_weight=None):
-        return pair_gossip(x, target_ranks, self_weight, pair_weight)
+        return pair_gossip(x, target_ranks, self_weight, pair_weight,
+                           comm=self)
+
+    def barrier(self) -> None:
+        """Wait for every rank's work so far (the device's queue here)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+class StackedBackend(RankBackend):
+    """``n_ranks`` ranks stacked on one device: the port's counterpart of
+    the JAX package's one-axis ``Mesh`` on one process.  Every rank-major
+    tensor it handles has a leading ``[n_ranks]`` axis on ``device``;
+    forward and backward of a train step run rank after rank, so only
+    one rank's activations are alive at a time.
+
+    ``device`` defaults to ``"cuda"`` and raises without CUDA unless
+    ``"cpu"`` is passed."""
+
+    def __init__(self, n_ranks: int,
+                 device: Union[str, torch.device] = "cuda"):
+        if n_ranks < 1:
+            raise ValueError(f"n_ranks must be >= 1, got {n_ranks}")
+        super().__init__(int(n_ranks))
+        self.device = resolve_device(device)
+
+    def __repr__(self) -> str:
+        return f"StackedBackend(n_ranks={self.size}, device={self.device})"
+
+
+class ProcessBackend(RankBackend):
+    """``ranks_per_process`` consecutive global ranks per process of the
+    default ``torch.distributed`` group: process ``p`` holds ranks
+    ``p·k .. p·k + k - 1`` stacked on ``device``, and every rank-major
+    tensor it handles is ``[k, ...]``.
+
+    The wire follows the group's backend: NCCL moves device tensors
+    (its work is ordered on the current stream, the host never waits);
+    gloo moves host tensors, and device tensors through pinned host
+    buffers (gloo's send and receive take no CUDA pointers; the current
+    stream is synchronized before a send).  Every payload goes as bytes,
+    so any dtype crosses.  Each exchange runs inside a
+    ``bf.backend.exchange`` profiler range, and its waits run under the
+    stall watchdog and the op timeout (``context.timed_wait``)."""
+
+    EXCHANGE = "bf.backend.exchange"
+
+    def __init__(self, ranks_per_process: int = 1,
+                 device: Union[str, torch.device] = "cuda"):
+        import torch.distributed as dist
+
+        if not dist.is_available() or not dist.is_initialized():
+            raise RuntimeError(
+                "ProcessBackend needs an initialized torch.distributed "
+                "default group (bluefog_tpu_torch.init() under bfrun "
+                "creates one)")
+        k = int(ranks_per_process)
+        if k < 1:
+            raise ValueError(f"ranks_per_process must be >= 1, got {k}")
+        self.process_count = dist.get_world_size()
+        self.process_index = dist.get_rank()
+        super().__init__(self.process_count * k, k, self.process_index * k)
+        self.device = resolve_device(device)
+        self.wire = str(dist.get_backend()).lower()
+        if self.wire == "nccl" and self.device.type != "cuda":
+            raise ValueError("an NCCL group moves device tensors: pass a "
+                             "cuda device, or use a gloo group for cpu")
+        self._staged = self.wire != "nccl" and self.device.type == "cuda"
+
+    def __repr__(self) -> str:
+        return (f"ProcessBackend(process {self.process_index} of "
+                f"{self.process_count}, ranks {self.first_rank}.."
+                f"{self.first_rank + self.n_local - 1}, device="
+                f"{self.device}, wire={self.wire})")
+
+    # -- the wire ---------------------------------------------------------
+    def _bytes(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as flat bytes where the wire reads them: on the device
+        for NCCL and host tensors, in a pinned host buffer otherwise."""
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        if not self._staged:
+            return b
+        host = torch.empty(b.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(b, non_blocking=True)
+        return host
+
+    def _empty(self, nbytes: int) -> torch.Tensor:
+        if self._staged:
+            return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        return torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+
+    def _tensor(self, b: torch.Tensor, dtype, shape) -> torch.Tensor:
+        t = b.view(dtype).reshape(shape)
+        return t.to(self.device, non_blocking=True) if self._staged else t
+
+    def _ready(self) -> None:
+        """Staged sends read host buffers the current stream fills."""
+        if self._staged:
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _wait(self, works) -> None:
+        """NCCL's ``wait`` orders the calling thread's current stream
+        after the work (the host goes on); gloo's blocks the host, under
+        the stall watchdog and the op timeout.  A transport that fails
+        (gloo sees a dead peer's socket close at once) raises through
+        :func:`_attribute_failure`."""
+        from bluefog_tpu_torch.context import BluefogError, timed_wait
+
+        works = [w for w in works if w is not None]
+        try:
+            if self.wire == "nccl":
+                for w in works:
+                    w.wait()
+            elif works:
+                timed_wait(self.EXCHANGE,
+                           lambda: [w.wait() for w in works])
+        except BluefogError:
+            raise
+        except RuntimeError as exc:
+            raise _attribute_failure(self.EXCHANGE, exc) from exc
+
+    # -- the primitives ---------------------------------------------------
+    def permute(self, x: torch.Tensor, perm) -> torch.Tensor:
+        import torch.distributed as dist
+
+        k, first = self.n_local, self.first_rank
+        pairs = sorted(perm)
+        local = tuple((s - first, d - first) for s, d in pairs
+                      if self.owns(s) and self.owns(d))
+        sends: dict = {}
+        recvs: dict = {}
+        for s, d in pairs:
+            if self.owns(s) and not self.owns(d):
+                sends.setdefault(d // k, []).append(s - first)
+            elif self.owns(d) and not self.owns(s):
+                recvs.setdefault(s // k, []).append(d - first)
+        out = _permute(x, local)
+        if not sends and not recvs:
+            return out
+        row = tuple(x.shape[1:])
+        nbytes = x[:1].numel() * x.element_size()
+        with torch.profiler.record_function(self.EXCHANGE):
+            ops, inbox = [], []
+            for q, rows in sorted(sends.items()):
+                buf = self._bytes(x.index_select(
+                    0, _device_const(tuple(rows), x.device)))
+                ops.append(dist.P2POp(dist.isend, buf, q))
+            for q, rows in sorted(recvs.items()):
+                buf = self._empty(len(rows) * nbytes)
+                ops.append(dist.P2POp(dist.irecv, buf, q))
+                inbox.append((rows, buf))
+            self._ready()
+            self._wait(dist.batch_isend_irecv(ops))
+            for rows, buf in inbox:
+                out.index_copy_(0, _device_const(tuple(rows), x.device),
+                                self._tensor(buf, x.dtype,
+                                             (len(rows),) + row))
+        return out
+
+    def gather_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        with torch.profiler.record_function(self.EXCHANGE):
+            b = self._bytes(x)
+            self._ready()
+            if self.wire == "nccl":
+                got = self._empty(self.process_count * b.numel())
+                self._wait([dist.all_gather_into_tensor(got, b,
+                                                        async_op=True)])
+            else:
+                parts = [self._empty(b.numel())
+                         for _ in range(self.process_count)]
+                self._wait([dist.all_gather(parts, b, async_op=True)])
+                got = torch.cat(parts)
+            return self._tensor(got, x.dtype,
+                                (self.size,) + tuple(x.shape[1:]))
+
+    def rank_row(self, x: torch.Tensor, rank: int) -> torch.Tensor:
+        import torch.distributed as dist
+
+        with torch.profiler.record_function(self.EXCHANGE):
+            if self.owns(rank):
+                b = self._bytes(super().rank_row(x, rank))
+            else:
+                b = self._empty(x[:1].numel() * x.element_size())
+            self._ready()
+            self._wait([dist.broadcast(b, src=rank // self.n_local,
+                                       async_op=True)])
+            return self._tensor(b, x.dtype, (1,) + tuple(x.shape[1:]))
+
+    def all_sizes(self, sizes: Sequence[int]) -> List[int]:
+        import torch.distributed as dist
+
+        mine = [int(v) for v in sizes]
+        if self.process_count == 1:
+            return mine
+        got: list = [None] * self.process_count
+        dist.all_gather_object(got, mine)
+        return [v for part in got for v in part]
+
+    def machine_mean(self, x, local_size, dtype, average=True):
+        if self.n_local % int(local_size) == 0:
+            # every machine lies inside one process
+            return _machine_mean(x, local_size, dtype, average)
+        return self.own(_machine_mean(self.gather_ranks(x), local_size,
+                                      dtype, average))
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+
+        super().barrier()
+        self._wait([dist.barrier(async_op=True)])

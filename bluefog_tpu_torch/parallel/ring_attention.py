@@ -23,8 +23,8 @@ import torch
 __all__ = ["ring_attention", "blockwise_attention", "full_attention"]
 
 _NEG_INF = -1e30
-_RING_ITEM = ("ROADMAP.md Queue 1, item 10 (ring and Ulysses attention, "
-              "after item 6's process backend)")
+_RING_ITEM = ("ROADMAP.md Queue 1, item 10 (ring and Ulysses attention "
+              "over the process backend)")
 
 
 def _merge_block(carry_m, carry_l, carry_acc, scores, v):

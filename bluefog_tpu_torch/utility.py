@@ -3,9 +3,11 @@
 Port of ``bluefog_tpu/utility.py`` (reference bluefog/torch/utility.py:
 broadcast_parameters:26, allreduce_parameters:58,
 broadcast_optimizer_state:89).  Parameters are ``{name: tensor}`` dicts
-whose tensors are rank-major ``[size, ...]`` (a tensor without the
-leading rank axis is taken as replicated and tiled into rank-major form).
-Rank-major tensors are written in place, as the reference does.
+whose tensors are rank-major: a leading axis of the ranks this process
+holds (a tensor without it is taken as replicated and tiled into
+rank-major form).  Rank-major tensors are written in place, as the
+reference does.  Across processes the broadcasts go out from the process
+that holds ``root_rank``.
 """
 
 from __future__ import annotations
@@ -25,14 +27,14 @@ __all__ = [
 
 
 def _is_rank_major(t: torch.Tensor) -> bool:
-    return t.dim() >= 1 and t.shape[0] == get_context().size()
+    return t.dim() >= 1 and t.shape[0] == get_context().n_local()
 
 
 def _leaf_broadcast(leaf: torch.Tensor, root_rank: int) -> torch.Tensor:
     if _is_rank_major(leaf):
         with torch.no_grad():
             return api.broadcast_(leaf, root_rank)
-    n = get_context().size()
+    n = get_context().n_local()
     tiled = leaf.unsqueeze(0).expand((n,) + tuple(leaf.shape))
     return api.broadcast(tiled.contiguous(), root_rank)
 

@@ -1,25 +1,27 @@
 """One-sided ("window") gossip ops — the port's mailbox subsystem.
 
-Port of ``bluefog_tpu/windows.py`` over the stacked backend.  The
-reference implements windows with MPI RMA (reference
-bluefog/common/mpi_controller.cc:795-1392) or an NCCL emulation; its
-*Python-visible* state is per-in-neighbor receive buffers
-(``WinTorchStorageManager``, reference torch/mpi_win_ops.cc:83-105), and
-that is what this module keeps, as rank-major tensors on the device:
+Port of ``bluefog_tpu/windows.py``.  The reference implements windows
+with MPI RMA (reference bluefog/common/mpi_controller.cc:795-1392) or an
+NCCL emulation; its *Python-visible* state is per-in-neighbor receive
+buffers (``WinTorchStorageManager``, reference torch/mpi_win_ops.cc:83-105),
+and that is what this module keeps, as rank-major tensors on the device
+(``k`` = the ranks this process holds, every rank on one process):
 
-* ``value``     [n, *shape]      rank-major window tensors
-* ``mailbox``   [n, d, *shape]   slot [dst, k] = what dst's k-th (sorted)
+* ``value``     [k, *shape]      rank-major window tensors
+* ``mailbox``   [k, d, *shape]   slot [dst, j] = what dst's j-th (sorted)
   in-neighbor last sent (d = max in-degree: in-degree-bounded, never a
   dense [n, n, ...] buffer)
-* ``versions``  [n, d] int32     bumped on put/get/accumulate, cleared on update
-* ``p``         [n] float64      associated push-sum scalar (init 1.0)
-* ``p_mailbox`` [n, d] float64   mailbox for p
+* ``versions``  [k, d] int32     bumped on put/get/accumulate, cleared on update
+* ``p``         [k] float64      associated push-sum scalar (init 1.0)
+* ``p_mailbox`` [k, d] float64   mailbox for p
 
-A put over one shift class of the destination set is one gather along
-the rank axis (the senders' rows) written into the receivers' slots for
-those senders; ``win_update`` is a local weighted combine.  Payloads are
-scaled and combined in float32, as the JAX kernels do.  The index tables
-(who sends, who receives, into which slot) are built on the host once per
+A put over one shift class of the destination set is one permute of the
+backend (the senders' scaled rows to their receivers, across processes
+under a ``ProcessBackend``), written into the receivers' slots for
+those senders; the associated p rides a second permute.
+``win_update`` is a local weighted combine.  Payloads are scaled and
+combined in float32, as the JAX kernels do.  The index tables (who
+sends, who receives, into which slot) are built on the host once per
 (window, edge structure) and cached on the device; the per-edge and self
 weights are runtime tensors, so a schedule that varies weights every
 step reuses the tables and makes no host sync.
@@ -39,8 +41,7 @@ import numpy as np
 import torch
 
 from bluefog_tpu_torch.context import (BluefogContext, BluefogError,
-                                       WeightArg, host_fetch, record_event,
-                                       timed_wait)
+                                       WeightArg, record_event, timed_wait)
 from bluefog_tpu_torch.parallel import collectives as C
 from bluefog_tpu_torch.topology.spec import DynamicTopology
 
@@ -57,7 +58,7 @@ class Window:
 
     def __init__(self, ctx: BluefogContext, name: str, value: torch.Tensor,
                  zero_init: bool):
-        n = ctx.size()
+        n, k = ctx.size(), ctx.n_local()
         dev = value.device
         self.name = name
         self.ctx = ctx
@@ -73,16 +74,16 @@ class Window:
         # Mailbox init: each slot holds its in-neighbor's value (a fresh
         # put's no-op state), or zeros (reference
         # torch/mpi_win_ops.cc:88-100 RegisterWinName).
-        self.mailbox = torch.zeros((n, self.d_max) + self.shape,
+        self.mailbox = torch.zeros((k, self.d_max) + self.shape,
                                    dtype=value.dtype, device=dev)
         if not zero_init:
             filled = ctx.backend.neighbor_allgather_padded(
                 value, ctx.topology_spec())
             self.mailbox[:, :filled.shape[1]] = filled
-        self.versions = torch.zeros((n, self.d_max), dtype=torch.int32,
+        self.versions = torch.zeros((k, self.d_max), dtype=torch.int32,
                                     device=dev)
-        self.p = torch.ones((n,), dtype=P_DTYPE, device=dev)
-        self.p_mailbox = torch.zeros((n, self.d_max), dtype=P_DTYPE,
+        self.p = torch.ones((k,), dtype=P_DTYPE, device=dev)
+        self.p_mailbox = torch.zeros((k, self.d_max), dtype=P_DTYPE,
                                      device=dev)
 
     def nbytes(self) -> int:
@@ -93,23 +94,41 @@ class Window:
                     self.p_mailbox))
 
 
+class _Class:
+    """One shift class of a window op on this process's rows: the
+    class's (src, dst) pairs (the permute), each local row's destination
+    in the class (``to``: its weight is the weight of that edge), and the
+    local destinations of its edges (``dst`` local rows, ``dst_rank``
+    global, ``slot`` their mailbox slots)."""
+
+    __slots__ = ("perm", "to", "dst", "dst_rank", "slot")
+
+    def __init__(self, cls, in_lists, ax, device):
+        n = ax.size
+        dst = [d for d in range(n) if cls.recv_weights[d] != 0.0]
+        self.perm = tuple(sorted(((d - cls.shift) % n, d) for d in dst))
+        mine = [(d, in_lists[d].index((d - cls.shift) % n)) for d in dst
+                if ax.owns(d)]
+
+        def table(v):
+            return torch.tensor(v, dtype=torch.long, device=device)
+
+        self.to = table([(r + cls.shift) % n for r in ax.ranks])
+        self.dst = table([d - ax.first_rank for d, _ in mine])
+        self.dst_rank = table([d for d, _ in mine])
+        self.slot = table([j for _, j in mine])
+
+
 class _Edges:
-    """The device index tables of one (window, edge structure): per shift
-    class (in the order of the ``[n_classes, n]`` weight rows), the
-    sources, destinations and destination slots of its edges."""
+    """The device index tables of one (window, edge structure): one
+    :class:`_Class` per shift class, in the order of the ``[n_classes,
+    n]`` weight rows."""
 
     __slots__ = ("classes",)
 
-    def __init__(self, structure: DynamicTopology, in_lists, device):
-        n = structure.size
-        self.classes = []
-        for cls in structure.shift_classes:
-            dst = [d for d in range(n) if cls.recv_weights[d] != 0.0]
-            src = [(d - cls.shift) % n for d in dst]
-            slot = [in_lists[d].index(s) for s, d in zip(src, dst)]
-            self.classes.append(tuple(
-                torch.tensor(v, dtype=torch.long, device=device)
-                for v in (src, dst, slot)))
+    def __init__(self, structure: DynamicTopology, in_lists, ax, device):
+        self.classes = [_Class(cls, in_lists, ax, device)
+                        for cls in structure.shift_classes]
 
 
 def _rows(w: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -241,7 +260,8 @@ class WindowManager:
         edges = self.ctx._op_cache.get(key)
         if edges is None:
             edges = self.ctx._op_cache[key] = _Edges(
-                C.edge_structure(spec), win.in_lists, win.value.device)
+                C.edge_structure(spec), win.in_lists, self.ctx.backend,
+                win.value.device)
         return edges
 
     def _weights(self, spec: DynamicTopology, self_weights=None):
@@ -276,24 +296,37 @@ class WindowManager:
             spec, WeightArg.per_rank(self_weight, ctx.size(), "self"))
         # the payload and p scale by the f32-rounded weights, as the JAX
         # kernels cast them
-        wv, sw = wv.float(), sw.float()
+        wv, sw = wv.float(), ctx.backend.own(sw.float())
         xf = x.float()
-        for c, (src, dst, slot) in enumerate(edges.classes):
-            w = wv[c].index_select(0, dst)
-            sent = (xf.index_select(0, src) * _rows(w, xf.dim())
-                    ).to(x.dtype)
-            win.mailbox.index_put_((dst, slot), sent, accumulate=accumulate)
-            win.versions.index_put_((dst, slot),
-                                    torch.ones_like(src, dtype=torch.int32),
-                                    accumulate=True)
-            if associated_p:
-                p_sent = win.p.index_select(0, src) * w.to(P_DTYPE)
-                win.p_mailbox.index_put_((dst, slot), p_sent,
-                                         accumulate=accumulate)
+        for c, cls in enumerate(edges.classes):
+            self._deliver(win, cls, xf, x.dtype, wv[c], accumulate,
+                          associated_p)
         win.value = (xf * _rows(sw, xf.dim())).to(x.dtype)
         if associated_p:
             win.p = win.p * sw.to(P_DTYPE)
         return self._register(name)
+
+    def _deliver(self, win: Window, cls: _Class, xf: torch.Tensor, dtype,
+                 w_row: torch.Tensor, accumulate: bool, associated_p: bool):
+        """One shift class of a put, accumulate or get: every sender
+        scales its row by the weight of its edge, one permute carries the
+        rows (and one more the scaled p) to the receivers, which write
+        them into their slots for those senders and bump the versions."""
+        ax = self.ctx.backend
+        w = w_row.index_select(0, cls.to)
+        sent = ax.permute((xf * _rows(w, xf.dim())).to(dtype), cls.perm)
+        if cls.dst.numel():
+            win.mailbox.index_put_((cls.dst, cls.slot),
+                                   sent.index_select(0, cls.dst),
+                                   accumulate=accumulate)
+            win.versions.index_put_((cls.dst, cls.slot), torch.ones_like(
+                cls.dst, dtype=torch.int32), accumulate=True)
+        if associated_p:
+            p_sent = ax.permute(win.p * w.to(P_DTYPE), cls.perm)
+            if cls.dst.numel():
+                win.p_mailbox.index_put_((cls.dst, cls.slot),
+                                         p_sent.index_select(0, cls.dst),
+                                         accumulate=accumulate)
 
     def get(self, name: str, src_weights=None,
             require_mutex: bool = False) -> int:
@@ -307,17 +340,9 @@ class WindowManager:
         edges = self._program("win_get", win, spec)
         wv = self._weights(spec)[0].float()
         xf = win.value.float()
-        for c, (src, dst, slot) in enumerate(edges.classes):
-            w = wv[c].index_select(0, dst)
-            fetched = (xf.index_select(0, src) * _rows(w, xf.dim())
-                       ).to(win.dtype)
-            win.mailbox.index_put_((dst, slot), fetched)
-            win.versions.index_put_((dst, slot),
-                                    torch.ones_like(src, dtype=torch.int32),
-                                    accumulate=True)
-            if associated_p:
-                win.p_mailbox.index_put_(
-                    (dst, slot), win.p.index_select(0, src) * w.to(P_DTYPE))
+        for c, cls in enumerate(edges.classes):
+            self._deliver(win, cls, xf, win.dtype, wv[c], False,
+                          associated_p)
         return self._register(name)
 
     def update(self, name: str, self_weight: Optional[float] = None,
@@ -384,11 +409,14 @@ class WindowManager:
 
         # the payload combines in f32; p in f64 with the f32-rounded self
         # weight and float64 neighbor weights, as the JAX kernel does
-        sw = sw.float()
+        sw = ctx.backend.own(sw.float())
         acc = win.value.float() * _rows(sw, win.value.dim())
         new_p = win.p * sw.to(P_DTYPE) if associated_p else win.p
-        for c, (src, dst, slot) in enumerate(edges.classes):
-            w = wv[c].index_select(0, dst)
+        for c, cls in enumerate(edges.classes):
+            if not cls.dst.numel():
+                continue
+            dst, slot = cls.dst, cls.slot
+            w = wv[c].index_select(0, cls.dst_rank)
             cur = win.mailbox[dst, slot].float()
             acc.index_add_(0, dst, cur * _rows(w.float(), cur.dim()))
             if associated_p:
@@ -398,7 +426,7 @@ class WindowManager:
             # still counts as read): versions clear; under reset the
             # slots clear too
             win.versions.index_put_((dst, slot), torch.zeros_like(
-                src, dtype=torch.int32))
+                dst, dtype=torch.int32))
             if reset:
                 win.mailbox.index_put_((dst, slot), torch.zeros(
                     (), dtype=win.dtype, device=win.mailbox.device))
@@ -419,16 +447,20 @@ class WindowManager:
 
     def versions_of(self, name: str, rank: Optional[int] = None
                     ) -> Dict[int, int]:
+        """Rank ``rank``'s versions per in-neighbor (across processes a
+        gather of every rank's: every process calls it, as the JAX
+        package's ``host_fetch``)."""
         win = self.window(name)
         r = self.ctx.rank() if rank is None else rank
-        vers = host_fetch(win.versions)
-        return {s: int(vers[r, win.in_lists[r].index(s)])
+        vers = self.ctx.to_rank_values(win.versions)
+        return {s: int(vers[r][win.in_lists[r].index(s)])
                 for s in win.in_neighbors[r]}
 
     def associated_p(self, name: str, rank: Optional[int] = None) -> float:
+        """Rank ``rank``'s associated p (a gather, as ``versions_of``)."""
         win = self.window(name)
         r = self.ctx.rank() if rank is None else rank
-        return float(host_fetch(win.p)[r])
+        return float(self.ctx.to_rank_values(win.p)[r])
 
 
 @contextmanager

@@ -163,6 +163,30 @@ Phases (any failure raises and exits non-zero, printing no result):
 17. Reference (eager wrappers): the tiny f32 ResNet of phase 7, 3 eager
    steps over 4 ranks, card (K1) against host, for the six wrappers and
    CompressedOptimizer(TopK) over ATC, within phase 7's tolerance.
+18. The process backend, through the port's bfrun (python -m
+   bluefog_tpu_torch.run; the children are this script with --child,
+   loading the kernels phase 1 built; every job under a timeout that
+   kills all its processes): the parent first trains StackedBackend(2)
+   3 atc steps over ExponentialTwoGraph(2) from one state, ResNet-50 at
+   batch 16 a rank with cuDNN deterministic, as the reference.
+   a. bfrun -np 1, one process holding 2 ranks, bf.init() joining an
+      NCCL group of world size 1: the 3 reference steps bit-equal to
+      the parent's; then batch 128 a rank, 2 warm-up and 3 timed steps
+      (img/s per card, step ms, the combine's ms, peak memory, K1 20 x
+      2 x 5 launches), 0 host syncs in a steady step; the eager
+      allreduce, broadcast and allgather through NCCL, exact.
+   b. bfrun -np 2 on the one card, each process creating a gloo group
+      that bf.init(device="cuda:0") adopts (device tensors cross through
+      pinned host buffers): the 3 reference steps within phase 7's
+      tolerance of the parent's (and whether bit-equal); the consensus
+      distance under atc below comm_mode="none"'s; the timed window of
+      (a) at one rank a process (K1 20 x 5), the exchange's ms and the
+      wire's three legs (device to host, gloo, host to device) for the
+      params' bytes; then an eager job of 2 ranks a process:
+      neighbor_allreduce consensus, win_put gossip, a ragged
+      neighbor_allgather over StarGraph(4).
+   c. NCCL asked for two ranks on one card: the exit code and NCCL's
+      message (the reason (b) runs over gloo).
 
 The line before the last is a JSON object with one entry per kernel
 (seven); the last line is {"ok": true, "device": {...}}.
@@ -988,9 +1012,11 @@ def phase_k1(name, seed):
     return results
 
 
-def _resnet_step(n_ranks, comm_mode, seed, batch, **kw):
-    """ResNet-50 (pallas_conv1x1=True) over ``n_ranks`` stacked ranks:
-    (step, params, stats, optimizer, synthetic batch), all from --seed."""
+def _resnet_step(n_ranks, comm_mode, seed, batch, backend=None, **kw):
+    """ResNet-50 (pallas_conv1x1=True) over ``n_ranks`` stacked ranks, or
+    over ``backend`` (a ProcessBackend of ``n_ranks`` ranks: this
+    process's rows of every rank's batch): (step, params, stats,
+    optimizer, synthetic batch), all from --seed."""
     import torch.nn.functional as F
 
     import bluefog_tpu_torch as bt
@@ -998,7 +1024,8 @@ def _resnet_step(n_ranks, comm_mode, seed, batch, **kw):
     model = bt.ResNet50(num_classes=1000, pallas_conv1x1=True,
                         device="cuda",
                         generator=torch.Generator("cuda").manual_seed(seed))
-    backend = bt.StackedBackend(n_ranks, device="cuda")
+    if backend is None:
+        backend = bt.StackedBackend(n_ranks, device="cuda")
     p0, s0 = model.state()
     params, stats = bt.rank_major(p0, backend), bt.rank_major(s0, backend)
     opt = torch.optim.SGD(params.values(), lr=0.1, momentum=0.9)
@@ -1015,7 +1042,8 @@ def _resnet_step(n_ranks, comm_mode, seed, batch, **kw):
                          device="cuda", dtype=torch.bfloat16)
     labels = torch.randint(0, 1000, (n_ranks, batch), generator=g,
                            device="cuda")
-    return step, params, stats, opt, (images, labels)
+    return step, params, stats, opt, (backend.own(images),
+                                      backend.own(labels))
 
 
 def _reset_counts():
@@ -2648,14 +2676,415 @@ def phase_eager_reference(seed):
 
 
 
+
+# ------------------------------------------------------------------ #
+# phase 18: the process backend (bfrun, torch.distributed)
+# ------------------------------------------------------------------ #
+PROCESS_BATCH = 16   # the comparison's per-rank batch
+PROCESS_STEPS = 3    # the comparison's steps from one state
+PROCESS_TIMEOUT = 300
+
+
+def _exp2(n):
+    import bluefog_tpu_torch as bt
+
+    return bt.uniform_topology_spec(bt.ExponentialTwoGraph(n))
+
+
+def _process_compare(backend, seed, comm_mode="atc"):
+    """PROCESS_STEPS steps of ResNet-50 over ``backend``'s 2 ranks from
+    one state at PROCESS_BATCH a rank, cuDNN in its deterministic mode:
+    (this process's params, stats and losses on the host, the consensus
+    distance over every rank)."""
+    import bluefog_tpu_torch as bt
+
+    bench, det = (torch.backends.cudnn.benchmark,
+                  torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        kw = dict(topology=_exp2(2)) if comm_mode == "atc" else {}
+        step, params, stats, opt, batch = _resnet_step(
+            2, comm_mode, seed, PROCESS_BATCH, backend=backend, **kw)
+        losses = []
+        for i in range(PROCESS_STEPS):
+            params, stats, opt, loss = step(params, stats, opt, batch, i)
+            losses.append(loss)
+        spread = float(bt.consensus_distance(params, backend))
+        out = {f"param.{k}": v.detach().cpu() for k, v in params.items()}
+        out.update({f"stat.{k}": v.cpu() for k, v in stats.items()})
+        out["loss"] = torch.stack(losses, dim=1).cpu()
+        del step, params, stats, opt, batch
+    finally:
+        torch.backends.cudnn.benchmark = bench
+        torch.backends.cudnn.deterministic = det
+        torch.cuda.empty_cache()
+    return out, spread
+
+
+def _timed_process_steps(backend, seed, what, warmup=2, timed=3):
+    """Phase 18's timed window: ResNet-50 at batch 128 a rank under atc
+    over ExponentialTwoGraph(2), K1 counted from zero; then the host
+    syncs of one more steady step and the combine alone (host wall: the
+    gloo wire waits on the host).  Returns the record the parent logs."""
+    torch.backends.cudnn.benchmark = True
+    step, params, stats, opt, batch = _resnet_step(
+        2, "atc", seed, BATCH, backend=backend, topology=_exp2(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    for i in range(warmup):
+        params, stats, opt, loss = step(params, stats, opt, batch, i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + timed):
+        params, stats, opt, loss = step(params, stats, opt, batch, i)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / timed
+    launches = _expect_launches(what, {
+        "conv1x1_backward": K1_LAUNCHES_PER_RANK_STEP * backend.n_local
+        * (warmup + timed)})["conv1x1_backward"]
+    if not torch.isfinite(loss).all():
+        raise AssertionError(f"{what}: non-finite loss {loss.tolist()}")
+    syncs = _count_syncs(lambda: step(params, stats, opt, batch,
+                                      warmup + timed))
+    copy = {k: v.clone() for k, v in params.items()}
+    combine = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step.combine(copy, 0)
+        torch.cuda.synchronize()
+        combine.append((time.perf_counter() - t1) * 1e3)
+    rec = dict(step_ms=wall * 1e3,
+               img_s=BATCH * backend.n_local * timed / (wall * timed),
+               combine_ms=statistics.median(combine[1:]),
+               launches=launches, steps=warmup + timed, syncs=syncs,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               wire=("gloo through host" if backend._staged
+                     else backend.wire))
+    del step, params, stats, opt, batch, copy
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _report(rec):
+    print("PHASE18 " + json.dumps(rec), flush=True)
+
+
+def child_18a(seed, out_dir):
+    """One process under bfrun -np 1, 2 stacked ranks, NCCL."""
+    import torch.distributed as dist
+
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.context import get_context
+
+    bt.init()
+    b = get_context().backend
+    if not (type(b).__name__ == "ProcessBackend" and b.wire == "nccl"
+            and (b.size, b.n_local, b.process_count) == (2, 2, 1)):
+        raise AssertionError(f"18a: {b}")
+    got, spread = _process_compare(b, seed)
+    torch.save(got, os.path.join(out_dir, "a0.pt"))
+    rec = _timed_process_steps(b, seed, "18a")
+    if rec["syncs"] != 0:
+        raise AssertionError(f"18a: a steady step made {rec['syncs']} "
+                             "host syncs")
+    # the eager collectives through NCCL: rank r holds r + 1
+    x = bt.from_rank_values(lambda r: torch.full((1024,), float(r + 1),
+                                                 device="cuda"))
+    got_ops = dict(allreduce=bt.allreduce(x), broadcast=bt.broadcast(x, 1),
+                   allgather=bt.allgather(x))
+    want = dict(allreduce=torch.full_like(x, 1.5),
+                broadcast=torch.full_like(x, 2.0),
+                allgather=torch.cat([x[:1], x[1:]], dim=1).expand(2, -1))
+    for k, v in want.items():
+        if not torch.equal(got_ops[k], v):
+            raise AssertionError(f"18a: eager {k} through NCCL is wrong")
+    rec.update(backend=repr(b), nccl=torch.cuda.nccl.version(),
+               eager_ops="allreduce, broadcast, allgather exact",
+               spread=spread, world=dist.get_world_size())
+    _report(rec)
+    bt.shutdown()
+
+
+def _wire_split(b, nbytes, reps=5):
+    """The gloo wire's three legs for one ``nbytes`` payload each way,
+    median ms of ``reps`` (the first run not counted): the device to
+    pinned host copy, gloo's send and receive with the other process,
+    and the copy back."""
+    import torch.distributed as dist
+
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=b.device)
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    inbox = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    peer = 1 - b.process_index
+    legs = dict(d2h=[], gloo=[], h2d=[])
+    for _ in range(reps + 1):
+        for leg, fn in (
+                ("d2h", lambda: host.copy_(dev, non_blocking=True)),
+                ("gloo", lambda: [w.wait() for w in dist.batch_isend_irecv(
+                    [dist.P2POp(dist.isend, host, peer),
+                     dist.P2POp(dist.irecv, inbox, peer)])]),
+                ("h2d", lambda: dev.copy_(inbox, non_blocking=True))):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            legs[leg].append((time.perf_counter() - t) * 1e3)
+    return {f"{k}_ms": statistics.median(v[1:]) for k, v in legs.items()}
+
+
+def child_18b(seed, out_dir):
+    """Process p of 2 on the one card, 1 rank each, over a gloo group
+    the process creates itself and bf.init adopts."""
+    import datetime
+
+    import torch.distributed as dist
+
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.context import get_context
+    from bluefog_tpu_torch.topology import StarGraph
+
+    pid = int(os.environ["BLUEFOG_TPU_PROCESS_ID"])
+    dist.init_process_group(
+        "gloo", init_method=os.environ["BLUEFOG_TPU_COORDINATOR"], rank=pid,
+        world_size=2, timeout=datetime.timedelta(seconds=PROCESS_TIMEOUT))
+    bt.init(device="cuda:0")
+    b = get_context().backend
+    if not (b.wire == "gloo" and b._staged
+            and (b.size, b.n_local, b.first_rank) == (2, 1, pid)):
+        raise AssertionError(f"18b: {b}")
+    got, spread = _process_compare(b, seed)
+    torch.save(got, os.path.join(out_dir, f"b{pid}.pt"))
+    _, spread_none = _process_compare(b, seed, comm_mode="none")
+    rec = _timed_process_steps(b, seed, "18b")
+    wire_bytes = sum(v[0].numel() * v.element_size()
+                     for k, v in got.items() if k.startswith("param."))
+    rec.update(backend=repr(b), spread_atc=spread, spread_none=spread_none,
+               wire_bytes=wire_bytes, **_wire_split(b, wire_bytes))
+    bt.shutdown()
+    if not dist.is_initialized():
+        raise AssertionError("18b: shutdown destroyed the adopted group")
+
+    # the eager job over the same processes: 2 ranks each
+    bt.init(size=4, device="cuda:0")
+    x = bt.from_rank_values(lambda r: torch.full((64,), float(r),
+                                                 device="cuda"))
+    for _ in range(30):
+        x = bt.neighbor_allreduce(x)
+    err_nar = max(float(abs(v - 1.5).max()) for v in bt.to_rank_values(x))
+    y = bt.from_rank_values(lambda r: torch.full((8,), float(r),
+                                                 device="cuda"))
+    bt.win_create(y, "w18")
+    for _ in range(30):
+        bt.win_put(y, "w18")
+        y = bt.win_update("w18")
+    err_win = max(float(abs(v - 1.5).max()) for v in bt.to_rank_values(y))
+    bt.win_free("w18")
+    bt.set_topology(StarGraph(4))
+    z = bt.from_rank_values(lambda r: torch.full((2,), float(r),
+                                                 device="cuda"))
+    rag = bt.neighbor_allgather(z)
+    want = {0: [1.0, 1.0, 2.0, 2.0, 3.0, 3.0], 1: [0.0, 0.0],
+            2: [0.0, 0.0], 3: [0.0, 0.0]}
+    for i, r in enumerate(range(2 * pid, 2 * pid + 2)):
+        if rag[i].tolist() != want[r]:
+            raise AssertionError(f"18b: ragged neighbor_allgather rank {r}: "
+                                 f"{rag[i].tolist()}")
+    if err_nar > 1e-5 or err_win > 1e-4:
+        raise AssertionError(f"18b eager: consensus error {err_nar}, "
+                             f"window gossip {err_win}")
+    rec.update(eager_consensus_err=err_nar, eager_window_err=err_win)
+    _report(rec)
+    bt.shutdown()
+    dist.destroy_process_group()
+
+
+def child_nccl_two_ranks_one_card(seed, out_dir):
+    """NCCL asked to put two ranks on one card."""
+    import datetime
+
+    import torch.distributed as dist
+
+    pid = int(os.environ["BLUEFOG_TPU_PROCESS_ID"])
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=os.environ["BLUEFOG_TPU_COORDINATOR"], rank=pid,
+        world_size=2, timeout=datetime.timedelta(seconds=60))
+    t = torch.ones(1, device="cuda:0")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    _report(dict(nccl_two_ranks_one_card="accepted", sum=float(t)))
+    dist.destroy_process_group()
+
+
+CHILDREN = {"18a": child_18a, "18b": child_18b,
+            "nccl_dup": child_nccl_two_ranks_one_card}
+
+
+def _bfrun_children(name, nproc, out_dir, seed, extra_env=(),
+                    timeout=PROCESS_TIMEOUT):
+    """``python -m bluefog_tpu_torch.run -np nproc`` of this script's
+    child ``name``, in a session of its own (a timeout kills the launcher
+    and every process it started).  Returns (exit code, output, the
+    children's PHASE18 records)."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    cmd = [sys.executable, "-m", "bluefog_tpu_torch.run", "-np", str(nproc),
+           "--coordinator", "file://" + os.path.join(out_dir,
+                                                     f"{name}.store")]
+    for kv in extra_env:
+        cmd += ["--extra-env", kv]
+    cmd += ["--", sys.executable, os.path.abspath(__file__), "--child",
+            name, "--seed", str(seed), "--dir", out_dir]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            cwd=root, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"phase 18 {name}: the job ran past "
+                             f"{timeout} s:\n{out[-4000:]}")
+    recs = [json.loads(line.split("PHASE18 ", 1)[1])
+            for line in out.splitlines() if "PHASE18 " in line]
+    return proc.returncode, out, recs
+
+
+def _check_against(got, want, rows, what, exact):
+    """``got`` (a child's rows) against rows ``rows`` of the stacked
+    reference: bit-equal when ``exact``, else phase 7's tolerance (5e-4
+    of each leaf's largest entry plus 5e-7, losses 1e-5).  Returns
+    (bit-equal, worst error over its tolerance)."""
+    same, worst = True, 0.0
+    for k, w in want.items():
+        w = w[rows]
+        g = got[k]
+        if g.shape != w.shape:
+            raise AssertionError(f"{what} {k}: shape {tuple(g.shape)}, "
+                                 f"want {tuple(w.shape)}")
+        same = same and torch.equal(g, w)
+        tol = (1e-5 if k == "loss"
+               else 5e-4 * float(w.abs().max()) + 5e-7)
+        worst = max(worst, float((g.float() - w.float()).abs().max()) / tol)
+    if exact and not same:
+        raise AssertionError(f"{what}: not bit-equal to StackedBackend(2) "
+                             f"(worst {worst:.3g} of phase 7's tolerance)")
+    if worst > 1:
+        raise AssertionError(f"{what}: {worst:.3g} of phase 7's tolerance")
+    return same, worst
+
+
+def phase_process(seed):
+    """Phase 18: the process backend through the port's bfrun."""
+    import shutil
+    import tempfile
+
+    import bluefog_tpu_torch as bt
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="bf_phase18_")
+    try:
+        ref, ref_spread = _process_compare(
+            bt.StackedBackend(2, device="cuda"), seed)
+        torch.cuda.empty_cache()
+
+        # 18a: NCCL at world size 1, 2 stacked ranks
+        t0 = time.perf_counter()
+        rc, out, recs = _bfrun_children(
+            "18a", 1, out_dir, seed,
+            extra_env=("BLUEFOG_TPU_RANKS_PER_PROCESS=2",))
+        if rc != 0 or len(recs) != 1:
+            raise AssertionError(f"phase 18a failed (exit {rc}):\n"
+                                 f"{out[-6000:]}")
+        a = recs[0]
+        same, worst = _check_against(
+            torch.load(os.path.join(out_dir, "a0.pt")), ref, slice(0, 2),
+            "18a", exact=True)
+        log(f"[process18a] bfrun -np 1, {a['backend']}, NCCL "
+            f"{a['nccl']}: ResNet-50 batch {BATCH} a rank, atc over "
+            f"ExponentialTwoGraph(2): {a['img_s']:.1f} img/s per card, step "
+            f"{a['step_ms']:.2f} ms, combine {a['combine_ms']:.3f} ms, peak "
+            f"{a['peak_gib']:.2f} GiB, K1 launches {a['launches']} = 20 x 2 "
+            f"x {a['steps']} steps, {a['syncs']} host syncs a steady step; "
+            f"after {PROCESS_STEPS} steps (batch {PROCESS_BATCH}, cuDNN "
+            f"deterministic) bit-equal to StackedBackend(2) (consensus "
+            f"distance {a['spread']:.6g}, stacked {ref_spread:.6g}); eager "
+            f"{a['eager_ops']}; {time.perf_counter() - t0:.1f} s")
+
+        # 18b: two processes on the one card, gloo through host buffers
+        t0 = time.perf_counter()
+        rc, out, recs = _bfrun_children("18b", 2, out_dir, seed)
+        if rc != 0 or len(recs) != 2:
+            raise AssertionError(f"phase 18b failed (exit {rc}):\n"
+                                 f"{out[-6000:]}")
+        for r in recs:
+            p = r["backend"].split("process ")[1].split(" ")[0]
+            same, worst = _check_against(
+                torch.load(os.path.join(out_dir, f"b{p}.pt")), ref,
+                slice(int(p), int(p) + 1), f"18b process {p}", exact=False)
+            if r["launches"] != K1_LAUNCHES_PER_RANK_STEP * r["steps"]:
+                raise AssertionError(f"18b process {p}: K1 {r['launches']}")
+            if not r["spread_atc"] < r["spread_none"]:
+                raise AssertionError(
+                    f"18b: consensus distance atc {r['spread_atc']} not "
+                    f"below none {r['spread_none']}")
+            log(f"[process18b] process {p} of 2 on one card ({r['wire']}): "
+                f"ResNet-50 batch {BATCH}, atc over ExponentialTwoGraph(2): "
+                f"step {r['step_ms']:.2f} ms ({r['img_s']:.1f} img/s a "
+                f"process), exchange {r['combine_ms']:.2f} ms, peak "
+                f"{r['peak_gib']:.2f} GiB, K1 launches {r['launches']} = 20 "
+                f"x {r['steps']} steps, {r['syncs']} host syncs a steady "
+                f"step; after {PROCESS_STEPS} steps "
+                f"{'bit-equal to' if same else 'within'} StackedBackend(2) "
+                f"(worst {worst:.3g} of phase 7's tolerance); consensus "
+                f"distance atc {r['spread_atc']:.6g} < none "
+                f"{r['spread_none']:.6g}; the wire's legs for "
+                f"{r['wire_bytes'] / 1e6:.1f} MB: device to host "
+                f"{r['d2h_ms']:.2f} ms, gloo send and receive "
+                f"{r['gloo_ms']:.2f} ms, host to device {r['h2d_ms']:.2f} "
+                f"ms; eager: neighbor_allreduce "
+                f"consensus err {r['eager_consensus_err']:.3g}, win_put "
+                f"gossip {r['eager_window_err']:.3g}, ragged "
+                f"neighbor_allgather exact")
+        log(f"[process18b] {time.perf_counter() - t0:.1f} s")
+
+        # NCCL asked for two ranks on one card (the reason 18b is gloo)
+        rc, out, recs = _bfrun_children("nccl_dup", 2, out_dir, seed,
+                                        timeout=120)
+        lines = out.splitlines()
+        said = ([ln for ln in lines if "Duplicate GPU" in ln]
+                or [ln for ln in lines if "ncclInvalidUsage" in ln])
+        log(f"[process18c] NCCL, two ranks on one card: exit {rc}; "
+            + (f"refused: {said[0].strip()[:300]}" if said
+               else f"{recs or out[-600:]}"))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # phase 18's children (run by the port's bfrun), not for a user
+    ap.add_argument("--child", choices=sorted(CHILDREN),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    if args.child:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        CHILDREN[args.child](args.seed, args.dir)
+        return 0
     if os.environ.get("BLUEFOG_OPS_ON_CPU", "0") in ("1", "true", "True"):
         print("chip_smoke: BLUEFOG_OPS_ON_CPU asks the eager ops for the "
               "host; unset it to measure the card", file=sys.stderr)
@@ -2689,6 +3118,7 @@ def main() -> int:
     phase_eager_resnet(args.seed)
     torch.backends.cudnn.benchmark = False
     phase_eager_reference(args.seed)
+    phase_process(args.seed)
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):
         entries.append(dict(

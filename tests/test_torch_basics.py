@@ -149,14 +149,65 @@ def test_rank_value_helpers(both):
 
 
 def test_init_refuses_without_cuda_and_under_bfrun(monkeypatch):
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            tbf.init(size=2)
+    """Without CUDA, init refuses unless the caller asks for the CPU, in
+    one process and under bfrun's variables alike (no silent CPU path;
+    the refusal comes before any attempt to join the job)."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tbf.init(size=2)
     monkeypatch.setenv("BLUEFOG_TPU_COORDINATOR", "127.0.0.1:1234")
     monkeypatch.setenv("BLUEFOG_TPU_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tbf.init(size=2, device="cpu")
+    monkeypatch.setenv("BLUEFOG_TPU_PROCESS_ID", "1")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tbf.init()
     assert not tbf.is_initialized()
+
+
+_JOIN = """
+import numpy as np
+import torch.distributed as dist
+import bluefog_tpu_torch as bf
+
+bf.init(device="cpu")
+assert dist.get_world_size() == 2 and dist.get_backend() == "gloo"
+assert (bf.size(), bf.rank(), bf.local_size(), bf.machine_size()) == (
+    2, dist.get_rank(), 1, 2), (bf.size(), bf.rank())
+x = bf.from_rank_values(lambda r: np.full((3,), float(r), np.float32))
+assert tuple(x.shape) == (1, 3)
+y = bf.to_rank_values(bf.neighbor_allreduce(x))
+np.testing.assert_array_equal(np.stack(y), np.full((2, 3), 0.5, np.float32))
+bf.shutdown()
+assert not dist.is_initialized()
+print("joined", bf.__name__)
+"""
+
+
+def test_init_joins_a_two_process_gloo_job_under_bfrun_variables(tmp_path):
+    """Under the BLUEFOG_TPU_* variables bfrun exports, init joins a
+    2-process torch.distributed job (gloo for device='cpu', meeting in a
+    file store) and shutdown leaves it."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BLUEFOG_", "XLA_", "JAX_"))}
+    env.update(PYTHONPATH=root, BLUEFOG_TPU_NUM_PROCESSES="2",
+               BLUEFOG_TPU_PROCESS_GROUP_TIMEOUT="60",
+               BLUEFOG_TPU_COORDINATOR=f"file://{tmp_path / 'store'}")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _JOIN], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=root,
+        env=dict(env, BLUEFOG_TPU_PROCESS_ID=str(pid))) for pid in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert all("joined bluefog_tpu_torch" in o for o in outs), outs
 
 
 def test_ops_on_cpu_is_an_explicit_request(monkeypatch):
@@ -315,12 +366,33 @@ def test_op_timeout_applies_to_eager_ops(monkeypatch):
         tbf.shutdown()
 
 
-def test_heartbeat_waits_for_the_process_backend():
+def test_heartbeat_waits_for_the_process_backend(tmp_path):
+    """The heartbeats ride the job's c10d store: without one nothing is
+    judged stale; started as process 0 of 2, a process that never beats
+    and one that beat once and fell silent are reported stale, the
+    beating process is not; a failure report is recorded per process;
+    stop detaches from the store."""
+    import torch.distributed as dist
+
     from bluefog_tpu_torch import context as ctx_mod
 
-    assert ctx_mod._heartbeat.stale_processes(1.0) == []
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ctx_mod._heartbeat.start(1.0)
+    hb = ctx_mod._Heartbeat()
+    assert hb.stale_processes(1.0) == []
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    hb.start(0.05, store, 0, 3)
+    try:
+        store.add(hb.KEY.format(pid=2), 1)   # process 2 beats once
+        hb.observe()
+        time.sleep(0.5)
+        assert hb.stale_processes(0.3) == [1, 2]
+        assert int(store.add(hb.KEY.format(pid=0), 0)) > 2
+        # a process that saw an exchange fail says so (it was alive)
+        assert not hb.reported_failure(0)
+        hb.report_failure()
+        assert hb.reported_failure(0) and not hb.reported_failure(1)
+    finally:
+        hb.stop()
+    assert hb.stale_processes(0.3) == []
 
 
 @pytest.mark.parametrize("name,item", [

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of bluefog_tpu_torch/, and not
-chip_smoke.py, imports jax, flax, optax, networkx, triton or the JAX
-package; the package imports with those blocked; and its entry points
+"""The port stands alone: no module of bluefog_tpu_torch/ (its launcher
+``bluefog_tpu_torch.run`` included), and not chip_smoke.py, imports jax,
+flax, optax, networkx, triton or the JAX package; the package imports
+and the launcher runs with those blocked; and its entry points
 run on the card unless the caller asks for the CPU (without CUDA, a call
 that does not pass device="cpu" raises)."""
 
@@ -45,7 +46,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert {f"bluefog_tpu_torch/{m}.py" for m in (
         "api", "context", "windows", "utility", "logging_util",
-        "optim/wrappers", "topology/infer")} <= names
+        "optim/wrappers", "topology/infer", "run/__init__", "run/__main__",
+        "run/run")} <= names
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
            for p in files}
@@ -71,6 +73,32 @@ def test_package_imports_with_jax_blocked():
                           text=True, timeout=120, env=env, cwd=str(ROOT))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_bfrun_runs_with_jax_and_triton_blocked():
+    """The port's launcher (``python -m bluefog_tpu_torch.run``) runs
+    with jax and triton unimportable, and imports neither."""
+    code = (
+        "import runpy, sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'networkx',\n"
+        "             'bluefog_tpu', 'triton'):\n"
+        "    sys.modules[name] = None\n"
+        "sys.argv = ['bfrun', '--version']\n"
+        "try:\n"
+        "    runpy.run_module('bluefog_tpu_torch.run', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in\n"
+        "          ('jax', 'triton', 'bluefog_tpu')\n"
+        "          and sys.modules[m] is not None]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert "bfrun (bluefog_tpu_torch)" in proc.stdout
+    assert proc.stdout.rstrip().endswith("ok")
 
 
 def _entry_points():
