@@ -23,6 +23,7 @@ CUDA sources live in ``csrc/``.  Entry points take ``device=`` (default
 ``"cuda"``) and raise without CUDA unless ``device="cpu"`` is passed.
 """
 
+from bluefog_tpu_torch.version import __version__
 from bluefog_tpu_torch import models, optim, serving, topology  # noqa: F401
 # Flat API re-exports (reference: bluefog/torch/__init__.py:34-110).
 from bluefog_tpu_torch.api import (  # noqa: F401
@@ -108,7 +109,7 @@ load_cifar10 = _waits_for("load_cifar10", "7 (data, checkpoints)")
 default_pod_schedule = _waits_for("default_pod_schedule",
                                   "12 (topology/torus.py)")
 
-__all__ = ["models", "optim", "serving", "topology", "Llama",
+__all__ = ["__version__", "models", "optim", "serving", "topology", "Llama",
            "LlamaConfig", "init_cache", "llama_generate", "llama_loss_fn",
            "Request",
            "ServingEngine", "ResNet", "ResNet18", "ResNet34", "ResNet50",

@@ -1,11 +1,12 @@
 """Environment-variable configuration of the port.
 
 Port of ``bluefog_tpu/config.py``, cut to the knobs the port reads
-(the serving engine's slot pool, the observe switch, the Python
-timeline writer, the knobs ``build_train_step`` reads, and the eager
-op layer's: logging, the timeline path, fusion, the stall watchdog,
-the op timeout, ``BLUEFOG_OPS_ON_CPU``, and the launcher's job: the
-process identity, ranks per process and the group's timeout).  The
+(the serving engine's slot pool and prefix cache, the observe switch,
+the decision flight recorder, the Python timeline writer, the knobs
+``build_train_step`` reads, and the eager op layer's: logging, the
+timeline path, fusion, the stall watchdog, the op timeout,
+``BLUEFOG_OPS_ON_CPU``, and the launcher's job: the process identity,
+ranks per process and the group's timeout).  The
 environment-variable names and defaults are the JAX package's, so one
 environment configures both packages.  Every environment read of the
 port lives in this module.
@@ -36,6 +37,10 @@ __all__ = [
     "timeline_flush_every",
     "timeline_queue_capacity",
     "kv_zero_on_free",
+    "prefix_cache_mb",
+    "blackbox_enabled",
+    "blackbox_capacity",
+    "blackbox_dump_dir",
     "fuse_epilogues",
     "hier_local_size",
     "mix_compress",
@@ -216,6 +221,44 @@ def kv_zero_on_free() -> bool:
     which is all reuse needs for exactness (everything above the index
     is masked and overwritten as the next request writes)."""
     return _env("BLUEFOG_KV_ZERO_ON_FREE", "0") in ("1", "true", "True")
+
+
+def prefix_cache_mb() -> int:
+    """BLUEFOG_PREFIX_CACHE_MB (default 64): host-side byte budget of the
+    serving prefix cache (:mod:`bluefog_tpu_torch.serving.prefix_cache`),
+    in MiB.  K/V chunks of prompts are retained up to this bound (LRU) so
+    requests sharing a prompt prefix admit by copying cached chunks
+    instead of re-running prefill.  0 disables retention."""
+    try:
+        return int(_env("BLUEFOG_PREFIX_CACHE_MB", "64"))
+    except ValueError:
+        return 64
+
+
+def blackbox_enabled() -> bool:
+    """BLUEFOG_BLACKBOX (default on): whether the control planes record
+    into the process-global decision flight recorder
+    (:mod:`bluefog_tpu_torch.observe.blackbox`).  ``0`` opts out; the
+    recorder is host-side only, so results are the same either way."""
+    return _env("BLUEFOG_BLACKBOX", "1") not in ("0", "false", "False")
+
+
+def blackbox_capacity() -> int:
+    """BLUEFOG_BLACKBOX_CAPACITY (default 4096): bound of the decision
+    flight recorder's event ring.  At capacity the oldest event is
+    evicted and counted (``bf_blackbox_dropped_events``); the streaming
+    chain digest is unaffected by eviction."""
+    try:
+        return max(1, int(_env("BLUEFOG_BLACKBOX_CAPACITY", "4096")))
+    except ValueError:
+        return 4096
+
+
+def blackbox_dump_dir() -> str:
+    """BLUEFOG_BLACKBOX_DUMP: directory the recorder dumps its ring into
+    (one JSONL file per anomaly kind) when an anomaly is recorded.  Empty
+    (the default) disables the file dump."""
+    return _env("BLUEFOG_BLACKBOX_DUMP", "")
 
 
 def fuse_epilogues() -> bool:

@@ -18,7 +18,11 @@ Flax path ``a/b/c`` becomes state-dict key ``a.b.c``, with ``layer_{i}``
 kernels KEEP flax's ``[in, out]`` layout: the port computes ``x @ kernel``
 (``models/llama.py``'s ``Dense``), so nothing is transposed.  Arrays
 keep their dtype; ``Llama.load_state_dict`` casts each into the
-parameter's storage dtype.  This module imports numpy and torch only.
+parameter's storage dtype.  A tree from the JAX package's
+``quantize_llama_params`` carries ``{"kernel": int8, "scale": f32}``
+per quantized module; it becomes the port's ``<module>.kernel`` (int8,
+``[in, out]``) and ``<module>.scale``, the layout ``QuantDense`` loads.
+This module imports numpy and torch only.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from bluefog_tpu_torch._device import resolve_device
 from bluefog_tpu_torch.models.llama import LlamaConfig
+from bluefog_tpu_torch.models.quant import QUANT_KERNELS, is_quantized_params
 
 __all__ = ["llama_params_from_flax", "llama_param_shapes",
            "resnet_params_from_flax", "vit_params_from_flax",
@@ -39,8 +44,12 @@ __all__ = ["llama_params_from_flax", "llama_param_shapes",
 _LAYER = re.compile(r"^layer_(\d+)$")
 
 
-def llama_param_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
-    """State-dict key -> shape of the port's :class:`Llama` for ``cfg``."""
+def llama_param_shapes(cfg: LlamaConfig,
+                       quantized: bool = False) -> Dict[str, tuple]:
+    """State-dict key -> shape of the port's :class:`Llama` for ``cfg``;
+    ``quantized`` adds the per-output-channel ``scale`` of every module of
+    :data:`~bluefog_tpu_torch.models.quant.QUANT_KERNELS` (the
+    ``param_quant`` layout)."""
     hd, kv = cfg.head_dim, cfg.n_kv_heads
     shapes = {"tok_embeddings.embedding": (cfg.vocab_size, cfg.dim),
               "norm.scale": (cfg.dim,),
@@ -59,6 +68,11 @@ def llama_param_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
     for i in range(cfg.n_layers):
         for k, shape in per_layer.items():
             shapes[f"layers.{i}.{k}"] = shape
+    if quantized:
+        for key, shape in list(shapes.items()):
+            if key.endswith(".kernel") and key.split(".")[-2] in \
+                    QUANT_KERNELS:
+                shapes[key[:-len("kernel")] + "scale"] = shape[-1:]
     return shapes
 
 
@@ -75,7 +89,8 @@ def llama_params_from_flax(params_np: Mapping, cfg: LlamaConfig,
                            device: Union[str, torch.device] = "cuda"
                            ) -> Dict[str, torch.Tensor]:
     """Convert the JAX Llama param tree (``{"params": ...}`` or the bare
-    tree, numpy leaves) to the port's state dict on ``device``.  Raises
+    tree, numpy leaves; full precision or ``quantize_llama_params``'s int8
+    layout) to the port's state dict on ``device``.  Raises
     ``ValueError`` on a missing, extra or misshapen parameter."""
     dev = resolve_device(device)
     tree = params_np.get("params", params_np)
@@ -94,7 +109,7 @@ def llama_params_from_flax(params_np: Mapping, cfg: LlamaConfig,
         if m:
             path = ("layers", m.group(1)) + path[1:]
         flat[".".join(path)] = arr
-    want = llama_param_shapes(cfg)
+    want = llama_param_shapes(cfg, quantized=is_quantized_params(flat))
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
     if missing or extra:

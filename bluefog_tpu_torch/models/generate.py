@@ -1,8 +1,10 @@
 """Autoregressive generation with K/V caching.
 
 Port of ``bluefog_tpu/models/generate.py``: ``decode_config``,
-``init_cache``, ``prefill_cache``, ``decode_token_step`` and
-``llama_generate``.  Deviations from the JAX package:
+``init_cache``, ``prefill_cache``, ``decode_token_step``,
+``verify_window`` (speculative decoding's multi-token verify) and
+``llama_generate``, with ``weight_quant`` (the int8 ``QuantDense``
+layouts).  Deviations from the JAX package:
 
 * The token loop is an eager Python loop (JAX ran one ``lax.scan``
   inside ``jit``), and the caches are updated in place.
@@ -19,10 +21,15 @@ Port of ``bluefog_tpu/models/generate.py``: ``decode_config``,
   device any other value than ``"pallas"`` is refused, because the port
   has no second lowering there.  On the CPU every value runs the
   kernel's plain version.
-* Not ported yet: the tp-sharded decode (``keep_tp=True``,
-  ``_tp_generate_program``), ``weight_quant`` (``QuantDense``), MoE
-  decode and ``verify_window`` (speculative decoding).  They raise
-  ``NotImplementedError``.
+* ``weight_quant`` needs the state dict that
+  :func:`~bluefog_tpu_torch.models.quant.quantize_llama_params` gives (or
+  a :class:`Llama` built from a ``param_quant`` config); the module is
+  built from the decode config, since ``LlamaConfig`` takes
+  ``param_quant`` only with ``decode=True``.
+* Not ported yet: the tp-sharded decode (``keep_tp=True``, ``mesh=``,
+  ``_tp_generate_program``) waits for the serving slice that follows
+  ROADMAP.md Queue 1, item 10's tensor parallelism; MoE decode waits for
+  item 10's MoE.  They raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,7 +44,11 @@ from bluefog_tpu_torch.models.llama import (KVCache, Llama, LlamaConfig,
                                             require_ported)
 
 __all__ = ["init_cache", "llama_generate", "decode_config",
-           "prefill_cache", "decode_token_step", "build_model"]
+           "prefill_cache", "decode_token_step", "verify_window",
+           "build_model"]
+
+_TP_DECODE = ("waits for the tp decode part of ROADMAP.md Queue 1, item 11 "
+              "(after item 10's tensor parallelism)")
 
 
 def decode_config(cfg: LlamaConfig, max_len: int, *, keep_tp: bool = False,
@@ -48,12 +59,10 @@ def decode_config(cfg: LlamaConfig, max_len: int, *, keep_tp: bool = False,
     ``NotImplementedError`` for what the port does not serve yet."""
     if keep_tp:
         raise NotImplementedError(
-            "tp-sharded decode (keep_tp=True) waits for the tp decode "
-            "slice of bluefog_tpu_torch")
+            f"tp-sharded decode (keep_tp=True) {_TP_DECODE}")
     if cfg.n_experts:
         raise NotImplementedError(
-            "MoE decode waits for the Llama-training slice of "
-            "bluefog_tpu_torch")
+            "MoE decode waits for MoE, ROADMAP.md Queue 1, item 10")
     if decode_attn == "auto":
         decode_attn = "pallas"  # the port has one decode lowering
     dcfg = dataclasses.replace(
@@ -83,11 +92,17 @@ def init_cache(cfg: LlamaConfig, batch_size: int, max_len: int,
     tokens; ``kv_quant='int8'`` gives the int8 + per-vector-scale
     layout."""
     if keep_tp:
-        raise NotImplementedError(
-            "tp-sharded caches wait for the tp decode slice")
+        raise NotImplementedError(f"tp-sharded caches {_TP_DECODE}")
     if kv_quant not in ("none", "int8"):
         raise ValueError(f"kv_quant {kv_quant!r} not in ('none', 'int8')")
-    dev = resolve_device(device)
+    return _zero_cache(cfg, batch_size, max_len, kv_quant,
+                       resolve_device(device))
+
+
+def _zero_cache(cfg: LlamaConfig, batch_size: int, max_len: int,
+                kv_quant: str, dev: torch.device) -> KVCache:
+    """The cache layout on ``dev`` (the ``meta`` device gives its shapes
+    alone)."""
     shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, max_len,
              cfg.head_dim)
     index = torch.zeros(batch_size, dtype=torch.int32, device=dev)
@@ -114,20 +129,58 @@ def decode_token_step(model: Llama, cache: KVCache, tok: torch.Tensor):
     return model(tok, cache)[:, -1], cache
 
 
+def verify_window(model: Llama, cache: KVCache, tokens: torch.Tensor):
+    """Multi-token cached forward that keeps EVERY position's logits:
+    append ``tokens [B, T]``'s K/V (as :func:`prefill_cache` does) and
+    return ``(logits [B, T, V], cache)``.  Speculative decoding's verify
+    step: position ``i``'s logits are the target's distribution after
+    ``tokens[:, :i+1]``."""
+    return model(tokens, cache, all_logits=True), cache
+
+
+# the config fields a decode forward of the port does not read to size or
+# compute its parameters (decode_config sets or clears them)
+_DECODE_FIELDS = ("decode", "max_seq_len", "attn_mode", "attn_impl",
+                  "attn_block_size", "attn_flash_block_size",
+                  "attn_flash_block_k", "sp_axis", "ep_axis", "ep_size",
+                  "remat", "remat_policy", "scan_layers", "kv_quant",
+                  "param_quant", "decode_attn", "vocab_parallel",
+                  "tp_seq_shard", "tp_axis", "tp_size")
+
+
+def _model_fields(cfg: LlamaConfig) -> LlamaConfig:
+    return dataclasses.replace(
+        cfg, **{f: getattr(LlamaConfig, f) for f in _DECODE_FIELDS})
+
+
 def build_model(variables: Union[Llama, Mapping[str, torch.Tensor]],
-                cfg: LlamaConfig, device: torch.device) -> Llama:
-    """``variables`` as a :class:`Llama` on ``device``: a module is used
-    as it is (its config must equal ``cfg``), a state dict is loaded into
-    a new module."""
+                dcfg: LlamaConfig, device: torch.device) -> Llama:
+    """``variables`` as a :class:`Llama` on ``device`` for the decode
+    config ``dcfg``: a module is used as it is (built from a config of
+    the same model, with ``dcfg``'s ``param_quant``), a state dict is
+    loaded into a new module built from ``dcfg``.  A mismatch between
+    ``dcfg.param_quant`` and the weights' layout raises ``ValueError``,
+    as the JAX package's ``quantize_llama_params`` contract does."""
+    from bluefog_tpu_torch.models.quant import is_quantized_params
+
+    matches = (variables.cfg.param_quant == dcfg.param_quant
+               if isinstance(variables, Llama)
+               else is_quantized_params(variables)
+               == (dcfg.param_quant != "none"))
+    if not matches:
+        raise ValueError(
+            "weight_quant='int8'/'w8a8' requires params converted by "
+            "quantize_llama_params (and full-precision params require "
+            "weight_quant='none'); got a mismatched tree")
     if isinstance(variables, Llama):
-        if variables.cfg != cfg:
+        if _model_fields(variables.cfg) != _model_fields(dcfg):
             raise ValueError("the Llama module was built from another "
                              "config than the one given")
         if variables.device != device:
             raise ValueError(f"the Llama module lives on "
                              f"{variables.device}, not {device}")
         return variables
-    model = Llama(cfg, device)
+    model = Llama(dcfg, device)
     model.load_state_dict(variables)
     return model
 
@@ -156,12 +209,13 @@ def llama_generate(variables, cfg: LlamaConfig, prompt, max_new_tokens: int,
     ``torch.Generator`` on ``device``).  ``eos_id``: once a row has
     emitted it, its later positions are ``eos_id``.  Returns
     ``[B, T_prompt + max_new_tokens]`` int32 on ``device``: prompt ‖
-    generation."""
+    generation.  ``weight_quant`` "int8" or "w8a8" runs every projection
+    and the head from int8 kernels (``variables`` from
+    :func:`~bluefog_tpu_torch.models.quant.quantize_llama_params`)."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens ({max_new_tokens}) must be >= 1")
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (tp-sharded decode) waits for the tp decode slice")
+        raise NotImplementedError(f"mesh= (tp-sharded decode) {_TP_DECODE}")
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
     b, t_prompt = prompt.shape
@@ -175,7 +229,7 @@ def llama_generate(variables, cfg: LlamaConfig, prompt, max_new_tokens: int,
     dcfg = decode_config(cfg, max_len, kv_quant=kv_quant,
                          weight_quant=weight_quant, decode_attn=decode_attn)
     check_decode_attn(dcfg, dev)
-    model = build_model(variables, cfg, dev)
+    model = build_model(variables, dcfg, dev)
     cache = init_cache(dcfg, b, max_len, kv_quant=kv_quant, device=dev)
 
     logits, cache = prefill_cache(model, cache, prompt)

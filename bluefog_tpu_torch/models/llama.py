@@ -5,9 +5,11 @@ Port of ``bluefog_tpu/models/llama.py``: :class:`LlamaConfig` (every
 field kept, so configs map one to one), ``RMSNorm``,
 ``_llama3_scaled_freqs``/``rotary_embed``, ``_amax_quantize``,
 ``Attention`` (the full-sequence path and the ``_decode_attend`` cache
-path), ``_cached_attention``, ``FeedForward``, ``Block``, ``Llama`` and
-the losses ``chunked_xent``/``llama_chunked_xent_loss_fn``.  Deviations
-from the JAX package:
+path), ``_cached_attention``, the int8 layers of ``param_quant``
+(``QuantDense``, the quantized logits head and the w8a8 integer
+attention ``_cached_attention_int8``), ``FeedForward``, ``Block``,
+``Llama`` and the losses ``chunked_xent``/``llama_chunked_xent_loss_fn``.
+Deviations from the JAX package:
 
 * :meth:`Llama.forward` runs the decode layout when it is given a
   :class:`KVCache` (it writes the cache and returns the last position's
@@ -22,8 +24,14 @@ from the JAX package:
   (``attn_mode="blockwise"``) or ``full_attention``.
 * Not ported yet, and refused with ``NotImplementedError`` naming the
   ROADMAP item (:func:`require_ported`): tensor parallelism, ring/Ulysses
-  attention, MoE, ``QuantDense`` (``param_quant``) and the w8a8 integer
-  attention.
+  attention and MoE.
+* The integer products of ``param_quant="w8a8"`` (s8 x s8 -> s32, which
+  JAX leaves to XLA) go to ``torch._int_mm``: cuBLASLt on the card, an
+  exact integer product on the CPU (:func:`int8_matmul`).  The w8a8
+  attention's two contractions of int8 codes run as float products that
+  hold every partial sum exactly (f32 under its gate, ``max_len <=
+  1024``; see :func:`_exact_float`), which gives the int32 result bit for
+  bit.
 * ``remat=True`` checkpoints each block with ``torch.utils.checkpoint``:
   the whole block is recomputed for ``remat_policy`` "none" and
   "everything" (flax's ``policy=None`` and ``nothing_saveable`` save the
@@ -76,7 +84,8 @@ from bluefog_tpu_torch.parallel.ring_attention import (blockwise_attention,
                                                        full_attention)
 from bluefog_tpu_torch.parallel.splash import splash_attention
 
-__all__ = ["LlamaConfig", "Llama", "KVCache", "RMSNorm", "rotary_embed",
+__all__ = ["LlamaConfig", "Llama", "KVCache", "RMSNorm", "QuantDense",
+           "int8_matmul", "rotary_embed",
            "chunked_xent", "llama_chunked_xent_loss_fn", "llama_loss_fn"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -311,9 +320,6 @@ def require_ported(cfg: LlamaConfig) -> None:
     if cfg.n_experts:
         later.append("MoE (n_experts > 0): ROADMAP.md Queue 1, item 10 "
                      "(moe/)")
-    if cfg.param_quant != "none":
-        later.append(f"param_quant={cfg.param_quant!r} (QuantDense, w8a8 "
-                     "attention): ROADMAP.md Queue 1, item 11")
     if later:
         raise NotImplementedError(
             "not ported to bluefog_tpu_torch yet: " + "; ".join(later))
@@ -411,6 +417,85 @@ def _cached_attention(q, k_all, v_all, idx):
     return out.reshape(b, t, n_q, d).to(q.dtype)
 
 
+def _exact_float(device: torch.device, n_terms: int) -> torch.dtype:
+    """The float type whose products of int8 codes, summed over
+    ``n_terms``, are exact: f32 while every partial sum stays below 2^24
+    (``127² · n_terms < 2^24``) and the card's f32 products are not
+    rounded to TF32; f64 (exact below 2^53) otherwise."""
+    tf32 = device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32
+    if 127 * 127 * n_terms < 2 ** 24 and not tf32:
+        return torch.float32
+    return torch.float64
+
+
+def _cached_attention_int8(q, kq_all, ks_all, vq_all, vs_all, idx):
+    """Grouped-query cached attention with both contractions over int8
+    codes (the ``param_quant='w8a8'`` + ``kv_quant='int8'`` prefill path).
+
+    The key scale is constant along head_dim, so it multiplies the score
+    columns afterwards; the value scale folds into the probabilities
+    before they are quantized per row (one amax scale), as ``QuantDense``
+    does to activations.  Rounding beyond the cache's own int8 snap: the
+    queries' and the probabilities' per-row int8 quantization.  Each
+    contraction is an exact integer product computed in the float type of
+    :func:`_exact_float` (f32 at head_dim 128 and at cache lengths up to
+    1024).
+
+    q: [B, T, n_q, D] at positions ``idx[b] + arange(T)``; kq_all/vq_all:
+    int8 [B, n_kv, S, D]; ks_all/vs_all: f32 [B, n_kv, S]; idx: scalar or
+    [B].  Returns [B, T, n_q, D] in q's dtype."""
+    b, t, n_q, d = q.shape
+    n_kv, s = kq_all.shape[1], kq_all.shape[2]
+    # the value contraction's integer sum reaches 127 * 127 * S, past
+    # INT32_MAX near S ~ 133k (the JAX package accumulates in int32)
+    if s > 131072:
+        raise ValueError(
+            f"kv_quant='int8' + w8a8 decode supports cache length <= "
+            f"131072 (int32 accumulator overflow at ~133k); got {s}")
+    rep = n_q // n_kv
+    qq, qs = _amax_quantize(q.reshape(b, t, n_kv, rep, d))
+    acc = _exact_float(q.device, d)
+    s32 = torch.einsum("btkrd,bksd->bkrts", qq.to(acc), kq_all.to(acc))
+    # scales: q per row [B,T,KV,R,1] -> [B,KV,R,T,1]; k per position
+    # [B,KV,S] broadcasts directly
+    scores = (s32.float() * qs.permute(0, 2, 3, 1, 4)
+              * ks_all[:, :, None, None, :] * (1.0 / d ** 0.5))
+    idx = torch.as_tensor(idx, device=q.device).reshape(-1, 1)
+    q_pos = idx + torch.arange(t, device=q.device)            # [B|1, T]
+    mask = (torch.arange(s, device=q.device)[None, None, :]
+            <= q_pos[:, :, None])                              # [B|1, T, S]
+    scores = torch.where(mask[:, None, None], scores, -1e30)
+    p = torch.softmax(scores, dim=-1)                          # [B,KV,R,T,S]
+    pv = p * vs_all[:, :, None, None, :]
+    # a probability row sums to 1, so its amax is >= 1/S: the tiny eps
+    # only guards fully padded rows
+    pq, ps = _amax_quantize(pv, eps=1e-30)
+    acc = _exact_float(q.device, s)
+    o32 = torch.einsum("bkrts,bksd->btkrd", pq.to(acc), vq_all.to(acc))
+    out = o32.float() * ps.permute(0, 3, 1, 2, 4)
+    return out.reshape(b, t, n_q, d).to(q.dtype)
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] @ b [K, N]`` over int8, accumulated exactly in int32
+    (``torch._int_mm``: cuBLASLt's int8 GEMM on the card, an integer
+    product on the CPU).  On the card cuBLASLt refuses M <= 16 (a decode
+    step at capacity 8 has M = 8) and K or N that are not multiples of 8,
+    so the operands get zero rows and columns there, which leave the
+    product's kept entries exact.  It reads ``b`` fastest in column-major
+    storage (``QuantDense``'s kernel)."""
+    if a.device.type != "cuda":
+        return torch._int_mm(a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    pad_m, pad_k, pad_n = max(17 - m, 0), -k % 8, -n % 8
+    if pad_k or pad_n:
+        b = F.pad(b, (0, pad_n, 0, pad_k))
+    if pad_m or pad_k:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    return torch._int_mm(a, b)[:m, :n]
+
+
 @dataclasses.dataclass
 class KVCache:
     """The decode-layout K/V cache of every layer, for ``B`` rows.
@@ -470,6 +555,60 @@ class Dense(nn.Module):
         return x.to(self.dtype) @ self.kernel.to(self.dtype)
 
 
+class QuantDense(nn.Module):
+    """The JAX package's ``QuantDense``: an int8 kernel ``[in, out]`` and
+    an f32 per-output-channel ``scale [out]`` (from
+    :func:`~bluefog_tpu_torch.models.quant.quantize_llama_params`).  The
+    scale is constant along the contraction, so ``x @ (W_q * s) == (x @
+    W_q) * s`` exactly.
+
+    * ``act_quant=False`` (``param_quant='int8'``, weight-only): the
+      product runs in ``dtype`` (``x.to(dtype) @ W_q.to(dtype)``), then
+      the scale is applied in f32 and the result cast (casting the scale
+      to bf16 first would add its own rounding).
+    * ``act_quant=True`` (``'w8a8'``): the activations quantize per row
+      (one f32 amax scale each) and the product is s8 x s8 -> s32
+      (:func:`int8_matmul`), scaled by both scales in f32.
+
+    ``out_f32`` returns f32 (the logits head).  The kernel has flax's
+    ``[in, out]`` shape in column-major storage (``[out, in]``
+    contiguous), the operand layout cuBLASLt's int8 GEMM reads fast."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype, device,
+                 out_f32: bool = False, act_quant: bool = False):
+        super().__init__()
+        self.dtype = dtype
+        self.out_f32 = out_f32
+        self.act_quant = act_quant
+        self.kernel = nn.Parameter(
+            torch.zeros(n_out, n_in, dtype=torch.int8, device=device).t(),
+            requires_grad=False)
+        self.scale = nn.Parameter(
+            torch.ones(n_out, dtype=torch.float32, device=device),
+            requires_grad=False)
+
+    def forward(self, x):
+        if self.act_quant:
+            xq, xs = _amax_quantize(x)
+            y = int8_matmul(xq.reshape(-1, xq.shape[-1]), self.kernel)
+            out = y.reshape(*x.shape[:-1], -1).float() * xs * self.scale
+            return out if self.out_f32 else out.to(self.dtype)
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        if self.out_f32:
+            return y.float() * self.scale
+        return (y.float() * self.scale).to(self.dtype)
+
+
+def _dense(cfg: LlamaConfig, n_in: int, n_out: int, device,
+           param_dtype=None) -> nn.Module:
+    """The projection the config asks for: ``Dense`` in the trained
+    precision, or the int8 ``QuantDense`` under ``param_quant``."""
+    if cfg.param_quant != "none":
+        return QuantDense(n_in, n_out, cfg.dtype, device,
+                          act_quant=cfg.param_quant == "w8a8")
+    return Dense(n_in, n_out, cfg.dtype, device, param_dtype)
+
+
 class RMSNorm(nn.Module):
     """RMSNorm computed in f32 with an f32 scale, cast back to x's
     dtype."""
@@ -509,8 +648,8 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         hd = cfg.head_dim
-        dense = lambda n_in, n_out: Dense(  # noqa: E731
-            n_in, n_out, cfg.dtype, device, param_dtype)
+        dense = lambda n_in, n_out: _dense(  # noqa: E731
+            cfg, n_in, n_out, device, param_dtype)
         self.wq = dense(cfg.dim, cfg.n_heads * hd)
         self.wk = dense(cfg.dim, cfg.n_kv_heads * hd)
         self.wv = dense(cfg.dim, cfg.n_kv_heads * hd)
@@ -568,6 +707,13 @@ class Attention(nn.Module):
             if t == 1:
                 return decode_attention_int8(q, k_all, ks_all, v_all, vs_all,
                                              idx)
+            if self.cfg.param_quant == "w8a8" and cache.max_len <= 1024:
+                # both contractions over the int8 codes; longer caches
+                # take the dequantized path below (the JAX package's
+                # static gate: the probabilities' re-quantization is
+                # work linear in S x heads)
+                return _cached_attention_int8(q, k_all, ks_all, v_all,
+                                              vs_all, idx)
             return _cached_attention(q, k_all.float() * ks_all[..., None],
                                      v_all.float() * vs_all[..., None], idx)
         k_all[rows, :, write_pos] = k.to(k_all.dtype)
@@ -582,9 +728,9 @@ class FeedForward(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device, param_dtype=None):
         super().__init__()
-        self.w1 = Dense(cfg.dim, cfg.ffn_dim, cfg.dtype, device, param_dtype)
-        self.w3 = Dense(cfg.dim, cfg.ffn_dim, cfg.dtype, device, param_dtype)
-        self.w2 = Dense(cfg.ffn_dim, cfg.dim, cfg.dtype, device, param_dtype)
+        self.w1 = _dense(cfg, cfg.dim, cfg.ffn_dim, device, param_dtype)
+        self.w3 = _dense(cfg, cfg.dim, cfg.ffn_dim, device, param_dtype)
+        self.w2 = _dense(cfg, cfg.ffn_dim, cfg.dim, device, param_dtype)
 
     def forward(self, x):
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
@@ -613,7 +759,9 @@ class Llama(nn.Module):
     stores them in the dtype each call casts them to (the serving
     layout).  Parameters are drawn at the scale of flax's default
     initializers (normal with std ``1/sqrt(fan_in)`` for every
-    projection, ``1/sqrt(vocab)`` for the embedding, ones for the norms)
+    projection, ``1/sqrt(vocab)`` for the embedding, ones for the norms;
+    a ``param_quant`` config's int8 kernels stay zero and their scales
+    one, as flax initializes ``QuantDense``)
     from ``generator`` (default: seed 0 on ``device``); load trained
     ones with ``load_state_dict`` (see
     :func:`bluefog_tpu_torch.interop.llama_params_from_flax`)."""
@@ -630,9 +778,17 @@ class Llama(nn.Module):
         self.layers = nn.ModuleList(Block(cfg, dev, param_dtype)
                                     for _ in range(cfg.n_layers))
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps, dev)
-        head_dtype = torch.float32 if cfg.logits_dot_in_fp32 else cfg.dtype
-        self.output = Dense(cfg.dim, cfg.vocab_size, head_dtype, dev,
-                            param_dtype)
+        if cfg.param_quant != "none":
+            # the int8 head: the scale lands in f32, so the logits keep
+            # f32 range around int8-rounded products
+            self.output = QuantDense(cfg.dim, cfg.vocab_size, cfg.dtype, dev,
+                                     out_f32=True,
+                                     act_quant=cfg.param_quant == "w8a8")
+        else:
+            head_dtype = (torch.float32 if cfg.logits_dot_in_fp32
+                          else cfg.dtype)
+            self.output = Dense(cfg.dim, cfg.vocab_size, head_dtype, dev,
+                                param_dtype)
         self.register_buffer(
             "rope_freqs", _rope_freqs(cfg.head_dim, cfg.rope_theta,
                                       cfg.rope_scaling, dev),

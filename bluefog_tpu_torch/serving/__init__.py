@@ -1,14 +1,24 @@
 """Continuous-batching serving engine (``bluefog_tpu.serving``'s
-counterpart): the slot-pooled engine, its scheduler, pool and metrics.
-The prefix cache, speculative decoding, the fleet router and serving
-resilience wait for later slices (ROADMAP.md).
+counterpart): the slot-pooled engine with speculative decoding and
+drain, its scheduler, pool and metrics, the chunk-hashed prefix cache,
+and serving resilience (fault injection around an engine, token-exact
+failover, seeded backoff).  The fleet router waits for ROADMAP.md
+Queue 1, item 11.
 """
 
 from bluefog_tpu_torch.serving.engine import (Request, RequestRejected,
-                                              ServingEngine)
+                                              ServingEngine,
+                                              SpeculativeConfig)
 from bluefog_tpu_torch.serving.kv_pool import SlotPool
 from bluefog_tpu_torch.serving.metrics import ServingMetrics, percentile
+from bluefog_tpu_torch.serving.prefix_cache import PrefixCache
+from bluefog_tpu_torch.serving.resilience import (FaultyReplica,
+                                                  backoff_sleep,
+                                                  failover_stranded,
+                                                  seeded_backoff)
 from bluefog_tpu_torch.serving.scheduler import FifoScheduler
 
-__all__ = ["ServingEngine", "Request", "RequestRejected", "SlotPool",
-           "FifoScheduler", "ServingMetrics", "percentile"]
+__all__ = ["ServingEngine", "Request", "RequestRejected",
+           "SpeculativeConfig", "SlotPool", "PrefixCache", "FifoScheduler",
+           "ServingMetrics", "percentile", "FaultyReplica",
+           "failover_stranded", "seeded_backoff", "backoff_sleep"]

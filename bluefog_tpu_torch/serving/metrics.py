@@ -5,9 +5,7 @@ port's own registry, tracer and timeline.  It adds one signal the JAX
 engine has no use for: the wall time of each decode call
 (:meth:`ServingMetrics.on_decode_step`), summarized as
 ``decode_step_ms_p50`` together with the number of device decode steps
-run (``decode_steps``).  The prefix-cache, speculative-decoding and
-failover counters of the JAX summary come with those features in a
-later slice.
+run (``decode_steps``; a speculative step counts as one).
 
 Numbers a serving operator actually pages on:
 
@@ -84,9 +82,17 @@ class ServingMetrics:
         self._occupancy: List[float] = []
         self._queue_depth: List[int] = []
         self.n_rejected = 0
+        self.n_failovers = 0
         self.last_step_ts: Optional[float] = None
         self._registry = registry
+        # prefix-cache / prefill accounting
         self.n_prefill_chunks = 0
+        self.n_prefix_chunks_restored = 0
+        self.n_prefix_tokens_restored = 0
+        # speculative decoding accounting
+        self.n_spec_steps = 0
+        self.n_spec_active = 0
+        self.n_spec_emitted = 0
         # device decode steps run and the wall time of each decode call
         self.n_decode_steps = 0
         self._decode_call_seconds: List[float] = []
@@ -173,13 +179,68 @@ class ServingMetrics:
             reg.histogram("bf_serving_latency_seconds",
                           "submit -> retire").observe(now - rec.submit_t)
 
+    def on_failover(self, rid, now: float):
+        """``rid`` was handed off to another replica (replica death or
+        graceful drain) — it retired HERE with outcome ``failover`` and
+        resumes elsewhere with its tokens intact."""
+        self.n_failovers += 1
+        rec = self._req.get(rid)
+        tr = rec.tracer if rec is not None else None
+        if tr is not None:
+            tr.instant(f"request.{rid}.failover")
+        reg = self._reg()
+        if reg is not None:
+            reg.counter("bf_serving_failovers_total",
+                        "requests handed off to another replica").inc()
+
     def on_prefill_chunk(self):
-        """One prefill chunk ran (a model forward over one chunk)."""
+        """One cold prefill chunk ran (a model forward over one chunk).
+        Together with :meth:`on_prefix_restore` this splits prompt
+        coverage into compute vs copy."""
         self.n_prefill_chunks += 1
         reg = self._reg()
         if reg is not None:
             reg.counter("bf_serving_prefill_chunks_total",
                         "cold prefill chunks computed").inc()
+
+    def on_prefix_restore(self, rid, n_chunks: int, n_tokens: int):
+        """``n_chunks`` cached K/V chunks (``n_tokens`` prompt tokens)
+        were copied into ``rid``'s slot instead of being prefilled."""
+        if n_chunks <= 0:
+            return
+        self.n_prefix_chunks_restored += n_chunks
+        self.n_prefix_tokens_restored += n_tokens
+        rec = self._req.get(rid)
+        tr = rec.tracer if rec is not None else None
+        if tr is not None:
+            tr.instant(f"request.{rid}.prefix_restore[{n_chunks}]")
+        reg = self._reg()
+        if reg is not None:
+            reg.counter("bf_serving_prefix_chunks_restored_total",
+                        "prompt chunks admitted from the prefix cache"
+                        ).inc(n_chunks)
+            reg.counter("bf_serving_prefix_tokens_restored_total",
+                        "prompt tokens admitted from the prefix cache"
+                        ).inc(n_tokens)
+
+    def on_spec_step(self, n_active: int, n_emitted: int):
+        """One speculative decode step over ``n_active`` slots emitted
+        ``n_emitted`` tokens in all (the accepted-tokens-per-step ratio
+        speculation is judged by)."""
+        self.n_spec_steps += 1
+        self.n_spec_active += n_active
+        self.n_spec_emitted += n_emitted
+        reg = self._reg()
+        if reg is not None:
+            reg.counter("bf_serving_spec_steps_total",
+                        "speculative decode steps").inc()
+            reg.counter("bf_serving_spec_emitted_total",
+                        "tokens emitted by speculative steps"
+                        ).inc(n_emitted)
+            if n_active:
+                reg.gauge("bf_serving_spec_accepted_per_step",
+                          "tokens emitted per active slot, last step"
+                          ).set(n_emitted / n_active)
 
     def on_decode_step(self, n_steps: int, seconds: float):
         """One decode call advanced every slot ``n_steps`` tokens in
@@ -250,10 +311,12 @@ class ServingMetrics:
                 outcomes[r.outcome] = outcomes.get(r.outcome, 0) + 1
         ttft = self.ttfts()
         lat = self.latencies()
+        prefix_total = self.n_prefill_chunks + self.n_prefix_chunks_restored
         return {
             "n_requests": len(recs),
             "n_finished": len(finished),
             "n_rejected": self.n_rejected,
+            "n_failovers": self.n_failovers,
             "outcomes": outcomes,
             "tokens_generated": tokens,
             "tokens_per_sec": (tokens / window) if window else 0.0,
@@ -268,6 +331,18 @@ class ServingMetrics:
             "max_queue_depth": (int(np.max(self._queue_depth))
                                 if self._queue_depth else 0),
             "prefill_chunks": self.n_prefill_chunks,
+            "prefix_chunks_restored": self.n_prefix_chunks_restored,
+            "prefix_tokens_restored": self.n_prefix_tokens_restored,
+            # restored / (restored + computed): how much prompt coverage
+            # the prefix cache turned from forwards into copies
+            "prefix_hit_rate": ((self.n_prefix_chunks_restored
+                                 / prefix_total) if prefix_total else 0.0),
+            "spec_steps": self.n_spec_steps,
+            # tokens emitted per active slot-step: > 1 means speculation
+            # is paying for its draft passes
+            "accepted_per_step": ((self.n_spec_emitted
+                                   / self.n_spec_active)
+                                  if self.n_spec_active else 0.0),
             "decode_steps": self.n_decode_steps,
             "decode_step_ms_p50": 1e3 * percentile(
                 self._decode_call_seconds, 50),

@@ -187,9 +187,48 @@ Phases (any failure raises and exits non-zero, printing no result):
       neighbor_allgather over StarGraph(4).
    c. NCCL asked for two ranks on one card: the exit code and NCCL's
       message (the reason (b) runs over gloo).
+19. The rest of single-engine serving at Llama-3.1-8B's full width and
+   depth (32 layers, random bf16 weights from --seed as phase 3), every
+   engine with 8 slots and 256-token prefill chunks, each run with the
+   launch counts reset just before and read just after (K4 only: its
+   bf16 or int8 variant n_layers x decode steps, or the draft's layers x
+   (lookahead + 1) x speculative steps):
+   a. HF import: the model's state dict in HF's layout (Linear weights,
+      half-split rotary rows) through llama_config_from_hf (a
+      SimpleNamespace config) and llama_params_from_hf: every tensor and
+      the logits of a 40-token prompt bit-equal to the source.
+   b. quantize_llama_params on the card; 8 greedy requests (prompts
+      16-700, 32 new tokens) at max_len 1024 with bf16 weights, then
+      weight_quant="int8", then "w8a8" with the int8 K/V cache (the
+      integer attention on every (layer, prefill chunk), counted): the
+      probe's logits within tests/test_quant.py's bound of bf16's, first
+      greedy tokens against bf16's (a flip only at a margin within twice
+      the quantized logits' gap), decode step ms, tokens/s, peak memory
+      and the int8 weight bytes.
+   c. The prefix cache: two waves of 8 requests sharing a 1024-token
+      prefix (four 256-token chunks) through one PrefixCache; the second
+      wave restores 32 chunks and its greedy streams equal a cold
+      engine's bit for bit; TTFT p50 with and without the cache.
+   d. Speculative decoding, lookahead 4, 8 greedy requests of 40 tokens:
+      the target as its own draft and a 2-layer draft at 8B width from
+      --seed + 1, against plain greedy; accepted tokens a step, tokens/s.
+   e. Drain and failover (capacity 4, a virtual clock, 8 requests, half
+      at temperature 0.8): e0.drain(handoff=e1.submit) mid-run, then e1
+      behind a FaultyReplica dies and failover_stranded moves its
+      requests to a replacement sharing the PrefixCache; one request
+      whose deadline passed while e1 was dead retires expired; the rest
+      against an unfaulted run.
+   Where a stream of (d) or (e) parts from its reference, the flip must
+   sit at a near-tie: the two tokens' margin in the multi-token path's
+   logits (with the request's Gumbel draw at temperature > 0) within
+   twice the sup-norm gap between the K4 path's and the multi-token
+   path's logits there; and each of the two paths' logits must lie
+   within twice the uncached bf16 forward's sup-norm distance of the f32
+   forward over the same weights, a ceiling neither path sets.
 
 The line before the last is a JSON object with one entry per kernel
-(seven); the last line is {"ok": true, "device": {...}}.
+(seven; K4's launches are phase 3's and phase 19's); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -3068,6 +3107,606 @@ def phase_process(seed):
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ #
+# phase 19: the rest of single-engine serving at Llama-3.1-8B's width
+# ------------------------------------------------------------------ #
+SERVE_CAP = 8        # slots of every phase-19 engine but 19e's
+PREFIX_LEN = 1024    # 19c's shared prefix, four 256-token chunks
+LOOKAHEAD = 4        # 19d
+
+
+def _hf_state_dict(model, cfg):
+    """The HF ``LlamaForCausalLM`` state dict of a port ``Llama``: the
+    inverse of ``llama_params_from_hf``'s mapping (Linear weights
+    ``[out, in]``, q/k rows in HF's half-split rotary order)."""
+    sd = model.state_dict()
+    hd = cfg.head_dim
+
+    def permute(w, n_heads):   # HF's converter: interleaved -> half-split
+        return (w.reshape(n_heads, hd // 2, 2, cfg.dim).transpose(1, 2)
+                .reshape(n_heads * hd, cfg.dim).contiguous())
+
+    out = {"model.embed_tokens.weight": sd["tok_embeddings.embedding"],
+           "model.norm.weight": sd["norm.scale"],
+           "lm_head.weight": sd["output.kernel"].T.contiguous()}
+    for i in range(cfg.n_layers):
+        p, h = f"layers.{i}.", f"model.layers.{i}."
+        out[h + "input_layernorm.weight"] = sd[p + "attention_norm.scale"]
+        out[h + "post_attention_layernorm.weight"] = sd[p + "ffn_norm.scale"]
+        out[h + "self_attn.q_proj.weight"] = permute(
+            sd[p + "attention.wq.kernel"].T, cfg.n_heads)
+        out[h + "self_attn.k_proj.weight"] = permute(
+            sd[p + "attention.wk.kernel"].T, cfg.n_kv_heads)
+        for hf, port in (("self_attn.v_proj", "attention.wv"),
+                         ("self_attn.o_proj", "attention.wo"),
+                         ("mlp.gate_proj", "feed_forward.w1"),
+                         ("mlp.up_proj", "feed_forward.w3"),
+                         ("mlp.down_proj", "feed_forward.w2")):
+            out[h + hf + ".weight"] = sd[p + port + ".kernel"].T.contiguous()
+    return out
+
+
+def _serve_reqs(rng, n, vocab, plen, new, temperature=0.0, prefix=None):
+    from bluefog_tpu_torch.serving import Request
+
+    reqs = []
+    for i in range(n):
+        p = rng.randint(0, vocab, (int(rng.randint(*plen)),)).astype(
+            np.int32)
+        if prefix is not None:
+            p = np.concatenate([prefix, p])
+        t = temperature if i % 2 else 0.0
+        reqs.append(Request(p, new, temperature=t, seed=2000 + i))
+    return reqs
+
+
+def _clones(reqs):
+    from bluefog_tpu_torch.serving import Request
+
+    return [Request(r.prompt.copy(), r.max_new_tokens, eos_id=r.eos_id,
+                    temperature=r.temperature, seed=r.seed,
+                    deadline=r.deadline) for r in reqs]
+
+
+def _run_engine(eng, reqs, what, want, tally):
+    """Submit ``reqs`` to ``eng`` and run it with the launch counts and
+    the peak memory reset just before; the launches must be ``want(m)``
+    ({kernel: count} from the summary ``m``) and nothing else, and are
+    added to ``tally``.  Returns the summary, the wall seconds and the
+    peak GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = eng.metrics.summary()
+    for k, n in _expect_launches(what, want(m)).items():
+        tally[k] = tally.get(k, 0) + n
+    bad = [r.rid for r in reqs
+           if r.state != "completed" or len(r.tokens) != r.max_new_tokens]
+    if bad:
+        raise AssertionError(f"{what}: requests {bad} did not complete")
+    if eng.nonfinite_logit_rows():
+        raise AssertionError(f"{what}: non-finite logits")
+    return m, wall, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _log_serve(what, m, wall, peak, extra=""):
+    log(f"[serve19] {what}: {m['tokens_generated']} tokens in {wall:.2f} s "
+        f"wall, tokens/s {m['tokens_per_sec']:.1f}, TTFT p50 "
+        f"{m['ttft_p50'] * 1e3:.1f} ms, decode step p50 "
+        f"{m['decode_step_ms_p50']:.2f} ms over {m['decode_steps']} steps, "
+        f"{m['prefill_chunks']} prefill chunks, peak {peak:.2f} GiB{extra}")
+
+
+# The most a serving path's logits may stray from the f32 reference, as a
+# multiple of the plain bf16 forward's own distance to it (phase 19d/19e).
+PATH_ERR_CEILING = 2.0
+
+
+@torch.no_grad()
+def _four_paths(model, ref, cfg, prompt, toks):
+    """The logits after ``prompt ‖ toks`` four ways: one multi-token
+    cached forward over the whole context (the arithmetic of a
+    speculative verify and of a resumed request's re-prefill), the
+    prompt's prefill followed by one single-token step (K4) per later
+    token (the plain decode path's), the uncached bf16 forward (plain
+    attention over the whole sequence, neither of the two paths under
+    test), and the same uncached forward in f32 over the same bf16
+    weights (``ref``, the reference)."""
+    from bluefog_tpu_torch.models.generate import (decode_config,
+                                                   decode_token_step,
+                                                   init_cache,
+                                                   prefill_cache)
+
+    ctx = np.concatenate([prompt, np.asarray(toks, np.int32)])
+    tokens = torch.from_numpy(ctx[None]).cuda()
+    s = -(-ctx.size // 64) * 64
+    dcfg = decode_config(cfg, s)
+    cache = init_cache(dcfg, 1, s, device="cuda")
+    whole = model(tokens, cache)[0, -1]
+    cache = init_cache(dcfg, 1, s, device="cuda")
+    if prompt.size > 1:
+        prefill_cache(model, cache, torch.from_numpy(prompt[None, :-1]).cuda())
+    for t in ctx[prompt.size - 1:]:
+        last, cache = decode_token_step(
+            model, cache, torch.tensor([[int(t)]], device="cuda"))
+    del cache
+    plain = model(tokens)[0, -1]
+    f32 = ref.apply(dict(model.named_parameters()), tokens)[0, -1]
+    return whole.float(), last[0].float(), plain.float(), f32.float()
+
+
+def _f32_reference(cfg):
+    """A module that runs ``cfg``'s model in f32 over parameters it is
+    given (``Llama.apply``): its own parameters are released, so it
+    holds no weights of its own."""
+    import bluefog_tpu_torch as bt
+
+    ref = bt.Llama(dataclasses.replace(cfg, dtype=torch.float32),
+                   device="cuda", param_dtype=cfg.dtype)
+    ref.state(release=True)
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _explain_flips(model, cfg, pairs, what):
+    """Each pair is (request, reference tokens, tokens).  Where the two
+    greedy (or sampled) streams first part, the flip must sit at a
+    near-tie: the two tokens' margin in the multi-token path's logits
+    (with the request's Gumbel draw added at temperature > 0) at most
+    twice the sup-norm gap between that path's and the K4 path's logits
+    at the same position (``_four_paths``), the most the two paths'
+    rounding can move a margin there.  That gap is itself held to a
+    ceiling that neither path sets: each path's sup-norm distance to the
+    f32 forward over the same weights must stay within
+    ``PATH_ERR_CEILING`` times the uncached bf16 forward's.  Returns the
+    number of streams that differ."""
+    from bluefog_tpu_torch.serving.engine import _gumbel
+
+    n_diff = 0
+    ref_model = None
+    for req, ref, got in pairs:
+        ref, got = list(ref), list(got)
+        j = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
+                 None)
+        if j is None:
+            continue
+        n_diff += 1
+        if ref_model is None:
+            ref_model = _f32_reference(cfg)
+        whole, k4, plain, f32 = _four_paths(model, ref_model, cfg,
+                                            req.prompt, ref[:j])
+        e_whole, e_k4, e_plain = ((x - f32).abs().max().item()
+                                  for x in (whole, k4, plain))
+        if max(e_whole, e_k4) > PATH_ERR_CEILING * e_plain:
+            raise AssertionError(
+                f"{what}: request {req.rid} at token {j}: distance to the "
+                f"f32 forward {e_whole:.4g} (multi-token) and {e_k4:.4g} "
+                f"(K4) against the uncached bf16 forward's {e_plain:.4g}: "
+                f"beyond {PATH_ERR_CEILING} x")
+        gap = (whole - k4).abs().max().item()
+        a, b = ref[j], got[j]
+        margin = (whole[a] - whole[b]).item()
+        bound = 2 * gap
+        if req.temperature > 0.0:
+            g = _gumbel(req, j, 0, whole.numel(), torch.device("cuda"))
+            margin = margin / req.temperature + (g[a] - g[b]).item()
+            bound /= req.temperature
+        ok = abs(margin) <= bound
+        log(f"[serve19] {what}: request {req.rid} (T={req.temperature}) "
+            f"parts at token {j} of {len(ref)}: {a} against {b}, margin "
+            f"{abs(margin):.4g} {'<=' if ok else '>'} bound {bound:.4g} "
+            f"(2 x the K4-path / multi-token-path logit gap {gap:.4g}); "
+            f"distance to the f32 forward: multi-token {e_whole:.4g}, K4 "
+            f"{e_k4:.4g}, uncached bf16 {e_plain:.4g}")
+        if not ok:
+            raise AssertionError(f"{what}: request {req.rid} differs at "
+                                 f"token {j} beyond the rounding bound")
+    del ref_model
+    torch.cuda.empty_cache()
+    return n_diff
+
+
+def _device_ms_per_step(eng, reqs, steps=5):
+    """torch.profiler over ``steps`` engine steps once every request of
+    ``reqs`` decodes: the device's busy ms and the wall ms a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for r in reqs:
+        eng.submit(r)
+    while any(r.state in ("queued", "prefill") for r in reqs):
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    busy = sum(e.self_device_time_total for e in _device_kernels(prof))
+    eng.run()
+    return busy / steps / 1e3, wall
+
+
+def _phase19_import(model, cfg):
+    """19a: the model through an HF state dict and back, bit for bit."""
+    from types import SimpleNamespace
+
+    from bluefog_tpu_torch.interop import (llama_config_from_hf,
+                                           llama_params_from_hf)
+    from bluefog_tpu_torch.models.generate import decode_config, init_cache
+
+    t0 = time.perf_counter()
+    hf = _hf_state_dict(model, cfg)
+    hf_cfg = SimpleNamespace(
+        vocab_size=cfg.vocab_size, hidden_size=cfg.dim,
+        num_hidden_layers=cfg.n_layers, num_attention_heads=cfg.n_heads,
+        num_key_value_heads=cfg.n_kv_heads, intermediate_size=cfg.ffn_dim,
+        max_position_embeddings=cfg.max_seq_len, rope_theta=cfg.rope_theta,
+        rms_norm_eps=cfg.norm_eps, attention_bias=False, mlp_bias=False,
+        rope_scaling={"rope_type": "llama3",
+                      "factor": cfg.rope_scaling_factor,
+                      "low_freq_factor": cfg.rope_scaling_low_freq_factor,
+                      "high_freq_factor": cfg.rope_scaling_high_freq_factor,
+                      "original_max_position_embeddings":
+                          cfg.rope_scaling_original_max_len})
+    icfg = llama_config_from_hf(hf_cfg)
+    if icfg != cfg:
+        raise AssertionError(f"imported config {icfg} != {cfg}")
+    state = llama_params_from_hf(hf, icfg, device="cuda")
+    hf_gib = sum(t.numel() * t.element_size() for t in hf.values()) / 2 ** 30
+    del hf
+    own = model.state_dict()
+    if set(state) != set(own) or not all(torch.equal(state[k], own[k])
+                                         for k in own):
+        raise AssertionError("19a: imported weights differ from the source")
+    tokens = torch.from_numpy(np.arange(7, 7 + 40, dtype=np.int32)[None]
+                              ).cuda()
+    dcfg = decode_config(cfg, 64)
+    want = model(tokens, init_cache(dcfg, 1, 64, device="cuda"),
+                 all_logits=True)
+    got = torch.func.functional_call(
+        model, state, (tokens, init_cache(dcfg, 1, 64, device="cuda")),
+        {"all_logits": True})
+    if not torch.equal(got, want):
+        raise AssertionError("19a: imported logits differ from the source")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, own
+    torch.cuda.empty_cache()
+    log(f"[serve19a] HF import: {len(model.state_dict())} tensors through an"
+        f" HF state dict of {hf_gib:.2f} GiB and llama_params_from_hf "
+        f"(SimpleNamespace config) bit-equal to the source; logits [1, 40, "
+        f"{cfg.vocab_size}] bit-equal; {time.perf_counter() - t0:.1f} s, "
+        f"peak {peak:.2f} GiB")
+
+
+def _phase19_quant(model, cfg, rng, tally):
+    """19b: quantize_llama_params on the card; serve weight-only int8 and
+    w8a8 with the int8 cache at max_len 1024."""
+    import bluefog_tpu_torch.models.llama as tl
+    from bluefog_tpu_torch.models.generate import (build_model,
+                                                   decode_config, init_cache)
+    from bluefog_tpu_torch.models.quant import quantize_llama_params
+    from bluefog_tpu_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    qstate = quantize_llama_params(model)
+    torch.cuda.synchronize()
+    q_bytes = sum(t.numel() for t in qstate.values()
+                  if t.dtype == torch.int8)
+    scale_bytes = sum(t.numel() * 4 for k, t in qstate.items()
+                      if k.endswith(".scale") and "norm" not in k)
+    full_bytes = sum(t.numel() * t.element_size()
+                     for k, t in model.state_dict().items()
+                     if k.endswith(".kernel"))
+    # why QuantDense keeps its kernel column-major: cuBLASLt's int8 GEMM
+    # at w2's shape (a decode step's 8 rows, padded past 16) both ways
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    w2 = qstate["layers.0.feed_forward.w2.kernel"]
+    x8 = torch.randint(-127, 128, (SERVE_CAP, w2.shape[0]), device="cuda",
+                       dtype=torch.int8)
+    col, row = w2.t().contiguous().t(), w2.contiguous()
+    if not torch.equal(tl.int8_matmul(x8, col), tl.int8_matmul(x8, row)):
+        raise AssertionError("19b: int8_matmul differs by kernel layout")
+    col_ms = time_ms(lambda: tl.int8_matmul(x8, col), flush)
+    row_ms = time_ms(lambda: tl.int8_matmul(x8, row), flush)
+    del col, row, flush
+    log(f"[serve19b] int8_matmul at w2's shape ({SERVE_CAP} rows, "
+        f"{tuple(w2.shape)}): column-major kernel {col_ms:.4f} ms, "
+        f"row-major {row_ms:.4f} ms")
+    log(f"[serve19b] quantize_llama_params on the card in "
+        f"{time.perf_counter() - t0:.2f} s: int8 kernels {q_bytes / 1e9:.3f} "
+        f"GB + scales {scale_bytes / 1e6:.2f} MB, against "
+        f"{full_bytes / 1e9:.3f} GB of bf16 projections and f32 head")
+    reqs = _serve_reqs(rng, 8, cfg.vocab_size, (16, 700), 32)
+    # the logits criterion of tests/test_quant.py on one prompt
+    probe = torch.from_numpy(reqs[0].prompt[None]).cuda()
+    s = 1024
+    ref_logits = model(probe, init_cache(decode_config(cfg, s), 1, s,
+                                         device="cuda"))[0, -1].float()
+    bf16 = ServingEngine(model, cfg, capacity=SERVE_CAP, max_len=s,
+                         prefill_chunk=256)
+    base = _clones(reqs)
+    m, wall, peak = _run_engine(
+        bf16, base, "19b bf16",
+        lambda m: {"decode_attention": cfg.n_layers * m["decode_steps"]},
+        tally)
+    dev, wall_step = _device_ms_per_step(
+        bf16, _serve_reqs(rng, 8, cfg.vocab_size, (16, 64), 16))
+    _log_serve("19b bf16 weights (yardstick)", m, wall, peak,
+               f"; profiled decode step: device {dev:.2f} ms, wall "
+               f"{wall_step:.2f} ms ({100 * dev / wall_step:.1f}% busy)")
+    del bf16
+    calls = {"n": 0}
+    real = tl._cached_attention_int8
+
+    def counted(*a):
+        calls["n"] += 1
+        return real(*a)
+
+    for mode, kv, counter, tol in (("int8", "none", "decode_attention", 0.15),
+                                   ("w8a8", "int8", "decode_attention_int8",
+                                    0.2)):
+        dcfg = decode_config(cfg, s, kv_quant=kv, weight_quant=mode)
+        qmodel = build_model(qstate, dcfg, torch.device("cuda"))
+        got = qmodel(probe, init_cache(dcfg, 1, s, kv_quant=kv,
+                                       device="cuda"))[0, -1].float()
+        err = (got - ref_logits).abs().max().item()
+        bound = tol * (1.0 + ref_logits.abs().max().item())
+        if err >= bound:
+            raise AssertionError(f"19b {mode}: logits off by {err}")
+        eng = ServingEngine(qmodel, cfg, capacity=SERVE_CAP, max_len=s,
+                            prefill_chunk=256, kv_quant=kv,
+                            weight_quant=mode)
+        run = _clones(reqs)
+        calls["n"] = 0
+        tl._cached_attention_int8 = counted
+        try:
+            m, wall, peak = _run_engine(
+                eng, run, f"19b {mode}",
+                lambda m: {counter: cfg.n_layers * m["decode_steps"]}, tally)
+        finally:
+            tl._cached_attention_int8 = real
+        want_calls = cfg.n_layers * m["prefill_chunks"] if mode == "w8a8" \
+            else 0
+        if calls["n"] != want_calls:
+            raise AssertionError(f"19b {mode}: integer attention ran "
+                                 f"{calls['n']} times, want {want_calls}")
+        dev, wall_step = _device_ms_per_step(
+            eng, _serve_reqs(rng, 8, cfg.vocab_size, (16, 64), 16))
+        first = sum(a.tokens[0] == b.tokens[0] for a, b in zip(base, run))
+        agree = np.mean([np.mean(np.asarray(a.tokens) == np.asarray(b.tokens))
+                         for a, b in zip(base, run)])
+        _log_serve(f"19b weight_quant={mode} kv_quant={kv}", m, wall, peak,
+                   f"; probe logits max|err| {err:.4g} < {bound:.4g}; first "
+                   f"greedy tokens equal to bf16's {first}/8, all tokens "
+                   f"{agree:.3f}; integer attention on {calls['n']} "
+                   f"(layer, prefill chunk) pairs; {counter} launches "
+                   f"{cfg.n_layers * m['decode_steps']}; profiled decode "
+                   f"step: device {dev:.2f} ms, wall {wall_step:.2f} ms "
+                   f"({100 * dev / wall_step:.1f}% busy)")
+        # the first tokens differ from bf16's only at near-ties of the
+        # quantization's size (tests/test_quant.py demands them equal at
+        # its tiny scale)
+        for a, b in zip(base, run):
+            if a.tokens[0] != b.tokens[0]:
+                ql = qmodel(torch.from_numpy(a.prompt[None]).cuda(),
+                            init_cache(dcfg, 1, s, kv_quant=kv,
+                                       device="cuda"))[0, -1].float()
+                fl = model(torch.from_numpy(a.prompt[None]).cuda(),
+                           init_cache(decode_config(cfg, s), 1, s,
+                                      device="cuda"))[0, -1].float()
+                gap = (ql - fl).abs().max().item()
+                margin = abs((fl[a.tokens[0]] - fl[b.tokens[0]]).item())
+                log(f"[serve19b] {mode}: request {a.rid}'s first token "
+                    f"{b.tokens[0]} against bf16's {a.tokens[0]}: margin "
+                    f"{margin:.4g}, 2 x quantized-logit gap {2 * gap:.4g}")
+                if margin > 2 * gap:
+                    raise AssertionError(f"19b {mode}: first token flip "
+                                         "beyond the quantization's gap")
+        del eng, qmodel
+        torch.cuda.empty_cache()
+    return q_bytes
+
+
+def _phase19_prefix(model, cfg, rng, tally):
+    """19c: 8 requests sharing a 1024-token prefix, two waves through
+    one prefix cache, the second against a cold engine."""
+    from bluefog_tpu_torch.serving import PrefixCache, ServingEngine
+
+    prefix = rng.randint(0, cfg.vocab_size, (PREFIX_LEN,)).astype(np.int32)
+    waves = [_serve_reqs(rng, 8, cfg.vocab_size, (16, 200), 32,
+                         prefix=prefix) for _ in range(2)]
+    cache = PrefixCache(256, 4 << 30)
+    warm = ServingEngine(model, cfg, capacity=SERVE_CAP, max_len=2048,
+                         prefill_chunk=256, prefix_cache=cache)
+    def k4(m):
+        return {"decode_attention": cfg.n_layers * m["decode_steps"]}
+
+    m1, wall1, _ = _run_engine(warm, waves[0], "19c wave 1", k4, tally)
+    restored1 = m1["prefix_chunks_restored"]
+    warm = ServingEngine(model, cfg, capacity=SERVE_CAP, max_len=2048,
+                         prefill_chunk=256, prefix_cache=cache)
+    m2, wall2, peak2 = _run_engine(warm, waves[1], "19c wave 2", k4, tally)
+    cold = ServingEngine(model, cfg, capacity=SERVE_CAP, max_len=2048,
+                         prefill_chunk=256)
+    ref = _clones(waves[1])
+    mc, wallc, peakc = _run_engine(cold, ref, "19c cold", k4, tally)
+    if m2["prefix_chunks_restored"] != 8 * PREFIX_LEN // 256:
+        raise AssertionError(f"19c: wave 2 restored "
+                             f"{m2['prefix_chunks_restored']} chunks")
+    for a, b in zip(waves[1], ref):
+        if a.tokens != b.tokens:
+            raise AssertionError(f"19c: request {a.rid}'s stream differs "
+                                 "from the cold engine's")
+    _log_serve("19c wave 1 (cold cache)", m1, wall1, peak2,
+               f"; {restored1} chunks restored")
+    _log_serve("19c wave 2 (prefix cache)", m2, wall2, peak2,
+               f"; {m2['prefix_chunks_restored']} chunks restored, "
+               f"{len(cache)} entries, {cache.nbytes / 2 ** 30:.2f} GiB")
+    _log_serve("19c wave 2 cold (no cache)", mc, wallc, peakc,
+               "; greedy streams bit-equal to the cached engine's")
+    log(f"[serve19c] TTFT p50 with the cache {m2['ttft_p50'] * 1e3:.1f} ms,"
+        f" without {mc['ttft_p50'] * 1e3:.1f} ms")
+
+
+def _phase19_spec(model, cfg, seed, rng, tally):
+    """19d: speculative decoding, lookahead 4, the target as its own
+    draft and a 2-layer draft at 8B width from another seed, against
+    plain greedy."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.serving import ServingEngine, SpeculativeConfig
+
+    reqs = _serve_reqs(rng, 8, cfg.vocab_size, (16, 500), 40)
+    plain = ServingEngine(model, cfg, capacity=SERVE_CAP, max_len=2048,
+                          prefill_chunk=256)
+    base = _clones(reqs)
+    m, wall, peak = _run_engine(
+        plain, base, "19d plain",
+        lambda m: {"decode_attention": cfg.n_layers * m["decode_steps"]},
+        tally)
+    _log_serve("19d plain greedy (yardstick)", m, wall, peak)
+    del plain
+    dcfg = dataclasses.replace(cfg, n_layers=2)
+    small = bt.Llama(dcfg, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(seed + 1))
+    for name, draft, draft_cfg in (("self-draft", model, cfg),
+                                   ("2-layer draft", small, dcfg)):
+        spec = SpeculativeConfig(draft, draft_cfg, lookahead=LOOKAHEAD)
+        eng = ServingEngine(model, cfg, capacity=SERVE_CAP, max_len=2048,
+                            prefill_chunk=256, speculative=spec)
+        run = _clones(reqs)
+        m, wall, peak = _run_engine(
+            eng, run, f"19d {name}",
+            lambda m: {"decode_attention": draft_cfg.n_layers
+                       * (LOOKAHEAD + 1) * m["spec_steps"]}, tally)
+        n_diff = _explain_flips(model, cfg, [(r, b.tokens, r.tokens)
+                                             for r, b in zip(run, base)],
+                                f"19d {name}")
+        _log_serve(f"19d {name}, lookahead {LOOKAHEAD}", m, wall, peak,
+                   f"; accepted {m['accepted_per_step']:.3f} tokens a step "
+                   f"over {m['spec_steps']} steps; K4 launches "
+                   f"{draft_cfg.n_layers * (LOOKAHEAD + 1) * m['spec_steps']}"
+                   f" = draft layers x {LOOKAHEAD + 1} x steps; "
+                   f"{n_diff}/8 streams differ from plain greedy")
+        if m["accepted_per_step"] <= 1.0 and draft is model:
+            raise AssertionError("19d: the self-draft accepted nothing")
+        del eng
+        torch.cuda.empty_cache()
+    del small
+    torch.cuda.empty_cache()
+
+
+def _phase19_failover(model, cfg, rng, tally):
+    """19e: drain with handoff, then a replica killed mid-run and its
+    requests failed over, against an unfaulted run."""
+    from bluefog_tpu_torch.resilience import ServingFaultPlan
+    from bluefog_tpu_torch.serving import (FaultyReplica, PrefixCache,
+                                           ServingEngine, failover_stranded)
+
+    class Clock:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    clock = Clock()
+    cache = PrefixCache(256, 4 << 30)
+
+    def engine(prefix):
+        return ServingEngine(model, cfg, capacity=4, max_len=2048,
+                             prefill_chunk=256, clock=clock,
+                             prefix_cache=prefix)
+
+    reqs = _serve_reqs(rng, 8, cfg.vocab_size, (300, 900), 32,
+                       temperature=0.8)
+    base = _clones(reqs)
+    _run_engine(engine(False), base, "19e unfaulted",
+                lambda m: {"decode_attention":
+                           cfg.n_layers * m["decode_steps"]}, tally)
+    torch.cuda.synchronize()
+    _reset_counts()
+    e0, e1 = engine(cache), engine(cache)
+    live = [e0.submit(r) for r in _clones(reqs)]
+    for _ in range(8):
+        clock.t += 0.01
+        e0.step()
+    states = sorted(r.state for r in live)
+    drained = e0.drain(handoff=e1.submit)
+    steps = [e0.metrics.summary()["decode_steps"]]
+    del e0
+    rep = FaultyReplica(e1, ServingFaultPlan.replica_death(1, 0, step=12), 0)
+    while rep.step():
+        clock.t += 0.01
+    late = next(r for r in live if r.state == "decode")
+    late.deadline = clock.t + 1.0      # passes while the replica is dead
+    clock.t += 5.0
+    e2 = engine(cache)
+    moved, expired = failover_stranded(rep, e2.submit)
+    while e2.step():
+        clock.t += 0.01
+    torch.cuda.synchronize()
+    steps += [e.metrics.summary()["decode_steps"] for e in (e1, e2)]
+    k4 = _expect_launches("19e drain and failover", {
+        "decode_attention": cfg.n_layers * sum(steps)})["decode_attention"]
+    tally["decode_attention"] += k4
+    if [r.rid for r in expired] != [late.rid] or late.state != "expired":
+        raise AssertionError(f"19e: expired {[r.rid for r in expired]}, "
+                             f"want [{late.rid}]")
+    done = [r for r in live if r is not late]
+    if any(r.state != "completed" or len(r.tokens) != r.max_new_tokens
+           for r in done):
+        raise AssertionError("19e: a moved request did not complete")
+    by_rid = {r.rid: b for r, b in zip(live, base)}
+    n_diff = _explain_flips(model, cfg, [(r, by_rid[r.rid].tokens, r.tokens)
+                                         for r in done], "19e failover")
+    restored = (e1.metrics.summary()["prefix_chunks_restored"]
+                + e2.metrics.summary()["prefix_chunks_restored"])
+    log(f"[serve19e] states before the drain {states}; drain "
+        f"{drained}; the replica died after {rep.steps} steps holding "
+        f"{len(moved) + len(expired)} requests: {len(moved)} failed over, "
+        f"{len(expired)} expired; n_failovers e0 "
+        f"{drained['handed_off']} + e1 "
+        f"{e1.metrics.summary()['n_failovers']}; prefix chunks restored "
+        f"{restored}; {n_diff}/{len(done)} resumed streams differ from the "
+        f"unfaulted run (4 sampled at T=0.8); decode_attention launches "
+        f"{k4} = {cfg.n_layers} x {sum(steps)} decode steps {steps}")
+
+
+def phase_serving_rest(seed):
+    """Phase 19: HF import, int8 and w8a8 weights, the prefix cache,
+    speculative decoding, drain and failover at Llama-3.1-8B's full
+    width and depth."""
+    import bluefog_tpu_torch as bt
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = bt.LlamaConfig.llama3_8b(rope_scaling_kind="llama3")
+    model = bt.Llama(cfg, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(seed))
+    rng = np.random.RandomState(seed + 19)
+    _phase19_import(model, cfg)
+    tally = {"decode_attention": 0, "decode_attention_int8": 0}
+    _phase19_quant(model, cfg, rng, tally)
+    _phase19_prefix(model, cfg, rng, tally)
+    _phase19_spec(model, cfg, seed, rng, tally)
+    _phase19_failover(model, cfg, rng, tally)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[serve19] phase 19 in {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K4 "
+        f"launches {tally}")
+    return tally
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3119,6 +3758,8 @@ def main() -> int:
     torch.backends.cudnn.benchmark = False
     phase_eager_reference(args.seed)
     phase_process(args.seed)
+    for kname, n in phase_serving_rest(args.seed).items():
+        launches[kname] += n
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):
         entries.append(dict(

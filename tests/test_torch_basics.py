@@ -405,6 +405,10 @@ def test_names_left_out_name_their_roadmap_item(name, item):
         getattr(tbf, name)()
 
 
+def test_version_is_the_jax_packages():
+    assert tbf.__version__ == jbf.__version__
+
+
 # ------------------------------------------------------------------ #
 # the eager layer's spans and counter (tests/test_timeline.py)
 # ------------------------------------------------------------------ #

@@ -116,7 +116,8 @@ def test_generate_validates_inputs(weights):
         _port(weights, 0)
     with pytest.raises(NotImplementedError, match="tp"):
         _port(weights, mesh=object())
-    with pytest.raises(NotImplementedError, match="param_quant"):
+    # weight_quant is ported: full-precision weights are refused for it
+    with pytest.raises(ValueError, match="quantize_llama_params"):
         _port(weights, weight_quant="int8")
 
 

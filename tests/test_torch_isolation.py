@@ -17,7 +17,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "networkx",
-             "bluefog_tpu", "triton"}
+             "bluefog_tpu", "triton", "transformers"}
 
 
 def _port_files():
@@ -47,7 +47,9 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert {f"bluefog_tpu_torch/{m}.py" for m in (
         "api", "context", "windows", "utility", "logging_util",
         "optim/wrappers", "topology/infer", "run/__init__", "run/__main__",
-        "run/run")} <= names
+        "run/run", "interop/hf_llama", "models/quant",
+        "serving/prefix_cache", "serving/resilience", "resilience/faults",
+        "sim/engine", "observe/blackbox")} <= names
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
            for p in files}
@@ -62,7 +64,7 @@ def test_package_imports_with_jax_blocked():
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'networkx',\n"
-        "             'bluefog_tpu', 'triton'):\n"
+        "             'bluefog_tpu', 'triton', 'transformers'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {modules!r}:\n"
@@ -104,6 +106,7 @@ def test_bfrun_runs_with_jax_and_triton_blocked():
 def _entry_points():
     import bluefog_tpu_torch as bt
     from bluefog_tpu_torch.interop import (llama_params_from_flax,
+                                           llama_params_from_hf,
                                            mlp_params_from_flax,
                                            resnet_params_from_flax,
                                            vit_params_from_flax)
@@ -122,6 +125,7 @@ def _entry_points():
             model, cfg, capacity=1, max_len=8, prefill_chunk=4),
         "SlotPool": lambda: SlotPool(cfg, 1, 8),
         "llama_params_from_flax": lambda: llama_params_from_flax(tree, cfg),
+        "llama_params_from_hf": lambda: llama_params_from_hf({}, cfg),
         "ResNet": lambda: bt.ResNet50(),
         "StackedBackend": lambda: bt.StackedBackend(4),
         "build_train_step": lambda: bt.build_train_step(
@@ -146,7 +150,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["Llama", "init_cache", "llama_generate",
                                   "ServingEngine", "SlotPool",
-                                  "llama_params_from_flax", "ResNet",
+                                  "llama_params_from_flax",
+                                  "llama_params_from_hf", "ResNet",
                                   "StackedBackend", "build_train_step",
                                   "resnet_params_from_flax", "ViT",
                                   "ViT_B16", "MLP", "MnistNet",

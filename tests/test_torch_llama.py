@@ -227,7 +227,7 @@ def test_config_maps_one_to_one():
 @pytest.mark.parametrize("over,match", [
     (dict(tp_axis="tp", tp_size=2), "tensor parallelism"),
     (dict(n_experts=4), "MoE"),
-    (dict(decode=True, param_quant="int8"), "param_quant"),
+    (dict(decode=True, n_experts=4, capacity_factor=4.0), "MoE"),
     (dict(sp_axis="sp"), "sequence parallelism"),
     (dict(attn_mode="ring", sp_axis="sp"), "attn_mode"),
 ])

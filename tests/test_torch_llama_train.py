@@ -197,7 +197,7 @@ def test_released_state_is_the_one_copy():
 
 @pytest.mark.parametrize("over,match", [
     (dict(tp_size=2, tp_axis="tp"), "tensor parallelism"),
-    (dict(decode=True, param_quant="int8"), "param_quant"),
+    (dict(attn_mode="ring", sp_axis="sp"), "attn_mode='ring'"),
     (dict(attn_mode="ulysses", sp_axis="sp"), "Ulysses"),
     (dict(n_experts=2), "moe/"),
 ])

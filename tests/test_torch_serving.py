@@ -283,14 +283,16 @@ def test_prompt_filling_the_slot_is_exact(weights):
 
 
 def test_unported_options_raise(weights):
-    for kw in (dict(speculative=object()), dict(prefix_cache=True),
-               dict(weight_quant="int8")):
-        with pytest.raises(NotImplementedError):
-            _engine(weights, **kw)
+    """The prefix cache, speculation, weight_quant and drain are ported
+    (tests/test_torch_{prefix_cache,speculative,quant,
+    serving_resilience}.py); what is left raises, and misused options
+    are refused."""
+    with pytest.raises(TypeError, match="SpeculativeConfig"):
+        _engine(weights, speculative=object())
+    with pytest.raises(ValueError, match="quantize_llama_params"):
+        _engine(weights, weight_quant="int8")
     eng = _engine(weights)
-    with pytest.raises(NotImplementedError):
-        eng.drain()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="torch.profiler"):
         eng.profile()
     other = bt.LlamaConfig.tiny(dtype=torch.float32, n_layers=3)
     with pytest.raises(ValueError, match="another config"):
