@@ -18,8 +18,10 @@ and of Llama (``models.llama``'s training forward and
 ``parallel.splash``), ViT (``models.vit``), ``MLP`` and ``MnistNet``,
 with the train step's decentralized modes (the skip guard, health
 telemetry, bucketed overlap, the int8 and stochastic-rounding wires,
-error-feedback top-k mixing, the hierarchical exchange and push-sum).
-CUDA sources live in ``csrc/``.  Entry points take ``device=`` (default
+error-feedback top-k mixing, the hierarchical exchange and push-sum),
+the serving fleet's router over gossiped gauges (``serving.FleetRouter``)
+and observability (``observe``: metrics, spans, exporters, fleet
+aggregation, the step profiler).  CUDA sources live in ``csrc/``.  Entry points take ``device=`` (default
 ``"cuda"``) and raise without CUDA unless ``device="cpu"`` is passed.
 """
 

@@ -1,8 +1,10 @@
 """Environment-variable configuration of the port.
 
 Port of ``bluefog_tpu/config.py``, cut to the knobs the port reads
-(the serving engine's slot pool and prefix cache, the observe switch,
-the decision flight recorder, the Python timeline writer, the knobs
+(the serving engine's slot pool and prefix cache, the fleet router's
+staleness guard, retries and cooldown, the straggler detector's
+threshold, the observe switch, the decision flight recorder, the Python
+timeline writer, the knobs
 ``build_train_step`` reads, and the eager op layer's: logging, the
 timeline path, fusion, the stall watchdog, the op timeout,
 ``BLUEFOG_OPS_ON_CPU``, and the launcher's job: the process identity,
@@ -38,6 +40,11 @@ __all__ = [
     "timeline_queue_capacity",
     "kv_zero_on_free",
     "prefix_cache_mb",
+    "replica_stale_s",
+    "router_retries",
+    "router_retry_base_s",
+    "router_cooldown_s",
+    "straggler_z_threshold",
     "blackbox_enabled",
     "blackbox_capacity",
     "blackbox_dump_dir",
@@ -233,6 +240,66 @@ def prefix_cache_mb() -> int:
         return int(_env("BLUEFOG_PREFIX_CACHE_MB", "64"))
     except ValueError:
         return 64
+
+
+def replica_stale_s() -> float:
+    """BLUEFOG_REPLICA_STALE_S (seconds, default 0 = disabled): serving
+    fleet staleness guard.  A replica that has not published a step
+    heartbeat (``bf_serving_last_step_ts``) within this window is marked
+    *suspect* by :class:`bluefog_tpu_torch.serving.FleetRouter` — its
+    gossip row is masked out and its score pinned to +inf, exactly like
+    the explicit dead-mask path — until it steps again.  Replicas that
+    have never stepped are exempt (cold replicas must stay routable)."""
+    try:
+        return float(_env("BLUEFOG_REPLICA_STALE_S", "0"))
+    except ValueError:
+        return 0.0
+
+
+def router_retries() -> int:
+    """BLUEFOG_ROUTER_RETRIES (default 0): extra full-fleet walks
+    :meth:`FleetRouter.submit` makes after the first walk exhausts every
+    live replica, separated by seeded exponential backoff
+    (:func:`bluefog_tpu_torch.serving.resilience.backoff_sleep`).  0
+    keeps the single-walk behavior: one pass, then ``FleetSaturated``."""
+    try:
+        return max(0, int(_env("BLUEFOG_ROUTER_RETRIES", "0")))
+    except ValueError:
+        return 0
+
+
+def router_retry_base_s() -> float:
+    """BLUEFOG_ROUTER_RETRY_BASE_S (seconds, default 0.05): base delay of
+    the router's seeded exponential backoff between submit retry walks
+    (attempt k sleeps ~ base * 2**k, jittered deterministically from the
+    router seed and request id)."""
+    try:
+        return float(_env("BLUEFOG_ROUTER_RETRY_BASE_S", "0.05"))
+    except ValueError:
+        return 0.05
+
+
+def router_cooldown_s() -> float:
+    """BLUEFOG_ROUTER_COOLDOWN_S (seconds, default 0 = disabled): after a
+    replica rejects repeated submits, the router demotes it to the back
+    of the candidate walk for this long.  Cooldown only re-orders the
+    walk — a cooling replica is still tried last, so cooldown can never
+    manufacture a ``FleetSaturated`` on its own."""
+    try:
+        return float(_env("BLUEFOG_ROUTER_COOLDOWN_S", "0"))
+    except ValueError:
+        return 0.0
+
+
+def straggler_z_threshold() -> float:
+    """BLUEFOG_STRAGGLER_Z (default 4.0): robust step-time z-score above
+    which :class:`~bluefog_tpu_torch.observe.fleet.StragglerDetector`
+    counts a rank as slow (flagged after ``patience`` consecutive
+    observations)."""
+    try:
+        return float(_env("BLUEFOG_STRAGGLER_Z", "4.0"))
+    except ValueError:
+        return 4.0
 
 
 def blackbox_enabled() -> bool:

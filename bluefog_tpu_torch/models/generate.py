@@ -27,9 +27,9 @@ layouts).  Deviations from the JAX package:
   built from the decode config, since ``LlamaConfig`` takes
   ``param_quant`` only with ``decode=True``.
 * Not ported yet: the tp-sharded decode (``keep_tp=True``, ``mesh=``,
-  ``_tp_generate_program``) waits for the serving slice that follows
-  ROADMAP.md Queue 1, item 10's tensor parallelism; MoE decode waits for
-  item 10's MoE.  They raise ``NotImplementedError``.
+  ``_tp_generate_program``) waits for ROADMAP.md Queue 1, item 10's
+  tensor parallelism; MoE decode waits for item 10's MoE.  They raise
+  ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,8 +47,8 @@ __all__ = ["init_cache", "llama_generate", "decode_config",
            "prefill_cache", "decode_token_step", "verify_window",
            "build_model"]
 
-_TP_DECODE = ("waits for the tp decode part of ROADMAP.md Queue 1, item 11 "
-              "(after item 10's tensor parallelism)")
+_TP_DECODE = ("waits for ROADMAP.md Queue 1, item 10's tensor parallelism, "
+              "which ports it with the tp-sharded model")
 
 
 def decode_config(cfg: LlamaConfig, max_len: int, *, keep_tp: bool = False,

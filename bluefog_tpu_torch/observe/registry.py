@@ -5,8 +5,11 @@ because importing anything under ``bluefog_tpu`` loads jax.  The only
 change is that :func:`enabled` reads :mod:`bluefog_tpu_torch.config`.
 
 One registry for the whole process (``get_registry()``); every subsystem
-of the port publishes into it (in this slice: the serving engine and
-the timeline writer).  Design constraints:
+of the port publishes into it (the serving engine, the train-step
+wrappers, the fleet router and aggregator, the step profiler and the
+timeline writer), so ONE exporter call
+(:func:`bluefog_tpu_torch.observe.export.prometheus_text` or
+``observe.snapshot()``) sees everything.  Design constraints:
 
 * **host-side only** — a metric update is a dict lookup plus a float
   add; nothing here is ever traced, so enabling observability cannot

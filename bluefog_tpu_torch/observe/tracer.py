@@ -16,7 +16,7 @@ into ONE :class:`Tracer`; consumers attach as **sinks**:
   its native/Python writers implement the sink protocol directly);
 * the in-memory ring buffer every tracer carries (bounded — a tracer
   left running forever costs a fixed amount of memory), which feeds the
-  JSONL and chrome-trace exporters of the JAX package (not ported yet).
+  JSONL and chrome-trace exporters in :mod:`bluefog_tpu_torch.observe.export`.
 
 The sink protocol is the timeline writers' existing surface::
 

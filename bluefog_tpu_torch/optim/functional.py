@@ -351,16 +351,67 @@ def _select_state(optimizer, tensors, snap, ok, n) -> None:
             torch.where(_ranks(ok, v), v, prev, out=v)
 
 
-def _observed_step(step_fn: Callable, labels: dict) -> Callable:
+def _observed_step(step_fn: Callable, labels: dict,
+                   edge_traffic: Optional[tuple] = None) -> Callable:
     """Host-side observability of a built step: each call increments
     ``bf_train_steps_total{comm_mode,overlap,guarded}`` and runs inside a
     ``train_step`` span on the ``train`` track (nothing when
     ``BLUEFOG_OBSERVE=0``).  The span measures host dispatch: torch is
     asynchronous on the card, so synchronize before reading it as a step
-    time.  The JAX wrapper also bills ``bf_edge_bytes_total`` per edge;
-    that account needs ``observe/fleet.py`` (ROADMAP.md Queue 1, item
-    12)."""
+    time.
+
+    ``edge_traffic`` — ``(specs, step_argpos, k_comm, n_local, n_ranks,
+    filtered, local_size)`` for the neighbor modes: per on-cycle call,
+    the round's edges each get the per-rank parameter payload added to
+    ``bf_edge_bytes_total{src,dst}`` through
+    ``observe.fleet.record_edge_traffic`` (logical bytes, computed once
+    from the params' sizes on the host: wire compression is not folded
+    in, and no device value is read).  ``filtered`` bills the
+    weight-filtered push-sum edges (``push_sum_mix`` moves only
+    nonzero-weight edges) instead of every declared edge.  Under a
+    hierarchical exchange (``local_size`` set, ``specs`` machine-level)
+    the intra-machine ring edges bill as ``link="ici"`` and the expanded
+    machine edges as ``link="dcn"``, as in the JAX package."""
     from bluefog_tpu_torch import observe
+
+    payload_cache: list = []
+    pairs_cache: dict = {}
+
+    def record_edges(args) -> None:
+        specs, step_argpos, k_comm, n_local, n_ranks, filtered, \
+            local_size = edge_traffic
+        try:
+            step_i = int(args[step_argpos])
+        except (TypeError, ValueError, IndexError):
+            return
+        if step_i % k_comm != 0:
+            return
+        if not payload_cache:
+            payload_cache.append(sum(
+                t.numel() * t.element_size()
+                for t in args[0].values()) // max(n_local, 1))
+        from bluefog_tpu_torch.observe import fleet as _fleet
+
+        si = step_i % len(specs)
+        pairs = pairs_cache.get(si)
+        if pairs is None:
+            if local_size:
+                L = int(local_size)
+                dcn = [(ms * L + j, md * L + j)
+                       for (ms, md) in _fleet.edge_list(specs[si])
+                       for j in range(L)]
+                ici = [(g[k], g[(k + 1) % len(g)])
+                       for g in C.machine_groups(n_ranks, L) if len(g) > 1
+                       for k in range(len(g))]
+                pairs = (("ici", ici), ("dcn", dcn))
+            else:
+                pairs = ((None, _fleet.gossip_edge_list(specs[si])
+                          if filtered else _fleet.edge_list(specs[si])),)
+            pairs_cache[si] = pairs
+        for link, leg in pairs:
+            if leg:
+                _fleet.record_edge_traffic(specs[si], payload_cache[0],
+                                           pairs=leg, link=link)
 
     def step(*args, **kwargs):
         tr = observe.publish_tracer()
@@ -368,6 +419,8 @@ def _observed_step(step_fn: Callable, labels: dict) -> Callable:
             return step_fn(*args, **kwargs)
         observe.get_registry().counter(
             "bf_train_steps_total", "train-step dispatches", **labels).inc()
+        if edge_traffic is not None:
+            record_edges(args)
         with tr.span("train", "train_step"):
             return step_fn(*args, **kwargs)
 
@@ -966,9 +1019,14 @@ def build_train_step(
             return outputs(run(params, None, opt_state, batch, step,
                                default_w), False)
 
+    # the edge account only for modes that run a neighbor exchange (a
+    # topology passed with "none" or "gradient_allreduce" moves nothing)
+    edge_traffic = ((list(specs), 4 if has_aux else 3, k_comm, n,
+                     backend.size, push_sum, hls if neighbor else None)
+                    if specs and (neighbor or push_sum) else None)
     step_fn = _observed_step(train_step, dict(
         comm_mode=comm_mode, overlap="bucketed" if bucketed else "none",
-        guarded="true" if guarded else "false"))
+        guarded="true" if guarded else "false"), edge_traffic)
 
     def init_mix_state(params) -> MixState:
         """The MixState for rank-major ``params``: ``err`` zero, ``ref``

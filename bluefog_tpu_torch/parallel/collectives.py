@@ -160,6 +160,30 @@ def _permute(x: torch.Tensor, perm: Sequence[Tuple[int, int]]
     return out
 
 
+# Every exchange runs inside a profiler range of this name.
+EXCHANGE = "bf.backend.exchange"
+
+# The exchanges of a ``profile_step`` run by collective kind, ``{kind:
+# {"count", "bytes"}}``: ``observe/stepprof.py`` sets a dict here for the
+# run it profiles and reads it back; None (nothing counted) otherwise.
+_exchange_tally: Optional[dict] = None
+
+
+def _tally_exchange(kind: str, nbytes: int) -> None:
+    """Count one exchange of ``nbytes`` per rank (the JAX package's
+    per-device result bytes: one row for a permute or a sum, every rank's
+    rows for a gather) while a profile counts."""
+    tally = _exchange_tally
+    if tally is not None:
+        rec = tally.setdefault(kind, {"count": 0, "bytes": 0})
+        rec["count"] += 1
+        rec["bytes"] += int(nbytes)
+
+
+def _row_bytes(x: torch.Tensor) -> int:
+    return x[:1].numel() * x.element_size()
+
+
 class RankAxis:
     """The rank axis of the rank-major tensors one process holds: ranks
     ``first_rank .. first_rank + n_local - 1`` of a world of ``size``.
@@ -190,7 +214,9 @@ class RankAxis:
     def permute(self, x: torch.Tensor, perm) -> torch.Tensor:
         """``lax.ppermute`` over global (src, dst) pairs on this process's
         rows ``x`` (``[n_local, ...]``)."""
-        return _permute(x, perm)
+        with torch.profiler.record_function(EXCHANGE):
+            _tally_exchange("collective-permute", _row_bytes(x))
+            return _permute(x, perm)
 
     def gather_ranks(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's rows, ``[size, ...]``, in rank order."""
@@ -852,6 +878,7 @@ def allreduce(x: torch.Tensor, average: bool = True,
         validate_machine_decomposition(ax.size, local_size)
         return ax.machine_mean(x, int(local_size), acc,
                                average).to(x.dtype)
+    _tally_exchange("all-reduce", _row_bytes(x))
     total = ax.gather_ranks(x).to(acc).sum(0, keepdim=True)
     if average:
         total = total / ax.size
@@ -874,6 +901,7 @@ def allgather(x: torch.Tensor, comm: Optional[RankAxis] = None
     ``[n, d0, ...] -> [n, n * d0, ...]`` (reference mpi_controller.cc:136;
     equal per-rank shapes, as the JAX package's ``all_gather``)."""
     ax = _axis(comm, x)
+    _tally_exchange("all-gather", ax.size * _row_bytes(x))
     full = ax.gather_ranks(x)
     flat = full.reshape((1, ax.size * x.shape[1]) + tuple(x.shape[2:]))
     return flat.expand((x.shape[0],) + tuple(flat.shape[1:])).clone()
@@ -895,6 +923,7 @@ def allgatherv(x: torch.Tensor, sizes: Sequence[int],
         raise ValueError(f"sizes {sizes} exceed the padded row count {pad}")
     rows = tuple(int(i) for r, s in enumerate(sizes)
                  for i in range(r * pad, r * pad + s))
+    _tally_exchange("all-gather", ax.size * _row_bytes(x))
     flat = ax.gather_ranks(x).reshape((ax.size * pad,) + tuple(x.shape[2:]))
     out = flat.index_select(0, _device_const(rows, x.device, torch.long))
     return out.unsqueeze(0).expand((x.shape[0],) + tuple(out.shape)).clone()
@@ -1157,7 +1186,7 @@ class ProcessBackend(RankBackend):
     ``bf.backend.exchange`` profiler range, and its waits run under the
     stall watchdog and the op timeout (``context.timed_wait``)."""
 
-    EXCHANGE = "bf.backend.exchange"
+    EXCHANGE = EXCHANGE
 
     def __init__(self, ranks_per_process: int = 1,
                  device: Union[str, torch.device] = "cuda"):
@@ -1237,6 +1266,7 @@ class ProcessBackend(RankBackend):
     def permute(self, x: torch.Tensor, perm) -> torch.Tensor:
         import torch.distributed as dist
 
+        _tally_exchange("collective-permute", _row_bytes(x))
         k, first = self.n_local, self.first_rank
         pairs = sorted(perm)
         local = tuple((s - first, d - first) for s, d in pairs

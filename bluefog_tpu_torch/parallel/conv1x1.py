@@ -39,6 +39,8 @@ from typing import Tuple
 
 import torch
 
+from bluefog_tpu_torch.observe import stepprof as _stepprof
+
 __all__ = ["conv1x1", "conv1x1_backward", "conv1x1_backward_plain",
            "conv1x1_backward_split_plain", "split_plan", "tile_config",
            "reset_launch_counts"]
@@ -198,6 +200,9 @@ def conv1x1_backward(x2d: torch.Tensor, dy2d: torch.Tensor,
                          f"got {x2d.device}")
     out = _launch(x2d, dy2d, w)
     conv1x1_backward.launches += 1
+    # dx and dw: two products of N x ci x co multiply-adds
+    _stepprof.count_kernel("conv1x1_backward",
+                           lambda: 4 * x2d.shape[0] * w.shape[0] * w.shape[1])
     return out
 
 

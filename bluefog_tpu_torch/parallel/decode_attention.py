@@ -36,6 +36,8 @@ from typing import Union
 
 import torch
 
+from bluefog_tpu_torch.observe import stepprof as _stepprof
+
 __all__ = ["decode_attention", "decode_attention_int8",
            "decode_attention_plain", "decode_attention_split_plain",
            "split_len", "reset_launch_counts", "HEAD_DIMS", "MAX_REP"]
@@ -256,7 +258,18 @@ def _route(q, k_all, v_all, k_scale, v_scale, idx, wrapper):
                          f"got {q.device}")
     out = _launch(q, k_all, v_all, k_scale, v_scale, idx)
     wrapper.launches += 1
+    _stepprof.count_kernel(wrapper.__name__, lambda: _ops(q, k_all, idx))
     return out
+
+
+def _ops(q: torch.Tensor, k_all: torch.Tensor, idx) -> int:
+    """A launch's operations: two multiply-adds per query head, live key
+    position and head-dim element (the kernel's bound in
+    ``chip_smoke.py``).  Reads the positions, a host sync."""
+    b, _, n_q, d = q.shape
+    live = torch.as_tensor(idx).clamp(max=k_all.shape[2] - 1) + 1
+    n_pos = int(live.sum()) * (b if live.dim() == 0 else 1)
+    return 4 * n_q * d * n_pos
 
 
 def decode_attention(q: torch.Tensor, k_all: torch.Tensor,

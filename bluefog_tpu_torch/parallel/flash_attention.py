@@ -42,7 +42,10 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+from bluefog_tpu_torch.observe import stepprof as _stepprof
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_forward",
            "flash_backward_dq", "flash_backward_dkv", "flash_forward_plain",
@@ -238,6 +241,25 @@ def _call(name, ptrs, dims, causal, scale, q_offset, kv_offset):
         raise RuntimeError(f"{name} kernel launch failed with code {err}")
 
 
+def live_pairs(t: int, s_len: int, causal: bool, q_offset: int = 0,
+               kv_offset: int = 0) -> int:
+    """(query, key) pairs under the mask of one (batch, head): the work
+    the kernels do."""
+    if not causal:
+        return t * s_len
+    rows = np.arange(t)
+    return int(np.clip(q_offset + rows - kv_offset + 1, 0, s_len).sum())
+
+
+def _count(name, per_pair, dims, causal, q_offset, kv_offset) -> None:
+    """Report a launch's operations to the step profiler: ``per_pair``
+    (4 forward, 6 dQ, 8 dK/dV, 10 the fused backward) times batch x heads
+    x live pairs x head dim, the formula of the kernels' bound."""
+    b, t, s_len, h, _, d = dims
+    _stepprof.count_kernel(name, lambda: per_pair * b * h * d * live_pairs(
+        t, s_len, causal, q_offset, kv_offset))
+
+
 def _on_card(q) -> bool:
     """True for a CUDA tensor (launch), False for a CPU one (plain)."""
     if q.device.type not in ("cpu", "cuda"):
@@ -271,6 +293,7 @@ def flash_forward(q, k, v, causal: bool = True, scale: Optional[float] = None,
     flash_forward.launches += 1
     if q.dtype == torch.bfloat16 and dims[-1] < 64:
         flash_forward.launches_mma_sync += 1
+    _count("flash_forward", 4, dims, causal, q_offset, kv_offset)
     return out, lse
 
 
@@ -293,6 +316,7 @@ def flash_backward_dq(q, k, v, do, lse, delta, causal: bool = True,
     flash_backward_dq.launches += 1
     if q.dtype == torch.bfloat16 and dims[-1] < 64:
         flash_backward_dq.launches_mma_sync += 1
+    _count("flash_backward_dq", 6, dims, causal, q_offset, kv_offset)
     return dq
 
 
@@ -316,6 +340,7 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool = True,
     flash_backward_dkv.launches += 1
     if q.dtype == torch.bfloat16 and dims[-1] < 64:
         flash_backward_dkv.launches_mma_sync += 1
+    _count("flash_backward_dkv", 8, dims, causal, q_offset, kv_offset)
     return dk, dv
 
 

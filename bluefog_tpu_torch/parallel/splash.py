@@ -52,9 +52,9 @@ from typing import Optional, Tuple
 import torch
 
 from bluefog_tpu_torch.parallel.flash_attention import (HEAD_DIMS, _CODES,
-                                                        _dims, _dscores,
-                                                        _heads, _on_card,
-                                                        _probs,
+                                                        _count, _dims,
+                                                        _dscores, _heads,
+                                                        _on_card, _probs,
                                                         flash_forward)
 
 __all__ = ["splash_attention", "splash_backward", "splash_backward_plain",
@@ -165,6 +165,7 @@ def splash_backward(q, k, v, do, lse, delta, scale: Optional[float] = None
     splash_backward.launches += 1
     if q.dtype == torch.bfloat16 and d < 64:
         splash_backward.launches_mma_sync += 1
+    _count("splash_backward", 10, (b, t, t, h, kv, d), True, 0, 0)
     return dq, dk, dv
 
 

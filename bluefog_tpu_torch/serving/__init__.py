@@ -1,14 +1,17 @@
 """Continuous-batching serving engine (``bluefog_tpu.serving``'s
 counterpart): the slot-pooled engine with speculative decoding and
 drain, its scheduler, pool and metrics, the chunk-hashed prefix cache,
-and serving resilience (fault injection around an engine, token-exact
-failover, seeded backoff).  The fleet router waits for ROADMAP.md
-Queue 1, item 11.
+serving resilience (fault injection around an engine, token-exact
+failover, seeded backoff), and the decentralized fleet router over
+gossiped gauges (``FleetRouter``).
 """
 
 from bluefog_tpu_torch.serving.engine import (Request, RequestRejected,
                                               ServingEngine,
                                               SpeculativeConfig)
+from bluefog_tpu_torch.serving.fleet import (SIGNAL_NAMES, FleetRouter,
+                                             FleetSaturated, RouterSnapshot,
+                                             collect_serving_signals)
 from bluefog_tpu_torch.serving.kv_pool import SlotPool
 from bluefog_tpu_torch.serving.metrics import ServingMetrics, percentile
 from bluefog_tpu_torch.serving.prefix_cache import PrefixCache
@@ -21,4 +24,6 @@ from bluefog_tpu_torch.serving.scheduler import FifoScheduler
 __all__ = ["ServingEngine", "Request", "RequestRejected",
            "SpeculativeConfig", "SlotPool", "PrefixCache", "FifoScheduler",
            "ServingMetrics", "percentile", "FaultyReplica",
-           "failover_stranded", "seeded_backoff", "backoff_sleep"]
+           "failover_stranded", "seeded_backoff", "backoff_sleep",
+           "FleetRouter", "FleetSaturated", "RouterSnapshot",
+           "collect_serving_signals", "SIGNAL_NAMES"]

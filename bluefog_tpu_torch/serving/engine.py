@@ -51,8 +51,10 @@ Deviations:
 * ``decode_attn`` is taken for signature compatibility (``"auto"``
   means the kernel; on a CUDA device any value but ``"pallas"``/
   ``"auto"`` is refused).
-* ``profile`` waits for the part of ROADMAP.md Queue 1, item 11 that
-  rebuilds it on ``torch.profiler`` and raises ``NotImplementedError``.
+* :meth:`ServingEngine.profile` executes each resident program (the
+  JAX engine's profile compiles and executes nothing) on scratch caches
+  the engine's pool never sees, through
+  :func:`~bluefog_tpu_torch.observe.profile_step` on ``torch.profiler``.
 * The engine counts logit rows of active slots that were not finite
   (:meth:`ServingEngine.nonfinite_logit_rows`).
 """
@@ -71,7 +73,7 @@ from bluefog_tpu_torch._device import resolve_device
 from bluefog_tpu_torch.models.generate import (build_model,
                                                check_decode_attn,
                                                decode_config,
-                                               decode_token_step,
+                                               decode_token_step, init_cache,
                                                prefill_cache, verify_window)
 from bluefog_tpu_torch.models.llama import LlamaConfig
 from bluefog_tpu_torch.models.quant import is_quantized_params
@@ -535,11 +537,69 @@ class ServingEngine:
             winner="handoff" if handoff is not None else "complete")
         return summary
 
-    def profile(self, **kw):
-        raise NotImplementedError(
-            "ServingEngine.profile (HLO step profiles in JAX) waits for the "
-            "part of ROADMAP.md Queue 1, item 11 that rebuilds it on "
-            "torch.profiler")
+    def _resident(self) -> Dict[str, tuple]:
+        """The engine's device programs: ``{name: (fn, args_thunk)}``, a
+        prefill chunk and the decode step for a plain engine; the prefill
+        chunk, the draft's prefill chunk and the draft/verify step for a
+        speculative one (the JAX engine's resident set).  Each thunk
+        builds scratch state the engine's pool never sees: a one-row
+        cache for a prefill chunk, and for a decode program a cache of
+        ``capacity`` rows (the batch the engine's decode step runs) at
+        the pool's current positions, no row active, so the program
+        leaves its indices as it found them and samples nothing."""
+        cap, dev = self.pool.capacity, self.device
+        max_len, kv = self.pool.max_len, self.pool.kv_quant
+
+        def scratch(cfg, rows):
+            return init_cache(cfg, rows, max_len, kv_quant=kv, device=dev)
+
+        def prefill(model, cfg):
+            def args():
+                return (model, scratch(cfg, 1),
+                        torch.zeros((1, self.prefill_chunk),
+                                    dtype=torch.int32, device=dev))
+            return self._prefill_program, args
+
+        def step_args(*pools):
+            caches = [scratch(c, cap) for c, _ in pools]
+            for cache, (_, pool) in zip(caches, pools):
+                cache.index.copy_(pool.cache.index)
+            return (*caches, torch.zeros(cap, dtype=torch.int32, device=dev),
+                    torch.zeros(cap, dtype=torch.bool, device=dev), {},
+                    torch.zeros((), dtype=torch.int64, device=dev))
+
+        progs = {"prefill_chunk": prefill(self.model, self.cfg)}
+        if self._spec is None:
+            progs["decode_step"] = (
+                self._decode_tokens,
+                lambda: step_args((self.cfg, self.pool)))
+        else:
+            progs["draft_prefill_chunk"] = prefill(self.draft,
+                                                   self.draft_cfg)
+            progs["spec_step"] = (
+                self._spec_tokens,
+                lambda: step_args((self.cfg, self.pool),
+                                  (self.draft_cfg, self._draft_pool)))
+        return progs
+
+    def profile(self, **kw) -> Dict[str, "object"]:
+        """:class:`~bluefog_tpu_torch.observe.StepProfile` of EVERY
+        resident device program (``prefill_chunk`` + ``decode_step`` for
+        a plain engine; ``prefill_chunk`` + ``draft_prefill_chunk`` +
+        ``spec_step`` for a speculative one), via
+        :func:`bluefog_tpu_torch.observe.profile_step`.  Each program
+        runs twice on its own scratch state (see :meth:`_resident`), so a
+        live engine's slots, pool, prefix cache, metrics and sampling
+        streams are left as they were.  Keyword args (``step_seconds``,
+        card figures, ``publish``, ...) pass through."""
+        from bluefog_tpu_torch.observe import profile_step
+
+        out = {}
+        with torch.no_grad():
+            for name, (fn, args) in self._resident().items():
+                out[name] = profile_step(fn, *args(), name=f"serving.{name}",
+                                         device=self.device, **kw)
+        return out
 
     def nonfinite_logit_rows(self) -> int:
         """How many (decode step, active slot) logit rows held a NaN or
@@ -597,11 +657,9 @@ class ServingEngine:
             # chunk rides the target's budget slot
             pools.append((self.draft, self._draft_pool))
         for model, pool in pools:
-            view = pool.cache.rows(req.slot, req.slot + 1)
-            prefill_cache(model, view, chunk)
-            # the model advanced the index by the padded chunk; the
-            # request wrote only `valid` real tokens
-            view.index.sub_(c - valid)
+            self._prefill_program(model, pool.cache.rows(req.slot,
+                                                         req.slot + 1),
+                                  chunk, valid)
         self.metrics.on_prefill_chunk()
         if (valid == c and req._prefix_keys
                 and pos // c < len(req._prefix_keys)):
@@ -616,6 +674,15 @@ class ServingEngine:
         self._admitting = None
         self._running[req.slot] = req
         req.state = DECODE
+
+    def _prefill_program(self, model, view, chunk: torch.Tensor,
+                         valid: int = 0) -> None:
+        """The prefill chunk's device program: write ``chunk``'s K/V into
+        the one-row ``view`` at its index, which the model advances by
+        the padded chunk; the request wrote only ``valid`` real tokens,
+        so the index moves back by the rest."""
+        prefill_cache(model, view, chunk)
+        view.index.sub_(chunk.shape[1] - valid)
 
     def _sample(self, logits: torch.Tensor, decoding: Dict[int, Request],
                 j: int, salt: int = 0) -> torch.Tensor:
@@ -643,21 +710,30 @@ class ServingEngine:
         return (torch.from_numpy(toks).to(self.device),
                 torch.from_numpy(active).to(self.device))
 
-    def _decode_step(self, decoding: Dict[int, Request]) -> None:
-        t0 = time.perf_counter()
-        tok, act = self._step_inputs(decoding)
-        cache = self.pool.cache
+    def _decode_tokens(self, cache, tok: torch.Tensor, act: torch.Tensor,
+                       decoding: Dict[int, Request],
+                       nonfinite: torch.Tensor) -> torch.Tensor:
+        """The decode step's device program: ``decode_horizon`` single-
+        token steps over every row of ``cache``; returns the tokens
+        ``[horizon, rows]``, counting active rows' non-finite logits into
+        ``nonfinite``."""
         hist = []
         for j in range(self.decode_horizon):
             old_index = cache.index.clone()
             last, cache = decode_token_step(self.model, cache, tok[:, None])
-            self._nonfinite += ((~torch.isfinite(last)).any(dim=-1)
-                                & act).sum()
+            nonfinite += ((~torch.isfinite(last)).any(dim=-1) & act).sum()
             tok = torch.where(act, self._sample(last, decoding, j), tok)
             # inactive slots computed too; only their index is frozen
             cache.index.copy_(torch.where(act, cache.index, old_index))
             hist.append(tok)
-        hist = torch.stack(hist).cpu().numpy()  # the per-step host sync
+        return torch.stack(hist)
+
+    def _decode_step(self, decoding: Dict[int, Request]) -> None:
+        t0 = time.perf_counter()
+        tok, act = self._step_inputs(decoding)
+        hist = self._decode_tokens(self.pool.cache, tok, act, decoding,
+                                   self._nonfinite)
+        hist = hist.cpu().numpy()  # the per-step host sync
         now = self.clock()
         self.metrics.on_decode_step(self.decode_horizon,
                                     time.perf_counter() - t0)
@@ -678,9 +754,28 @@ class ServingEngine:
         n_emit`` (0 for inactive slots), so rejected drafts sit above the
         index, masked until real tokens overwrite them."""
         t0 = time.perf_counter()
-        k = self._spec.lookahead
         cur, act = self._step_inputs(decoding)
-        cache_t, cache_d = self.pool.cache, self._draft_pool.cache
+        out = self._spec_tokens(self.pool.cache, self._draft_pool.cache, cur,
+                                act, decoding, self._nonfinite).cpu().numpy()
+        now = self.clock()
+        self.metrics.on_decode_step(1, time.perf_counter() - t0)
+        emitted_n = 0
+        for slot, req in decoding.items():
+            for j in range(int(out[slot, -1])):
+                emitted_n += 1
+                if self._emit(req, int(out[slot, j]), now):
+                    break  # surplus accepted tokens of a retired slot are
+                    # discarded (index reset on free)
+        self.metrics.on_spec_step(len(decoding), emitted_n)
+
+    def _spec_tokens(self, cache_t, cache_d, cur: torch.Tensor,
+                     act: torch.Tensor, decoding: Dict[int, Request],
+                     nonfinite: torch.Tensor) -> torch.Tensor:
+        """The draft/verify step's device program over every row of the
+        target and draft caches: returns ``[rows, lookahead + 2]``, each
+        row's emitted tokens then their count (0 for inactive rows, whose
+        indices stay where they were)."""
+        k = self._spec.lookahead
         old_t, old_d = cache_t.index.clone(), cache_d.index.clone()
         window, props, dlg = [], [], []
         for i in range(k + 1):
@@ -696,8 +791,8 @@ class ServingEngine:
         window = torch.stack(window, dim=1)
         props = torch.stack(props, dim=1)
         vlogits, _ = verify_window(self.model, cache_t, window)
-        self._nonfinite += ((~torch.isfinite(vlogits)).any(dim=-1)
-                            .any(dim=-1) & act).sum()
+        nonfinite += ((~torch.isfinite(vlogits)).any(dim=-1).any(dim=-1)
+                      & act).sum()
         tgt = vlogits.argmax(dim=-1).to(torch.int32)        # [cap, k+1]
         # greedy acceptance: the leading run where draft == target argmax
         n_acc = (props[:, :k] == tgt[:, :k]).to(torch.int32).cumprod(
@@ -715,17 +810,7 @@ class ServingEngine:
             props, corr[:, None])
         cache_t.index.copy_(old_t + n_emit)
         cache_d.index.copy_(old_d + n_emit)
-        out = torch.cat([emitted, n_emit[:, None]], dim=1).cpu().numpy()
-        now = self.clock()
-        self.metrics.on_decode_step(1, time.perf_counter() - t0)
-        emitted_n = 0
-        for slot, req in decoding.items():
-            for j in range(int(out[slot, -1])):
-                emitted_n += 1
-                if self._emit(req, int(out[slot, j]), now):
-                    break  # surplus accepted tokens of a retired slot are
-                    # discarded (index reset on free)
-        self.metrics.on_spec_step(len(decoding), emitted_n)
+        return torch.cat([emitted, n_emit[:, None]], dim=1)
 
     def _spec_sampled(self, req: Request, vlogits: torch.Tensor,
                       dlg: torch.Tensor, props: torch.Tensor, k: int):

@@ -36,8 +36,9 @@ chaos benches); this module is the serving twin.  Three pieces:
   bit-identically.
 
 The router's knobs (``BLUEFOG_REPLICA_STALE_S``,
-``BLUEFOG_ROUTER_RETRIES``, ...) come with the fleet router (ROADMAP.md
-Queue 1, item 11).  Guide: docs/serving.md (failure model).
+``BLUEFOG_ROUTER_RETRIES``, ...) are read by
+:class:`~bluefog_tpu_torch.serving.FleetRouter`.  Guide: docs/serving.md
+(failure model).
 """
 
 from __future__ import annotations
@@ -161,7 +162,7 @@ def failover_stranded(engine, resubmit: Callable[[Request], object], *,
       emits a terminal timeline span and a retired counter);
     * otherwise -> retired with outcome ``failover``, reset to QUEUED
       with its emitted tokens kept, and handed to ``resubmit`` (usually
-      ``FleetRouter.submit`` in the JAX package) — replay via the
+      ``FleetRouter.submit``) — replay via the
       prefix-cache chain-hash path makes the resumed output bit-equal to
       an unfaulted run.
 

@@ -74,7 +74,12 @@ Phases (any failure raises and exits non-zero, printing no result):
 6. Train, 4 ranks stacked on the card: atc over
    uniform_topology_spec(ExponentialTwoGraph(4)), batch 128 per rank, 2
    warm-up and 5 timed steps; img/s per card, the combine's ms per step
-   (CUDA events); K1 launched 20 x 4 x steps times; and after 3 steps
+   (CUDA events); K1 launched 20 x 4 x steps times; the edge account
+   (bf_edge_bytes_total{src,dst}) holds steps x one rank's parameter
+   bytes on every edge of the topology and nothing elsewhere;
+   observe.profile_step of one step prints its FLOPs (K1's work
+   included), collective bytes (one rank's flat buffer per shift class)
+   and device ms; and after 3 steps
    from one state on the same per-rank data (batch 16), the consensus
    distance under atc is below that of comm_mode="none".
 6b. Train-step modes, 4 ranks stacked, ResNet-50 at full width, batch
@@ -225,9 +230,43 @@ Phases (any failure raises and exits non-zero, printing no result):
    path's logits there; and each of the two paths' logits must lie
    within twice the uncached bf16 forward's sup-norm distance of the f32
    forward over the same weights, a ceiling neither path sets.
+20. The serving fleet at Llama-3.1-8B's full width and depth (random
+   bf16 weights from --seed as phase 3): three replicas on the one card
+   over one model's weights, each its own ServingEngine (8 slots,
+   max_len 2048, 256-token chunks) with its own metrics registry and
+   scheduler, all sharing one PrefixCache, behind FleetRouter (push-sum
+   gossip of the replicas' gauges over ExponentialTwoGraph(3)); a
+   harness clock (seconds since the phase began) drives every engine and
+   the router; each round steps every live replica and polls the router
+   once, and one request arrives a round through router.submit.  Each
+   run with the launch counts reset just before and read just after (K4
+   n_layers x decode steps summed over replicas, draft steps included):
+   a. 24 requests (prompts 16-1500 tokens, 8 of them a shared 1024-token
+      prefix, 32-128 new tokens, half greedy and half at temperature
+      0.8): every request completes its budget with finite logits;
+      placements per replica, fleet tokens/s, TTFT p50 and p99,
+      decode-step ms p50 per replica; a second router over the same
+      registries ranks every round alike; then the same requests on one
+      replica (tokens/s beside the fleet's; one card's replicas share its
+      SMs and host thread, so the pair is not a scaling number).
+   b. The same requests with replica 1 behind a FaultyReplica that dies
+      at its 20th step: the staleness guard (0.5 s) excises it,
+      failover_stranded(resubmit=router.submit) moves its requests to
+      the survivors, and every request completes; polls to excision,
+      the time from death to the last moved request's first new token,
+      chunks restored from the shared prefix cache; each stream that
+      parts from (a)'s must part at a near-tie (phase 19's check).
+   c. A burst against queues of 2 raises FleetSaturated with every
+      replica's depth; router.publish lands the bf_fleet_serving_*
+      gauges, prometheus_text() carries them, snapshot(dir) writes
+      metrics.prom, events.jsonl and trace.json.
+   d. profile() on a live replica mid-run, a plain engine and a
+      self-drafting speculative one: each program's device ms by kernel,
+      K4's share of decode_step (spec_step), FLOPs and MFU; the later
+      streams equal those of a run without the call.
 
 The line before the last is a JSON object with one entry per kernel
-(seven; K4's launches are phase 3's and phase 19's); the last line is
+(seven; K4's launches are phase 3's, 19's and 20's); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -634,10 +673,9 @@ FLASH_REPLACES = {
 
 def _live_pairs(t, s_len, causal, q_off, kv_off):
     """(query, key) pairs under the mask: the work the kernels do."""
-    if not causal:
-        return t * s_len
-    rows = np.arange(t)
-    return int(np.clip(q_off + rows - kv_off + 1, 0, s_len).sum())
+    from bluefog_tpu_torch.parallel.flash_attention import live_pairs
+
+    return live_pairs(t, s_len, causal, q_off, kv_off)
 
 
 def _flash_err(got, want, terms, what):
@@ -1201,8 +1239,39 @@ def phase_train_1rank(seed):
     return launches
 
 
+def _edge_account(topo, before, steps, payload):
+    """``bf_edge_bytes_total{src,dst}`` since ``before`` must be ``steps``
+    x ``payload`` on every edge of ``topo`` and 0 on every other pair."""
+    from bluefog_tpu_torch.observe import fleet
+
+    got = fleet.traffic_snapshot(since=before)
+    edges = set(fleet.edge_list(topo))
+    want = {e: float(steps * payload) for e in edges}
+    if got != want:
+        raise AssertionError(f"edge account {got}, want {want}")
+    return sorted(edges)
+
+
+def _profile_step_log(step, args, what):
+    """observe.profile_step of one call: FLOPs (the flop counter's and
+    the hand-written kernels'), collective bytes, device ms and MFU."""
+    from bluefog_tpu_torch import observe
+
+    prof = observe.profile_step(step, *args, name=what, publish=False)
+    kern = ", ".join(f"{k} {v / 1e9:.1f}" for k, v in
+                     sorted(prof.kernel_flops.items()))
+    log(f"[profile_step] {what}: {prof.flops / 1e9:.1f} GFLOP (kernels: "
+        f"{kern or 'none'} GFLOP), collective bytes "
+        f"{json.dumps(prof.collective_bytes)}, device "
+        f"{prof.device_seconds * 1e3:.2f} ms in a {prof.step_seconds * 1e3:.2f}"
+        f" ms run, MFU {prof.mfu(prof.device_seconds):.4f} of device time, "
+        f"{prof.mfu():.4f} of the run's wall")
+    return prof
+
+
 def phase_train_4ranks(seed):
     import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.observe import fleet
 
     topo = bt.uniform_topology_spec(bt.ExponentialTwoGraph(4))
     step, params, stats, opt, batch = _resnet_step(4, "atc", seed, BATCH,
@@ -1210,6 +1279,7 @@ def phase_train_4ranks(seed):
     warmup, timed = 2, 5
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    traffic0 = fleet.traffic_snapshot()
     _reset_counts()
     for i in range(warmup):
         params, stats, opt, loss = step(params, stats, opt, batch, i)
@@ -1224,6 +1294,12 @@ def phase_train_4ranks(seed):
     })["conv1x1_backward"]
     if not torch.isfinite(loss).all():
         raise AssertionError(f"non-finite loss: {loss.tolist()}")
+    # the edge account: the flat payload of one rank's params on every
+    # edge each step, computed on the host
+    payload = sum(v[0].numel() * v.element_size() for v in params.values())
+    edges = _edge_account(topo, traffic0, warmup + timed, payload)
+    log(f"[train4] bf_edge_bytes_total: {warmup + timed} steps x {payload} "
+        f"bytes on each of the {len(edges)} edges {edges}, 0 elsewhere")
     # the combine the step runs, alone, on a copy of the params (one
     # flat buffer per dtype: a cat, the gathers and multiply-adds, and
     # the copies back into the leaves)
@@ -1247,6 +1323,17 @@ def phase_train_4ranks(seed):
         f"M f32 values per rank as one buffer, 2 shift classes), K1 launches {launches} "
         f"= 20 x 4 ranks x {warmup + timed} steps")
     _profile_train(step, (params, stats, opt, batch), steps=1)
+    i = warmup + timed
+    prof = _profile_step_log(step, (params, stats, opt, batch, i),
+                             "train4.atc")
+    want = {"collective-permute": {"count": len(topo.shift_classes),
+                                   "bytes": len(topo.shift_classes)
+                                   * payload}}
+    if prof.collective_bytes != want:
+        raise AssertionError(f"profile_step collective bytes "
+                             f"{prof.collective_bytes}, want {want}")
+    if not prof.kernel_flops.get("conv1x1_backward"):
+        raise AssertionError("profile_step counted no K1 work")
     del step, params, stats, opt, batch, copy
     torch.cuda.empty_cache()
 
@@ -3707,6 +3794,394 @@ def phase_serving_rest(seed):
     return tally
 
 
+# ------------------------------------------------------------------ #
+# phase 20: the serving fleet at Llama-3.1-8B's width and depth
+# ------------------------------------------------------------------ #
+FLEET = 3            # replicas on the one card
+FLEET_REQS = 24      # 20a's requests, one arrival a round
+STALE_S = 0.5        # 20b's staleness window, harness seconds
+DEATH_STEP = 20      # 20b: replica 1 dies at its 20th step
+
+
+class _HarnessClock:
+    """The fleet's one clock, seconds since the harness started: every
+    engine's and the router's."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def __call__(self):
+        return time.perf_counter() - self.t0
+
+
+def _fleet_reqs(rng, vocab):
+    """20a's requests: prompts of 16-1500 tokens (8 of them a shared
+    1024-token prefix and a 16-476-token tail), 32-128 new tokens, half
+    greedy and half at temperature 0.8."""
+    from bluefog_tpu_torch.serving import Request
+
+    prefix = rng.randint(0, vocab, (PREFIX_LEN,)).astype(np.int32)
+    reqs = []
+    for i in range(FLEET_REQS):
+        if i % 3 == 0:
+            p = np.concatenate([prefix, rng.randint(
+                0, vocab, (int(rng.randint(16, 477)),)).astype(np.int32)])
+        else:
+            p = rng.randint(0, vocab, (int(rng.randint(16, 1501)),)).astype(
+                np.int32)
+        reqs.append(Request(p, int(rng.randint(32, 129)),
+                            temperature=0.8 if i % 2 else 0.0,
+                            seed=3000 + i))
+    return reqs
+
+
+def _fleet_engines(model, cfg, clock, cache, n=FLEET):
+    """``n`` replicas over one model's weights, each with its own engine,
+    metrics registry and scheduler, all sharing ``cache``."""
+    from bluefog_tpu_torch.observe.registry import MetricsRegistry
+    from bluefog_tpu_torch.serving import ServingEngine
+
+    return [ServingEngine(model, cfg, capacity=SERVE_CAP, max_len=2048,
+                          prefill_chunk=256, clock=clock, prefix_cache=cache,
+                          registry=MetricsRegistry()) for _ in range(n)]
+
+
+def _drive_fleet(replicas, router, reqs, clock, twin=None, on_round=None,
+                 max_rounds=5000):
+    """Arrivals through ``router.submit``, one a round; each round steps
+    every live replica, then polls the router once (and ``twin``, a
+    second router over the same registries, which must rank alike).
+    ``on_round(snap)`` runs after each poll.  Returns (placements, rounds,
+    wall seconds)."""
+    placed, rounds = [], 0
+    t0 = time.perf_counter()
+    snap = router.poll()
+    while rounds < max_rounds:
+        if len(placed) < len(reqs):
+            i, _ = router.submit(reqs[len(placed)], snapshot=snap)
+            placed.append(i)
+        busy = [rep.step() for rep in replicas]
+        rounds += 1
+        snap = router.poll()
+        if twin is not None:
+            other = twin.poll()
+            if other.order != snap.order or not np.array_equal(
+                    other.scores, snap.scores):
+                raise AssertionError(f"20a: two routers over the same "
+                                     f"registries rank {snap.order} and "
+                                     f"{other.order}")
+        if on_round is not None:
+            on_round(snap)
+        if len(placed) == len(reqs) and all(r.done for r in reqs) \
+                and not any(busy):
+            break
+    else:
+        raise AssertionError(f"fleet still busy after {max_rounds} rounds")
+    torch.cuda.synchronize()
+    return placed, rounds, time.perf_counter() - t0
+
+
+def _fleet_summary(engines, reqs, wall):
+    """Fleet tokens/s over the drive's wall, TTFT p50/p99 over every
+    replica's requests, decode-step ms p50 and steps per replica."""
+    from bluefog_tpu_torch.serving import percentile
+
+    ms = [e.metrics.summary() for e in engines]
+    ttft = [t for e in engines for t in e.metrics.ttfts()]
+    tokens = sum(len(r.tokens) for r in reqs)
+    return dict(tokens=tokens, tokens_per_sec=tokens / wall,
+                ttft_p50=percentile(ttft, 50), ttft_p99=percentile(ttft, 99),
+                step_ms=[round(m["decode_step_ms_p50"], 2) for m in ms],
+                decode_steps=[m["decode_steps"] for m in ms],
+                restored=sum(m["prefix_chunks_restored"] for m in ms))
+
+
+def _check_done(reqs, what, engines):
+    bad = [r.rid for r in reqs
+           if r.state != "completed" or len(r.tokens) != r.max_new_tokens]
+    if bad:
+        raise AssertionError(f"{what}: requests {bad} did not complete")
+    if any(e.nonfinite_logit_rows() for e in engines):
+        raise AssertionError(f"{what}: non-finite logits")
+
+
+def _phase20_route(model, cfg, rng, tally):
+    """20a (three replicas behind FleetRouter, and the same requests on
+    one replica) and 20c (saturation, publication, export)."""
+    from bluefog_tpu_torch import observe
+    from bluefog_tpu_torch.serving import (FleetRouter, FleetSaturated,
+                                           PrefixCache, Request)
+
+    reqs = _fleet_reqs(rng, cfg.vocab_size)
+    clock = _HarnessClock()
+    engines = _fleet_engines(model, cfg, clock, PrefixCache(256, 4 << 30))
+    router = FleetRouter(engines)
+    twin = FleetRouter(engines)
+    run = _clones(reqs)
+    torch.cuda.synchronize()
+    _reset_counts()
+    placed, rounds, wall = _drive_fleet(engines, router, run, clock, twin)
+    s = _fleet_summary(engines, run, wall)
+    k4 = _expect_launches("20a fleet", {
+        "decode_attention": cfg.n_layers * sum(s["decode_steps"])})
+    tally["decode_attention"] += k4["decode_attention"]
+    _check_done(run, "20a", engines)
+    log(f"[fleet20a] {FLEET} replicas of Llama-3.1-8B on one card behind "
+        f"FleetRouter: {len(run)} requests, placements per replica "
+        f"{[placed.count(i) for i in range(FLEET)]} in {rounds} rounds; "
+        f"{s['tokens']} tokens in {wall:.2f} s: fleet {s['tokens_per_sec']:.1f}"
+        f" tokens/s, TTFT p50 {s['ttft_p50'] * 1e3:.1f} ms, p99 "
+        f"{s['ttft_p99'] * 1e3:.1f} ms; decode step ms p50 per replica "
+        f"{s['step_ms']} over {s['decode_steps']} steps; {s['restored']} "
+        f"prefix chunks restored; a second router ranked every round alike;"
+        f" K4 launches {k4['decode_attention']} = {cfg.n_layers} x "
+        f"{sum(s['decode_steps'])} decode steps")
+
+    # the same requests on one replica, one arrival a step
+    one = _fleet_engines(model, cfg, _HarnessClock(), PrefixCache(
+        256, 4 << 30), n=1)
+    solo = _clones(reqs)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for r in solo:
+        one[0].submit(r)
+        one[0].step()
+    one[0].run()
+    torch.cuda.synchronize()
+    s1 = _fleet_summary(one, solo, time.perf_counter() - t0)
+    k4 = _expect_launches("20a one replica", {
+        "decode_attention": cfg.n_layers * s1["decode_steps"][0]})
+    tally["decode_attention"] += k4["decode_attention"]
+    _check_done(solo, "20a one replica", one)
+    log(f"[fleet20a] the same {len(solo)} requests on one replica: "
+        f"{s1['tokens_per_sec']:.1f} tokens/s, TTFT p50 "
+        f"{s1['ttft_p50'] * 1e3:.1f} ms, p99 {s1['ttft_p99'] * 1e3:.1f} ms, "
+        f"decode step ms p50 {s1['step_ms'][0]}; fleet / one replica "
+        f"{s['tokens_per_sec'] / s1['tokens_per_sec']:.3f} (the replicas "
+        f"share one card's SMs and one host thread: not a scaling number)")
+    del one
+
+    # 20c: a burst against 2-deep queues saturates the fleet
+    for e in engines:
+        e.scheduler.max_queue = 2
+    burst = [Request(np.arange(16 + i, dtype=np.int32) % cfg.vocab_size, 8)
+             for i in range(2 * FLEET + 1)]
+    for r in burst[:-1]:
+        router.submit(r)
+    try:
+        router.submit(burst[-1])
+    except FleetSaturated as exc:
+        sat = exc
+    else:
+        raise AssertionError("20c: the burst did not saturate the fleet")
+    if sat.queue_depths[-FLEET:] != [2] * FLEET or len(sat.causes) != FLEET:
+        raise AssertionError(f"20c: FleetSaturated depths "
+                             f"{sat.queue_depths}, causes {sat.causes}")
+    for e in engines:
+        e.scheduler.max_queue = 64
+    _reset_counts()
+    steps0 = sum(e.metrics.n_decode_steps for e in engines)
+    while any([e.step() for e in engines]):
+        router.poll()
+    steps = sum(e.metrics.n_decode_steps for e in engines) - steps0
+    k4 = _expect_launches("20c burst", {"decode_attention":
+                                        cfg.n_layers * steps})
+    tally["decode_attention"] += k4["decode_attention"]
+    _check_done(burst[:-1], "20c burst", engines)
+    snap = router.publish()
+    text = observe.prometheus_text()
+    want = ("bf_fleet_serving_occupancy", "bf_fleet_serving_queue_depth",
+            "bf_fleet_serving_ttft_p50", "bf_fleet_serving_best_replica",
+            "bf_replica_suspect")
+    missing = [w for w in want if w not in text]
+    if missing:
+        raise AssertionError(f"20c: prometheus_text lacks {missing}")
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        dump = observe.snapshot(d)
+        files = sorted(dump["files"])
+        sizes = {f: os.path.getsize(dump["files"][f]) for f in files}
+    if files != ["events.jsonl", "metrics.prom", "trace.json"]:
+        raise AssertionError(f"20c: snapshot wrote {files}")
+    log(f"[fleet20c] a burst of {len(burst)} against {FLEET} queues of 2: "
+        f"FleetSaturated({sat.queue_depths[-FLEET:]}) with "
+        f"{len(sat.causes)} causes; the {len(burst) - 1} accepted completed"
+        f" (K4 {k4['decode_attention']}); router.publish: best replica "
+        f"{snap.order[0]}, gossip {snap.rounds} rounds, spread "
+        f"{snap.spread:.3g}; prometheus_text carries {len(want)} fleet "
+        f"families ({len(text)} bytes); snapshot wrote {sizes}")
+    del engines, router, twin
+    torch.cuda.empty_cache()
+    return reqs, run
+
+
+def _phase20_failover(model, cfg, reqs, base, tally):
+    """20b: 20a's requests with replica 1 dead at its 20th step: the
+    staleness guard excises it, failover_stranded moves its requests
+    through router.submit, and every stream completes, each that parts
+    from 20a's at a near-tie."""
+    from bluefog_tpu_torch.resilience import ServingFaultPlan
+    from bluefog_tpu_torch.serving import (FaultyReplica, FleetRouter,
+                                           PrefixCache, failover_stranded)
+
+    clock = _HarnessClock()
+    cache = PrefixCache(256, 4 << 30)
+    engines = _fleet_engines(model, cfg, clock, cache)
+    plan = ServingFaultPlan.replica_death(FLEET, 1, step=DEATH_STEP)
+    reps = [FaultyReplica(e, plan, i) for i, e in enumerate(engines)]
+    router = FleetRouter(reps, stale_after=STALE_S)
+    run = _clones(reqs)
+    st = dict(death=None, polls=0, excised=None, moved=[], resumed={})
+
+    def on_round(snap):
+        now = clock()
+        if st["death"] is None and reps[1].dead:
+            st["death"] = now
+        if st["death"] is not None and st["excised"] is None:
+            st["polls"] += 1
+            if snap.suspect[1]:
+                st["excised"] = now
+                n0 = {r.rid: len(r.tokens) for r in
+                      list(engines[1]._running.values())}
+                moved, expired = failover_stranded(reps[1], router.submit)
+                if expired:
+                    raise AssertionError(f"20b: {len(expired)} expired")
+                st["moved"] = [(r, n0.get(r.rid, len(r.tokens)))
+                               for r in moved]
+        for r, n in st["moved"]:
+            if r.rid not in st["resumed"] and len(r.tokens) > n:
+                st["resumed"][r.rid] = now
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    placed, rounds, wall = _drive_fleet(reps, router, run, clock,
+                                        on_round=on_round)
+    s = _fleet_summary(engines, run, wall)
+    k4 = _expect_launches("20b failover", {
+        "decode_attention": cfg.n_layers * sum(s["decode_steps"])})
+    tally["decode_attention"] += k4["decode_attention"]
+    if st["excised"] is None or not st["moved"]:
+        raise AssertionError("20b: replica 1 was not excised with requests")
+    age = st["excised"] - engines[1].metrics.last_step_ts
+    if age > STALE_S + 1.0:
+        raise AssertionError(f"20b: excised {age:.2f} s after its last "
+                             f"heartbeat (stale_after {STALE_S})")
+    _check_done(run, "20b", engines)
+    resumed = max(st["resumed"].values()) if st["resumed"] else None
+    if resumed is None or len(st["resumed"]) != len(st["moved"]):
+        raise AssertionError("20b: a moved request emitted no new token")
+    n_diff = _explain_flips(model, cfg, [(r, b.tokens, r.tokens)
+                                         for r, b in zip(run, base)],
+                            "20b failover")
+    log(f"[fleet20b] replica 1 died at its step {DEATH_STEP}; excised "
+        f"after {st['polls']} polls, {age:.3f} s after its last heartbeat "
+        f"(stale_after {STALE_S} s); {len(st['moved'])} requests moved "
+        f"through router.submit; death to the last moved request's first "
+        f"new token {resumed - st['death']:.3f} s; {s['restored']} prefix "
+        f"chunks restored; placements {[placed.count(i) for i in range(FLEET)]};"
+        f" every request completed, {n_diff}/{len(run)} streams part from "
+        f"20a's; fleet {s['tokens_per_sec']:.1f} tokens/s, TTFT p50 "
+        f"{s['ttft_p50'] * 1e3:.1f} ms, p99 {s['ttft_p99'] * 1e3:.1f} ms; "
+        f"K4 launches {k4['decode_attention']} = {cfg.n_layers} x "
+        f"{sum(s['decode_steps'])}")
+    del engines, reps, router
+    torch.cuda.empty_cache()
+
+
+def _log_profiles(profs, what):
+    for name, p in profs.items():
+        top = sorted(p.op_breakdown.items(), key=lambda kv: -kv[1]["ms"])[:6]
+        log(f"[fleet20d] {what} {name}: device {p.device_seconds * 1e3:.3f} "
+            f"ms in a {p.step_seconds * 1e3:.2f} ms run, {p.flops / 1e9:.2f} "
+            f"GFLOP, MFU {p.mfu(p.device_seconds):.4f} of device time; "
+            + "; ".join(f"{k[:48]} {v['ms']:.3f} ms x{v['count']}"
+                        for k, v in top))
+
+
+def _phase20_profile(model, cfg, rng, tally):
+    """20d: profile() on a live replica mid-run, plain and self-drafting
+    speculative; the later streams equal those of a run without it."""
+    from bluefog_tpu_torch.serving import ServingEngine, SpeculativeConfig
+
+    reqs = _serve_reqs(rng, 8, cfg.vocab_size, (16, 500), 24,
+                       temperature=0.8)
+    spec = SpeculativeConfig(model, cfg, lookahead=LOOKAHEAD)
+    for what, kw in (("plain", {}), ("self-draft", {"speculative": spec})):
+        streams, profs, steps = [], None, 0
+        torch.cuda.synchronize()
+        _reset_counts()
+        for call in (False, True):
+            eng = ServingEngine(model, cfg, capacity=SERVE_CAP, max_len=2048,
+                                prefill_chunk=256, **kw)
+            run = _clones(reqs)
+            for r in run:
+                eng.submit(r)
+            for _ in range(10):
+                eng.step()
+            if call:
+                profs = eng.profile(publish=False)
+            eng.run()
+            _check_done(run, f"20d {what}", [eng])
+            streams.append([r.tokens for r in run])
+            m = eng.metrics.summary()
+            steps += m["spec_steps"] if kw else m["decode_steps"]
+            del eng
+        if streams[0] != streams[1]:
+            raise AssertionError(f"20d {what}: streams after profile() "
+                                 "differ from a run without it")
+        # each profiled decode program runs twice (counted, profiled)
+        per = cfg.n_layers * ((LOOKAHEAD + 1) if kw else 1)
+        k4 = _expect_launches(f"20d {what}", {
+            "decode_attention": per * (steps + 2)})["decode_attention"]
+        tally["decode_attention"] += k4
+        name = "spec_step" if kw else "decode_step"
+        want = {"prefill_chunk", "decode_step"} if not kw else {
+            "prefill_chunk", "draft_prefill_chunk", "spec_step"}
+        if set(profs) != want or not all(p.flops > 0
+                                         for p in profs.values()):
+            raise AssertionError(f"20d {what}: programs {sorted(profs)}")
+        dec = profs[name]
+        k4_ms = dec.kernel_ms("decode_split_kernel", "decode_merge_kernel")
+        if k4_ms <= 0:
+            raise AssertionError(f"20d {what}: {name}'s profile names no K4")
+        _log_profiles(profs, what)
+        log(f"[fleet20d] {what}: K4 {k4_ms:.3f} ms of {name}'s "
+            f"{dec.device_seconds * 1e3:.3f} ms of device time "
+            f"({100 * k4_ms / (dec.device_seconds * 1e3):.1f}%), K4 work "
+            f"{dec.kernel_flops.get('decode_attention', 0) / 1e9:.3f} GFLOP; "
+            f"streams after profile() bit-equal to a run without it; K4 "
+            f"launches {k4} = {per} x ({steps} steps + 2 profiled)")
+        torch.cuda.empty_cache()
+
+
+def phase_fleet(seed):
+    """Phase 20: the serving fleet (FleetRouter over gossiped gauges, the
+    staleness guard and failover, saturation and export, and the step
+    profiler) at Llama-3.1-8B's full width and depth."""
+    import bluefog_tpu_torch as bt
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = bt.LlamaConfig.llama3_8b(rope_scaling_kind="llama3")
+    model = bt.Llama(cfg, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(seed))
+    rng = np.random.RandomState(seed + 20)
+    tally = {"decode_attention": 0}
+    reqs, base = _phase20_route(model, cfg, rng, tally)
+    _phase20_failover(model, cfg, reqs, base, tally)
+    _phase20_profile(model, cfg, rng, tally)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[fleet20] phase 20 in {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K4 "
+        f"launches {tally}")
+    return tally
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3759,6 +4234,8 @@ def main() -> int:
     phase_eager_reference(args.seed)
     phase_process(args.seed)
     for kname, n in phase_serving_rest(args.seed).items():
+        launches[kname] += n
+    for kname, n in phase_fleet(args.seed).items():
         launches[kname] += n
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):

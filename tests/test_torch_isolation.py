@@ -49,7 +49,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
         "optim/wrappers", "topology/infer", "run/__init__", "run/__main__",
         "run/run", "interop/hf_llama", "models/quant",
         "serving/prefix_cache", "serving/resilience", "resilience/faults",
-        "sim/engine", "observe/blackbox")} <= names
+        "sim/engine", "observe/blackbox", "observe/fleet", "observe/export",
+        "observe/stepprof", "serving/fleet")} <= names
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
            for p in files}

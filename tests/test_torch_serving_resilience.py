@@ -8,7 +8,7 @@ sharing the prefix cache, and every output (greedy and sampled) is bit
 for bit a fault-free run's; a drain completes its residents in place or
 hands them off token-exactly.  The JAX tests' zero-recompile assertions
 have no counterpart (the port compiles no programs).  The router tests
-wait for the fleet router."""
+are tests/test_torch_fleet_serving.py."""
 
 import numpy as np
 import pytest
