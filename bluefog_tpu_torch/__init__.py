@@ -15,7 +15,9 @@ continuous-batching engine (``serving``, ``models``, kernel
 of the ResNet family (``models.resnet``, kernel ``parallel.conv1x1``)
 and of Llama (``models.llama``'s training forward and
 ``llama_loss_fn``, kernels ``parallel.flash_attention`` and
-``parallel.splash``), ViT (``models.vit``), ``MLP`` and ``MnistNet``,
+``parallel.splash``; sequence parallelism over a ``SeqAxis``:
+``parallel.ring_attention``, ``parallel.ulysses``), ViT
+(``models.vit``), ``MLP`` and ``MnistNet``,
 with the train step's decentralized modes (the skip guard, health
 telemetry, bucketed overlap, the int8 and stochastic-rounding wires,
 error-feedback top-k mixing, the hierarchical exchange and push-sum),
@@ -78,8 +80,9 @@ from bluefog_tpu_torch.optim import (GuardConfig, HealthConfig,
                                      MixState, build_train_step,
                                      consensus_distance, push_sum_weights,
                                      rank_major)
-from bluefog_tpu_torch.parallel.collectives import (ProcessBackend,
-                                                    StackedBackend)
+from bluefog_tpu_torch.parallel.collectives import (ProcessBackend, SeqAxis,
+                                                    StackedBackend,
+                                                    bind_axis)
 from bluefog_tpu_torch.serving import Request, ServingEngine
 from bluefog_tpu_torch.topology import (ExponentialTwoGraph, Topology,
                                         DynamicTopology,
@@ -118,7 +121,8 @@ __all__ = ["__version__", "models", "optim", "serving", "topology", "Llama",
            "ResNet101", "ResNet152", "ViT", "ViTConfig", "ViT_S16",
            "ViT_B16", "MLP", "MnistNet", "build_train_step", "rank_major",
            "consensus_distance", "push_sum_weights", "GuardConfig",
-           "HealthConfig", "HealthVector", "MixCompressConfig", "MixState", "StackedBackend", "ProcessBackend",
+           "HealthConfig", "HealthVector", "MixCompressConfig", "MixState",
+           "StackedBackend", "ProcessBackend", "SeqAxis", "bind_axis",
            "ExponentialTwoGraph",
            "Topology", "DynamicTopology", "one_peer_dynamic_schedule",
            "uniform_topology_spec", "InferDestinationFromSourceRanks",

@@ -22,9 +22,20 @@ Deviations from the JAX package:
   ``parallel/splash.py``),
   :func:`~bluefog_tpu_torch.parallel.ring_attention.blockwise_attention`
   (``attn_mode="blockwise"``) or ``full_attention``.
+* Sequence parallelism (``attn_mode="ring"`` or ``"ulysses"`` with
+  ``sp_axis``): the JAX model runs per sequence shard under
+  ``shard_map``; here the forward takes EVERY shard of the bound
+  :class:`~bluefog_tpu_torch.parallel.collectives.SeqAxis` named
+  ``cfg.sp_axis``, stacked shard-major: tokens ``[S, B, T_local]`` ->
+  logits ``[S, B, T_local, vocab]``, ``pos_offset`` an int or a per-shard
+  ``[S]`` tensor (JAX's ``axis_index * T_local``).  The per-token layers
+  run on the shards folded into the batch (``[S * B, T_local]``), and
+  attention goes through ``parallel/ring_attention.py``'s
+  ``ring_attention`` or ``parallel/ulysses.py``.  A call with the axis
+  unbound raises ``NameError``, as ``axis_index`` outside ``shard_map``.
 * Not ported yet, and refused with ``NotImplementedError`` naming the
-  ROADMAP item (:func:`require_ported`): tensor parallelism, ring/Ulysses
-  attention and MoE.
+  ROADMAP item (:func:`require_ported`): tensor parallelism (TP decode
+  included) and MoE.
 * The integer products of ``param_quant="w8a8"`` (s8 x s8 -> s32, which
   JAX leaves to XLA) go to ``torch._int_mm``: cuBLASLt on the card, an
   exact integer product on the CPU (:func:`int8_matmul`).  The w8a8
@@ -77,12 +88,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from bluefog_tpu_torch._device import resolve_device
+from bluefog_tpu_torch.parallel.collectives import bound_axis
 from bluefog_tpu_torch.parallel.decode_attention import (
     decode_attention, decode_attention_int8)
 from bluefog_tpu_torch.parallel.flash_attention import flash_attention
 from bluefog_tpu_torch.parallel.ring_attention import (blockwise_attention,
-                                                       full_attention)
+                                                       full_attention,
+                                                       ring_attention)
 from bluefog_tpu_torch.parallel.splash import splash_attention
+from bluefog_tpu_torch.parallel.ulysses import ulysses_attention
 
 __all__ = ["LlamaConfig", "Llama", "KVCache", "RMSNorm", "QuantDense",
            "int8_matmul", "rotary_embed",
@@ -310,19 +324,22 @@ def require_ported(cfg: LlamaConfig) -> None:
     it."""
     later = []
     if cfg.tp_size > 1 or cfg.tp_axis is not None:
-        later.append("tensor parallelism (tp_axis/tp_size): ROADMAP.md "
-                     "Queue 1, items 10 (training) and 11 (the tp decode "
-                     "path)")
-    if cfg.attn_mode in ("ring", "ulysses") or cfg.sp_axis is not None:
-        later.append(f"attn_mode={cfg.attn_mode!r} (sequence parallelism): "
-                     "ROADMAP.md Queue 1, item 10 (ring and Ulysses "
-                     "attention over the process backend)")
+        later.append("tensor parallelism (tp_axis/tp_size), TP decode "
+                     "included: ROADMAP.md Queue 1, item 10")
     if cfg.n_experts:
         later.append("MoE (n_experts > 0): ROADMAP.md Queue 1, item 10 "
                      "(moe/)")
     if later:
         raise NotImplementedError(
             "not ported to bluefog_tpu_torch yet: " + "; ".join(later))
+
+
+def _sp_axis(cfg: LlamaConfig):
+    """The bound sequence axis of a ring or Ulysses config (``NameError``
+    when ``cfg.sp_axis`` is unbound)."""
+    if cfg.sp_axis is None:
+        raise ValueError(f"{cfg.attn_mode} attention needs sp_axis")
+    return bound_axis(cfg.sp_axis)
 
 
 def _amax_quantize(x: torch.Tensor, eps: float = 1e-8
@@ -670,6 +687,16 @@ class Attention(nn.Module):
         if cache is not None:
             out = self._decode_attend(q, k, v, cache, layer, idx, rows,
                                       write_pos)
+        elif cfg.attn_mode in ("ring", "ulysses"):
+            # the shards ride folded in the batch: [S * B, ...] -> [S, B,
+            # ...] for the sequence-parallel attention, and back
+            axis = _sp_axis(cfg)
+            split = lambda x: x.reshape(  # noqa: E731
+                axis.n_local, b // axis.n_local, *x.shape[1:])
+            attend = (ring_attention if cfg.attn_mode == "ring"
+                      else ulysses_attention)
+            out = attend(split(q), split(k), split(v), axis, causal=True,
+                         impl=cfg.attn_impl)
         elif cfg.attn_impl == "flash":
             out = flash_attention(
                 q, k, v, causal=True,
@@ -845,27 +872,48 @@ class Llama(nn.Module):
         Without: the training forward, tokens ``[B, T]`` at positions
         ``pos_offset + arange(T)`` -> f32 logits ``[B, T, vocab]``, or the
         final-norm hidden states ``[B, T, dim]`` with ``return_hidden``
-        (the entry of :func:`chunked_xent`)."""
+        (the entry of :func:`chunked_xent`).  Under ``attn_mode="ring"``
+        or ``"ulysses"`` tokens are the ``[S, B, T_local]`` shards of the
+        bound axis ``cfg.sp_axis``, the outputs ``[S, B, T_local, ...]``,
+        and ``pos_offset`` an int or one offset per shard (``[S]``)."""
         if cache is not None:
             return self._decode(tokens, cache, all_logits)
         cfg = self.cfg
         if cfg.decode:
             raise ValueError("a decode config runs with a KVCache: pass "
                              "cache=")
-        t = tokens.shape[1]
+        t = tokens.shape[-1]
         if t > cfg.max_seq_len:
             raise ValueError(f"sequence {t} exceeds max_seq_len "
                              f"{cfg.max_seq_len}")
-        positions = pos_offset + torch.arange(t, device=tokens.device)
+        positions = torch.arange(t, device=tokens.device)
+        shards = None
+        if cfg.attn_mode in ("ring", "ulysses"):
+            axis = _sp_axis(cfg)
+            if tokens.dim() != 3 or tokens.shape[0] != axis.n_local:
+                raise ValueError(
+                    f"attn_mode={cfg.attn_mode!r} takes the {axis.n_local} "
+                    f"shards of {axis!r} stacked: tokens [S, B, T_local], "
+                    f"got {tuple(tokens.shape)}")
+            shards = tokens.shape[:2]
+            if not isinstance(pos_offset, int):   # one offset per shard
+                pos_offset = torch.as_tensor(
+                    pos_offset, device=tokens.device).reshape(-1, 1, 1)
+            # each shard's rows at its own global positions
+            positions = (pos_offset + positions).expand(*shards, t)
+            positions = positions.reshape(-1, t)
+            tokens = tokens.reshape(-1, t)
+        else:
+            positions = pos_offset + positions
         rope = _rope_tables(positions, self.rope_freqs)
         x = self.tok_embeddings(tokens)
         for block in self.layers:
             x = (_remat(block, x, rope, cfg.remat_policy) if cfg.remat
                  else block(x, rope))
         x = self.norm(x)
-        if return_hidden:
-            return x
-        return self.output(x).float()
+        if not return_hidden:
+            x = self.output(x).float()
+        return x if shards is None else x.reshape(*shards, *x.shape[1:])
 
     @torch.no_grad()
     def _decode(self, tokens: torch.Tensor, cache: KVCache,
@@ -986,12 +1034,25 @@ def llama_loss_fn(model: Llama, *, pos_offset: int = 0):
     """``loss_fn(params, (inputs, targets))``: the mean next-token
     cross-entropy of the full f32 logits, the plain loss of
     ``examples/llama_benchmark.py`` (``optax.
-    softmax_cross_entropy_with_integer_labels`` averaged over B·T)."""
+    softmax_cross_entropy_with_integer_labels`` averaged over B·T).
+
+    Under ``attn_mode="ring"`` or ``"ulysses"`` the batch is the ``[S, B,
+    T_local]`` shards of the bound axis, each shard at ``pos_offset +
+    index * T_local``, and the loss is each shard's mean, ``[S]``: what
+    each device of the JAX mesh returns.  ``build_train_step(sp_axis=)``
+    takes their mean, JAX's ``pmean`` over the axis."""
+    cfg = model.cfg
+    sp = cfg.attn_mode in ("ring", "ulysses")
 
     def loss_fn(params, batch):
         inp, tgt = batch
-        logits = model.apply(params, inp, pos_offset=pos_offset)
-        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                               tgt.reshape(-1).long())
+        off = pos_offset
+        if sp:
+            off = off + _sp_axis(cfg).index(inp.device) * inp.shape[-1]
+        logits = model.apply(params, inp, pos_offset=off)
+        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                             tgt.reshape(-1).long(),
+                             reduction="none" if sp else "mean")
+        return ce.reshape(inp.shape[0], -1).mean(1) if sp else ce
 
     return loss_fn

@@ -1,10 +1,10 @@
 """Decentralized optimizers of the port (``bluefog_tpu.optim``'s
 counterpart): the eager ``torch.optim`` wrappers over the ``bf.*`` API
 (``wrappers``: gradient allreduce, CTA, ATC, win-put, pull-get,
-push-sum), the functional train step over the stacked backend with every
-mode of the JAX builder but MoE, sequence and pipeline parallelism
-(ROADMAP.md Queue 1, item 10), and the shared bucket planner
-(``fusion``)."""
+push-sum), the functional train step over the stacked and process
+backends with every mode of the JAX builder and sequence parallelism
+(``sp_axis``), but MoE, pipeline and model-parallel layouts (ROADMAP.md
+Queue 1, item 10), and the shared bucket planner (``fusion``)."""
 
 from bluefog_tpu_torch.optim import functional, fusion, wrappers  # noqa: F401
 from bluefog_tpu_torch.optim.functional import (ELEMENTWISE_OPTIMIZERS,

@@ -65,12 +65,16 @@ optimizer itself, or ``(optimizer, ps_weight)`` under push-sum, or
 ``(optimizer, MixState)`` under top-k mixing.  No step reads a device
 value on the host.
 
-Features of the JAX builder this slice leaves out raise
+Sequence parallelism (``sp_axis``) runs inside step 1: each rank's
+forward and backward take all of its sequence shards at once (see
+:func:`build_train_step`).  Features of the JAX builder not ported yet
+(``pp_axis``, ``param_specs``, ``opt_state_specs``, ``moe=``) raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Union
 
@@ -94,7 +98,10 @@ __all__ = ["GuardConfig", "HealthConfig", "HealthVector",
 ELEMENTWISE_OPTIMIZERS = (torch.optim.SGD, torch.optim.Adam,
                           torch.optim.AdamW)
 
-_LLAMA_ITEM = "ROADMAP.md Queue 1, item 10 (the Llama training slice)"
+_LLAMA_ITEM = ("ROADMAP.md Queue 1, item 10 (tensor parallelism, pipeline "
+               "and MoE)")
+# the name of the rank axis in a batch spec, the JAX package's mesh axis
+RANK_AXIS = "bf"
 
 # Per-rank bytes of one flat buffer of the elementwise exchange: enough to
 # mix ResNet-50 (102 MB a rank) in one pass, and a bound on the combine's
@@ -427,6 +434,59 @@ def _observed_step(step_fn: Callable, labels: dict,
     return step
 
 
+def _check_specs(spec, sp) -> None:
+    """``batch_specs`` is one spec for every batch leaf: a tuple of axis
+    names, one per dim, that starts with the rank axis ``"bf"`` and names
+    the sequence axis at most once; any other axis is a model-parallel
+    layout, not ported."""
+    if not (isinstance(spec, tuple) and spec and spec[0] == RANK_AXIS
+            and all(e is None or isinstance(e, str) for e in spec)):
+        raise ValueError(
+            f"batch_specs {spec!r}: a tuple of axis names (str or None), one "
+            f"per batch dim, the first the rank axis {RANK_AXIS!r}")
+    names = [e for e in spec[1:] if e is not None]
+    other = [e for e in names if sp is None or e != sp.name]
+    if other and sp is None:
+        raise ValueError(f"batch_specs {spec!r} names {names} but sp_axis "
+                         "is not set")
+    if other:
+        _not_ported(f"batch_specs over {other} (model-parallel layouts)")
+    if len(names) > 1:
+        raise ValueError(f"batch_specs {spec!r} names {sp.name!r} twice")
+
+
+def _shard_batch(tree, spec, n: int):
+    """One rank's batch with every leaf split along the dim the spec
+    names (counted with the rank axis, which ``tree`` no longer has)
+    into its ``n`` sequence shards, stacked shard-major; with no dim
+    named, the batch as it is (every shard sees it whole, as in JAX)."""
+    dims = [i - 1 for i, e in enumerate(spec) if i and e is not None]
+    if not dims:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _shard_batch(v, spec, n) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_shard_batch(v, spec, n) for v in tree)
+    d = dims[0]
+    if tree.shape[d] % n:
+        raise ValueError(f"batch dim {d + 1} of size {tree.shape[d]} does "
+                         f"not split into {n} sequence shards")
+    return tree.unflatten(d, (n, tree.shape[d] // n)).movedim(
+        d, 0).contiguous()
+
+
+def _shard_mean(loss: torch.Tensor, n: int) -> torch.Tensor:
+    """The loss of a sequence-parallel ``loss_fn``: its per-shard losses'
+    mean (JAX's ``pmean`` over the axis), or a scalar as it is."""
+    if loss.dim() == 1 and loss.shape[0] == n:
+        return loss.mean()
+    if loss.dim():
+        raise ValueError(f"under sp_axis loss_fn returns each of the {n} "
+                         f"shards' losses ([{n}]) or a scalar, got "
+                         f"{tuple(loss.shape)}")
+    return loss
+
+
 def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
                    hierarchical_local_size, sp_axis, pp_axis, batch_specs,
                    param_specs, opt_state_specs, compress, overlap,
@@ -469,12 +529,17 @@ def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
                 f"does not cover the {backend.size}-rank backend")
     elif comm_mode not in ("cta", "atc"):
         hls = None
-    if sp_axis is not None or pp_axis is not None:
-        _not_ported("sp_axis / pp_axis (sequence and pipeline parallelism)")
-    if any(s is not None for s in (batch_specs, param_specs,
-                                   opt_state_specs)):
-        _not_ported("model-parallel layouts (batch_specs / param_specs / "
+    if pp_axis is not None:
+        _not_ported("pp_axis (pipeline parallelism)")
+    if param_specs is not None or opt_state_specs is not None:
+        _not_ported("model-parallel layouts (param_specs / "
                     "opt_state_specs)")
+    if sp_axis is not None and not isinstance(sp_axis, C.SeqAxis):
+        raise TypeError(
+            f"sp_axis must be the axis itself, SeqAxis({sp_axis!r}, size): "
+            "the port has no mesh to hold its size")
+    if batch_specs is not None:
+        _check_specs(batch_specs, sp_axis)
     if compress is None and comm_mode in ("cta", "atc"):
         compress = _config.mix_compress()
     mix = None
@@ -551,7 +616,7 @@ def build_train_step(
     num_steps_per_communication: int = 1,
     hierarchical_local_size: Optional[int] = None,
     hierarchical: Any = None,
-    sp_axis: Optional[str] = None,
+    sp_axis: Optional[C.SeqAxis] = None,
     pp_axis: Optional[str] = None,
     batch_specs: Any = None,
     param_specs: Any = None,
@@ -599,7 +664,23 @@ def build_train_step(
       exact intra-machine mean, then the machine-level exchange over the
       MACHINE-level ``topology``/``schedule``;
     * ``comm_mode="push_sum"``: ``opt_state = (optimizer,
-      push_sum_weights(backend))``.
+      push_sum_weights(backend))``;
+    * ``sp_axis=SeqAxis(name, S)`` with ``batch_specs``: sequence
+      parallelism.  ``batch_specs`` is a tuple of axis names, one per
+      batch dim, for every batch leaf (JAX's ``PartitionSpec``: ``("bf",
+      None, "sp")`` is ``P("bf", None, "sp")``); the first dim is the
+      rank axis ``"bf"``.  Each rank's leaves are split along the dim it
+      names into S shards stacked shard-major (``[n, B, T]`` -> ``[S, B,
+      T/S]`` per rank); with no dim named (JAX's default ``P("bf")``)
+      they reach ``loss_fn`` whole.  A rank's forward and
+      backward run all its shards together with the axis bound
+      (``bind_axis``), so ring attention sees every shard's K/V;
+      ``loss_fn`` returns each shard's loss (``[S]``, as
+      ``llama_loss_fn`` does) or a scalar, and the step differentiates
+      the shards' mean: the loss and gradients JAX's ``pmean`` over the
+      axis gives.  Params stay replicated over the axis, so every
+      ``comm_mode``, the guard, health and bucketed overlap compose with
+      it, on either backend.
 
     ``BLUEFOG_FUSE_EPILOGUES=0`` takes the health reductions in the JAX
     package's pre-fusion order (per leaf, over the whole tree) and
@@ -631,6 +712,9 @@ def build_train_step(
             f"{[c.__name__ for c in ELEMENTWISE_OPTIMIZERS]} update each "
             "rank's slice with its own values")
     adam = type(optimizer) is not torch.optim.SGD
+    # which batch dims the sequence shards split; JAX's default P("bf")
+    # splits none
+    specs_b = batch_specs if batch_specs is not None else (RANK_AXIS,)
     if adam and any(g.get("amsgrad") for g in optimizer.param_groups):
         raise ValueError("amsgrad=True is not supported by the port's "
                          "per-rank Adam update")
@@ -880,11 +964,18 @@ def build_train_step(
             p_r = {k: v[r].detach().requires_grad_(True)
                    for k, v in params.items()}
             b_r = _slice(batch, r)
-            with torch.enable_grad():
+            if sp_axis is not None:
+                b_r = _shard_batch(b_r, specs_b, sp_axis.size)
+            # the sequence axis is bound over the forward and backward
+            with torch.enable_grad(), (
+                    C.bind_axis(sp_axis) if sp_axis is not None
+                    else contextlib.nullcontext()):
                 if has_aux:
                     loss, new_aux = loss_fn(p_r, _slice(aux, r), b_r)
                 else:
                     loss = loss_fn(p_r, b_r)
+                if sp_axis is not None:
+                    loss = _shard_mean(loss, sp_axis.size)
                 gs = torch.autograd.grad(loss, list(p_r.values()))
             with torch.no_grad():
                 for g_all, g in zip(grads, gs):

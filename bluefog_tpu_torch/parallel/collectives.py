@@ -22,6 +22,10 @@ host tensors, and gloo through pinned host buffers for device tensors).
 The math above the primitives is one copy for both, so a
 ``ProcessBackend`` job gives the stacked backend's bits.
 
+The sequence-parallel axis (:class:`SeqAxis`) is a :class:`RankAxis`
+too, over the sequence shards of one data-parallel rank; see its
+docstring for the convention.
+
 The weighted combine ``w_self·x + Σ_c w_c·recv_c`` is accumulated in
 float32 for low-precision payloads (``_accum_dtype``), in the same
 association order as the JAX package (collectives.py:329-331).  It stays
@@ -31,7 +35,8 @@ was slower and deleted, collectives.py:324-328).
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+import contextlib
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,6 +49,9 @@ CommSpec = Union[Topology, DynamicTopology]
 
 __all__ = [
     "RankAxis",
+    "SeqAxis",
+    "bind_axis",
+    "bound_axis",
     "RankBackend",
     "StackedBackend",
     "ProcessBackend",
@@ -238,6 +246,119 @@ class RankAxis:
         """:func:`_machine_mean` over the machines of ``local_size``
         consecutive global ranks, on this process's rows."""
         return _machine_mean(x, local_size, dtype, average)
+
+
+class SeqAxis(RankAxis):
+    """A sequence-parallel axis: the counterpart of a mesh axis that
+    ``shard_map`` binds by name (``"sp"``), over which a sequence is
+    split into ``size`` shards of ``T / size`` positions.
+
+    The convention: every shard of one data-parallel rank lives in one
+    process, on one device, stacked SHARD-MAJOR along a leading axis:
+    a tensor ``[size, ...]`` holds shard ``s``'s rows at ``[s]``, what
+    device ``s`` of the JAX mesh holds.  The object is the one place
+    that holds the axis size, as the JAX mesh does; ``LlamaConfig.
+    sp_axis`` names it and ``build_train_step(sp_axis=axis)`` binds it
+    (:func:`bind_axis`) for the duration of each forward and backward,
+    as ``shard_map`` binds its axis names.  A ring or Ulysses model
+    called with the name unbound raises, as ``lax.axis_index`` does
+    outside ``shard_map``.
+
+    * :meth:`index`: each shard's index, ``lax.axis_index``;
+    * :meth:`permute` (a gather along the leading axis, the base
+      class's) and :meth:`shift`, ``lax.ppermute`` and the ring's hop;
+    * :meth:`all_to_all`: ``lax.all_to_all(..., tiled=True)``.
+
+    Ring and Ulysses attention move data only through these, so an axis
+    whose shards span processes can override them alone."""
+
+    def __init__(self, name: str, size: int):
+        if int(size) < 1:
+            raise ValueError(f"axis size must be >= 1, got {size}")
+        super().__init__(int(size))
+        self.name = str(name)
+
+    def __repr__(self) -> str:
+        return f"SeqAxis({self.name!r}, {self.size})"
+
+    def index(self, device=None) -> torch.Tensor:
+        """``lax.axis_index``: the index of each shard this process
+        holds, int64 ``[n_local]`` on ``device`` (made there, no host
+        copy)."""
+        return torch.arange(self.first_rank, self.first_rank + self.n_local,
+                            device=device)
+
+    def shift(self, x: torch.Tensor) -> torch.Tensor:
+        """The ring's hop: shard ``i``'s rows go to shard ``(i + 1) %
+        size`` (``lax.ppermute`` with ``[(i, (i + 1) % n)]``).
+        Differentiable: the backward is the reverse hop, as JAX
+        transposes a ``ppermute``."""
+        n = self.size
+        return self.permute(x, [(i, (i + 1) % n) for i in range(n)])
+
+    def all_to_all(self, x: torch.Tensor, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+        """``lax.all_to_all(x, name, split_axis, concat_axis,
+        tiled=True)`` on shard-major ``x`` (``[size, ...]``; the axes
+        count in a shard's own dims, as in JAX): each shard splits its
+        ``split_axis`` into ``size`` chunks, sends chunk ``j`` to shard
+        ``j``, and concatenates what it receives along ``concat_axis`` in
+        the senders' order.  Differentiable: the backward is the reverse
+        all-to-all."""
+        n = self.size
+        if x.shape[0] != n:
+            raise ValueError(f"all_to_all over {self!r} takes [{n}, ...] "
+                             f"shard-major tensors, got {tuple(x.shape)}")
+        a = split_axis + 1
+        if x.shape[a] % n:
+            raise ValueError(f"axis {split_axis} of size {x.shape[a]} "
+                             f"does not split into {n} chunks")
+        with torch.profiler.record_function(EXCHANGE):
+            _tally_exchange("all-to-all", _row_bytes(x))
+            y = x.unflatten(a, (n, x.shape[a] // n)).movedim(a, 0)
+            # [dst, src, ...]: the senders join the concat axis, outermost
+            y = y.movedim(1, 1 + concat_axis)
+            return y.flatten(1 + concat_axis, 2 + concat_axis).contiguous()
+
+
+# The axes bound by name (``bind_axis``): process-wide, not per thread, so
+# a recompute that autograd runs on its own thread finds them too.
+_bound_axes: Dict[str, SeqAxis] = {}
+
+
+@contextlib.contextmanager
+def bind_axis(axis: SeqAxis):
+    """Bind ``axis`` under ``axis.name`` for the ``with`` block, as
+    ``shard_map`` binds its mesh axis names: the forward and the backward
+    of a ring or Ulysses model must run inside it (a remat recompute
+    looks the axis up again)."""
+    if not isinstance(axis, SeqAxis):
+        raise TypeError(f"bind_axis takes a SeqAxis, got "
+                        f"{type(axis).__name__}")
+    prev = _bound_axes.get(axis.name)
+    _bound_axes[axis.name] = axis
+    try:
+        yield axis
+    finally:
+        if prev is None:
+            _bound_axes.pop(axis.name, None)
+        else:
+            _bound_axes[axis.name] = prev
+
+
+def bound_axis(name) -> SeqAxis:
+    """The :class:`SeqAxis` bound under ``name`` (an axis is returned
+    as it is); ``NameError`` when none is, as ``lax.axis_index`` outside
+    ``shard_map``."""
+    if isinstance(name, SeqAxis):
+        return name
+    axis = _bound_axes.get(name)
+    if axis is None:
+        raise NameError(
+            f"unbound axis name: {name!r}; run inside bind_axis("
+            f"SeqAxis({name!r}, size)) or under build_train_step("
+            f"sp_axis=SeqAxis({name!r}, size))")
+    return axis
 
 
 def _axis(comm: Optional[RankAxis], x: torch.Tensor) -> RankAxis:

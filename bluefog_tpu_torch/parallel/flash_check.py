@@ -18,6 +18,11 @@ hold the kernels to one bound.
   lost group member.  :func:`splash_planted_faults`: the same for K5's
   own failure modes (a lost dQ partial, a skipped diagonal query step).
 
+* :func:`ring_term_sizes`: :func:`term_sizes` of the flash ring's
+  outputs (``parallel/ring_attention.py``), summed over its live (shard,
+  block) pairs; :func:`ring_planted_fault`: the plain ring with one live
+  pair left out (:func:`drop_pair`), which :func:`mismatch` must reject.
+
 K5 sums each dQ row over per-span f32 partials (256 keys for its wgmma
 kernel, 64 for the mma.sync one), in another order than K3a; its dK and
 dV take K3b's order.  The bound is the same.
@@ -34,7 +39,8 @@ from bluefog_tpu_torch.parallel.flash_attention import (
     flash_backward_dq_plain, flash_forward_plain)
 
 __all__ = ["CASES", "SPLASH_CASES", "term_sizes", "mismatch",
-           "planted_faults", "splash_planted_faults"]
+           "planted_faults", "splash_planted_faults", "ring_term_sizes",
+           "drop_pair", "ring_planted_fault"]
 
 # (B, T, H, KV, D, dtype, causal, q_offset, kv_offset)
 CASES = [
@@ -197,3 +203,87 @@ def splash_planted_faults(q, k, v, do, lse, delta,
     return [("dQ sum drops the diagonal partial past T/2", "dq", dq),
             ("diagonal query step skipped past T/2", "dk", dk),
             ("diagonal query step skipped past T/2", "dv", dv)]
+
+
+@torch.no_grad()
+def ring_term_sizes(q, k, v, do, lse, delta, n_shards: int,
+                    causal: bool = True, scale: Optional[float] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """:func:`term_sizes` of the flash ring's out, dQ, dK and dV on
+    shard-major inputs (q ``[S, B, T, H, D]``, lse and ``delta =
+    rowsum(dO·O)`` ``[S, B, H, T]``, the ring's own): each live (shard,
+    block) pair's sizes against the global lse and delta, summed where
+    the ring sums (out and dQ over a shard's blocks, dK and dV over the
+    shards a block meets).  Each block's partial output is rounded to
+    q's type before the f32 merge on both sides, and its terms carry
+    that block's share of the softmax, so the bound of :func:`mismatch`
+    holds the merged entry as it holds one kernel's."""
+    from bluefog_tpu_torch.parallel.ring_attention import ring_live
+
+    t = q.shape[2]
+    sizes = {"out": torch.zeros(q.shape, dtype=torch.float32,
+                                device=q.device),
+             "dq": torch.zeros(q.shape, dtype=torch.float32,
+                               device=q.device),
+             "dk": torch.zeros(k.shape, dtype=torch.float32,
+                               device=k.device),
+             "dv": torch.zeros(v.shape, dtype=torch.float32,
+                               device=v.device)}
+    for i in range(n_shards):
+        for j in range(n_shards):
+            if not ring_live(causal, i * t, j * t, t):
+                continue
+            part = term_sizes(q[i], k[j], v[j], do[i], lse[i], delta[i],
+                              causal, scale, i * t, j * t)
+            sizes["out"][i] += part["out"]
+            sizes["dq"][i] += part["dq"]
+            sizes["dk"][j] += part["dk"]
+            sizes["dv"][j] += part["dv"]
+    return sizes
+
+
+def drop_pair(kernels, q_offset: int, kv_offset: int):
+    """The ring's ``kernels`` (forward, dQ, dK/dV) wrapped to leave out
+    the (shard, block) pair at these offsets, a planted fault: there the
+    forward gives out 0 and lse -1e30 (the merge then keeps the other
+    blocks' result, as if the pair were skipped) and the backward gives
+    zeros."""
+    fwd, bwd_dq, bwd_dkv = kernels
+
+    def hit(args):
+        return tuple(args[-2:]) == (q_offset, kv_offset)
+
+    def forward(*args):
+        if not hit(args):
+            return fwd(*args)
+        q = args[0]
+        b, t, h, _ = q.shape
+        return (torch.zeros_like(q),
+                torch.full((b, h, t), -1e30, dtype=torch.float32,
+                           device=q.device))
+
+    def dq(*args):
+        return torch.zeros_like(args[0]) if hit(args) else bwd_dq(*args)
+
+    def dkv(*args):
+        if not hit(args):
+            return bwd_dkv(*args)
+        return torch.zeros_like(args[1]), torch.zeros_like(args[2])
+
+    return forward, dq, dkv
+
+
+def ring_planted_fault(q, k, v, do, axis, causal: bool = True
+                       ) -> Dict[str, torch.Tensor]:
+    """The plain flash ring's outputs with the longest live hop left out
+    (:func:`drop_pair`): the last shard never attends to the first
+    shard's block (its out and dQ lose that block's share, the block's dK
+    and dV lose the last shard's queries).  :func:`mismatch` must reject
+    each of out, dQ, dK and dV."""
+    from bluefog_tpu_torch.parallel.ring_attention import (PLAIN_KERNELS,
+                                                           ring_flash_parts)
+
+    t = q.shape[2]
+    return ring_flash_parts(
+        q, k, v, do, axis, causal,
+        kernels=drop_pair(PLAIN_KERNELS, (axis.size - 1) * t, 0))

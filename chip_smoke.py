@@ -265,8 +265,49 @@ Phases (any failure raises and exits non-zero, printing no result):
       K4's share of decode_step (spec_step), FLOPs and MFU; the later
       streams equal those of a run without the call.
 
+21. Sequence parallelism at Llama-3.1-8B's width (4 layers, f32 master
+   params, bf16 compute, llama3 rope), one sequence of T = 8192 tokens
+   (the config's max_seq_len: phase 8's 8192 tokens a step):
+   a. one layer's attention at every kernel shape 21b and 21c run (8B
+      width, bf16, causal): the flash ring at sp 4 (4 shards of q [1,
+      2048, 32, 128], 8 kv heads; 10 live (shard, block) pairs) and at
+      sp 2 (2 x 4096), forward (K2) and backward (K3a, K3b) held entry by
+      entry to the same ring over the plain versions on the same card
+      tensors (flash_check.ring_term_sizes), the ring with pair (S - 1,
+      0) left out rejected; Ulysses at sp 4 (its kernels at [4, 8192, 8
+      heads, 2 kv, 128], the head groups folded into the batch) and one
+      flash_attention over the 8192, each launching K2, K3a and K3b once
+      and held to the plain versions (flash_check.term_sizes, in parts
+      of one kv head), planted faults rejected; ring forward + backward,
+      wall and device ms, beside one flash_attention over the 8192 and
+      SDPA; then K2, K3a and
+      K3b on the ring's diagonal block (offsets equal) and a full
+      off-diagonal block (q_offset 2048, kv_offset 0): kernel, plain,
+      bound and SDPA ms (causal, non-causal), launches a 21b ring step.
+   b. training on 1 rank, batch 1 x 8192, SGD(1e-3, momentum 0.9), 3
+      warm-up and 10 timed steps each: (i) attn_mode "full" with flash,
+      (ii) ring + flash and (iii) Ulysses + flash, both over SeqAxis("sp",
+      4) with batch_specs ("bf", None, "sp"): tokens/s per card, step ms,
+      MFU, peak memory, the losses; K2, K3a and K3b launched n_layers x
+      steps times under (i) and (iii), 10 x that under (ii); the step-0
+      losses of (ii) and (iii) within SP_LOSS_LIMIT of (i)'s, and the
+      same step 0 with ring pair (3, 0) left out or Ulysses' head groups
+      mispaired beyond it; a profile of 2 steps each (device-busy share,
+      the attention kernels' shares).
+   c. dp 2 x sp 2, 2 layers, ring + flash, atc over ExponentialTwoGraph(2),
+      1 x 8192 a rank, 2 warm-up and 3 timed steps: tokens/s per card,
+      launches 3 x 2 layers x 2 ranks x steps; after 3 steps (1 x 1024 a
+      rank) the consensus distance under atc below comm_mode="none"'s.
+   d. the tiny f32 Llama (D = 16) at dp 2 x sp 2, ring + flash and
+      Ulysses + flash, 3 atc steps on the card against the host (phase
+      10's tolerance); the host run launches no kernel.
+   e. bfrun -np 1 at NCCL world size 1: one process holding 2 ranks x 2
+      sequence shards, the tiny f32 ring + flash Llama, 3 atc steps,
+      bit-equal to StackedBackend(2).
+
 The line before the last is a JSON object with one entry per kernel
-(seven; K4's launches are phase 3's, 19's and 20's); the last line is
+(seven; K4's launches are phase 3's, 19's and 20's; K2's, K3a's and
+K3b's phase 8's, 21b's and 21c's); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -310,19 +351,20 @@ def mem_rate(name: str) -> float:
 
 
 def time_ms(fn, flush: torch.Tensor, reps: int = 25,
-            spin: bool = True) -> float:
+            spin: bool = True, spin_cycles: int = 200_000) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs after two
     warm-up runs, each run preceded by a write of ``flush`` and (``spin``)
-    a ~0.1 ms device-side spin, so that the host's time to launch ``fn``
-    overlaps device work and the events time the device alone.  Without
-    the spin a small kernel's time includes the host's launch gap."""
+    a device-side spin of ``spin_cycles`` (~0.1 ms), so that the host's
+    time to launch ``fn`` overlaps device work and the events time the
+    device alone.  Without the spin a small kernel's time includes the
+    host's launch gap."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
         if spin:
-            torch.cuda._sleep(200_000)
+            torch.cuda._sleep(spin_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -691,6 +733,39 @@ def _flash_err(got, want, terms, what):
     return err, ratio
 
 
+def _flash_timed(q, k, v, do, lse, delta, args):
+    """{kernel: (launch, its plain version, bytes moved, operations)} of
+    K2, K3a and K3b on these inputs and ``args`` (causal, scale,
+    q_offset, kv_offset): each input read once, each output written once;
+    4, 6 and 8 operations a live pair and head dim."""
+    from bluefog_tpu_torch.parallel import flash_attention as fa
+
+    b, t, h, d = q.shape
+    s_len, kv = k.shape[1], k.shape[2]
+    causal, _, q_off, kv_off = args
+    es = q.element_size()
+    n_q, n_kv = b * t * h * d * es, b * s_len * kv * d * es
+    n_row = b * h * t * 4
+    work = b * h * d * _live_pairs(t, s_len, causal, q_off, kv_off)
+    plain = (causal, d ** -0.5, q_off, kv_off)
+    return {
+        "flash_forward": (
+            lambda: fa.flash_forward(q, k, v, *args),
+            lambda: fa.flash_forward_plain(q, k, v, *args),
+            2 * n_q + 2 * n_kv + n_row, 4 * work),
+        "flash_backward_dq": (
+            lambda: fa.flash_backward_dq(q, k, v, do, lse, delta, *args),
+            lambda: fa.flash_backward_dq_plain(q, k, v, do, lse, delta,
+                                               *plain),
+            3 * n_q + 2 * n_kv + 2 * n_row, 6 * work),
+        "flash_backward_dkv": (
+            lambda: fa.flash_backward_dkv(q, k, v, do, lse, delta, *args),
+            lambda: fa.flash_backward_dkv_plain(q, k, v, do, lse, delta,
+                                                *plain),
+            2 * n_q + 4 * n_kv + 2 * n_row, 8 * work),
+    }
+
+
 def phase_flash(name, seed):
     """K2, K3a and K3b against their plain versions at every shape of
     ``flash_check.CASES``, each entry of out, dQ, dK and dV within its
@@ -801,26 +876,7 @@ def phase_flash(name, seed):
         # library times (and K2's at the training shape, the kernels line's
         # entry for all three)
         first = case == flash_check.CASES[0]
-        n_q, n_kv = b * t * h * d * es, b * t * kv * d * es
-        n_row = b * h * t * 4
-        timed = {
-            "flash_forward": (
-                lambda: fa.flash_forward(q, k, v, *args),
-                lambda: fa.flash_forward_plain(q, k, v, *args),
-                2 * n_q + 2 * n_kv + n_row, 4 * b * h * pairs * d),
-            "flash_backward_dq": (
-                lambda: fa.flash_backward_dq(q, k, v, do, lse, delta, *args),
-                lambda: fa.flash_backward_dq_plain(
-                    q, k, v, do, lse, delta, causal, d ** -0.5, q_off,
-                    kv_off),
-                3 * n_q + 2 * n_kv + 2 * n_row, 6 * b * h * pairs * d),
-            "flash_backward_dkv": (
-                lambda: fa.flash_backward_dkv(q, k, v, do, lse, delta, *args),
-                lambda: fa.flash_backward_dkv_plain(
-                    q, k, v, do, lse, delta, causal, d ** -0.5, q_off,
-                    kv_off),
-                2 * n_q + 4 * n_kv + 2 * n_row, 8 * b * h * pairs * d),
-        }
+        timed = _flash_timed(q, k, v, do, lse, delta, args)
         # yardstick only: SDPA on the [B, H, T, D] views, its forward for
         # K2 and its backward (forward subtracted) for K3a + K3b together
         # (the port never calls it)
@@ -1929,13 +1985,15 @@ def _expect_flash(what, n):
     return _expect_launches(what, dict.fromkeys(FLASH_KERNELS, n))
 
 
-def _model_flops(cfg, params, tokens):
+def _model_flops(cfg, params, tokens, seq=None):
     """llama_benchmark.py's count: 6 x matmul params (the embedding table
-    is a gather) per token plus causal attention 6 x L x T x dim."""
+    is a gather) per token plus causal attention 6 x L x T x dim (T the
+    sequence, LLAMA_SEQ unless ``seq``)."""
     n_params = sum(v[0].numel() for v in params.values())
     matmul = n_params - cfg.vocab_size * cfg.dim
+    seq = LLAMA_SEQ if seq is None else seq
     return n_params, (6.0 * matmul * tokens
-                      + 6.0 * cfg.n_layers * LLAMA_SEQ * cfg.dim * tokens)
+                      + 6.0 * cfg.n_layers * seq * cfg.dim * tokens)
 
 
 LLAMA_BATCH, LLAMA_SEQ = 4, 2048
@@ -2009,20 +2067,22 @@ def _head_ms(cfg, flush, tokens):
     return ms
 
 
-def _llama_window(cfg, seed, warmup, timed, label, want):
+def _llama_window(cfg, seed, warmup, timed, label, want,
+                  batch_rows=LLAMA_BATCH, seq=LLAMA_SEQ, **kw):
     """One training window of ``cfg`` on 1 rank: a fresh model and
     optimizer from --seed, the launch counts set to 0, ``warmup`` then
-    ``timed`` steps of batch 4 x 2048; the counts must be ``want`` and the
-    losses finite near ln(vocab).  Logs tokens/s per card, step ms, MFU
-    over 989 TFLOP/s, peak memory and the losses after ``label``.
-    Returns (launches, (model, backend, step, params, opt, batch),
-    model FLOP per step)."""
+    ``timed`` steps of batch ``batch_rows`` x ``seq`` (4 x 2048); the
+    counts must be ``want`` and the losses finite near ln(vocab).  Logs
+    tokens/s per card, step ms, MFU over 989 TFLOP/s, peak memory and the
+    losses after ``label``.  ``kw`` goes to build_train_step.  Returns
+    (launches, (model, backend, step, params, opt, batch), model FLOP per
+    step, the losses)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg, model, backend, step, params, opt, batch = _llama_step(
-        cfg, 1, "none", seed, LLAMA_BATCH, LLAMA_SEQ)
-    tokens = LLAMA_BATCH * LLAMA_SEQ
-    n_params, flops = _model_flops(cfg, params, tokens)
+        cfg, 1, "none", seed, batch_rows, seq, **kw)
+    tokens = batch_rows * seq
+    n_params, flops = _model_flops(cfg, params, tokens, seq)
     torch.cuda.synchronize()
     _reset_counts()
     losses = []
@@ -2045,14 +2105,18 @@ def _llama_window(cfg, seed, warmup, timed, label, want):
                              f"near ln(vocab) = {ln_v:.2f}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     remat = f"remat policy {cfg.remat_policy!r}" if cfg.remat else "no remat"
+    sp = kw.get("sp_axis")
+    attn = (f"{cfg.attn_mode} + {cfg.attn_impl} over sp {sp.size}" if sp
+            else cfg.attn_impl)
     log(f"{label} ({cfg.n_layers} layers, {n_params / 1e9:.3f} B params), "
-        f"1 rank, batch {LLAMA_BATCH} x {LLAMA_SEQ}, attn {cfg.attn_impl}, "
+        f"1 rank, batch {batch_rows} x {seq}, attn {attn}, "
         f"{remat}, f32 head: {tokens / dt:.1f} tokens/s per card, step "
         f"{dt * 1e3:.2f} ms, MFU {flops / dt / PEAK_BF16:.4f} of 989 "
         f"TFLOP/s, peak memory {peak:.2f} GiB, losses "
         f"{', '.join(f'{x:.4f}' for x in losses.tolist())} (ln vocab "
         f"{ln_v:.4f}); launches {launches} over {warmup + timed} steps")
-    return launches, (model, backend, step, params, opt, batch), flops
+    return (launches, (model, backend, step, params, opt, batch), flops,
+            losses)
 
 
 def phase_llama_train_1rank(seed):
@@ -2061,7 +2125,7 @@ def phase_llama_train_1rank(seed):
 
     n_layers, warmup, timed = 4, 3, 10
     cfg = _llama8b_cfg(n_layers)
-    launches, state, flops = _llama_window(
+    launches, state, flops, _ = _llama_window(
         cfg, seed, warmup, timed, "[llama1] Llama-3.1-8B width",
         dict.fromkeys(FLASH_KERNELS, n_layers * (warmup + timed)))
     model, backend, step, params, opt, batch = state
@@ -2177,17 +2241,27 @@ def phase_llama_train_2ranks(seed):
         f"atc {spread['atc']:.4g} < none {spread['none']:.4g}")
 
 
-def phase_llama_reference(seed, attn_impl="flash", seq=32):
+def phase_llama_reference(seed, attn_impl="flash", seq=32, mode="full",
+                          sp=1):
     """The tiny f32 Llama (D=16: the kernels' f32 path) with ``attn_impl``
     "flash" (K2, K3a, K3b) or "splash" (K2, K5) trained 3 atc steps over 2
     ranks on the card (kernels) and on the host (plain versions), ``seq``
-    tokens per row.  Tolerance: 1e-4 of each leaf's largest entry plus
-    1e-7, losses 1e-5 (f32 sums in another order through three momentum
-    steps; TF32 is off)."""
+    tokens per row; with ``sp`` > 1 each rank's sequence in ``sp`` shards
+    under ``attn_mode=mode`` ("ring": K2, K3a and K3b on each live (shard,
+    block) pair; "ulysses": once a layer).  Tolerance: 1e-4 of each leaf's
+    largest entry plus 1e-7, losses 1e-5 (f32 sums in another order
+    through three momentum steps; TF32 is off)."""
     import bluefog_tpu_torch as bt
     from bluefog_tpu_torch.models.llama import llama_loss_fn
 
-    cfg = bt.LlamaConfig.tiny(dtype=torch.float32, attn_impl=attn_impl)
+    over, kw, per = {}, {}, 1
+    if sp > 1:
+        over = dict(attn_mode=mode, sp_axis="sp")
+        kw = dict(sp_axis=bt.SeqAxis("sp", sp),
+                  batch_specs=("bf", None, "sp"))
+        per = _ring_pairs(sp) if mode == "ring" else 1
+    cfg = bt.LlamaConfig.tiny(dtype=torch.float32, attn_impl=attn_impl,
+                              **over)
     kernels = (FLASH_KERNELS if attn_impl == "flash"
                else ("flash_forward", "splash_backward"))
     topo = bt.uniform_topology_spec(bt.ExponentialTwoGraph(2))
@@ -2204,7 +2278,7 @@ def phase_llama_reference(seed, attn_impl="flash", seq=32):
         params = bt.rank_major(model.state(release=True), backend)
         opt = torch.optim.SGD(params.values(), lr=0.1, momentum=0.9)
         step = bt.build_train_step(llama_loss_fn(model), opt, backend,
-                                   comm_mode="atc", topology=topo)
+                                   comm_mode="atc", topology=topo, **kw)
         batch = (raw[..., :-1].to(dev), raw[..., 1:].to(dev))
         _reset_counts()
         losses = []
@@ -2212,8 +2286,8 @@ def phase_llama_reference(seed, attn_impl="flash", seq=32):
             params, opt, loss = step(params, opt, batch, i)
             losses.append(loss.cpu())
         if dev == "cuda":
-            _expect_launches(f"tiny reference ({attn_impl})",
-                             dict.fromkeys(kernels, cfg.n_layers * 2 * 3))
+            _expect_launches(f"tiny reference ({attn_impl})", dict.fromkeys(
+                kernels, per * cfg.n_layers * 2 * 3))
         elif any(_launches().values()):
             raise AssertionError("the host run launched a kernel")
         out[dev] = ({k: v.cpu() for k, v in params.items()},
@@ -2231,9 +2305,10 @@ def phase_llama_reference(seed, attn_impl="flash", seq=32):
     if loss_err > 1e-5:
         raise AssertionError(f"tiny Llama reference: losses differ by "
                              f"{loss_err}")
-    log(f"[reference] tiny f32 Llama ({attn_impl}, T={seq}), 3 atc steps "
+    what = attn_impl if sp == 1 else f"{mode} + {attn_impl}, sp {sp}"
+    log(f"[reference] tiny f32 Llama ({what}, T={seq}), 3 atc steps "
         f"over 2 ranks: card ({', '.join(kernels)}, "
-        f"{cfg.n_layers * 2 * 3} launches each) vs host (plain) params "
+        f"{per * cfg.n_layers * 2 * 3} launches each) vs host (plain) params "
         f"agree to {worst:.3g} of each leaf's largest entry, losses to "
         f"{loss_err:.3g}")
 
@@ -2256,8 +2331,9 @@ def phase_llama1b(seed):
         ("(c) splash, dots", dict(remat_policy="dots"),
          {"flash_forward": 2 * n, "splash_backward": n})]
     for what, over, want in windows:
-        got, state, _ = _llama_window(_llama1b_cfg(**over), seed, warmup,
-                                      timed, f"[llama1b] {what}", want)
+        got, state, _, _ = _llama_window(_llama1b_cfg(**over), seed,
+                                         warmup, timed, f"[llama1b] {what}",
+                                         want)
         if not over:
             launches = got
         _profile_llama(*state[2:], what=f"Llama-1B {what}")
@@ -4182,6 +4258,579 @@ def phase_fleet(seed):
     return tally
 
 
+# ------------------------------------------------------------------ #
+# phase 21: sequence parallelism at Llama-3.1-8B's width, T = 8192
+# ------------------------------------------------------------------ #
+SP_SEQ = 8192       # one sequence of the config's own max_seq_len
+SP_SHARDS = 4       # 21a and 21b's sequence shards
+
+
+def _ring_pairs(n, causal=True):
+    """Live (shard, block) pairs of a ring of ``n`` shards."""
+    return n * (n + 1) // 2 if causal else n * n
+
+
+def _sp_kw(n):
+    import bluefog_tpu_torch as bt
+
+    return dict(sp_axis=bt.SeqAxis("sp", n), batch_specs=("bf", None, "sp"))
+
+
+def _wall_and_device_ms(fn, flush, reps=5):
+    """(host wall ms per call, ending in a synchronize; device ms per
+    call: CUDA events behind a ~25 ms device spin, long enough for the
+    host to enqueue the whole call, so the events see no launch gap) of
+    ``fn`` after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps * 1e3
+    return wall, time_ms(fn, flush, reps, spin_cycles=50_000_000)
+
+
+def _sp_inputs(seed, s, b, t, h, kv, d):
+    """Shard-major bf16 q, k, v and a cotangent do (q ``[s, b, t, h, d]``,
+    k/v ``[s, b, t, kv, d]``) from ``seed`` on the card."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    q, do = (torch.randn(s, b, t, h, d, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(s, b, t, kv, d, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    return q, k, v, do
+
+
+def _ring_check(seed, s, what):
+    """The flash ring at ``s`` shards of one 8192-token sequence at 8B
+    width (q [1, 8192 / s, 32, 128] a shard, 8 kv heads, bf16, causal):
+    forward and backward through the kernels held entry by entry to the
+    same ring over the plain versions on the same card tensors
+    (flash_check.ring_term_sizes), the ring with pair (s - 1, 0) left out
+    rejected.  Returns the shard-major inputs."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.parallel import flash_check
+    from bluefog_tpu_torch.parallel.ring_attention import (PLAIN_KERNELS,
+                                                           ring_flash_parts)
+
+    b, t, h, kv, d = 1, SP_SEQ // s, 32, 8, 128
+    q, k, v, do = _sp_inputs(seed, s, b, t, h, kv, d)
+    axis = bt.SeqAxis("sp", s)
+    live = _ring_pairs(s)
+    _reset_counts()
+    got = ring_flash_parts(q, k, v, do, axis)
+    torch.cuda.synchronize()
+    _expect_flash(f"{what} ring", live)
+    want = ring_flash_parts(q, k, v, do, axis, kernels=PLAIN_KERNELS)
+    delta = (do.float() * want["out"].float()).sum(-1).transpose(2, 3)
+    terms = flash_check.ring_term_sizes(q, k, v, do, want["lse"], delta, s)
+    del delta
+    errs, ratios = {}, {}
+    for key in ("out", "dq", "dk", "dv"):
+        errs[key], ratios[key] = _flash_err(got[key], want[key], terms[key],
+                                            f"{what} ring {key}")
+    errs["lse"] = (got["lse"] - want["lse"]).abs().max().item()
+    if not torch.allclose(got["lse"], want["lse"], rtol=1e-5, atol=1e-4):
+        raise AssertionError(f"{what} ring: lse differs by {errs['lse']}")
+    bad = flash_check.ring_planted_fault(q, k, v, do, axis)
+    rejected = {}
+    for key in ("out", "dq", "dk", "dv"):
+        rejected[key] = flash_check.mismatch(bad[key], want[key], terms[key])
+        if rejected[key] <= 1:
+            raise AssertionError(f"{what}: the bound passes the ring with "
+                                 f"pair ({s - 1}, 0) left out ({key})")
+    del got, want, terms, bad
+    torch.cuda.empty_cache()
+    log(f"[sp{what}] ring at sp {s}, q [{b}, {t}, {h}, {d}] a shard, {kv} "
+        f"kv heads, bf16, causal: {live} live pairs of {s * s}, K2/K3a/K3b "
+        f"{live} launches each; against the plain ring, max|err| "
+        + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
+        + "; of its bound "
+        + ", ".join(f"{k_} {r:.3g}" for k_, r in ratios.items())
+        + f"; pair ({s - 1}, 0) left out: "
+        + ", ".join(f"{k_} {r:.3g}" for k_, r in rejected.items())
+        + " times the bound, rejected")
+    return q, k, v, do
+
+
+def _slices(b, h, kv):
+    """(batch row, query heads, kv head) index slices that cut attention
+    into independent parts, one batch row and one kv head with its query
+    heads each: the plain versions hold [B, H, T, S] f32 scores, 8.6 GB
+    at 8B width over 8192 tokens."""
+    rep = h // kv
+    for i in range(b):
+        for g in range(kv):
+            yield (slice(i, i + 1), slice(g * rep, (g + 1) * rep),
+                   slice(g, g + 1))
+
+
+def _hold_to_plain(what, got, q, k, v, do, delta):
+    """Hold the kernels' causal offset-free ``got`` ({"out", "lse", "dq",
+    "dk", "dv"} of q ``[B, T, H, D]``, k/v ``[B, T, KV, D]``, ``delta =
+    rowsum(dO·O)`` as the backward took it) entry by entry to the plain
+    versions on the same inputs (flash_check.mismatch over term_sizes),
+    part by part (:func:`_slices`); on the first part the bound must
+    reject flash_check.planted_faults.  Logs the errors and ratios."""
+    from bluefog_tpu_torch.parallel import flash_attention as fa
+    from bluefog_tpu_torch.parallel import flash_check
+
+    args = (True, None, 0, 0)
+    errs = dict.fromkeys(("out", "dq", "dk", "dv", "lse"), 0.0)
+    ratios = dict.fromkeys(("out", "dq", "dk", "dv"), 0.0)
+    rejected = {}
+    b, _, h, _ = q.shape
+    for n, (bi, hs, gs) in enumerate(_slices(b, h, k.shape[2])):
+        part = [x[bi, :, sl].contiguous() for x, sl in
+                ((q, hs), (k, gs), (v, gs), (do, hs))]
+        lse, dlt = (x[bi, hs].contiguous() for x in (got["lse"], delta))
+        ref_out, ref_lse = fa.flash_forward_plain(*part[:3], *args)
+        ref = dict(zip(("out", "dq", "dk", "dv"), (ref_out, *(
+            fa.flash_backward_plain(*part, lse, dlt, *args)))))
+        terms = flash_check.term_sizes(*part, lse, dlt, *args)
+        for key, sl in (("out", hs), ("dq", hs), ("dk", gs), ("dv", gs)):
+            err, ratio = _flash_err(got[key][bi, :, sl], ref[key],
+                                    terms[key], f"{what} {key}")
+            errs[key], ratios[key] = (max(errs[key], err),
+                                      max(ratios[key], ratio))
+        errs["lse"] = max(errs["lse"], (lse - ref_lse).abs().max().item())
+        if not torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-4):
+            raise AssertionError(f"{what}: lse differs by {errs['lse']}")
+        if n == 0:
+            for fault, key, bad in flash_check.planted_faults(
+                    *part, lse, dlt, ref, tile=fa.DQ_KEY_TILE):
+                ratio = flash_check.mismatch(bad, ref[key], terms[key])
+                if ratio <= 1:
+                    raise AssertionError(f"{what}: the bound passes a "
+                                         f"planted fault ({fault}, {key})")
+                rejected[f"{fault}, {key}"] = ratio
+        del part, ref, ref_out, ref_lse, terms
+    torch.cuda.empty_cache()
+    log(f"{what}: against the plain versions, max|err| "
+        + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
+        + "; of its bound "
+        + ", ".join(f"{k_} {r:.3g}" for k_, r in ratios.items())
+        + "; planted faults rejected at "
+        + ", ".join(f"{k_} {r:.3g}" for k_, r in rejected.items())
+        + " times the bound")
+
+
+def _attention_call(what, attend, q, k, v, do):
+    """``attend(q, k, v)`` forward and backward through autograd, which
+    must launch K2, K3a and K3b once each: ``(out, (dq, dk, dv))``."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    _reset_counts()
+    out = attend(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    _expect_flash(what, 1)
+    return out.detach(), grads
+
+
+def _phase21_ring_check(seed):
+    """21a: every kernel shape 21b and 21c run, held to the plain
+    versions: the sp-4 ring (4 shards of q [1, 2048, 32, 128], 21b
+    (ii)), the sp-2 ring (2 x 4096, 21c), one flash_attention over the
+    8192 (21b (i): [1, 8192, 32 heads, 8 kv, 128]) and Ulysses at sp 4
+    (21b (iii): K2/K3a/K3b at [4, 8192, 8 heads, 2 kv, 128], the head
+    groups folded into the batch), each with a planted fault rejected.
+    Then ring forward + backward beside one flash_attention over the
+    whole 8192 (the same function) and SDPA."""
+    import torch.nn.functional as F
+
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.parallel import flash_attention as fa
+    from bluefog_tpu_torch.parallel.ring_attention import ring_attention
+    from bluefog_tpu_torch.parallel.ulysses import ulysses_attention
+
+    s, h, d = SP_SHARDS, 32, 128
+    _ring_check(seed + 1, 2, "21a sp-2")
+    q, k, v, do = _ring_check(seed, s, "21a")
+    b, t = q.shape[1], q.shape[2]
+    axis = bt.SeqAxis("sp", s)
+    # Ulysses: its kernels see the all-to-all'd, folded tensors
+    out, grads = _attention_call(
+        "21a Ulysses", lambda *x: ulysses_attention(*x, axis, impl="flash"),
+        q, k, v, do)
+    fold = lambda x: axis.all_to_all(x, 2, 1).reshape(  # noqa: E731
+        s * b, s * t, -1, d)
+    qf, kf, vf, dof = (fold(x) for x in (q, k, v, do))
+    got = dict(out=fold(out), dq=fold(grads[0]), dk=fold(grads[1]),
+               dv=fold(grads[2]))
+    del out, grads
+    got["lse"] = fa.flash_forward(qf, kf, vf, True, None, 0, 0)[1]
+    delta = (dof.float() * got["out"].float()).sum(-1).transpose(1, 2)
+    _hold_to_plain(f"[sp21a] Ulysses at sp {s}: K2/K3a/K3b at "
+                   f"{list(qf.shape)}, {kf.shape[2]} kv heads, one "
+                   "launch each", got, qf, kf, vf, dof, delta)
+    del qf, kf, vf, dof, got, delta
+    whole = [x.movedim(0, 1).reshape(b, s * t, *x.shape[3:]).detach()
+             for x in (q, k, v, do)]
+    out, grads = _attention_call("21a flash_attention", fa.flash_attention,
+                                 *whole)
+    got = dict(out=out, dq=grads[0], dk=grads[1], dv=grads[2],
+               lse=fa.flash_forward(*whole[:3], True, None, 0, 0)[1])
+    delta = (whole[3].float() * out.float()).sum(-1).transpose(1, 2)
+    _hold_to_plain(f"[sp21a] flash_attention over {s * t} (21b (i)): "
+                   f"{list(whole[0].shape)}, {k.shape[3]} kv heads", got,
+                   *whole, delta)
+    del out, grads, got, delta
+
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+
+    def ring():
+        out = ring_attention(*leaves, axis, impl="flash")
+        torch.autograd.grad(out, leaves, do)
+
+    whole = [x.clone().requires_grad_(True) for x in whole[:3]]
+    do_whole = do.movedim(0, 1).reshape(b, s * t, h, d)
+
+    def flash():
+        out = fa.flash_attention(*whole)
+        torch.autograd.grad(out, whole, do_whole)
+
+    lib = [x.detach().transpose(1, 2).requires_grad_(True) for x in whole]
+    do_lib = do_whole.transpose(1, 2)
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(*lib, is_causal=True,
+                                             enable_gqa=True)
+        torch.autograd.grad(out, lib, do_lib)
+
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    times = {name: _wall_and_device_ms(fn, flush)
+             for name, fn in (("ring", ring), ("flash", flash),
+                              ("sdpa", sdpa))}
+    log(f"[sp21a] forward + backward over T = {s * t} (one layer's "
+        f"attention, B {b}, {h} heads): ring at sp {s} wall "
+        f"{times['ring'][0]:.3f} ms, device {times['ring'][1]:.3f} ms; one "
+        f"flash_attention wall {times['flash'][0]:.3f} ms, device "
+        f"{times['flash'][1]:.3f} ms; SDPA wall {times['sdpa'][0]:.3f} ms, "
+        f"device {times['sdpa'][1]:.3f} ms; ring/flash device "
+        f"{times['ring'][1] / times['flash'][1]:.3f}")
+    del leaves, whole, lib
+    torch.cuda.empty_cache()
+
+
+def _phase21_blocks(name, seed, n_layers):
+    """The kernel-table rows of the ring's two block kinds at 8B width,
+    B = 1, 2048 x 2048, bf16: the diagonal causal block (offsets equal)
+    and a full off-diagonal block (q_offset 2048, kv_offset 0).  Per
+    kernel: its ms, launches a 21b ring step, bound, plain ms and SDPA's
+    (causal for the diagonal, non-causal for the off-diagonal; forward
+    for K2, the backward for K3a + K3b together)."""
+    import torch.nn.functional as F
+
+    from bluefog_tpu_torch.parallel import flash_attention as fa
+
+    rate = mem_rate(name)
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    b, t, h, kv, d = 1, SP_SEQ // SP_SHARDS, 32, 8, 128
+    dt = torch.bfloat16
+    g = torch.Generator("cuda").manual_seed(seed + 21)
+    q, do = (torch.randn(b, t, h, d, generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(b, t, kv, d, generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    per_step = {"diagonal": SP_SHARDS * n_layers,
+                "off-diagonal": (_ring_pairs(SP_SHARDS) - SP_SHARDS)
+                * n_layers}
+    for kind, q_off, kv_off, causal in (("diagonal", t, t, True),
+                                        ("off-diagonal", t, 0, False)):
+        args = (True, None, q_off, kv_off)
+        out, lse = fa.flash_forward(q, k, v, *args)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(
+                *leaves, is_causal=causal, enable_gqa=True)
+
+        lib_fwd = time_ms(sdpa_fwd, flush)
+        lib_bwd = (time_ms(lambda: torch.autograd.grad(
+            sdpa_fwd(), leaves, do.transpose(1, 2)), flush) - lib_fwd)
+        lib = {"flash_forward": lib_fwd, "flash_backward_dq": lib_bwd,
+               "flash_backward_dkv": lib_bwd}
+        for kname, (run, plain, nbytes, ops) in _flash_timed(
+                q, k, v, do, lse, delta, args).items():
+            ms = time_ms(run, flush)
+            plain_ms = time_ms(plain, flush, reps=5)
+            t_bytes, t_ops = nbytes / rate * 1e3, ops / PEAK_OPS[dt] * 1e3
+            lib_what = ("SDPA forward" if kname == "flash_forward"
+                        else "SDPA backward (K3a + K3b's)")
+            log(f"[sp21a] {kname} on the ring's {kind} block (q_offset "
+                f"{q_off}, kv_offset {kv_off}, B {b}, {t} x {t}, {h} heads, "
+                f"{kv} kv, D {d}, bf16): kernel {ms:.4f} ms "
+                f"({ops / ms / 1e9:.1f} TFLOP/s), {per_step[kind]} launches "
+                f"a 21b ring step, bound {max(t_bytes, t_ops):.4f} ms "
+                f"({'bytes' if t_bytes >= t_ops else 'operations'}), plain "
+                f"{plain_ms:.4f} ms, {lib_what} "
+                f"({'causal' if causal else 'non-causal'}) "
+                f"{lib[kname]:.4f} ms")
+        del out, lse, delta, leaves
+    torch.cuda.empty_cache()
+
+
+# |step-0 loss - full attention's| that 21b accepts for ring and Ulysses:
+# above every sound reading and below every planted fault's (PERF.md §6,
+# PR 13)
+SP_LOSS_LIMIT = 2e-4
+
+
+def _plant_ring_pair():
+    """Leave the pair (last shard, first block) out of every flash ring
+    (flash_check.drop_pair over the card kernels); returns the undo."""
+    from bluefog_tpu_torch.parallel import flash_check
+    from bluefog_tpu_torch.parallel import ring_attention as ra
+
+    names = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+    saved = [getattr(ra, n) for n in names]
+    t = SP_SEQ // SP_SHARDS
+    for n, fn in zip(names, flash_check.drop_pair(
+            saved, (SP_SHARDS - 1) * t, 0)):
+        setattr(ra, n, fn)
+    return lambda: [setattr(ra, n, fn) for n, fn in zip(names, saved)]
+
+
+def _plant_ulysses_groups():
+    """Pair each Ulysses head group's queries with the previous group's
+    keys and values (the folded batch rolled by one); returns the undo."""
+    from bluefog_tpu_torch.parallel import ulysses as ul
+
+    real = ul.flash_attention
+    ul.flash_attention = lambda q, k, v, **kw: real(
+        q, k.roll(1, 0), v.roll(1, 0), **kw)
+    return lambda: setattr(ul, "flash_attention", real)
+
+
+def _planted_loss(cfg, kw, seed, plant):
+    """Step 0's loss of 21b's window of ``cfg`` (the same weights and
+    tokens) with the fault ``plant`` planted."""
+    torch.cuda.empty_cache()
+    _, model, _, step, params, opt, batch = _llama_step(
+        cfg, 1, "none", seed, 1, SP_SEQ, **kw)
+    undo = plant()
+    try:
+        loss = step(params, opt, batch, 0)[2][0].item()
+    finally:
+        undo()
+    del model, step, params, opt, batch
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _phase21_train(seed):
+    """21b: Llama-3.1-8B's width at 4 layers, one sequence of 8192 tokens
+    on 1 rank: (i) attn_mode "full" (flash), (ii) ring + flash at sp 4,
+    (iii) Ulysses + flash at sp 4.  The step-0 losses of (ii) and (iii)
+    within SP_LOSS_LIMIT of (i)'s, and the same steps with a ring pair
+    left out or Ulysses' head groups mispaired beyond it.  Returns the
+    windows' launches."""
+    warmup, timed = 3, 10
+    n_layers = 4
+    steps = warmup + timed
+    total = dict.fromkeys(FLASH_KERNELS, 0)
+    losses, busy, runs = {}, {}, {}
+    for label, over, per in (
+            ("(i) full", {}, 1),
+            ("(ii) ring", dict(attn_mode="ring"), _ring_pairs(SP_SHARDS)),
+            ("(iii) ulysses", dict(attn_mode="ulysses"), 1)):
+        kw = _sp_kw(SP_SHARDS) if over else {}
+        cfg = dataclasses.replace(
+            _llama8b_cfg(n_layers), **over,
+            **(dict(sp_axis="sp") if over else {}))
+        runs[label] = (cfg, kw)
+        got, state, _, loss = _llama_window(
+            cfg, seed, warmup, timed, f"[sp21b] {label}",
+            dict.fromkeys(FLASH_KERNELS, per * n_layers * steps),
+            batch_rows=1, seq=SP_SEQ, **kw)
+        for kname in FLASH_KERNELS:
+            total[kname] += got[kname]
+        losses[label] = loss[0].item()
+        busy[label] = _profile_llama(*state[2:], what=f"21b {label}")
+        del state
+        torch.cuda.empty_cache()
+    ref = losses["(i) full"]
+    gaps = {label: abs(losses[label] - ref)
+            for label in ("(ii) ring", "(iii) ulysses")}
+    moves = {
+        "ring, pair (3, 0) left out": abs(_planted_loss(
+            *runs["(ii) ring"], seed=seed, plant=_plant_ring_pair) - ref),
+        "Ulysses, head groups mispaired": abs(_planted_loss(
+            *runs["(iii) ulysses"], seed=seed,
+            plant=_plant_ulysses_groups) - ref)}
+    log("[sp21b] step-0 losses: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in losses.items())
+        + "; |loss - full's|: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in gaps.items())
+        + "; planted: " + ", ".join(f"{k} {v:.3g}" for k, v in moves.items())
+        + f" (limit {SP_LOSS_LIMIT}); device ms a step: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in busy.items()))
+    for label, gap in gaps.items():
+        if not gap <= SP_LOSS_LIMIT:
+            raise AssertionError(f"21b {label}: step-0 loss "
+                                 f"{losses[label]} differs from full's {ref} "
+                                 f"by {gap} > {SP_LOSS_LIMIT}")
+    for label, move in moves.items():
+        if not move > SP_LOSS_LIMIT:
+            raise AssertionError(f"21b: the loss limit {SP_LOSS_LIMIT} "
+                                 f"passes a planted fault ({label}: {move})")
+    return total
+
+
+def _phase21_dp(seed):
+    """21c: dp 2 x sp 2, 2 layers at 8B width, ring + flash, atc over
+    ExponentialTwoGraph(2), 1 x 8192 tokens a rank: tokens/s, then the
+    consensus distance after 3 steps (1 x 1024 a rank, different data per
+    rank) below comm_mode="none"'s.  Returns the timed run's launches."""
+    import bluefog_tpu_torch as bt
+
+    n_layers, warmup, timed = 2, 2, 3
+    cfg = dataclasses.replace(_llama8b_cfg(n_layers), attn_mode="ring",
+                              sp_axis="sp")
+    topo = _exp2(2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, _, step, params, opt, batch = _llama_step(
+        cfg, 2, "atc", seed, 1, SP_SEQ, topology=topo, **_sp_kw(2))
+    tokens = 2 * SP_SEQ
+    n_params, flops = _model_flops(cfg, params, tokens, SP_SEQ)
+    torch.cuda.synchronize()
+    _reset_counts()
+    for i in range(warmup):
+        params, opt, loss = step(params, opt, batch, i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + timed):
+        params, opt, loss = step(params, opt, batch, i)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / timed
+    launches = _expect_flash("21c", _ring_pairs(2) * n_layers * 2
+                             * (warmup + timed))
+    if not torch.isfinite(loss).all():
+        raise AssertionError(f"21c: non-finite loss {loss.tolist()}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del step, params, opt, batch, model
+    torch.cuda.empty_cache()
+    spread = {}
+    for mode, kw in (("atc", dict(topology=topo)), ("none", {})):
+        _, model, _, step, params, opt, batch = _llama_step(
+            cfg, 2, mode, seed, 1, 1024, **kw, **_sp_kw(2))
+        for i in range(3):
+            params, opt, loss = step(params, opt, batch, i)
+        spread[mode] = float(bt.consensus_distance(params))
+        del model, step, params, opt, batch
+        torch.cuda.empty_cache()
+    if not spread["atc"] < spread["none"]:
+        raise AssertionError(f"21c: consensus distance atc {spread['atc']} "
+                             f"not below none {spread['none']}")
+    log(f"[sp21c] dp 2 x sp 2 ({n_layers} layers, {n_params / 1e9:.3f} B "
+        f"params a rank), ring + flash, atc over ExponentialTwoGraph(2), 1 "
+        f"x {SP_SEQ} a rank: {tokens / dt:.1f} tokens/s per card, step "
+        f"{dt * 1e3:.2f} ms, MFU {flops / dt / PEAK_BF16:.4f}, peak memory "
+        f"{peak:.2f} GiB, loss {loss.tolist()}; launches {launches}; "
+        f"consensus distance after 3 steps (1 x 1024 a rank): atc "
+        f"{spread['atc']:.4g} < none {spread['none']:.4g}")
+    return launches
+
+
+def _sp_process_run(backend, seed):
+    """21e's run: the tiny f32 ring + flash Llama, 3 atc steps over
+    ``backend``'s 2 ranks, each rank's 32 tokens in 2 shards: the params
+    and losses on the host."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.models.llama import llama_loss_fn
+
+    cfg = bt.LlamaConfig.tiny(dtype=torch.float32, attn_impl="flash",
+                              attn_mode="ring", sp_axis="sp")
+    model = bt.Llama(cfg, device="cuda", param_dtype=torch.float32,
+                     generator=torch.Generator("cuda").manual_seed(seed))
+    params = bt.rank_major(model.state(release=True), backend)
+    opt = torch.optim.SGD(params.values(), lr=0.1, momentum=0.9)
+    step = bt.build_train_step(llama_loss_fn(model), opt, backend,
+                               comm_mode="atc", topology=_exp2(2),
+                               **_sp_kw(2))
+    rng = np.random.RandomState(seed)
+    raw = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 2, 33)))
+    lo, hi = backend.first_rank, backend.first_rank + backend.n_local
+    batch = (raw[lo:hi, :, :-1].cuda(), raw[lo:hi, :, 1:].cuda())
+    losses = []
+    for i in range(3):
+        params, opt, loss = step(params, opt, batch, i)
+        losses.append(loss)
+    out = {f"param.{k}": v.detach().cpu() for k, v in params.items()}
+    out["loss"] = torch.stack(losses, dim=1).cpu()
+    return out
+
+
+def child_21e(seed, out_dir):
+    """One process under bfrun -np 1: 2 ranks x 2 sequence shards, NCCL."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.context import get_context
+
+    bt.init()
+    b = get_context().backend
+    if not (type(b).__name__ == "ProcessBackend" and b.wire == "nccl"
+            and (b.size, b.n_local, b.process_count) == (2, 2, 1)):
+        raise AssertionError(f"21e: {b}")
+    torch.save(_sp_process_run(b, seed), os.path.join(out_dir, "e0.pt"))
+    print("PHASE18 " + json.dumps(dict(backend=repr(b))), flush=True)
+    bt.shutdown()
+
+
+CHILDREN["21e"] = child_21e
+
+
+def _phase21_process(seed):
+    """21e: bfrun at NCCL world size 1, one process holding 2 ranks x 2
+    sequence shards, the tiny f32 ring + flash Llama, bit-equal to
+    StackedBackend(2) (as tests/test_torch_sp_process.py holds the gloo
+    job on the CPU)."""
+    import shutil
+    import tempfile
+
+    import bluefog_tpu_torch as bt
+
+    out_dir = tempfile.mkdtemp(prefix="bf_phase21_")
+    try:
+        ref = _sp_process_run(bt.StackedBackend(2, device="cuda"), seed)
+        t0 = time.perf_counter()
+        rc, out, recs = _bfrun_children(
+            "21e", 1, out_dir, seed,
+            extra_env=("BLUEFOG_TPU_RANKS_PER_PROCESS=2",))
+        if rc != 0 or len(recs) != 1:
+            raise AssertionError(f"phase 21e failed (exit {rc}):\n"
+                                 f"{out[-6000:]}")
+        _check_against(torch.load(os.path.join(out_dir, "e0.pt")), ref,
+                       slice(0, 2), "21e", exact=True)
+        log(f"[sp21e] bfrun -np 1, {recs[0]['backend']}: the tiny f32 ring "
+            f"+ flash Llama, 2 ranks x 2 sequence shards, 3 atc steps "
+            f"bit-equal to StackedBackend(2); "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def phase_sp(name, seed):
+    """Phase 21: sequence parallelism (see the module docstring).
+    Returns the launches of 21b and 21c (the main path's)."""
+    t0 = time.perf_counter()
+    _phase21_ring_check(seed)
+    _phase21_blocks(name, seed, n_layers=4)
+    launches = _phase21_train(seed)
+    for kname, n in _phase21_dp(seed).items():
+        launches[kname] += n
+    for mode in ("ring", "ulysses"):
+        phase_llama_reference(seed, mode=mode, sp=2)
+    _phase21_process(seed)
+    log(f"[sp21] {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4236,6 +4885,8 @@ def main() -> int:
     for kname, n in phase_serving_rest(args.seed).items():
         launches[kname] += n
     for kname, n in phase_fleet(args.seed).items():
+        launches[kname] += n
+    for kname, n in phase_sp(name, args.seed).items():
         launches[kname] += n
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):

@@ -220,12 +220,6 @@ def test_blockwise_attention_matches_jax(causal, hkv):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **GTOL)
 
 
-def test_ring_attention_is_not_ported_yet():
-    q, k, v = _t(*_qkv(11, 1, 8, 8, 2, 2, 8))
-    with pytest.raises(NotImplementedError, match="Ulysses"):
-        tra.ring_attention(q, k, v, "sp")
-
-
 def test_cpu_path_counts_no_launches():
     """On CPU tensors the wrappers run their plain versions and count
     nothing (the counts are the card's launches)."""

@@ -228,12 +228,11 @@ def test_config_maps_one_to_one():
     (dict(tp_axis="tp", tp_size=2), "tensor parallelism"),
     (dict(n_experts=4), "MoE"),
     (dict(decode=True, n_experts=4, capacity_factor=4.0), "MoE"),
-    (dict(sp_axis="sp"), "sequence parallelism"),
-    (dict(attn_mode="ring", sp_axis="sp"), "attn_mode"),
 ])
 def test_unported_knobs_raise_naming_the_slice(over, match):
-    """Splash (K5) trains since slice 4 (tests/test_torch_splash.py);
-    an sp_axis alone still asks for sequence parallelism."""
+    """Splash (K5) trains since slice 4 (tests/test_torch_splash.py),
+    ring and Ulysses attention since slice 13
+    (tests/test_torch_llama_sp.py)."""
     with pytest.raises(NotImplementedError, match=match):
         bt.Llama(bt.LlamaConfig.tiny(**over), device="cpu")
 

@@ -206,7 +206,7 @@ def test_no_aux_step_and_adam():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(moe=object()), "item 10"),
-    (dict(sp_axis="sp"), "item 10"),
+    (dict(opt_state_specs={}), "item 10"),
     (dict(pp_axis="pp"), "item 10"),
     (dict(param_specs={}), "item 10"),
 ])
