@@ -21,9 +21,13 @@ and of Llama (``models.llama``'s training forward and
 with the train step's decentralized modes (the skip guard, health
 telemetry, bucketed overlap, the int8 and stochastic-rounding wires,
 error-feedback top-k mixing, the hierarchical exchange and push-sum),
-the serving fleet's router over gossiped gauges (``serving.FleetRouter``)
-and observability (``observe``: metrics, spans, exporters, fleet
-aggregation, the step profiler).  CUDA sources live in ``csrc/``.  Entry points take ``device=`` (default
+the serving fleet's router over gossiped gauges (``serving.FleetRouter``),
+observability (``observe``: metrics, spans, exporters, fleet
+aggregation, the step profiler), the input pipeline (``data``: the
+sampler, the native loader, ``device_prefetch``), checkpoints
+(``checkpoint.Checkpointer``) and fault-tolerant training
+(``resilience``: fault plans, the failure detector, healing,
+``run_resilient``; ``elastic``: membership and rejoin).  CUDA sources live in ``csrc/``.  Entry points take ``device=`` (default
 ``"cuda"``) and raise without CUDA unless ``device="cpu"`` is passed.
 """
 
@@ -84,6 +88,10 @@ from bluefog_tpu_torch.parallel.collectives import (ProcessBackend, SeqAxis,
                                                     StackedBackend,
                                                     bind_axis)
 from bluefog_tpu_torch.serving import Request, ServingEngine
+from bluefog_tpu_torch import checkpoint, data, elastic, resilience  # noqa: F401
+from bluefog_tpu_torch.data import (DataLoader, DistributedSampler,  # noqa: F401
+                                    device_prefetch, load_cifar10,
+                                    load_mnist)
 from bluefog_tpu_torch.topology import (ExponentialTwoGraph, Topology,
                                         DynamicTopology,
                                         InferDestinationFromSourceRanks,
@@ -104,15 +112,9 @@ def _waits_for(name: str, item: str):
     return stub
 
 
-# the JAX package's data loaders (item 7) and default pod schedule (the
-# torus module, item 12)
-DataLoader = _waits_for("DataLoader", "7 (data, checkpoints)")
-DistributedSampler = _waits_for("DistributedSampler", "7 (data, checkpoints)")
-device_prefetch = _waits_for("device_prefetch", "7 (data, checkpoints)")
-load_mnist = _waits_for("load_mnist", "7 (data, checkpoints)")
-load_cifar10 = _waits_for("load_cifar10", "7 (data, checkpoints)")
+# the JAX package's default pod schedule (the torus module, item 12)
 default_pod_schedule = _waits_for("default_pod_schedule",
-                                  "12 (topology/torus.py)")
+                                  "12 (topology, topology/torus.py)")
 
 __all__ = ["__version__", "models", "optim", "serving", "topology", "Llama",
            "LlamaConfig", "init_cache", "llama_generate", "llama_loss_fn",
@@ -126,4 +128,6 @@ __all__ = ["__version__", "models", "optim", "serving", "topology", "Llama",
            "ExponentialTwoGraph",
            "Topology", "DynamicTopology", "one_peer_dynamic_schedule",
            "uniform_topology_spec", "InferDestinationFromSourceRanks",
-           "InferSourceFromDestinationRanks"]
+           "InferSourceFromDestinationRanks", "checkpoint", "data",
+           "elastic", "resilience", "DataLoader", "DistributedSampler",
+           "device_prefetch", "load_mnist", "load_cifar10"]

@@ -3,8 +3,8 @@
 Port of ``bluefog_tpu/config.py``, cut to the knobs the port reads
 (the serving engine's slot pool and prefix cache, the fleet router's
 staleness guard, retries and cooldown, the straggler detector's
-threshold, the observe switch, the decision flight recorder, the Python
-timeline writer, the knobs
+threshold, the observe switch, the decision flight recorder, the
+timeline writers, the elastic membership policy, the knobs
 ``build_train_step`` reads, and the eager op layer's: logging, the
 timeline path, fusion, the stall watchdog, the op timeout,
 ``BLUEFOG_OPS_ON_CPU``, and the launcher's job: the process identity,
@@ -38,6 +38,7 @@ __all__ = [
     "observe_raw",
     "timeline_flush_every",
     "timeline_queue_capacity",
+    "timeline_native",
     "kv_zero_on_free",
     "prefix_cache_mb",
     "replica_stale_s",
@@ -52,6 +53,8 @@ __all__ = [
     "hier_local_size",
     "mix_compress",
     "mix_compress_ratio",
+    "elastic_bootstrap_rounds",
+    "elastic_quarantine_threshold",
 ]
 
 
@@ -221,6 +224,13 @@ def timeline_queue_capacity() -> int:
         return 65536
 
 
+def timeline_native() -> bool:
+    """BLUEFOG_TIMELINE_NATIVE (default on): prefer the C++ lock-free
+    ring writer (:mod:`bluefog_tpu_torch.native`) when it builds; ``0``
+    forces the Python queue backend."""
+    return _env("BLUEFOG_TIMELINE_NATIVE", "1") != "0"
+
+
 def kv_zero_on_free() -> bool:
     """BLUEFOG_KV_ZERO_ON_FREE (default OFF): whether
     :meth:`bluefog_tpu_torch.serving.SlotPool.free` zeroes a freed
@@ -376,3 +386,29 @@ def mix_compress_ratio():
     except ValueError:
         return None
     return v if v > 0 else None
+
+
+def elastic_bootstrap_rounds() -> int:
+    """BLUEFOG_ELASTIC_BOOTSTRAP_ROUNDS (default 8): quarantined mixing
+    rounds a joining rank's self-weight anneals over (0 -> its pristine
+    weight) while bootstrapping by pulled neighbor averaging
+    (:mod:`bluefog_tpu_torch.elastic.bootstrap`).  More rounds = gentler
+    re-entry; the first round is always a pure pull regardless."""
+    try:
+        return max(1, int(_env("BLUEFOG_ELASTIC_BOOTSTRAP_ROUNDS", "8")))
+    except ValueError:
+        return 8
+
+
+def elastic_quarantine_threshold() -> float:
+    """BLUEFOG_ELASTIC_QUARANTINE_THRESHOLD (default 1.0): max
+    normalized bootstrap disagreement (joiner's L2 distance from the
+    live mean, in units of the live ranks' own max deviation — see
+    :func:`bluefog_tpu_torch.elastic.bootstrap.disagreement`) for
+    promotion to LIVE.  <= 1.0 means the joiner sits inside the live
+    consensus cloud.  Until it clears, live receivers keep zero weight on
+    the joiner — a half-synced value never leaks into the fleet."""
+    try:
+        return float(_env("BLUEFOG_ELASTIC_QUARANTINE_THRESHOLD", "1.0"))
+    except ValueError:
+        return 1.0

@@ -34,9 +34,9 @@ can reach.  Three pieces:
 * :class:`StragglerDetector` — flags ranks whose gossiped step-time
   z-score (robust: median/MAD across ranks) stays above a threshold
   for ``patience`` consecutive observations; feeds
-  the resilient runner's failure detector (in the JAX package
-  ``run_resilient``) so a slow rank is *named* instead of only tripping
-  the blunt ``BLUEFOG_OP_TIMEOUT``.
+  the resilient runner's failure detector
+  (``resilience.run_resilient(straggler=...)``) so a slow rank is
+  *named* instead of only tripping the blunt ``BLUEFOG_OP_TIMEOUT``.
 
 Aggregated values land back in the local
 :class:`~bluefog_tpu_torch.observe.registry.MetricsRegistry` under

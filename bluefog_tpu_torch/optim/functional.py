@@ -120,7 +120,7 @@ class GuardConfig:
     """Fault-tolerance policy of :func:`build_train_step`.  Only its
     PRESENCE changes the step (the non-finite skip guard, the ``skipped``
     output and the runtime combine weights); the fields are host-side
-    policy for the resilient runner (ROADMAP.md Queue 1, item 12):
+    policy for :func:`bluefog_tpu_torch.resilience.run_resilient`:
     ``max_consecutive_bad``, the rollback backoff ``backoff_base`` /
     ``backoff_factor`` / ``max_backoff`` and ``max_rollbacks``."""
 
@@ -1174,6 +1174,7 @@ def build_train_step(
         return cons
 
     step_fn.has_aux = has_aux
+    step_fn.backend = backend
     step_fn.health_config = health
     step_fn.epilogue_stages = _fusion.epilogue_stages(
         compress=stage_compress, guard=guarded, health=want_health,

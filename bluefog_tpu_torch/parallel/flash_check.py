@@ -4,7 +4,9 @@ fused splash backward K5) against their plain versions, shared by
 hold the kernels to one bound.
 
 * :data:`CASES`: the shapes K2, K3a and K3b are checked at, the Llama
-  training shape first, the ViT-B/16 shape second, Llama-1B's third;
+  training shape first, the ViT-B/16 shape second, Llama-1B's third,
+  ViT-B/16's at 32 images (a rank's share of a resilient 4-rank step)
+  fourth;
   :data:`SPLASH_CASES` those of K5 (causal, no offsets), its two
   training shapes first.
 * :func:`term_sizes`: for each entry of out, dQ, dK and dV, the sum of
@@ -15,7 +17,8 @@ hold the kernels to one bound.
 * :func:`planted_faults`: the outputs of three deliberately wrong
   kernels, computed with the plain versions, which :func:`mismatch` must
   reject; they show the bound is tight enough to catch a lost tile or a
-  lost group member.  :func:`splash_planted_faults`: the same for K5's
+  lost group member (at a non-causal shape: a lost key tile, a lost
+  query tile).  :func:`splash_planted_faults`: the same for K5's
   own failure modes (a lost dQ partial, a skipped diagonal query step).
 
 * :func:`ring_term_sizes`: :func:`term_sizes` of the flash ring's
@@ -47,6 +50,7 @@ CASES = [
     (4, 2048, 32, 8, 128, torch.bfloat16, True, 0, 0),  # Llama-3.1-8B
     (128, 200, 12, 12, 64, torch.bfloat16, False, 0, 0),  # ViT-B/16 b128
     (4, 2048, 32, 8, 64, torch.bfloat16, True, 0, 0),   # Llama-1B
+    (32, 200, 12, 12, 64, torch.bfloat16, False, 0, 0),  # ViT-B/16 b32
     (2, 100, 4, 4, 16, torch.float32, True, 0, 0),
     (2, 1000, 8, 2, 64, torch.float32, True, 0, 0),
     (1, 100, 4, 1, 64, torch.bfloat16, True, 0, 0),
@@ -133,19 +137,27 @@ def mismatch(got: torch.Tensor, want: torch.Tensor,
 
 
 def planted_faults(q, k, v, do, lse, delta, ref: Dict[str, torch.Tensor],
-                   tile: int = 64) -> List[Tuple[str, str, torch.Tensor]]:
+                   tile: int = 64, causal: bool = True
+                   ) -> List[Tuple[str, str, torch.Tensor]]:
     """``(fault, output, tensor)`` for three wrong kernels at a causal,
     offset-free shape, each wrong only in the second half of the
     sequence, where entries are smallest: K2 and K3a skipping the
     diagonal key tile of each ``tile``-row query tile there (its rows see
     keys ``< tile·i`` only), and K3b skipping the last member of each kv
     head's group for those keys (needs more query heads than kv heads).
+    With ``causal=False`` (no offsets) the faults are wrong only from
+    ``max(T/2, tile)`` on: K2 and K3a skipping the last ``tile``-key tile
+    (the ragged one where ``tile`` does not divide T) for those rows, and
+    K3b skipping the last ``tile``-row query tile for those keys.
     ``ref`` holds the plain versions' ``out``, ``dq``, ``dk`` and ``dv``
     on the same inputs; the faults are computed with the plain versions
     from the true forward's ``lse`` and ``delta``."""
     b, t, h, d = q.shape
     scale = d ** -0.5
     half = t // 2 // tile * tile
+    if not causal:
+        return _planted_faults_noncausal(q, k, v, do, lse, delta, ref, tile,
+                                         max(half, tile))
     out, dq = ref["out"].clone(), ref["dq"].clone()
     for a in range(max(half, tile), t, tile):
         rows = slice(a, min(a + tile, t))
@@ -165,6 +177,27 @@ def planted_faults(q, k, v, do, lse, delta, ref: Dict[str, torch.Tensor],
         for name, x in (("dk", dk), ("dv", dv)):
             x[:, :half] = ref[name][:, :half]
             faults.append(("last group member skipped past T/2", name, x))
+    return faults
+
+
+def _planted_faults_noncausal(q, k, v, do, lse, delta, ref, tile, start):
+    t = q.shape[1]
+    scale = q.shape[-1] ** -0.5
+    last = (t - 1) // tile * tile   # the last tile's first key / query
+    rows, kv = slice(start, t), (k[:, :last], v[:, :last])
+    out, dq = ref["out"].clone(), ref["dq"].clone()
+    out[:, rows] = flash_forward_plain(q[:, rows], *kv, False, scale)[0]
+    dq[:, rows] = flash_backward_dq_plain(
+        q[:, rows], *kv, do[:, rows], lse[..., rows], delta[..., rows],
+        False, scale, 0, 0)
+    faults = [("last key tile skipped past T/2", "out", out),
+              ("last key tile skipped past T/2", "dq", dq)]
+    dk, dv = flash_backward_dkv_plain(
+        q[:, :last], k, v, do[:, :last], lse[..., :last], delta[..., :last],
+        False, scale, 0, 0)
+    for name, x in (("dk", dk), ("dv", dv)):
+        x[:, :start] = ref[name][:, :start]
+        faults.append(("last query tile skipped past T/2", name, x))
     return faults
 
 

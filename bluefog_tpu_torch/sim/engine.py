@@ -5,7 +5,7 @@ unchanged (host bookkeeping; importing it from the JAX package would load
 jax).  The flight recorder (:mod:`bluefog_tpu_torch.observe.blackbox`)
 digests its lines with it.  The seeded event engine, its log and the
 virtual clock come with their first caller, the simulator of ROADMAP.md
-Queue 1, item 12.
+Queue 1, item 12 (the simulator).
 """
 
 from __future__ import annotations

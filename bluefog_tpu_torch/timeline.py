@@ -1,24 +1,28 @@
 """Chrome-tracing timeline — a thin exporter over the span tracer.
 
-Port of ``bluefog_tpu/timeline.py``, Python writer path only: the JAX
-package's native writer (the C++ lock-free ring in
-``bluefog_tpu/native/bf_native.cc``, loaded through ctypes) waits for a
-later slice, so ``BLUEFOG_TIMELINE_NATIVE`` is not read here and every
-timeline uses the bounded-queue writer below.
-
-A :class:`Timeline` is a tracer
+Port of ``bluefog_tpu/timeline.py``.  A :class:`Timeline` is a tracer
 (:class:`bluefog_tpu_torch.observe.tracer.Tracer`) plus a file-writer
-**sink** (the writer's ``record(name, tid, phase)`` surface is exactly
+**sink** (the writers' ``record(name, tid, phase)`` surface is exactly
 the tracer's sink protocol).  ``start_timeline`` attaches the writer to
 the process-global tracer, so every subsystem that publishes spans (the
-serving engine's request lifecycles in this slice) lands in the
-Chrome-trace file automatically.
+serving engine's request lifecycles, the resilient training loop's
+``resilience.*`` instants, the eager op layer) lands in the Chrome-trace
+file automatically.
 
-The writer is a bounded queue.Queue + thread.  The queue REFUSES events
-when the writer thread falls behind and counts the drops; the count
-flushes to the ``bf_timeline_dropped_events`` registry gauge every
-``BLUEFOG_TIMELINE_FLUSH_EVERY`` writer drains, whenever the queue
-drains to empty with undisclosed drops, and once at ``close()``.
+Two writer backends:
+
+* **native** (default when it builds) — the C++ lock-free SPSC ring +
+  writer thread of ``native/bf_native.cc`` (:mod:`bluefog_tpu_torch.
+  native`), the direct equivalent of the reference's boost::lockfree
+  design; its drop count reaches the gauge at ``close()``;
+* **python** — a bounded queue.Queue + thread, always available.  The
+  queue REFUSES events when the writer thread falls behind and counts
+  the drops; the count flushes to the ``bf_timeline_dropped_events``
+  registry gauge every ``BLUEFOG_TIMELINE_FLUSH_EVERY`` writer drains,
+  whenever the queue drains to empty with undisclosed drops, and once at
+  ``close()``.
+
+Set ``BLUEFOG_TIMELINE_NATIVE=0`` to force the Python backend.
 """
 
 from __future__ import annotations
@@ -38,9 +42,9 @@ __all__ = ["Timeline", "get_timeline", "start_timeline", "stop_timeline"]
 
 
 class _PyWriter:
-    """The timeline writer: bounded queue.Queue + daemon thread (a full
-    queue drops the event and counts it; the bound defaults to
-    ``BLUEFOG_TIMELINE_QUEUE_CAPACITY``).
+    """The Python writer: bounded queue.Queue + daemon thread (a full
+    queue drops the event and counts it, the native ring's contract; the
+    bound defaults to ``BLUEFOG_TIMELINE_QUEUE_CAPACITY``).
 
     ``on_drop_flush(count)`` is called from the WRITER thread every
     ``BLUEFOG_TIMELINE_FLUSH_EVERY`` drained events — and on any drain
@@ -133,6 +137,30 @@ class _PyWriter:
             pass
 
 
+def _make_writer(path: str, rank: int, use_native: Optional[bool],
+                 on_drop_flush=None):
+    """(writer, "native" | "python").  ``use_native=None`` reads
+    ``BLUEFOG_TIMELINE_NATIVE`` and falls back to the Python writer when
+    the native library does not build; ``True`` raises instead."""
+    explicit = use_native is True
+    if use_native is None:
+        use_native = bfconfig.timeline_native()
+    if use_native:
+        from bluefog_tpu_torch import native
+
+        try:
+            return native.NativeTimelineWriter(path, rank), "native"
+        except (OSError, RuntimeError) as exc:
+            if explicit:
+                raise
+            from bluefog_tpu_torch.logging_util import get_logger
+
+            get_logger().warning(
+                "native timeline writer unavailable (%s); using the Python "
+                "backend", exc)
+    return _PyWriter(path, rank, on_drop_flush=on_drop_flush), "python"
+
+
 class Timeline:
     """A Chrome-trace file fed by a :class:`Tracer`.
 
@@ -142,11 +170,13 @@ class Timeline:
     framework publishes.  ``start_activity``/``end_activity``/``instant``
     are the eager op layer's span calls (``api.timeline_*``)."""
 
-    def __init__(self, path: str, rank: int = 0, tracer=None):
+    def __init__(self, path: str, rank: int = 0,
+                 use_native: Optional[bool] = None, tracer=None):
         self.path = f"{path}{rank}.json"
         self.rank = rank
-        self._writer = _PyWriter(self.path, rank,
-                                 on_drop_flush=self._flush_dropped_gauge)
+        self._writer, self.backend = _make_writer(
+            self.path, rank, use_native,
+            on_drop_flush=self._flush_dropped_gauge)
         self.tracer = tracer if tracer is not None else _obs_tracer.Tracer(
             pid=rank)
         self.tracer.add_sink(self._writer)
@@ -184,7 +214,7 @@ class Timeline:
         self._writer.close()
         # flush the FINAL drop count where a dashboard can see it —
         # mid-run flushes only fire every BLUEFOG_TIMELINE_FLUSH_EVERY
-        # drains
+        # drains, and the native ring only reports here
         self._flush_dropped_gauge(dropped)
 
 

@@ -4,7 +4,7 @@ device-ready ``Topology`` spec (``bluefog_tpu.topology``'s counterpart,
 numpy only).
 
 ``torus``, ``compiler`` and ``control`` wait for a later slice
-(ROADMAP.md, Queue 1, item 12).
+(ROADMAP.md, Queue 1, item 12, the topology part).
 """
 
 from bluefog_tpu_torch.topology.graphs import (  # noqa: F401

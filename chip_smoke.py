@@ -37,11 +37,13 @@ Phases (any failure raises and exits non-zero, printing no result):
       100 and 1000; rep 1, 2, 4; non-causal; every row masked by
       kv_offset=64; q_offset=128): max |err| per output, every output
       bit-equal across two runs; K2 (the wgmma kernel in bf16 at D 64 and
-      128) and SDPA's forward timed at every shape; at the three model
-      shapes K3a's and K3b's (wgmma) kernel, plain, bound and library ms
-      (SDPA's backward for K3a + K3b together), K2's at the training
-      shape (SDPA's forward), and there three planted faults in K3a's
-      key tiles.
+      128) and SDPA's forward timed at every shape; at the four model
+      shapes (ViT-B/16 at 32 images too, phase 22b's launch shape) K3a's
+      and K3b's (wgmma) kernel, plain, bound and library ms (SDPA's
+      backward for K3a + K3b together), K2's at the training shape
+      (SDPA's forward), and at each of them the planted faults in K3a's
+      key tiles rejected (causal: a skipped diagonal tile and group
+      member; non-causal: a skipped last key tile and query tile).
    d. K5, splash attention's fused one-pass backward, at the Llama-1B
       training shape (B=4, T=2048, H=32, KV=8, D=64, causal, bf16), at
       8B width (D=128) and at small odd shapes (f32 D 16 and 64, bf16
@@ -305,9 +307,49 @@ Phases (any failure raises and exits non-zero, printing no result):
       sequence shards, the tiny f32 ring + flash Llama, 3 atc steps,
       bit-equal to StackedBackend(2).
 
+22. Data, checkpoints and fault-tolerant training (each run's temporary
+   files under one directory, removed at the end):
+   a. 4096 synthetic 224 x 224 x 3 uint8 images (616 MB) and labels over
+      1000 classes from --seed through DataLoader(batch_size=128, world=4,
+      rank_major=True): the native loader (use_native=True, built with
+      g++ into build/torch_native/) and the Python pipeline, img/s of
+      each over one epoch; then the native loader through
+      device_prefetch(device="cuda"), every [4, 32, ...] batch copied
+      back and checked bit for bit against the Python pipeline's.
+   b. ViT-B/16 (attn_impl="flash", full width and depth, bf16 compute
+      over f32 params) over 4 stacked ranks, guarded atc over
+      ExponentialTwoGraph(4), SGD(1e-3, momentum 0.9), fed by the native
+      loader through device_prefetch (cast and normalized on the card),
+      under run_resilient for 48 steps with checkpoint_every=8 into a
+      Checkpointer (max_to_keep=2, writes on a thread) and
+      ElasticConfig(bootstrap_rounds=4, max_quarantine_steps=16,
+      quarantine_threshold=2.0), through FaultPlan.nan_burst(4, rank=1,
+      step=5, duration=2) merged with FaultPlan.preempt(4, rank=2,
+      step=12, duration=12): the burst is trained through (skips, no
+      rollback); rank 2 is declared dead, healed and the run rolls back
+      to step 8; rank 2 rejoins at 24 and is promoted within
+      max_quarantine_steps; every rank's params finite; K2, K3a and K3b
+      launched 12 layers x 4 ranks x step calls each (replays included).
+      img/s per card over the run; the runner's own cost in one window
+      (a bare loop of the same step and run_resilient over 8 clean steps
+      with a checkpointer that writes nothing, alternated 3 times);
+      device ms of a profiled step, checkpoint bytes, save (snapshot and
+      write apart), restore (load and copy apart), the rollback's wall
+      time, peak memory.  Phase 2c holds K2, K3a and K3b to their plain
+      versions at this launch shape (B=32, T=200, H=12, D=64).
+   c. A tiny f32 ViT (flash, D = 16) through 22b's plan on the card and on
+      the host: the card run launches K2, K3a and K3b 2 layers x 4 ranks
+      x step calls each, the host run none; equal (kind, step, rank)
+      events, params within phase 14's bound; a checkpoint saved from the card and restored into a fresh
+      step runs 3 steps bit-equal to the uninterrupted run.
+   d. BLUEFOG_TIMELINE set and bf.init(size=4) on the card (the native
+      timeline writer): a 16-step run of the tiny ViT through a burst and
+      a death; the Chrome trace parses, holds one resilience.* instant per
+      event of the run and drops none.
+
 The line before the last is a JSON object with one entry per kernel
 (seven; K4's launches are phase 3's, 19's and 20's; K2's, K3a's and
-K3b's phase 8's, 21b's and 21c's); the last line is
+K3b's phase 8's, 21b's, 21c's and 22b's); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -322,6 +364,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -773,11 +816,11 @@ def phase_flash(name, seed):
     2**-7 of the sizes of the terms whose bf16 rounding may differ and
     2**-12 of the largest such size, f32 1e-5 of the largest); lse (f32)
     within 1e-4 absolute plus 1e-5; every output bit-equal across two
-    runs.  At the training shape the bound must also reject three planted
-    faults (``flash_check.planted_faults`` at K3a's key tile).  K2 and
-    SDPA's forward are timed at every shape; K3a, K3b, their plain
-    versions and SDPA's backward at the three model shapes
-    (``CASES[:3]``); the kernels line takes the training shape's."""
+    runs.  At the four model shapes (``CASES[:4]``) the bound must also
+    reject the planted faults (``flash_check.planted_faults`` at K3a's
+    key tile).  K2 and SDPA's forward are timed at every shape; K3a, K3b,
+    their plain versions and SDPA's backward at the model shapes; the
+    kernels line takes the training shape's."""
     import torch.nn.functional as F
 
     from bluefog_tpu_torch.parallel import flash_attention as fa
@@ -835,10 +878,11 @@ def phase_flash(name, seed):
             + "; of its bound "
             + ", ".join(f"{k_} {r:.3g}" for k_, r in ratios.items())
             + "; out, lse, dQ, dK, dV bit-equal across two runs")
-        if case == flash_check.CASES[0]:
+        if case in flash_check.CASES[:4]:   # the models' shapes
             # each fault lies in the kernels' own tiles: K3a's key step
             for fault, key, bad in flash_check.planted_faults(
-                    q, k, v, do, lse, delta, ref, tile=fa.DQ_KEY_TILE):
+                    q, k, v, do, lse, delta, ref, tile=fa.DQ_KEY_TILE,
+                    causal=causal):
                 ratio = flash_check.mismatch(bad, ref[key], terms[key])
                 if ratio <= 1:
                     raise AssertionError(f"{what}: the bound passes a "
@@ -862,7 +906,7 @@ def phase_flash(name, seed):
         k2_kernel = ("wgmma" if dt == torch.bfloat16 and d >= 64 else
                      "mma.sync" if dt == torch.bfloat16 else "f32 FMA")
         plain = ""
-        if case in flash_check.CASES[:3]:   # the models' shapes
+        if case in flash_check.CASES[:4]:   # the models' shapes
             plain_ms = time_ms(
                 lambda: fa.flash_forward_plain(q, k, v, *args), flush, reps=5)
             plain = f", plain {plain_ms:.4f} ms"
@@ -870,7 +914,7 @@ def phase_flash(name, seed):
             f"({ops / k2_ms / 1e9:.1f} TFLOP/s), SDPA forward {sdpa_ms:.4f}"
             f" ms (K2/SDPA {k2_ms / sdpa_ms:.3f}){plain}, bound "
             f"{bound:.4f} ms")
-        if case not in flash_check.CASES[:3]:
+        if case not in flash_check.CASES[:4]:
             continue
         # the models' shapes: K3a's and K3b's kernel, plain, bound and
         # library times (and K2's at the training shape, the kernels line's
@@ -4831,6 +4875,483 @@ def phase_sp(name, seed):
     return launches
 
 
+# ------------------------------------------------------------------ #
+# phase 22: data, checkpoints and fault-tolerant training (ViT-B/16)
+# ------------------------------------------------------------------ #
+P22_IMAGES, P22_RANKS, P22_BATCH = 4096, 4, 128
+P22_STEPS, P22_EVERY = 48, 8
+
+
+def _p22_plan(R):
+    """22b's and 22c's faults: a NaN burst on rank 1 at steps 5-6, rank 2
+    preempted for steps 12-23."""
+    return R.FaultPlan.nan_burst(P22_RANKS, rank=1, step=5,
+                                 duration=2).merged(
+        R.FaultPlan.preempt(P22_RANKS, rank=2, step=12, duration=12))
+
+
+def _p22_elastic():
+    """Quarantine of 4 anneal rounds, promotion at a disagreement of 2.0:
+    over ExponentialTwoGraph(4) with per-rank data, a joiner that mixes
+    like a live rank but is read by none stays above the live ranks'
+    largest deviation (22b and 22c print its reading), so the default of
+    1.0 would hold it in quarantine, as it does in the JAX package
+    (tests/test_torch_elastic.py::test_phase22_quarantine_equals_jax)."""
+    from bluefog_tpu_torch.elastic import ElasticConfig
+
+    return ElasticConfig(bootstrap_rounds=4, max_quarantine_steps=16,
+                         quarantine_threshold=2.0)
+
+
+def _p22_loader(images, labels, seed, native):
+    import bluefog_tpu_torch as bt
+
+    return bt.DataLoader((images, labels), batch_size=P22_BATCH,
+                         world=P22_RANKS, rank_major=True, seed=seed,
+                         use_native=native)
+
+
+def _p22_data(seed):
+    """22a: the native loader against the Python pipeline, and
+    device_prefetch to the card.  Returns (images, labels)."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch import native
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (P22_IMAGES, 224, 224, 3), dtype=np.uint8)
+    labels = rng.integers(0, 1000, P22_IMAGES).astype(np.int32)
+    made = time.perf_counter() - t0
+    rates = {}
+    for native_on in (True, False):
+        loader = _p22_loader(images, labels, seed, native_on)
+        if loader.native is not native_on:
+            raise AssertionError(f"22a: loader native={loader.native}")
+        t0 = time.perf_counter()
+        n = sum(b[0].shape[0] * b[0].shape[1] for b in loader)
+        rates[native_on] = n / (time.perf_counter() - t0)
+        loader.close()
+    if not native.available():
+        raise AssertionError(f"22a: {native.build_error()}")
+    plain = _p22_loader(images, labels, seed, False)
+    loader = _p22_loader(images, labels, seed, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for (gx, gy), (wx, wy) in zip(bt.device_prefetch(loader, "cuda"), plain,
+                                  strict=True):
+        if tuple(gx.shape) != (P22_RANKS, P22_BATCH // P22_RANKS, 224, 224,
+                               3) or not gx.is_cuda:
+            raise AssertionError(f"22a: batch {tuple(gx.shape)} on "
+                                 f"{gx.device}")
+        if not (np.array_equal(gx.cpu().numpy(), wx)
+                and np.array_equal(gy.cpu().numpy(), wy)):
+            raise AssertionError("22a: a prefetched batch differs from the "
+                                 "Python pipeline's")
+        n += wx.shape[0] * wx.shape[1]
+    prefetch_rate = n / (time.perf_counter() - t0)
+    loader.close()
+    plain.close()
+    log(f"[data22a] {P22_IMAGES} images 224 x 224 x 3 uint8 "
+        f"({images.nbytes / 1e6:.1f} MB, made in {made:.2f} s), batch "
+        f"{P22_BATCH} as [{P22_RANKS}, {P22_BATCH // P22_RANKS}, ...]: "
+        f"native loader {rates[True]:.1f} img/s, Python pipeline "
+        f"{rates[False]:.1f} img/s (host only); native + device_prefetch "
+        f"to the card, checked bit for bit against the Python pipeline "
+        f"(each batch copied back), {prefetch_rate:.1f} img/s; native "
+        f"library {native.library_path().name}")
+    return images, labels
+
+
+def _p22_vit(cfg, dev, seed, backend=None, init=None):
+    """ViT ``cfg`` over 4 ranks (or ``backend``'s) on ``dev``: guarded atc
+    over ExponentialTwoGraph(4), SGD(1e-3, momentum 0.9) as phase 14:
+    (step, params, optimizer, schedule)."""
+    import torch.nn.functional as F
+
+    import bluefog_tpu_torch as bt
+
+    model = bt.ViT(cfg, device=dev,
+                   generator=torch.Generator(dev).manual_seed(seed))
+    if init is not None:
+        model.load_state_dict(init)
+    backend = backend or bt.StackedBackend(P22_RANKS, device=dev)
+    params = bt.rank_major(model.state(), backend)
+    opt = torch.optim.SGD(params.values(), lr=1e-3, momentum=0.9)
+    sched = [bt.uniform_topology_spec(bt.ExponentialTwoGraph(P22_RANKS))]
+
+    def loss_fn(p, b):
+        return F.cross_entropy(model.apply(p, b[0]), b[1])
+
+    step = bt.build_train_step(loss_fn, opt, backend, comm_mode="atc",
+                               topology=sched[0], guard=bt.GuardConfig())
+    return step, params, opt, sched
+
+
+def _counted(step):
+    """``step`` with a call count (``.calls``), its attributes kept."""
+    import functools
+
+    @functools.wraps(step)
+    def call(*args):
+        call.calls += 1
+        return step(*args)
+
+    call.calls = 0
+    return call
+
+
+def _p22_check_events(res, what):
+    """22b's and 22c's asserts on the event list: the burst is trained
+    through; rank 2 dies, heals and rolls back; rejoins and is promoted
+    within max_quarantine_steps."""
+    import bluefog_tpu_torch.resilience as R
+
+    ev = res.events
+    kinds = [e.kind for e in ev]
+    burst = [e for e in ev if e.kind == "skip" and e.step in (5, 6)]
+    dead = [e for e in ev if e.kind == "rank_dead"]
+    rb = [e for e in ev if e.kind == "rollback"]
+    join = [e for e in ev if e.kind == "rank_joining"]
+    promo = [e for e in ev if e.kind == "rank_promoted"]
+    if [e.detail["ranks"] for e in burst] != [[1], [1]] or any(
+            e.kind == "rollback" and e.step < 12 for e in ev):
+        raise AssertionError(f"{what}: the burst was not trained through: "
+                             f"{kinds}")
+    if [e.detail["rank"] for e in dead] != [2] or len(rb) != 1 \
+            or rb[0].detail["restored_step"] != P22_EVERY \
+            or rb[0].detail["dead"] != [2]:
+        raise AssertionError(f"{what}: death and rollback: {ev}")
+    if [e.detail["rank"] for e in join] != [2] or \
+            [e.detail["rank"] for e in promo] != [2] or \
+            promo[0].step - join[0].step >= \
+            _p22_elastic().max_quarantine_steps:
+        raise AssertionError(f"{what}: rejoin and promotion: {ev}")
+    if res.membership != ["live"] * P22_RANKS or res.dead_mask.any() \
+            or res.step != P22_STEPS:
+        raise AssertionError(f"{what}: ends {res.membership}, step "
+                             f"{res.step}")
+    if not R.update_health(res.params).all():
+        raise AssertionError(f"{what}: non-finite params")
+    return dead[0], rb[0], join[0], promo[0]
+
+
+def _p22_resilient(seed, images, labels, tmp):
+    """22b: ViT-B/16 at full width and depth over 4 stacked ranks under
+    run_resilient, fed by the native loader through device_prefetch.
+    Returns the run's launches."""
+    import bluefog_tpu_torch as bt
+    import bluefog_tpu_torch.resilience as R
+    from bluefog_tpu_torch import observe
+    from bluefog_tpu_torch.checkpoint import Checkpointer
+
+    cfg = bt.ViTConfig.base(attn_impl="flash")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, params, opt, sched = _p22_vit(cfg, "cuda", seed)
+    loader = _p22_loader(images, labels, seed, True)
+
+    def stream():
+        while True:  # one epoch after another (the sampler reshuffles)
+            yield from loader
+
+    feed = bt.device_prefetch(stream(), "cuda", depth=2)
+    cache = []
+
+    def batch_fn(s):
+        # a pure function of the step (a rollback replays the same
+        # batches): pulled from the prefetching loader the first time
+        while len(cache) <= s:
+            cache.append(next(feed))
+        x, y = cache[s]
+        return (x.to(cfg.dtype).mul_(1 / 127.5).sub_(1), y.long())
+
+    ck = Checkpointer(tempfile.mkdtemp(prefix="ck22b_", dir=tmp),
+                      max_to_keep=2)
+    saves, rollback_wall = [], []
+    orig_save, orig_restore = ck.save, ck.restore_latest
+
+    def save(*a, **k):
+        t0 = time.perf_counter()
+        out = orig_save(*a, **k)
+        # the dict the write thread completes with its write_s
+        saves.append((time.perf_counter() - t0, ck.last_save))
+        return out
+
+    def restore_latest(*a, **k):
+        t0 = time.perf_counter()
+        out = orig_restore(*a, **k)
+        rollback_wall.append(time.perf_counter() - t0)
+        return out
+
+    ck.save, ck.restore_latest = save, restore_latest
+    counted = _counted(step)
+    hist = observe.get_registry().histogram(
+        "bf_step_wall_seconds", "train/engine step wall time", loop="train")
+    seen = len(hist.window_values)
+    batch_fn(0)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = R.run_resilient(counted, params, opt, batch_fn, steps=P22_STEPS,
+                          checkpointer=ck, schedule=sched,
+                          fault_plan=_p22_plan(R),
+                          checkpoint_every=P22_EVERY,
+                          elastic=_p22_elastic())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _expect_flash("22b", cfg.depth * P22_RANKS * counted.calls)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dead, rb, join, promo = _p22_check_events(res, "22b")
+    step_walls = hist.window_values[seen:]
+    bare = _p22_bare(step, params, opt, batch_fn, sched)
+    last_save = saves[-1][1]
+    writes = [d["write_s"] for _, d in saves]
+    log(f"[res22b] ViT-B/16 ({sum(v[0].numel() for v in params.values()) / 1e6:.1f} M "
+        f"params a rank), {P22_RANKS} stacked ranks, batch "
+        f"{P22_BATCH // P22_RANKS} a rank from the native loader, guarded "
+        f"atc, run_resilient {P22_STEPS} steps ({counted.calls} step calls, "
+        f"replays included) in {wall:.2f} s: "
+        f"{P22_BATCH * counted.calls / wall:.1f} img/s per card over the "
+        f"run; events: burst skips at 5-6, rank 2 dead at {dead.step}, "
+        f"rollback to {rb.detail['restored_step']} (backoff "
+        f"{rb.detail['backoff']} s), rejoin at {join.step}, promoted at "
+        f"{promo.step} (disagreement {promo.detail['disagreement']:.4g}, "
+        f"{promo.detail['rounds']} rounds); {len(saves)} checkpoints of "
+        f"{last_save['bytes'] / 1e9:.3f} GB: save call "
+        f"{1e3 * statistics.median(s for s, _ in saves):.1f} ms median "
+        f"(snapshot {1e3 * last_save['snapshot_s']:.1f} ms in the last; "
+        f"writes on a thread {1e3 * min(writes):.1f}-"
+        f"{1e3 * max(writes):.1f} ms); restore "
+        f"{1e3 * ck.last_restore['load_s']:.1f} ms load + "
+        f"{1e3 * ck.last_restore['copy_s']:.1f} ms copy; rollback wall "
+        f"{1e3 * rollback_wall[0]:.1f} ms + backoff; peak memory "
+        f"{peak:.2f} GiB; launches {launches} = 12 layers x "
+        f"{P22_RANKS} ranks x {counted.calls} step calls each; step wall "
+        f"in the runner p50 {1e3 * statistics.median(step_walls):.2f} ms "
+        f"({P22_BATCH / statistics.median(step_walls):.1f} img/s per card "
+        f"on a clean step); "
+        + bare)
+    del step, params, opt, cache, feed, res
+    loader.close()
+    ck.close()
+    torch.cuda.empty_cache()
+    return launches
+
+
+class _NoWrite:
+    """A checkpointer that keeps nothing, for run_resilient on clean steps:
+    its own cost, with no write thread contending for the host."""
+
+    def save(self, *args, **kwargs):
+        return True
+
+    def wait(self):
+        pass
+
+    def restore_latest(self, like=None):
+        raise AssertionError("22b: a clean run rolled back")
+
+
+def _p22_bare(step, params, opt, batch_fn, sched, rounds=3, n=8):
+    """The runner's own cost in one window: on the run's first ``n``
+    batches, a bare loop of the same guarded step and run_resilient over
+    ``n`` clean steps (no faults, a checkpointer that writes nothing),
+    alternated ``rounds`` times after a warm-up; then one profiled step
+    (device ms, and its busy share under the profiler)."""
+    import bluefog_tpu_torch.resilience as R
+
+    w = step.default_comm_weights
+    batches = [batch_fn(s) for s in range(n)]
+    for i in range(2):
+        step(params, opt, batches[i], i, w)
+    bare, loop = [], []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(params, opt, batches[i], i, w)
+        torch.cuda.synchronize()
+        bare.append((time.perf_counter() - t0) / n)
+        t0 = time.perf_counter()
+        res = R.run_resilient(step, params, opt, lambda s: batches[s],
+                              steps=n, checkpointer=_NoWrite(),
+                              schedule=sched, checkpoint_every=0)
+        loop.append((time.perf_counter() - t0) / n)
+        if any(e.kind != "checkpoint" for e in res.events):
+            raise AssertionError(f"22b: a clean run's events {res.events}")
+    wall, busy = _profile_step(lambda: step(params, opt, batches[0], 0, w),
+                               "22b bare step")
+    b, r = statistics.median(bare), statistics.median(loop)
+    return (f"in one window ({rounds} x {n} steps alternated): bare loop "
+            f"{', '.join(f'{1e3 * x:.2f}' for x in bare)} ms a step "
+            f"(median {1e3 * b:.2f}, {P22_BATCH / b:.1f} img/s per card), "
+            f"run_resilient {', '.join(f'{1e3 * x:.2f}' for x in loop)} "
+            f"ms a step (median {1e3 * r:.2f}, {P22_BATCH / r:.1f} img/s): "
+            f"the runner's own cost {1e3 * (r - b):+.2f} ms a step; one "
+            f"profiled step: device busy {busy:.2f} ms in a {wall:.2f} ms "
+            f"wall under the profiler ({100 * busy / wall:.1f}%), "
+            f"{100 * busy / (1e3 * b):.1f}% of the bare loop's median step")
+
+
+def _p22_tiny_batches(seed, cfg, n=24):
+    g = torch.Generator().manual_seed(seed + 2)
+    x = torch.randn(n, P22_RANKS, 2, cfg.image_size, cfg.image_size, 3,
+                    generator=g)
+    y = torch.randint(0, cfg.num_classes, (n, P22_RANKS, 2), generator=g)
+    return x, y
+
+
+def _p22_reference(seed, tmp):
+    """22c: the tiny f32 ViT (flash, D = 16) through 22b's plan on the card
+    and on the host: equal (kind, step, rank) events, params within phase
+    14's bound; a card checkpoint restored into a fresh step continues
+    bit-equal to the uninterrupted run for 3 steps."""
+    import bluefog_tpu_torch as bt
+    import bluefog_tpu_torch.resilience as R
+    from bluefog_tpu_torch.checkpoint import Checkpointer
+
+    cfg = bt.ViTConfig.tiny(dtype=torch.float32, attn_impl="flash")
+    init = bt.ViT(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(seed)).state_dict()
+    x, y = _p22_tiny_batches(seed, cfg)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        step, params, opt, sched = _p22_vit(cfg, dev, seed, init=init)
+        step = _counted(step)
+        xs, ys = x.to(dev), y.to(dev)
+        _reset_counts()
+        res = R.run_resilient(
+            step, params, opt, lambda s: (xs[s % len(xs)], ys[s % len(ys)]),
+            steps=P22_STEPS,
+            checkpointer=Checkpointer(tempfile.mkdtemp(dir=tmp)),
+            schedule=sched, fault_plan=_p22_plan(R),
+            checkpoint_every=P22_EVERY, elastic=_p22_elastic(),
+            sleep=lambda s: None)
+        if dev == "cuda":
+            launches = _expect_flash("22c card",
+                                     cfg.depth * P22_RANKS * step.calls)
+        elif any(_launches().values()):
+            raise AssertionError("22c: the host run launched a kernel")
+        promo = _p22_check_events(res, f"22c {dev}")[3]
+        out[dev] = ([(e.kind, e.step, e.detail.get("rank"))
+                     for e in res.events],
+                    {k: v.cpu() for k, v in res.params.items()},
+                    promo.detail["disagreement"])
+    if out["cuda"][0] != out["cpu"][0]:
+        raise AssertionError(f"22c: card events {out['cuda'][0]} != host "
+                             f"{out['cpu'][0]}")
+    worst, worst_key = 0.0, None
+    for k, want in out["cpu"][1].items():
+        err = (out["cuda"][1][k] - want).abs().max().item()
+        ratio = err / (1e-4 * want.abs().max().item() + 1e-7)
+        if ratio > worst:
+            worst, worst_key = ratio, k
+    if worst > 1:
+        raise AssertionError(f"22c: {worst_key} differs by {worst:.3g} times "
+                             "its bound")
+    # resume: a card checkpoint at step 3 restored into a fresh step
+    runs = []
+    ckdir = tempfile.mkdtemp(dir=tmp)
+    for fresh in (False, True):
+        step, params, opt, _ = _p22_vit(cfg, "cuda", seed, init=init)
+        w = step.default_comm_weights
+        ck = Checkpointer(ckdir)
+        if fresh:
+            ck.restore(3, like={"params": params, "opt_state": opt,
+                                "step": 0})
+        else:
+            for s in range(3):
+                step(params, opt, (x[s].cuda(), y[s].cuda()), s, w)
+            ck.save(3, {"params": params, "opt_state": opt, "step": 3})
+        for s in range(3, 6):
+            step(params, opt, (x[s].cuda(), y[s].cuda()), s, w)
+        runs.append({k: v.clone() for k, v in params.items()})
+    if not all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0]):
+        raise AssertionError("22c: the restored run is not bit-equal to the "
+                             "uninterrupted one")
+    log(f"[res22c] tiny f32 ViT (flash), 22b's plan over {P22_STEPS} steps: "
+        f"card (K2, K3a, K3b: {launches['flash_forward']} launches each = "
+        f"{cfg.depth} layers x {P22_RANKS} ranks x "
+        f"{launches['flash_forward'] // (cfg.depth * P22_RANKS)} step calls)"
+        f" and host log the same {len(out['cpu'][0])} "
+        f"events; params within {worst:.3g} of their bound at most "
+        f"({worst_key}); the joiner's disagreement at promotion card "
+        f"{out['cuda'][2]:.4g}, host {out['cpu'][2]:.4g}; a card checkpoint "
+        "restored into a fresh step runs 3 steps bit-equal to the "
+        "uninterrupted run")
+
+
+def _p22_timeline(seed, tmp):
+    """22d: BLUEFOG_TIMELINE set, bf.init on the card (the native writer),
+    a short run of the tiny ViT through a burst and a death: the Chrome
+    trace parses, holds the resilience.* instants, drops nothing."""
+    import bluefog_tpu_torch as bt
+    import bluefog_tpu_torch.resilience as R
+    from bluefog_tpu_torch import timeline
+    from bluefog_tpu_torch.checkpoint import Checkpointer
+    from bluefog_tpu_torch.context import get_context
+
+    prefix = os.path.join(tmp, "timeline")
+    os.environ["BLUEFOG_TIMELINE"] = prefix
+    try:
+        bt.init(size=P22_RANKS, device="cuda")
+        tl = timeline.get_timeline()
+        if tl is None or tl.backend != "native":
+            raise AssertionError(f"22d: timeline {tl and tl.backend}")
+        cfg = bt.ViTConfig.tiny(dtype=torch.float32, attn_impl="flash")
+        step, params, opt, sched = _p22_vit(cfg, "cuda", seed,
+                                            backend=get_context().backend)
+        x, y = _p22_tiny_batches(seed, cfg)
+        xs, ys = x.cuda(), y.cuda()
+        plan = R.FaultPlan.nan_burst(P22_RANKS, 1, 2, 2).merged(
+            R.FaultPlan.rank_death(P22_RANKS, 3, 6))
+        res = R.run_resilient(
+            step, params, opt, lambda s: (xs[s % len(xs)], ys[s % len(ys)]),
+            steps=16, checkpointer=Checkpointer(tempfile.mkdtemp(dir=tmp)),
+            schedule=sched, fault_plan=plan, checkpoint_every=4,
+            sleep=lambda s: None)
+        dropped = tl.dropped_events()
+        path = tl.path
+    finally:
+        bt.shutdown()
+        os.environ.pop("BLUEFOG_TIMELINE", None)
+    with open(path) as fh:
+        events = json.load(fh)
+    names = [e.get("name", "") for e in events]
+    want = {f"resilience.{e.kind}" for e in res.events}
+    got = {n for n in names if n.startswith("resilience.")}
+    if not {"resilience.checkpoint", "resilience.skip",
+            "resilience.rank_dead", "resilience.rollback"} <= want == got:
+        raise AssertionError(f"22d: trace instants {sorted(got)}, events "
+                             f"{sorted(want)}")
+    if dropped or sum(n.startswith("resilience.") for n in names) \
+            != len(res.events):
+        raise AssertionError(f"22d: dropped {dropped}, {len(res.events)} "
+                             "events")
+    log(f"[res22d] native timeline ({os.path.basename(path)}): "
+        f"{len(events)} trace events, {len(res.events)} resilience.* "
+        f"instants ({', '.join(sorted(got))}), 0 dropped")
+
+
+def phase_resilience(seed):
+    """Phase 22 (see the module docstring).  Returns 22b's launches."""
+    import shutil
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="bf_phase22_")
+    try:
+        images, labels = _p22_data(seed)
+        launches = _p22_resilient(seed, images, labels, tmp)
+        del images, labels
+        _p22_reference(seed, tmp)
+        _p22_timeline(seed, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[res22] phase 22 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4887,6 +5408,8 @@ def main() -> int:
     for kname, n in phase_fleet(args.seed).items():
         launches[kname] += n
     for kname, n in phase_sp(name, args.seed).items():
+        launches[kname] += n
+    for kname, n in phase_resilience(args.seed).items():
         launches[kname] += n
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):

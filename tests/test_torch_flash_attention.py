@@ -324,6 +324,32 @@ def test_kernel_check_passes_wgmma_backward_rounding(bf16_at_training_length):
             (fault, key)
 
 
+def test_kernel_check_rejects_noncausal_planted_faults():
+    """At the ViT-B/16 shape (T = 200, D = 64, 12 heads, non-causal) the
+    bound rejects a skipped last key tile (out, dQ) and a skipped last
+    query tile (dK, dV), each wrong only from max(T/2, tile) on, for K3a's
+    key tile and for a tile that divides T."""
+    g = torch.Generator().manual_seed(17)
+    q, k, v, do = (torch.randn(1, 200, 12, 64, generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    out, lse = tfa.flash_forward_plain(q, k, v, False)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    ref = dict(zip(("out", "dq", "dk", "dv"),
+                   (out, *tfa.flash_backward_plain(q, k, v, do, lse, delta,
+                                                   False))))
+    terms = flash_check.term_sizes(q, k, v, do, lse, delta, False)
+    for tile in (tfa.DQ_KEY_TILE, 50):
+        faults = flash_check.planted_faults(q, k, v, do, lse, delta, ref,
+                                            tile=tile, causal=False)
+        assert [key for _, key, _ in faults] == ["out", "dq", "dk", "dv"]
+        start = max(200 // 2 // tile * tile, tile)
+        for fault, key, bad in faults:
+            assert flash_check.mismatch(ref[key], ref[key], terms[key]) == 0
+            assert flash_check.mismatch(bad, ref[key], terms[key]) > 1, \
+                (tile, fault, key)
+            assert torch.equal(bad[:, :start], ref[key][:, :start])
+
+
 def test_kernel_check_rejects_planted_faults(bf16_at_training_length):
     """The same bound rejects wrong kernels whose error lies only past
     T/2, where entries are smallest: a skipped diagonal key tile (out,

@@ -4,8 +4,7 @@ on the same numpy inputs, mirroring tests/test_fleet.py: push-sum
 matrices and gossip to 1e-13 (the port's ``dead_mask`` path against
 JAX's ``heal_spec``-healed schedules), byte counts, straggler flags and
 Prometheus text exactly.  The run_resilient / FailureDetector tests of
-tests/test_fleet.py wait with the resilience runner (ROADMAP.md Queue 1,
-item 12)."""
+tests/test_fleet.py are ported in tests/test_torch_resilience.py."""
 
 import numpy as np
 import pytest

@@ -47,11 +47,19 @@ N_DP, N_SP, B, T, STEPS, LR = 4, 2, 2, 32, 3, 1e-3
 SP = {"ring": 4, "ulysses": 2}   # the tiny config's 2 kv heads cap Ulysses
 
 
+_VARIABLES = {}
+
+
 def _variables(scan=False):
-    # one compiled init: op by op, the init compiles each primitive apart
-    cfg = jm.LlamaConfig.tiny(dtype=jnp.float32, scan_layers=scan)
-    return jax.tree.map(np.asarray, jax.jit(jm.Llama(cfg).init)(
-        jax.random.PRNGKey(3), jnp.zeros((1, 8), jnp.int32)))
+    # one compiled init per layout, shared by the forward and the
+    # train-step tests (each takes its own copy): op by op, the init
+    # compiles each primitive apart
+    if scan not in _VARIABLES:
+        cfg = jm.LlamaConfig.tiny(dtype=jnp.float32, scan_layers=scan)
+        _VARIABLES[scan] = jax.tree.map(np.asarray, jax.jit(
+            jm.Llama(cfg).init)(jax.random.PRNGKey(3),
+                                jnp.zeros((1, 8), jnp.int32)))
+    return jax.tree.map(np.copy, _VARIABLES[scan])
 
 
 def _tokens(shape, seed=0):
