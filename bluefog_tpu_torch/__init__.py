@@ -27,8 +27,13 @@ aggregation, the step profiler), the input pipeline (``data``: the
 sampler, the native loader, ``device_prefetch``), checkpoints
 (``checkpoint.Checkpointer``) and fault-tolerant training
 (``resilience``: fault plans, the failure detector, healing,
-``run_resilient``; ``elastic``: membership and rejoin).  CUDA sources live in ``csrc/``.  Entry points take ``device=`` (default
-``"cuda"``) and raise without CUDA unless ``device="cpu"`` is passed.
+``run_resilient``; ``elastic``: membership and rejoin), the routed
+mixture-of-experts Llama (``models.llama``'s ``MoEFeedForward``, its
+dropless decode) and the expert-sharded step over the compiled
+all-to-all (``moe``, ``optim.MoEConfig``, ``topology.torus``,
+``topology.compiler``).  CUDA sources live in ``csrc/``.  Entry points
+take ``device=`` (default ``"cuda"``) and raise without CUDA unless
+``device="cpu"`` is passed.
 """
 
 from bluefog_tpu_torch.version import __version__
@@ -92,29 +97,16 @@ from bluefog_tpu_torch import checkpoint, data, elastic, resilience  # noqa: F40
 from bluefog_tpu_torch.data import (DataLoader, DistributedSampler,  # noqa: F401
                                     device_prefetch, load_cifar10,
                                     load_mnist)
+from bluefog_tpu_torch import moe  # noqa: F401
+from bluefog_tpu_torch.optim.functional import MoEConfig
 from bluefog_tpu_torch.topology import (ExponentialTwoGraph, Topology,
                                         DynamicTopology,
+                                        default_pod_schedule,
                                         InferDestinationFromSourceRanks,
                                         InferSourceFromDestinationRanks,
                                         one_peer_dynamic_schedule,
                                         uniform_topology_spec)
 
-
-
-def _waits_for(name: str, item: str):
-    """A name the JAX package exports and the port has not ported yet:
-    calling it raises, naming the ROADMAP.md item that ports it."""
-    def stub(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported to bluefog_tpu_torch yet; see ROADMAP.md "
-            f"Queue 1, item {item}")
-    stub.__name__ = stub.__qualname__ = name
-    return stub
-
-
-# the JAX package's default pod schedule (the torus module, item 12)
-default_pod_schedule = _waits_for("default_pod_schedule",
-                                  "12 (topology, topology/torus.py)")
 
 __all__ = ["__version__", "models", "optim", "serving", "topology", "Llama",
            "LlamaConfig", "init_cache", "llama_generate", "llama_loss_fn",
@@ -130,4 +122,5 @@ __all__ = ["__version__", "models", "optim", "serving", "topology", "Llama",
            "uniform_topology_spec", "InferDestinationFromSourceRanks",
            "InferSourceFromDestinationRanks", "checkpoint", "data",
            "elastic", "resilience", "DataLoader", "DistributedSampler",
-           "device_prefetch", "load_mnist", "load_cifar10"]
+           "device_prefetch", "load_mnist", "load_cifar10", "moe",
+           "MoEConfig", "default_pod_schedule"]

@@ -5,10 +5,10 @@ Port of ``bluefog_tpu/config.py``, cut to the knobs the port reads
 staleness guard, retries and cooldown, the straggler detector's
 threshold, the observe switch, the decision flight recorder, the
 timeline writers, the elastic membership policy, the knobs
-``build_train_step`` reads, and the eager op layer's: logging, the
-timeline path, fusion, the stall watchdog, the op timeout,
-``BLUEFOG_OPS_ON_CPU``, and the launcher's job: the process identity,
-ranks per process and the group's timeout).  The
+``build_train_step`` reads, the MoE capacity factor, and the eager op
+layer's: logging, the timeline path, fusion, the stall watchdog, the op
+timeout, ``BLUEFOG_OPS_ON_CPU``, and the launcher's job: the process
+identity, ranks per process and the group's timeout).  The
 environment-variable names and defaults are the JAX package's, so one
 environment configures both packages.  Every environment read of the
 port lives in this module.
@@ -53,6 +53,7 @@ __all__ = [
     "hier_local_size",
     "mix_compress",
     "mix_compress_ratio",
+    "moe_capacity_factor",
     "elastic_bootstrap_rounds",
     "elastic_quarantine_threshold",
 ]
@@ -386,6 +387,20 @@ def mix_compress_ratio():
     except ValueError:
         return None
     return v if v > 0 else None
+
+
+def moe_capacity_factor() -> float:
+    """BLUEFOG_MOE_CAPACITY_FACTOR (default 1.25): the capacity factor of
+    :func:`bluefog_tpu_torch.moe.layer.default_capacity`: each
+    destination rank accepts ``ceil(factor * tokens / n)`` tokens per
+    source shard, and the overflow in batch order rides the residual
+    path.  An explicit ``capacity=`` or ``factor=`` wins; unparsable or
+    non-positive values give the default."""
+    try:
+        v = float(_env("BLUEFOG_MOE_CAPACITY_FACTOR", "1.25"))
+    except ValueError:
+        return 1.25
+    return v if v > 0 else 1.25
 
 
 def elastic_bootstrap_rounds() -> int:

@@ -13,6 +13,10 @@ of the module); the rest of this docstring is Llama's.
 * ``scan_layers=True``: one ``layers/block/...`` subtree whose leaves
   carry a leading ``[n_layers]`` axis (``nn.scan``, JAX llama.py).
 
+An MoE config's layers carry ``moe_ffn/router/kernel`` and the expert
+tensors ``moe_ffn/w1``, ``w3``, ``w2`` (leading ``[n_experts]`` axis) in
+place of ``feed_forward``.
+
 Flax path ``a/b/c`` becomes state-dict key ``a.b.c``, with ``layer_{i}``
 (or row ``i`` of the scanned subtree) becoming ``layers.{i}``.  Dense
 kernels KEEP flax's ``[in, out]`` layout: the port computes ``x @ kernel``
@@ -61,10 +65,21 @@ def llama_param_shapes(cfg: LlamaConfig,
         "attention.wv.kernel": (cfg.dim, kv * hd),
         "attention.wo.kernel": (cfg.n_heads * hd, cfg.dim),
         "ffn_norm.scale": (cfg.dim,),
-        "feed_forward.w1.kernel": (cfg.dim, cfg.ffn_dim),
-        "feed_forward.w3.kernel": (cfg.dim, cfg.ffn_dim),
-        "feed_forward.w2.kernel": (cfg.ffn_dim, cfg.dim),
     }
+    if cfg.n_experts:
+        # the global expert tree: a checkpoint trained at ep_size > 1
+        # has the same shapes, so it loads too
+        E = cfg.n_experts
+        per_layer.update({
+            "moe_ffn.router.kernel": (cfg.dim, E),
+            "moe_ffn.w1": (E, cfg.dim, cfg.ffn_dim),
+            "moe_ffn.w3": (E, cfg.dim, cfg.ffn_dim),
+            "moe_ffn.w2": (E, cfg.ffn_dim, cfg.dim)})
+    else:
+        per_layer.update({
+            "feed_forward.w1.kernel": (cfg.dim, cfg.ffn_dim),
+            "feed_forward.w3.kernel": (cfg.dim, cfg.ffn_dim),
+            "feed_forward.w2.kernel": (cfg.ffn_dim, cfg.dim)})
     for i in range(cfg.n_layers):
         for k, shape in per_layer.items():
             shapes[f"layers.{i}.{k}"] = shape

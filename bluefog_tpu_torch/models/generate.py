@@ -26,10 +26,14 @@ layouts).  Deviations from the JAX package:
   a :class:`Llama` built from a ``param_quant`` config); the module is
   built from the decode config, since ``LlamaConfig`` takes
   ``param_quant`` only with ``decode=True``.
+* MoE configs decode with DROPLESS routing, as in JAX: ``decode_config``
+  raises the capacity factor to ``n_experts`` (every token gets its full
+  top-k combine whatever it is batched with, so the cached decode equals
+  the dropless full forward), keeps ``moe_group_size``, and refuses the
+  non-causal ``moe_router="expert_choice"``.
 * Not ported yet: the tp-sharded decode (``keep_tp=True``, ``mesh=``,
   ``_tp_generate_program``) waits for ROADMAP.md Queue 1, item 10's
-  tensor parallelism; MoE decode waits for item 10's MoE.  They raise
-  ``NotImplementedError``.
+  tensor parallelism.  It raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import torch
 
 from bluefog_tpu_torch._device import resolve_device
 from bluefog_tpu_torch.models.llama import (KVCache, Llama, LlamaConfig,
+                                            _dropless_factor,
                                             require_ported)
 
 __all__ = ["init_cache", "llama_generate", "decode_config",
@@ -55,14 +60,20 @@ def decode_config(cfg: LlamaConfig, max_len: int, *, keep_tp: bool = False,
                   kv_quant: str = "none", weight_quant: str = "none",
                   decode_attn: str = "auto") -> LlamaConfig:
     """The decode layout of ``cfg``: ``decode=True``, cache length
-    ``max_len``, training-time knobs cleared (as in JAX).  Raises
-    ``NotImplementedError`` for what the port does not serve yet."""
+    ``max_len``, training-time knobs cleared (as in JAX); an MoE config
+    decodes dropless (capacity factor raised to ``n_experts``).  Raises
+    ``NotImplementedError`` for what the port does not serve yet and for
+    ``moe_router="expert_choice"`` (non-causal)."""
     if keep_tp:
         raise NotImplementedError(
             f"tp-sharded decode (keep_tp=True) {_TP_DECODE}")
+    moe = {}
     if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE decode waits for MoE, ROADMAP.md Queue 1, item 10")
+        if cfg.moe_router != "topk":
+            raise NotImplementedError(
+                "llama_generate supports only moe_router='topk' "
+                "(expert_choice is non-causal and cannot decode)")
+        moe = dict(capacity_factor=_dropless_factor(cfg))
     if decode_attn == "auto":
         decode_attn = "pallas"  # the port has one decode lowering
     dcfg = dataclasses.replace(
@@ -70,7 +81,8 @@ def decode_config(cfg: LlamaConfig, max_len: int, *, keep_tp: bool = False,
         attn_impl="xla", sp_axis=None, ep_axis=None, ep_size=1,
         remat=False, remat_policy="none", kv_quant=kv_quant,
         param_quant=weight_quant, decode_attn=decode_attn,
-        vocab_parallel=False, tp_seq_shard=False, tp_axis=None, tp_size=1)
+        vocab_parallel=False, tp_seq_shard=False, tp_axis=None, tp_size=1,
+        **moe)
     require_ported(dcfg)
     return dcfg
 
@@ -145,7 +157,9 @@ _DECODE_FIELDS = ("decode", "max_seq_len", "attn_mode", "attn_impl",
                   "attn_flash_block_k", "sp_axis", "ep_axis", "ep_size",
                   "remat", "remat_policy", "scan_layers", "kv_quant",
                   "param_quant", "decode_attn", "vocab_parallel",
-                  "tp_seq_shard", "tp_axis", "tp_size")
+                  "tp_seq_shard", "tp_axis", "tp_size",
+                  # a decode forward routes MoE tokens dropless itself
+                  "capacity_factor")
 
 
 def _model_fields(cfg: LlamaConfig) -> LlamaConfig:

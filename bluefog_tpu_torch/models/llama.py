@@ -33,9 +33,20 @@ Deviations from the JAX package:
   attention goes through ``parallel/ring_attention.py``'s
   ``ring_attention`` or ``parallel/ulysses.py``.  A call with the axis
   unbound raises ``NameError``, as ``axis_index`` outside ``shard_map``.
+* Mixture of experts (``n_experts > 0``) at ``ep_size = 1``: every
+  expert lives on the device (:class:`MoEFeedForward`, with
+  :func:`moe_combine_weights`'s top-k and expert-choice routers, grouped
+  routing and per-group capacity).  Its Switch load-balancing aux loss,
+  which JAX sows into ``"intermediates"``, is read explicitly:
+  ``forward(..., return_aux=True)`` (``Llama.apply`` passes it through)
+  returns ``(out, aux)``, ``aux`` the sum over layers of each layer's
+  term (f32 scalar; ``[S]``, one per shard, under sequence parallelism,
+  where each shard routes its own tokens as each JAX device does; 0 for
+  a dense model).  :func:`llama_loss_fn` adds ``moe_aux_weight * aux``.
 * Not ported yet, and refused with ``NotImplementedError`` naming the
   ROADMAP item (:func:`require_ported`): tensor parallelism (TP decode
-  included) and MoE.
+  included) and expert parallelism over an axis (``ep_size > 1``,
+  ``ep_axis``), the model axes.
 * The integer products of ``param_quant="w8a8"`` (s8 x s8 -> s32, which
   JAX leaves to XLA) go to ``torch._int_mm``: cuBLASLt on the card, an
   exact integer product on the CPU (:func:`int8_matmul`).  The w8a8
@@ -99,7 +110,9 @@ from bluefog_tpu_torch.parallel.splash import splash_attention
 from bluefog_tpu_torch.parallel.ulysses import ulysses_attention
 
 __all__ = ["LlamaConfig", "Llama", "KVCache", "RMSNorm", "QuantDense",
-           "int8_matmul", "rotary_embed",
+           "MoEFeedForward", "moe_combine_weights", "moe_group_shape",
+           "int8_matmul",
+           "rotary_embed",
            "chunked_xent", "llama_chunked_xent_loss_fn", "llama_loss_fn"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -325,10 +338,13 @@ def require_ported(cfg: LlamaConfig) -> None:
     later = []
     if cfg.tp_size > 1 or cfg.tp_axis is not None:
         later.append("tensor parallelism (tp_axis/tp_size), TP decode "
-                     "included: ROADMAP.md Queue 1, item 10")
-    if cfg.n_experts:
-        later.append("MoE (n_experts > 0): ROADMAP.md Queue 1, item 10 "
-                     "(moe/)")
+                     "included: ROADMAP.md Queue 1, item 10's model axes "
+                     "(TP, ep and param_specs)")
+    if cfg.ep_size > 1 or cfg.ep_axis is not None:
+        later.append("MoE expert parallelism over a model axis (ep_size "
+                     "> 1, ep_axis; the routed MoE at ep_size 1 and moe/'s "
+                     "expert-sharded step are ported): ROADMAP.md Queue 1, "
+                     "item 10's model axes (TP, ep and param_specs)")
     if later:
         raise NotImplementedError(
             "not ported to bluefog_tpu_torch yet: " + "; ".join(later))
@@ -763,17 +779,185 @@ class FeedForward(nn.Module):
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
 
 
+def moe_combine_weights(probs: torch.Tensor, top_k: int, cap: int,
+                        router: str = "topk") -> torch.Tensor:
+    """Routing combine weights ``[g, G, E, cap]`` (f32) from per-group
+    expert probabilities ``probs [g, G, E]``.
+
+    ``router="topk"``: token choice: each token takes its ``top_k``
+    experts in ``top_k`` rounds of argmax with masking (the first maximum
+    on ties, as ``jnp.argmax``), each bounded by the per-expert per-group
+    capacity ``cap`` in token order; overflow tokens drop to the
+    residual.  The gate is read from the MASKED probs: a later round that
+    re-picks an expert whose probability underflowed to zero adds 0.
+
+    ``router="expert_choice"``: each expert takes its top-``cap`` tokens
+    per group (``cap`` clamped to ``G``; a stable descending sort, so
+    ties go to the lower token index as in ``lax.top_k``): dropless and
+    balanced by construction, but not causal.
+
+    Each ``[g, s, e, c]`` entry receives at most one gate, so the weights
+    are scattered into place: the values, and their gradients with
+    respect to ``probs``, are those of the JAX package's one-hot
+    products."""
+    g, G, E = probs.shape
+    if router == "expert_choice":
+        cap = min(cap, G)
+        scores = probs.transpose(1, 2)                          # [g, E, G]
+        order = torch.sort(scores, dim=-1, descending=True,
+                           stable=True).indices[..., :cap]      # [g, E, cap]
+        gate_vals = torch.gather(scores, 2, order)
+        out = torch.zeros(g, E, cap, G, dtype=torch.float32,
+                          device=probs.device)
+        out = out.scatter(3, order[..., None], gate_vals[..., None].float())
+        return out.permute(0, 3, 1, 2)
+    masked = probs
+    combine = torch.zeros(g, G, E * cap, dtype=torch.float32,
+                          device=probs.device)
+    counts = torch.zeros(g, E, dtype=torch.int64, device=probs.device)
+    experts = torch.arange(E, device=probs.device)
+    for _ in range(top_k):
+        idx = torch.argmax(masked, dim=-1)                      # [g, G]
+        gate = torch.gather(masked, 2, idx[..., None])[..., 0]  # [g, G]
+        onehot = (idx[..., None] == experts).to(torch.int64)    # [g, G, E]
+        # position of each token within its expert's per-group queue,
+        # offset by what previous rounds already enqueued
+        pos = torch.cumsum(onehot, dim=1) - onehot + counts[:, None, :]
+        pos_tok = torch.sum(pos * onehot, dim=-1)               # [g, G]
+        keep = pos_tok < cap
+        slot = idx * cap + pos_tok.clamp(max=cap - 1)
+        combine = combine.scatter_add(
+            2, slot[..., None], (gate.float() * keep)[..., None])
+        counts = counts + torch.sum(onehot * keep[..., None], dim=1)
+        masked = masked * (1 - onehot).to(masked.dtype)
+    return combine.reshape(g, G, E, cap)
+
+
+def _dropless_factor(cfg: LlamaConfig) -> float:
+    """The capacity factor of dropless routing (the decode layout): at
+    least ``n_experts``, so every token fits its experts' queues."""
+    return max(cfg.capacity_factor, float(cfg.n_experts))
+
+
+def moe_group_shape(cfg: LlamaConfig, tokens: int, dropless: bool = False
+                    ) -> Tuple[int, int, int]:
+    """``(g, G, cap)`` of routing ``tokens`` tokens: ``G``, the largest
+    divisor of ``tokens`` not above ``moe_group_size`` (all of them when
+    it is 0 or above), ``g = tokens // G`` groups, and the per-expert,
+    per-group capacity ``max(1, int(capacity_factor * G * top_k / E))``.
+    ``dropless`` (the decode layout) raises the capacity factor to
+    ``n_experts``, whatever config the module was built from."""
+    G = tokens
+    if 0 < cfg.moe_group_size < tokens:
+        G = cfg.moe_group_size
+        while tokens % G:
+            G -= 1
+    factor = _dropless_factor(cfg) if dropless else cfg.capacity_factor
+    return (tokens // G, G,
+            max(1, int(factor * G * cfg.moe_top_k / cfg.n_experts)))
+
+
+class MoEFeedForward(nn.Module):
+    """Top-k routed mixture-of-experts SwiGLU FFN (JAX ``MoEFeedForward``
+    at ``ep_size = 1``: every expert on this device).
+
+    Routing is GROUPED (``cfg.moe_group_size``): tokens route within
+    groups of ``G`` tokens, the largest divisor of the token count ``s``
+    not above ``moe_group_size`` (a warning when it collapses below half
+    of it), with per-group capacity ``max(1, int(capacity_factor * G *
+    top_k / E))``.  The router is an f32 ``Dense`` (``router.kernel [dim,
+    E]``) on the f32 tokens; dispatch and combine are products against
+    the ``[g, G, E, cap]`` one-hot tensors, as JAX computes them, and the
+    experts ``w1``/``w3 [E, dim, ffn_dim]``, ``w2 [E, ffn_dim, dim]`` (f32
+    under ``param_dtype=torch.float32``) run as batched products in
+    ``cfg.dtype``.  ``dropless=True`` (the decode layout) raises the
+    capacity factor to ``n_experts``.  Under sequence parallelism the
+    input holds the bound axis's shards folded into the batch, and each
+    shard routes its own tokens.  Returns ``(out, aux)``: the output in
+    x's dtype and the Switch aux loss (f32 scalar, or ``[S]`` one per
+    shard)."""
+
+    def __init__(self, cfg: LlamaConfig, device, param_dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        E, d, h = cfg.n_experts, cfg.dim, cfg.ffn_dim
+        dtype = param_dtype or cfg.dtype
+        self.router = Dense(d, E, torch.float32, device, torch.float32)
+        self.w1 = nn.Parameter(torch.empty(E, d, h, dtype=dtype,
+                                           device=device),
+                               requires_grad=False)
+        self.w3 = nn.Parameter(torch.empty(E, d, h, dtype=dtype,
+                                           device=device),
+                               requires_grad=False)
+        self.w2 = nn.Parameter(torch.empty(E, h, d, dtype=dtype,
+                                           device=device),
+                               requires_grad=False)
+
+    def forward(self, x, dropless: bool = False):
+        cfg = self.cfg
+        b, t, d = x.shape
+        E = cfg.n_experts
+        shards = 1
+        if cfg.attn_mode in ("ring", "ulysses") and cfg.sp_axis is not None:
+            shards = _sp_axis(cfg).n_local
+        s = b * t // shards                      # tokens a shard routes
+        g, G, cap = moe_group_shape(cfg, s, dropless)
+        g *= shards
+        logits = self.router(x.reshape(-1, d).float())          # [., E]
+        probs = torch.softmax(logits, dim=-1)
+        combine = moe_combine_weights(probs.reshape(g, G, E),
+                                      cfg.moe_top_k, cap, cfg.moe_router)
+        cap = combine.shape[-1]   # expert_choice clamps cap to G
+        if 0 < cfg.moe_group_size < s and G < cfg.moe_group_size // 2:
+            from bluefog_tpu_torch.logging_util import get_logger
+            get_logger().warning(
+                "MoE grouped routing: token count %d has no divisor "
+                "near moe_group_size=%d; effective group collapsed to "
+                "%d (capacity %d tokens/expert/group). Pad the "
+                "batch*seq token count to a multiple of the group size "
+                "to restore routing quality.", s, cfg.moe_group_size,
+                G, cap)
+        dt = cfg.dtype
+        dispatch = (combine > 0.0).to(dt)                 # [g, G, E, cap]
+        flat = x.reshape(g, G, d).to(dt)
+        expert_in = torch.einsum("gsec,gsd->egcd", dispatch, flat)
+        expert_in = expert_in.reshape(E, g * cap, d)
+        gate_h = torch.bmm(expert_in, self.w1.to(dt))
+        up_h = torch.bmm(expert_in, self.w3.to(dt))
+        expert_out = torch.bmm(F.silu(gate_h) * up_h, self.w2.to(dt))
+        expert_out = expert_out.reshape(E, g, cap, d)
+        out = torch.einsum("egcd,gsec->gsd", expert_out, combine.to(dt))
+        # the Switch load-balancing loss (eq. 4) of each shard's tokens
+        probs = probs.reshape(shards, s, E)
+        top1 = (torch.argmax(probs, dim=-1)[..., None]
+                == torch.arange(E, device=x.device)).float()
+        aux = E * torch.sum(top1.mean(dim=1) * probs.mean(dim=1), dim=-1)
+        return (out.reshape(b, t, d).to(x.dtype),
+                aux if shards > 1 else aux[0])
+
+
 class Block(nn.Module):
+    """Attention and the FFN (``moe_ffn`` when ``cfg.n_experts``, else
+    ``feed_forward``) with pre-norm residuals.  Returns ``(x, aux)``,
+    ``aux`` the MoE FFN's aux loss (None for a dense block)."""
+
     def __init__(self, cfg: LlamaConfig, device, param_dtype=None):
         super().__init__()
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
         self.attention = Attention(cfg, device, param_dtype)
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
-        self.feed_forward = FeedForward(cfg, device, param_dtype)
+        if cfg.n_experts:
+            self.moe_ffn = MoEFeedForward(cfg, device, param_dtype)
+        else:
+            self.feed_forward = FeedForward(cfg, device, param_dtype)
 
     def forward(self, x, rope, *cache_args):
         x = x + self.attention(self.attention_norm(x), rope, *cache_args)
-        return x + self.feed_forward(self.ffn_norm(x))
+        if hasattr(self, "moe_ffn"):
+            out, aux = self.moe_ffn(self.ffn_norm(x),
+                                    dropless=bool(cache_args))
+            return x + out, aux
+        return x + self.feed_forward(self.ffn_norm(x)), None
 
 
 class Llama(nn.Module):
@@ -841,6 +1025,10 @@ class Llama(nn.Module):
                                       generator=generator)
             elif isinstance(mod, RMSNorm):
                 mod.scale.fill_(1.0)
+            elif isinstance(mod, MoEFeedForward):
+                for w in (mod.w1, mod.w3, mod.w2):
+                    w.normal_(0.0, w.shape[-2] ** -0.5,
+                              generator=generator)
 
     def state(self, release: bool = False) -> Dict[str, torch.Tensor]:
         """The parameters as ``{state-dict name: tensor}``: detached
@@ -867,7 +1055,7 @@ class Llama(nn.Module):
 
     def forward(self, tokens: torch.Tensor, cache: Optional[KVCache] = None,
                 all_logits: bool = False, *, pos_offset: int = 0,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False, return_aux: bool = False):
         """With ``cache``: the decode layout (see :meth:`_decode`).
         Without: the training forward, tokens ``[B, T]`` at positions
         ``pos_offset + arange(T)`` -> f32 logits ``[B, T, vocab]``, or the
@@ -875,7 +1063,9 @@ class Llama(nn.Module):
         (the entry of :func:`chunked_xent`).  Under ``attn_mode="ring"``
         or ``"ulysses"`` tokens are the ``[S, B, T_local]`` shards of the
         bound axis ``cfg.sp_axis``, the outputs ``[S, B, T_local, ...]``,
-        and ``pos_offset`` an int or one offset per shard (``[S]``)."""
+        and ``pos_offset`` an int or one offset per shard (``[S]``).
+        ``return_aux``: ``(out, aux)``, ``aux`` the MoE layers' summed
+        aux loss (see the module docstring)."""
         if cache is not None:
             return self._decode(tokens, cache, all_logits)
         cfg = self.cfg
@@ -907,13 +1097,17 @@ class Llama(nn.Module):
             positions = pos_offset + positions
         rope = _rope_tables(positions, self.rope_freqs)
         x = self.tok_embeddings(tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.layers:
-            x = (_remat(block, x, rope, cfg.remat_policy) if cfg.remat
-                 else block(x, rope))
+            x, layer_aux = (_remat(block, x, rope, cfg.remat_policy)
+                            if cfg.remat else block(x, rope))
+            if layer_aux is not None:
+                aux = aux + layer_aux
         x = self.norm(x)
         if not return_hidden:
             x = self.output(x).float()
-        return x if shards is None else x.reshape(*shards, *x.shape[1:])
+        x = x if shards is None else x.reshape(*shards, *x.shape[1:])
+        return (x, aux) if return_aux else x
 
     @torch.no_grad()
     def _decode(self, tokens: torch.Tensor, cache: KVCache,
@@ -936,7 +1130,7 @@ class Llama(nn.Module):
         rows = torch.arange(b, device=dev)[:, None]
         x = self.tok_embeddings(tokens)
         for layer, block in enumerate(self.layers):
-            x = block(x, rope, cache, layer, idx, rows, write_pos)
+            x, _ = block(x, rope, cache, layer, idx, rows, write_pos)
         x = self.norm(x)
         if not all_logits:
             x = x[:, -1:]
@@ -1015,10 +1209,15 @@ def chunked_xent(h: torch.Tensor, w_kernel: torch.Tensor,
 def llama_chunked_xent_loss_fn(model: Llama, *, n_chunks: int = 8):
     """``loss_fn(params, (inputs, targets))``: the decoder stack as usual,
     the head and cross-entropy through :func:`chunked_xent`.  ``params``
-    is ``{state-dict name: tensor}`` (``model.state()``); the configs the
-    JAX builder refuses (vocab-parallel, tp_seq_shard, MoE aux) need
-    tensor parallelism or MoE, which ``Llama`` refuses already."""
+    is ``{state-dict name: tensor}`` (``model.state()``).  As the JAX
+    builder does, it refuses an MoE config with ``moe_aux_weight > 0``
+    (the chunked path carries no aux term: use :func:`llama_loss_fn`);
+    the other configs JAX refuses (vocab-parallel, tp_seq_shard) need
+    tensor parallelism, which ``Llama`` refuses already."""
     cfg = model.cfg
+    if cfg.n_experts and cfg.moe_aux_weight > 0.0:
+        raise ValueError("chunked xent does not collect MoE aux "
+                         "intermediates; use the plain loss")
 
     def loss_fn(params, batch):
         inp, tgt = batch
@@ -1040,19 +1239,29 @@ def llama_loss_fn(model: Llama, *, pos_offset: int = 0):
     T_local]`` shards of the bound axis, each shard at ``pos_offset +
     index * T_local``, and the loss is each shard's mean, ``[S]``: what
     each device of the JAX mesh returns.  ``build_train_step(sp_axis=)``
-    takes their mean, JAX's ``pmean`` over the axis."""
+    takes their mean, JAX's ``pmean`` over the axis.
+
+    An MoE config with ``moe_aux_weight > 0`` adds ``moe_aux_weight`` x
+    the layers' summed aux loss (each shard's own under sequence
+    parallelism), as ``examples/llama_benchmark.py``'s loss does."""
     cfg = model.cfg
     sp = cfg.attn_mode in ("ring", "ulysses")
+    want_aux = cfg.n_experts > 0 and cfg.moe_aux_weight > 0.0
 
     def loss_fn(params, batch):
         inp, tgt = batch
         off = pos_offset
         if sp:
             off = off + _sp_axis(cfg).index(inp.device) * inp.shape[-1]
-        logits = model.apply(params, inp, pos_offset=off)
+        logits = model.apply(params, inp, pos_offset=off,
+                             return_aux=want_aux)
+        if want_aux:
+            logits, aux = logits
         ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                              tgt.reshape(-1).long(),
                              reduction="none" if sp else "mean")
-        return ce.reshape(inp.shape[0], -1).mean(1) if sp else ce
+        if sp:
+            ce = ce.reshape(inp.shape[0], -1).mean(1)
+        return ce + cfg.moe_aux_weight * aux if want_aux else ce
 
     return loss_fn

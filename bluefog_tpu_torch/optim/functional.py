@@ -67,8 +67,11 @@ value on the host.
 
 Sequence parallelism (``sp_axis``) runs inside step 1: each rank's
 forward and backward take all of its sequence shards at once (see
-:func:`build_train_step`).  Features of the JAX builder not ported yet
-(``pp_axis``, ``param_specs``, ``opt_state_specs``, ``moe=``) raise
+:func:`build_train_step`).  The expert-sharded step (``moe=``,
+:class:`MoEConfig`) runs step 1 once over every rank this process holds,
+since its all-to-all crosses ranks inside the forward, and mixes only
+the shared leaves.  Features of the JAX builder not ported yet
+(``pp_axis``, ``param_specs``, ``opt_state_specs``) raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 
@@ -76,7 +79,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Union
+from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -91,15 +95,16 @@ from bluefog_tpu_torch.topology.spec import DynamicTopology, Topology
 CommSpec = Union[Topology, DynamicTopology]
 
 __all__ = ["GuardConfig", "HealthConfig", "HealthVector",
-           "MixCompressConfig", "MixState", "build_train_step",
+           "MixCompressConfig", "MixState", "MoEConfig", "build_train_step",
            "rank_major", "consensus_distance", "comm_weight_inputs",
            "push_sum_weights", "ELEMENTWISE_OPTIMIZERS"]
 
 ELEMENTWISE_OPTIMIZERS = (torch.optim.SGD, torch.optim.Adam,
                           torch.optim.AdamW)
 
-_LLAMA_ITEM = ("ROADMAP.md Queue 1, item 10 (tensor parallelism, pipeline "
-               "and MoE)")
+_LLAMA_ITEM = ("ROADMAP.md Queue 1, item 10 (the model axes: tensor "
+               "parallelism with ep_size > 1 and param_specs, then the "
+               "pipeline)")
 # the name of the rank axis in a batch spec, the JAX package's mesh axis
 RANK_AXIS = "bf"
 
@@ -186,6 +191,48 @@ class MixState(NamedTuple):
     err: Any
     ref: Any
     mirror: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Expert-sharded MoE policy for :func:`build_train_step`: which
+    parameter leaves are EXPERT-LOCAL and therefore kept out of the
+    neighbor combine.  Everything else (router, embeddings, dense trunk)
+    keeps flowing through the ordinary cta/atc combine, so the guard,
+    health and compressed mixing compose unchanged; the expert
+    all-to-all itself lives inside ``loss_fn``
+    (:mod:`bluefog_tpu_torch.moe`), not in the builder.
+
+    * ``n_experts``: expert count (each rank hosts replica
+      ``rank % n_experts``; see ``moe.dispatch.expert_owner``);
+    * ``capacity``: per-destination shard depth of the dispatch wire
+      (``moe.layer.default_capacity`` derives one from the
+      ``BLUEFOG_MOE_CAPACITY_FACTOR`` knob);
+    * ``expert_path_tokens``: a param whose name contains any of these
+      substrings is expert-local (the port's dotted names, the
+      counterpart of ``jax.tree_util.keystr``; the default matches the
+      ``expert.*`` leaves of ``moe.layer.init_moe_params``)."""
+
+    n_experts: int
+    capacity: int
+    expert_path_tokens: Tuple[str, ...] = ("expert",)
+
+    def __post_init__(self):
+        if self.n_experts < 1 or self.capacity < 1:
+            raise ValueError(
+                f"MoEConfig needs n_experts >= 1 and capacity >= 1, "
+                f"got {self.n_experts} / {self.capacity}")
+        if not self.expert_path_tokens:
+            raise ValueError("expert_path_tokens must be non-empty — "
+                             "an MoE step with no local leaves is just "
+                             "a dense step")
+
+
+def _moe_shared_mask(names: Sequence[str], moe: MoEConfig) -> list:
+    """Per-leaf booleans in ``names`` order: True = shared (mixed by the
+    combine), False = expert-local (never on the mixing wire)."""
+    return [not any(tok in name for tok in moe.expert_path_tokens)
+            for name in names]
 
 
 def rank_major(tree: Dict[str, torch.Tensor],
@@ -359,7 +406,9 @@ def _select_state(optimizer, tensors, snap, ok, n) -> None:
 
 
 def _observed_step(step_fn: Callable, labels: dict,
-                   edge_traffic: Optional[tuple] = None) -> Callable:
+                   edge_traffic: Optional[tuple] = None,
+                   mixed: Optional[Callable[[str], bool]] = None
+                   ) -> Callable:
     """Host-side observability of a built step: each call increments
     ``bf_train_steps_total{comm_mode,overlap,guarded}`` and runs inside a
     ``train_step`` span on the ``train`` track (nothing when
@@ -378,7 +427,9 @@ def _observed_step(step_fn: Callable, labels: dict,
     nonzero-weight edges) instead of every declared edge.  Under a
     hierarchical exchange (``local_size`` set, ``specs`` machine-level)
     the intra-machine ring edges bill as ``link="ici"`` and the expanded
-    machine edges as ``link="dcn"``, as in the JAX package."""
+    machine edges as ``link="dcn"``, as in the JAX package.  ``mixed``
+    (a predicate on param names) bills only the leaves the combine moves
+    (the shared leaves under ``moe=``)."""
     from bluefog_tpu_torch import observe
 
     payload_cache: list = []
@@ -396,7 +447,8 @@ def _observed_step(step_fn: Callable, labels: dict,
         if not payload_cache:
             payload_cache.append(sum(
                 t.numel() * t.element_size()
-                for t in args[0].values()) // max(n_local, 1))
+                for k, t in args[0].items()
+                if mixed is None or mixed(k)) // max(n_local, 1))
         from bluefog_tpu_torch.observe import fleet as _fleet
 
         si = step_i % len(specs)
@@ -578,8 +630,15 @@ def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
             "(params, ps_weight) pair must mix as a unit, and a per-rank "
             "skip would break the column-stochastic sum(ps) == n "
             "invariant")
-    if moe is not None:
-        _not_ported("moe= (the expert-sharded step)")
+    if moe is not None and comm_mode not in ("cta", "atc"):
+        raise ValueError(
+            "moe= (expert-sharded MoE) partitions the NEIGHBOR combine "
+            "into shared/expert leaves, so it needs comm_mode='cta' or "
+            f"'atc' (got {comm_mode!r}); gradient_allreduce would "
+            "average expert gradients across ranks hosting DIFFERENT "
+            "experts, and push_sum's (x, w) pair cannot be split")
+    if moe is not None and sp_axis is not None:
+        _not_ported("moe= with sp_axis (a sequence-sharded expert step)")
     if overlap == "bucketed":
         if comm_mode not in ("cta", "atc", "push_sum"):
             raise ValueError(
@@ -597,6 +656,12 @@ def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
                 "the fused epilogue pipeline — unset "
                 "BLUEFOG_FUSE_EPILOGUES=0 (the pre-fusion builders have no "
                 "ef_encode/ef_decode stages)")
+        if moe is not None:
+            raise ValueError(
+                "moe= (expert-sharded MoE) needs the fused epilogue "
+                "pipeline — unset BLUEFOG_FUSE_EPILOGUES=0 (the pre-fusion "
+                "builders mix the whole param tree and would drag expert "
+                "leaves onto the wire)")
         if comm_mode == "push_sum" and overlap == "bucketed":
             raise ValueError(
                 "overlap='bucketed' with comm_mode='push_sum' needs the "
@@ -628,7 +693,7 @@ def build_train_step(
     overlap_buckets: int = 4,
     guard: Optional[GuardConfig] = None,
     health: Optional[HealthConfig] = None,
-    moe: Any = None,
+    moe: Optional[MoEConfig] = None,
 ) -> Callable:
     """One decentralized optimizer step over ``backend``'s ranks.
 
@@ -681,6 +746,23 @@ def build_train_step(
       axis gives.  Params stay replicated over the axis, so every
       ``comm_mode``, the guard, health and bucketed overlap compose with
       it, on either backend.
+
+    * ``moe=MoEConfig(n_experts, capacity)``: the expert-sharded step
+      (cta or atc).  ``loss_fn(params, batch)`` (``loss_fn(params, aux,
+      batch)`` with ``has_aux``) then runs ONCE over every rank this
+      process holds, rank-major params and batch as they are (the
+      all-to-all inside it crosses ranks, :mod:`bluefog_tpu_torch.moe`),
+      and returns each rank's loss, ``[n_local]``; the step
+      differentiates their sum, so each rank's gradient also carries
+      what its experts did for the other ranks' tokens (JAX's transpose
+      of ``ppermute``).  Only the shared leaves (names without an
+      ``expert_path_tokens`` substring) enter the neighbor combine, its
+      flat buffers, the top-k mixing state and the
+      ``bf_edge_bytes_total`` account; expert leaves get their optimizer
+      update and never touch the wire.  The guard and health read every
+      leaf.  Under ``overlap="bucketed"`` atc applies the whole update
+      before the combine, as JAX plans no interleaved branches under
+      ``moe``.
 
     ``BLUEFOG_FUSE_EPILOGUES=0`` takes the health reductions in the JAX
     package's pre-fusion order (per leaf, over the whole tree) and
@@ -746,6 +828,25 @@ def build_train_step(
     # int8 scale, a stochastic-rounding draw, the top-k mixing rows
     per_bucket = bucketed or wire_compress == "int8" or mix_on
     default_w = comm_weight_inputs(specs) if neighbor else ()
+    shared_names: Dict[tuple, list] = {}
+
+    def mixed_leaves(params):
+        """The leaves the combine moves: every leaf, or under ``moe`` the
+        shared ones (raising when the tokens match every leaf)."""
+        tensors = list(params.values())
+        if moe is None:
+            return tensors
+        key = tuple(params)
+        mask = shared_names.get(key)
+        if mask is None:
+            mask = shared_names[key] = _moe_shared_mask(key, moe)
+        if not any(mask):
+            raise ValueError(
+                f"MoEConfig.expert_path_tokens "
+                f"{moe.expert_path_tokens!r} match EVERY param "
+                "leaf — nothing left to mix, the fleet would "
+                "never reach consensus")
+        return [t for t, m in zip(tensors, mask) if m]
     opt_params = {id(p) for g in optimizer.param_groups for p in g["params"]}
     weights_dev: Dict[tuple, tuple] = {}
     plans: Dict[tuple, tuple] = {}
@@ -946,7 +1047,9 @@ def build_train_step(
         dev = tensors[0].device
         on_cycle = step % k_comm == 0
         overlap_dev = bucketed and dev.type == "cuda"
-        groups, _ = plan_for(tensors)
+        # the leaves the combine moves (the shared ones under moe)
+        mixed = mixed_leaves(params)
+        groups, _ = plan_for(mixed)
         zero = torch.zeros(n, dtype=torch.float32, device=dev)
         cons = zero
         # cta + bucketed: the exchange reads the step's starting params,
@@ -954,13 +1057,37 @@ def build_train_step(
         # its own buffers while the forward and backward run
         early = None
         if neighbor and comm_mode == "cta" and bucketed and on_cycle:
-            early = combine(tensors, step, comm_weights, mix_state,
+            early = combine(mixed, step, comm_weights, mix_state,
                             on_side=overlap_dev)
         aux_old = ({k: v.clone() for k, v in aux.items()}
                    if guarded and has_aux else None)
-        grads = [torch.empty_like(p) for p in tensors]
+        # rank r's gradients land in row r (under moe autograd gives
+        # every rank's at once)
+        grads = ([torch.empty_like(p) for p in tensors] if moe is None
+                 else None)
         losses = torch.empty(n, dtype=torch.float32, device=dev)
-        for r in range(n):
+        if moe is not None:
+            # the expert-sharded forward crosses ranks: every rank at once
+            p_all = {k: v.detach().requires_grad_(True)
+                     for k, v in params.items()}
+            with torch.enable_grad():
+                if has_aux:
+                    loss, new_aux = loss_fn(p_all, aux, batch)
+                else:
+                    loss = loss_fn(p_all, batch)
+                if tuple(loss.shape) != (n,):
+                    raise ValueError(
+                        f"under moe= loss_fn returns each of the {n} "
+                        f"ranks' losses ([{n}]), got {tuple(loss.shape)}")
+                grads = list(torch.autograd.grad(loss.sum(),
+                                                 list(p_all.values())))
+            with torch.no_grad():
+                losses.copy_(loss.detach().float())
+                if has_aux:
+                    for k, v in new_aux.items():
+                        aux[k].copy_(v)
+            del loss, p_all
+        for r in range(n if moe is None else 0):
             p_r = {k: v[r].detach().requires_grad_(True)
                    for k, v in params.items()}
             b_r = _slice(batch, r)
@@ -998,19 +1125,19 @@ def build_train_step(
                 cons = push_sum_round(tensors, ps, step)
             if neighbor and comm_mode == "cta" and on_cycle:
                 if early is None:
-                    outs, cons = combine(tensors, step, comm_weights,
+                    outs, cons = combine(mixed, step, comm_weights,
                                          mix_state)
                 else:
                     outs, cons = early
                     if overlap_dev:
                         torch.cuda.current_stream(dev).wait_stream(
                             side_stream(dev))
-                commit(tensors, outs)
+                commit(mixed, outs)
             track = guarded or want_health
             old = [p.clone() for p in tensors] if track else None
             snap = _snapshot_state(optimizer, tensors, n) if guarded else None
             interleave = (neighbor and comm_mode == "atc" and bucketed
-                          and not guarded and on_cycle)
+                          and not guarded and on_cycle and moe is None)
             upd_sq = zero if want_health else None
             ok = torch.isfinite(losses)
             if interleave:
@@ -1054,6 +1181,9 @@ def build_train_step(
                             ok = ok & _finite_rows(u)
                             if want_health:
                                 upd_sq = upd_sq + _sq_rows(u)
+            # the update is applied: the stacked gradients (a copy of the
+            # params' size) go before the combine allocates its buffers
+            del grads
             skipped = None
             if guarded:
                 # the skip guard: an elementwise select over params, aux
@@ -1069,8 +1199,8 @@ def build_train_step(
             del old, snap
             if neighbor and comm_mode == "atc" and on_cycle \
                     and not interleave:
-                outs, cons = combine(tensors, step, comm_weights, mix_state)
-                commit(tensors, outs)
+                outs, cons = combine(mixed, step, comm_weights, mix_state)
+                commit(mixed, outs)
             hv = None
             if want_health:
                 hv = HealthVector(
@@ -1117,14 +1247,16 @@ def build_train_step(
                     if specs and (neighbor or push_sum) else None)
     step_fn = _observed_step(train_step, dict(
         comm_mode=comm_mode, overlap="bucketed" if bucketed else "none",
-        guarded="true" if guarded else "false"), edge_traffic)
+        guarded="true" if guarded else "false"), edge_traffic,
+        None if moe is None
+        else lambda k: _moe_shared_mask((k,), moe)[0])
 
     def init_mix_state(params) -> MixState:
         """The MixState for rank-major ``params``: ``err`` zero, ``ref``
         and ``mirror`` each rank's OWN packed params (exact when every
         rank starts from the same params, the ``rank_major`` init; ranks
         that start diverged should zero them instead)."""
-        tensors = list(params.values())
+        tensors = mixed_leaves(params)
         R, G = len(specs), int(sum(mix_slots))
         groups, comp = plan_for(tensors)
         errs, refs, mirs = [], [], []
@@ -1143,7 +1275,7 @@ def build_train_step(
     def mix_wire_layout(params) -> tuple:
         """Per compressible bucket: ``{bucket, numel, k, wire_bytes}``,
         the bytes one permute of that bucket moves per rank."""
-        tensors = list(params.values())
+        tensors = mixed_leaves(params)
         groups, comp = plan_for(tensors)
         rows = []
         for (idx, b), ci in zip(groups, comp):
@@ -1166,7 +1298,7 @@ def build_train_step(
     def combine_params(params, step, mix_state=None, comm_weights=None):
         """The neighbor combine the step runs, in place on ``params``
         (for timing); returns the consensus sq partials [n]."""
-        tensors = list(params.values())
+        tensors = mixed_leaves(params)
         with torch.no_grad():
             outs, cons = combine(tensors, int(step), comm_weights or
                                  default_w, mix_state)
@@ -1181,6 +1313,7 @@ def build_train_step(
         consensus=want_cons, mix=mix_on)
     step_fn.hierarchical_local_size = hls if neighbor else None
     step_fn.mix_config = mix
+    step_fn.moe_config = moe
     if neighbor:
         step_fn.combine = combine_params
     if mix_on:

@@ -6,7 +6,9 @@ hold the kernels to one bound.
 * :data:`CASES`: the shapes K2, K3a and K3b are checked at, the Llama
   training shape first, the ViT-B/16 shape second, Llama-1B's third,
   ViT-B/16's at 32 images (a rank's share of a resilient 4-rank step)
-  fourth;
+  fourth, the longest forward of an uncached greedy rollout at 8B width
+  (one 23-token row, under one tile) fifth (:data:`N_MODEL` model
+  shapes in all);
   :data:`SPLASH_CASES` those of K5 (causal, no offsets), its two
   training shapes first.
 * :func:`term_sizes`: for each entry of out, dQ, dK and dV, the sum of
@@ -41,7 +43,7 @@ from bluefog_tpu_torch.parallel.flash_attention import (
     _dscores, _heads, _probs, flash_backward_dkv_plain,
     flash_backward_dq_plain, flash_forward_plain)
 
-__all__ = ["CASES", "SPLASH_CASES", "term_sizes", "mismatch",
+__all__ = ["CASES", "N_MODEL", "SPLASH_CASES", "term_sizes", "mismatch",
            "planted_faults", "splash_planted_faults", "ring_term_sizes",
            "drop_pair", "ring_planted_fault"]
 
@@ -51,6 +53,7 @@ CASES = [
     (128, 200, 12, 12, 64, torch.bfloat16, False, 0, 0),  # ViT-B/16 b128
     (4, 2048, 32, 8, 64, torch.bfloat16, True, 0, 0),   # Llama-1B
     (32, 200, 12, 12, 64, torch.bfloat16, False, 0, 0),  # ViT-B/16 b32
+    (1, 23, 32, 8, 128, torch.bfloat16, True, 0, 0),    # 8B rollout
     (2, 100, 4, 4, 16, torch.float32, True, 0, 0),
     (2, 1000, 8, 2, 64, torch.float32, True, 0, 0),
     (1, 100, 4, 1, 64, torch.bfloat16, True, 0, 0),
@@ -60,6 +63,7 @@ CASES = [
     (1, 100, 4, 1, 32, torch.bfloat16, True, 128, 0),
     (1, 1000, 8, 2, 128, torch.float32, False, 128, 0),
 ]
+N_MODEL = 5   # CASES[:N_MODEL] are the models' shapes
 
 # (B, T, H, KV, D, dtype): K5, causal with no offsets
 SPLASH_CASES = [
@@ -149,11 +153,16 @@ def planted_faults(q, k, v, do, lse, delta, ref: Dict[str, torch.Tensor],
     ``max(T/2, tile)`` on: K2 and K3a skipping the last ``tile``-key tile
     (the ragged one where ``tile`` does not divide T) for those rows, and
     K3b skipping the last ``tile``-row query tile for those keys.
+    Where a causal T is under two tiles (one tile holds the whole
+    sequence), the faults take the largest multiple of 8 at most T/2 as
+    their tile: a block of keys lost within the one tile.
     ``ref`` holds the plain versions' ``out``, ``dq``, ``dk`` and ``dv``
     on the same inputs; the faults are computed with the plain versions
     from the true forward's ``lse`` and ``delta``."""
     b, t, h, d = q.shape
     scale = d ** -0.5
+    if causal and t < 2 * tile:
+        tile = max(8, t // 2 // 8 * 8)
     half = t // 2 // tile * tile
     if not causal:
         return _planted_faults_noncausal(q, k, v, do, lse, delta, ref, tile,

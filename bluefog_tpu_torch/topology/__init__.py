@@ -1,9 +1,11 @@
 """Virtual topology library of the port: static graph generators,
-weights, dynamic schedules, reverse-edge inference (``infer``) and the
-device-ready ``Topology`` spec (``bluefog_tpu.topology``'s counterpart,
-numpy only).
+weights, dynamic schedules, reverse-edge inference (``infer``), the
+device-ready ``Topology`` spec, the torus schedules and congestion
+accounting (``torus``) and the topology compiler (``compiler``, with
+the all-to-all schedule the MoE dispatch runs): ``bluefog_tpu.
+topology``'s counterpart, numpy only.
 
-``torus``, ``compiler`` and ``control`` wait for a later slice
+``control`` (the topology control plane) waits for a later slice
 (ROADMAP.md, Queue 1, item 12, the topology part).
 """
 
@@ -43,4 +45,25 @@ from bluefog_tpu_torch.topology.spec import (  # noqa: F401
 from bluefog_tpu_torch.topology.infer import (  # noqa: F401
     InferDestinationFromSourceRanks,
     InferSourceFromDestinationRanks,
+)
+from bluefog_tpu_torch.topology.torus import (  # noqa: F401
+    TorusSpec,
+    torus_one_peer_schedule,
+    torus_shift_round,
+    round_congestion,
+    schedule_congestion,
+    consensus_contraction,
+    rounds_from_contraction,
+    rounds_to_consensus,
+    score_schedule,
+    default_pod_schedule,
+)
+from bluefog_tpu_torch.topology.compiler import (  # noqa: F401
+    PodSpec,
+    Sketch,
+    CompiledTopology,
+    CompiledHierarchicalTopology,
+    compile_topology,
+    expand_machine_pairs,
+    menu_schedules,
 )

@@ -16,13 +16,14 @@ Phases (any failure raises and exits non-zero, printing no result):
    bytes the call must move over the card's memory rate and its
    operations over the peak rate of its input type):
    a. K4 split-KV decode attention, bf16 and int8 cache, at the serving
-      shapes of Llama-3.1-8B (B=8, KV=8, rep=4, D=128, S 2048 and 8192,
-      positions drawn per row from --seed with rows at 0 and S-1, and a
-      second set with rows either side of the split boundaries, checked
-      only) and one small odd f32 shape, bit-equal across two runs, SDPA
-      beside it on the drawn positions (at S=2048 also timed without the
-      spin, the host's launch gap included); at S=2048 the tolerance
-      rejects a planted merge that drops each row's last live split;
+      shapes of Llama-3.1-8B (KV=8, rep=4, D=128: B=8 at S 2048 and
+      8192, and phase 23c's B=8 and B=1 at S=1024 and B=1 at S=64;
+      positions drawn per row from --seed with rows at 0 and S-1, and
+      positions either side of the split boundaries, checked only) and
+      one small odd f32 shape, bit-equal across two runs, SDPA beside it
+      on the drawn positions (at S=2048 also timed without the spin, the
+      host's launch gap included); at every shape the tolerance rejects
+      a planted merge that drops each row's last live split;
    b. K1 1x1-conv backward at the 7 distinct ResNet-50 shapes of batch
       128 in bf16 (the fused wgmma kernel at stage 1, two wgmma GEMMs
       elsewhere) and two small f32 shapes: max |err| of dx and dw, dx
@@ -37,13 +38,15 @@ Phases (any failure raises and exits non-zero, printing no result):
       100 and 1000; rep 1, 2, 4; non-causal; every row masked by
       kv_offset=64; q_offset=128): max |err| per output, every output
       bit-equal across two runs; K2 (the wgmma kernel in bf16 at D 64 and
-      128) and SDPA's forward timed at every shape; at the four model
-      shapes (ViT-B/16 at 32 images too, phase 22b's launch shape) K3a's
+      128) and SDPA's forward timed at every shape; at the five model
+      shapes (ViT-B/16 at 32 images too, phase 22b's launch shape, and
+      phase 23c's uncached rollout at B=1, T=23, under one tile) K3a's
       and K3b's (wgmma) kernel, plain, bound and library ms (SDPA's
       backward for K3a + K3b together), K2's at the training shape
       (SDPA's forward), and at each of them the planted faults in K3a's
       key tiles rejected (causal: a skipped diagonal tile and group
-      member; non-causal: a skipped last key tile and query tile).
+      member, a block of keys within the one tile at T=23; non-causal: a
+      skipped last key tile and query tile).
    d. K5, splash attention's fused one-pass backward, at the Llama-1B
       training shape (B=4, T=2048, H=32, KV=8, D=64, causal, bf16), at
       8B width (D=128) and at small odd shapes (f32 D 16 and 64, bf16
@@ -347,10 +350,56 @@ Phases (any failure raises and exits non-zero, printing no result):
       a death; the Chrome trace parses, holds one resilience.* instant per
       event of the run and drops none.
 
+23. Mixture of Experts: Llama-3.1-8B's width with examples/
+   llama_benchmark.py's --experts 8 (top-2 of 8, aux weight 0.01,
+   capacity factor 1.25, groups of 4096 tokens; f32 master params, bf16
+   compute, the f32 head, remat, SGD(1e-3, momentum 0.9)):
+   a. 2 layers, 1 rank, batch 4 x 2048, comm_mode="none", 2 warm-up and
+      4 timed steps: tokens/s per card, step ms, MFU over 989 TFLOP/s
+      counting 6 x ACTIVE params a token (the experts at top-2 / 8), the
+      one-hot dispatch and combine FLOP apart, peak memory, the
+      assignments each layer drops by capacity; the loss equals the
+      cross-entropy plus 0.01 x the layers' aux loss, is finite and
+      falls; K2 launched 2 x n_layers x steps times (remat), K3a and K3b
+      n_layers x steps; a profile of 2 steps; then each MoE part alone at
+      the step's shape (router and routing, the one-hot dispatch, the
+      expert GEMMs, the one-hot combine; CUDA events) and its share of
+      the step's device time.
+   b. 1 layer, 2 ranks stacked, atc over ExponentialTwoGraph(2), 1 x
+      2048 a rank, 2 warm-up and 3 timed steps: tokens/s per card, peak
+      memory, the combine's ms a step over every f32 value of a rank,
+      experts included; after 3 steps (1 x 512 a rank) the consensus
+      distance under atc below comm_mode="none"'s.
+   c. 16 of 32 layers in bf16 (random weights from --seed), served
+      dropless by ServingEngine (8 slots, max_len 1024, 256-token
+      chunks): 8 greedy requests (prompts 16-600, 32 new tokens) with K4
+      n_layers x decode steps; tokens/s, TTFT p50, the decode step's
+      wall and device ms beside the weight-read bound; each request's
+      stream against llama_generate's (K4 counted), and 8 cached tokens
+      of a 16-token prompt against the uncached dropless rollout (K2
+      counted); a stream that parts must part at a near-tie (phase 19's
+      margin check, without the f32 model: a second copy of the weights
+      does not fit).
+   d. moe/'s expert-sharded step at Mixtral's expert width (d 4096,
+      hidden 14336) over 8 stacked ranks, 4 experts (two replicas each),
+      2048 tokens a rank, capacity default_capacity(2048, 8): the
+      compiled dispatch over compile_all_to_all(PodSpec(4, 2)) bit-equal
+      to naive_all_to_all, the transpose round trip exact, the int8 wire
+      repeatable and within half a code, each timed; then atc over
+      torus_one_peer_schedule((4, 2), "exp2") with guard and health
+      through a kill of rank 5, heal_route_table and its return on one
+      step object: 0 host syncs in a steady step, experts rank-local,
+      the router's spread shrinking, bf_edge_bytes_total billing the
+      router's bytes on every edge of each round and nothing else; step
+      ms, wire bytes.
+   e. Card against host (phase 10's bound): a tiny f32 MoE Llama (flash,
+      D = 16, both routers, capacity factor 0.5) forward and gradients,
+      and a tiny 23d cycle over 8 ranks.
+
 The line before the last is a JSON object with one entry per kernel
-(seven; K4's launches are phase 3's, 19's and 20's; K2's, K3a's and
-K3b's phase 8's, 21b's, 21c's and 22b's); the last line is
-{"ok": true, "device": {...}}.
+(seven; K4's launches are phase 3's, 19's, 20's and 23c's; K2's, K3a's
+and K3b's phase 8's, 21b's, 21c's, 22b's, 23a's and 23b's, K2's 23c's
+rollout too); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -457,17 +506,20 @@ def _ratio_to_tol(got, want, tol):
 
 
 def phase_kernels(name, seed):
-    """K4 against its plain version at the serving shapes (B=8, KV=8,
-    rep=4, D=128, S 2048 and 8192, bf16 and int8 caches) and a small odd
-    f32 shape, bit-equal across two runs, on two sets of positions: one
-    drawn per row from ``seed`` with rows at 0 and S-1 (the timed set),
-    and at B=8 the same with rows one before, at and one after the split
-    boundaries of the kernel's split (decode_attention.split_len),
-    checked only.  Kernel, plain, SDPA and bound ms on the drawn set; at
-    the serving shape the kernel and SDPA also without the device spin
-    (the host's launch gap included), and the tolerance must reject a
-    planted fault: the merge dropping each row's last live split
-    (decode_attention_split_plain with one split fewer)."""
+    """K4 against its plain version at the serving shapes (KV=8, rep=4,
+    D=128, bf16 and int8 caches: B=8 at S 2048 and 8192, and phase 23c's
+    B=8 and B=1 at S=1024 and B=1 at S=64) and a small odd f32 shape,
+    bit-equal across two runs, on the positions drawn per row from
+    ``seed`` (with rows at 0 and S-1 where B > 1; the timed set) and on
+    positions at 0, S-1 and one before, at and one after the boundaries
+    of the kernel's split (decode_attention.split_len; in rows of one
+    set where B holds them all, else one set each), checked only.
+    Kernel, plain, SDPA and bound ms on the drawn set; at S=2048 the
+    kernel and SDPA also without the device spin (the host's launch gap
+    included).  At every shape the tolerance must reject a planted
+    fault: the merge dropping each row's last live split
+    (decode_attention_split_plain with one split fewer), over the rows
+    that keep some splits."""
     from bluefog_tpu_torch.models.llama import _amax_quantize
     from bluefog_tpu_torch.parallel import decode_attention as da
 
@@ -477,6 +529,11 @@ def phase_kernels(name, seed):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [(8, 8, 4, 2048, 128, torch.bfloat16),
              (8, 8, 4, 8192, 128, torch.bfloat16),
+             # phase 23c's: the engine's 8 slots and llama_generate's one
+             # row over a 1024-position cache, the rollout's over 64
+             (8, 8, 4, 1024, 128, torch.bfloat16),
+             (1, 8, 4, 1024, 128, torch.bfloat16),
+             (1, 8, 4, 64, 128, torch.bfloat16),
              (3, 2, 1, 40, 16, torch.float32)]
     results = {}
     for b, n_kv, rep, s, d, dt in cases:
@@ -487,13 +544,19 @@ def phase_kernels(name, seed):
         split = da.split_len(s, b * n_kv, sms)
         idx = torch.randint(0, s, (b,), generator=g, device="cuda",
                             dtype=torch.int32)
-        idx[0], idx[1] = 0, s - 1
+        if b > 1:
+            idx[0], idx[1] = 0, s - 1
         checked = [idx]
-        if b == 8:   # around the split boundaries
-            edges = idx.clone()
-            edges[2:6] = torch.tensor([split - 1, split, split + 1,
-                                       3 * split - 1], dtype=torch.int32)
-            checked.append(edges)
+        # around the split boundaries
+        edges = sorted({e for e in (0, split - 1, split, split + 1,
+                                    3 * split - 1, s - 1) if 0 <= e < s})
+        if b >= len(edges):
+            rows = idx.clone()
+            rows[:len(edges)] = torch.tensor(edges, dtype=torch.int32)
+            checked.append(rows)
+        else:
+            checked += [torch.full((b,), e, dtype=torch.int32,
+                                   device="cuda") for e in edges]
         kq, ks = _amax_quantize(k)
         vq, vs = _amax_quantize(v)
         ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
@@ -531,23 +594,26 @@ def phase_kernels(name, seed):
                     f"D={d} q={str(dt).split('.')[-1]} split={split} "
                     f"idx={ix.tolist()}: max|err| {e:.3g} ({ratio:.3g} of "
                     f"atol=rtol={tol}), bit-equal across two runs")
-            if serving:
-                # planted fault: a merge one split short in every row
-                ix = checked[-1]
-                ref = plain(ix)
+            # planted fault: a merge one split short in every row, over
+            # the rows that keep some splits
+            bad_ratio = 0.0
+            for ix in checked:
                 live = ix.long().clamp(max=s - 1) // split + 1
+                multi = live > 1
+                if not bool(multi.any()):
+                    continue
                 bad = da.decode_attention_split_plain(
                     q, *kv, ix, split, *scales, n_live=live - 1)
-                bad_ratio = _ratio_to_tol(bad, ref, tol)
-                multi = live > 1   # rows that keep some splits
-                multi_ratio = _ratio_to_tol(bad[multi], ref[multi], tol)
-                if bad_ratio <= 1 or multi_ratio <= 1:
-                    raise AssertionError(f"{kname}: the tolerance passes a "
-                                         "merge that drops the last split")
-                log(f"[kernel] planted K4 fault, the merge drops each row's "
-                    f"last live split ({kname}, split {split}): "
-                    f"{bad_ratio:.3g} times the tolerance, {multi_ratio:.3g}"
-                    f" over the rows with more than one split; rejected")
+                bad_ratio = max(bad_ratio, _ratio_to_tol(
+                    bad[multi], plain(ix)[multi], tol))
+            if bad_ratio <= 1:
+                raise AssertionError(f"{kname} B={b} S={s}: the tolerance "
+                                     "passes a merge that drops the last "
+                                     "split")
+            log(f"[kernel] planted K4 fault, the merge drops each row's "
+                f"last live split ({kname}, B={b} S={s}, split {split}): "
+                f"{bad_ratio:.3g} times the tolerance over the rows with "
+                f"more than one split; rejected")
             ms = time_ms(lambda: run(idx), flush)
             plain_ms = time_ms(lambda: plain(idx), flush)
             library_ms = sdpa = None
@@ -816,9 +882,9 @@ def phase_flash(name, seed):
     2**-7 of the sizes of the terms whose bf16 rounding may differ and
     2**-12 of the largest such size, f32 1e-5 of the largest); lse (f32)
     within 1e-4 absolute plus 1e-5; every output bit-equal across two
-    runs.  At the four model shapes (``CASES[:4]``) the bound must also
+    runs.  At the model shapes (``CASES[:N_MODEL]``) the bound must also
     reject the planted faults (``flash_check.planted_faults`` at K3a's
-    key tile).  K2 and SDPA's forward are timed at every shape; K3a, K3b,
+    key tile, within the one tile where T is under two).  K2 and SDPA's forward are timed at every shape; K3a, K3b,
     their plain versions and SDPA's backward at the model shapes; the
     kernels line takes the training shape's."""
     import torch.nn.functional as F
@@ -830,6 +896,7 @@ def phase_flash(name, seed):
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     g = torch.Generator("cuda").manual_seed(seed)
     results = {}
+    models = flash_check.CASES[:flash_check.N_MODEL]
     for case in flash_check.CASES:
         b, t, h, kv, d, dt, causal, q_off, kv_off = case
         q, do = (torch.randn(b, t, h, d, generator=g, device="cuda").to(dt)
@@ -878,7 +945,7 @@ def phase_flash(name, seed):
             + "; of its bound "
             + ", ".join(f"{k_} {r:.3g}" for k_, r in ratios.items())
             + "; out, lse, dQ, dK, dV bit-equal across two runs")
-        if case in flash_check.CASES[:4]:   # the models' shapes
+        if case in models:
             # each fault lies in the kernels' own tiles: K3a's key step
             for fault, key, bad in flash_check.planted_faults(
                     q, k, v, do, lse, delta, ref, tile=fa.DQ_KEY_TILE,
@@ -906,7 +973,7 @@ def phase_flash(name, seed):
         k2_kernel = ("wgmma" if dt == torch.bfloat16 and d >= 64 else
                      "mma.sync" if dt == torch.bfloat16 else "f32 FMA")
         plain = ""
-        if case in flash_check.CASES[:4]:   # the models' shapes
+        if case in models:
             plain_ms = time_ms(
                 lambda: fa.flash_forward_plain(q, k, v, *args), flush, reps=5)
             plain = f", plain {plain_ms:.4f} ms"
@@ -914,7 +981,7 @@ def phase_flash(name, seed):
             f"({ops / k2_ms / 1e9:.1f} TFLOP/s), SDPA forward {sdpa_ms:.4f}"
             f" ms (K2/SDPA {k2_ms / sdpa_ms:.3f}){plain}, bound "
             f"{bound:.4f} ms")
-        if case not in flash_check.CASES[:4]:
+        if case not in models:
             continue
         # the models' shapes: K3a's and K3b's kernel, plain, bound and
         # library times (and K2's at the training shape, the kernels line's
@@ -3450,13 +3517,21 @@ def _four_paths(model, ref, cfg, prompt, toks):
 
 def _f32_reference(cfg):
     """A module that runs ``cfg``'s model in f32 over parameters it is
-    given (``Llama.apply``): its own parameters are released, so it
-    holds no weights of its own."""
+    given (``Llama.apply``), each weight upcast as its layer runs.  It
+    holds no weights of its own: its blocks are built on the meta device
+    and the rest released, so it fits beside a model that fills most of
+    the card."""
     import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.models.llama import Block
 
-    ref = bt.Llama(dataclasses.replace(cfg, dtype=torch.float32),
-                   device="cuda", param_dtype=cfg.dtype)
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    ref = bt.Llama(dataclasses.replace(f32, n_layers=1), device="cuda",
+                   param_dtype=cfg.dtype)
     ref.state(release=True)
+    ref.cfg = f32
+    ref.layers = torch.nn.ModuleList(
+        Block(f32, torch.device("meta"), cfg.dtype)
+        for _ in range(cfg.n_layers))
     torch.cuda.empty_cache()
     return ref
 
@@ -5352,6 +5427,648 @@ def phase_resilience(seed):
     return launches
 
 
+# ------------------------------------------------------------------ #
+# phase 23: Mixture of Experts
+# ------------------------------------------------------------------ #
+MOE_LAYERS = 2           # 23a's depth (32 layers of f32 state: ~740 GB)
+MOE_SERVE_LAYERS = 16    # 23c: 16 of 32 layers of bf16 experts (~46 GB)
+EP_RANKS, EP_EXPERTS = 8, 4               # 23d: two replicas an expert
+EP_DIM, EP_HIDDEN, EP_TOKENS = 4096, 14336, 2048  # Mixtral's expert width
+
+
+def _moe8b_cfg(n_layers, **over):
+    """Phase 23's model: Llama-3.1-8B's width (``_llama8b_cfg``) with
+    examples/llama_benchmark.py's ``--experts 8`` (:110-119): top-2 of 8
+    experts, aux weight 0.01, capacity factor 1.25, groups of 4096
+    tokens (:52-56), and the benchmark's remat."""
+    base = dict(n_experts=8, moe_top_k=2, moe_aux_weight=0.01,
+                capacity_factor=1.25, moe_group_size=4096, remat=True)
+    base.update(over)
+    return dataclasses.replace(_llama8b_cfg(n_layers), **base)
+
+
+def _moe_flops(cfg, params, tokens, seq, forwards):
+    """(params per rank, model FLOP a step, the one-hot dispatch and
+    combine FLOP a step): the model count is llama_benchmark.py's 6 x
+    matmul params a token with the experts counted at top_k / n_experts
+    (the ACTIVE params), plus causal attention 6 x L x T x dim; the
+    one-hot products are 2 x g G E cap dim FLOP each a layer forward,
+    run ``forwards`` times (2 under remat) plus twice in the backward."""
+    n_params = sum(v[0].numel() for v in params.values())
+    expert = sum(v[0].numel() for k, v in params.items()
+                 if ".moe_ffn.w" in k)
+    active = (n_params - cfg.vocab_size * cfg.dim
+              - expert * (1 - cfg.moe_top_k / cfg.n_experts))
+    flops = 6.0 * active * tokens + 6.0 * cfg.n_layers * seq * cfg.dim \
+        * tokens
+    from bluefog_tpu_torch.models.llama import moe_group_shape
+
+    g, G, cap = moe_group_shape(cfg, tokens)
+    onehot = 2 * 2.0 * g * G * cfg.n_experts * cap * cfg.dim \
+        * (forwards + 2) * cfg.n_layers
+    return n_params, flops, onehot
+
+
+@torch.no_grad()
+def _moe_drops(model, params, tokens):
+    """Each MoE layer's dropped share of its top-k assignments (capacity
+    overflow) in one forward of ``tokens``: a hook reads each layer's FFN
+    input, and the layer's router and routing count what they keep."""
+    from bluefog_tpu_torch.models.llama import (moe_combine_weights,
+                                                moe_group_shape)
+
+    cfg = model.cfg
+    seen = []
+    hooks = [blk.moe_ffn.register_forward_pre_hook(
+        lambda m, a: seen.append(a[0])) for blk in model.layers]
+    try:
+        model.apply(params, tokens)
+    finally:
+        for h in hooks:
+            h.remove()
+    out = []
+    for i, x in enumerate(seen):
+        s = x.shape[0] * x.shape[1]
+        g, G, cap = moe_group_shape(cfg, s)
+        w = params[f"layers.{i}.moe_ffn.router.kernel"]
+        probs = torch.softmax(x.reshape(-1, cfg.dim).float() @ w.float(), -1)
+        comb = moe_combine_weights(probs.reshape(g, G, -1), cfg.moe_top_k,
+                                   cap)
+        out.append(1.0 - (comb > 0).sum().item() / (s * cfg.moe_top_k))
+    return out
+
+
+def _moe_parts_ms(cfg, flush, tokens):
+    """One MoE layer's parts at the step's shape, each timed alone
+    forward and forward + backward (CUDA events, median of 3): the f32
+    router and routing (``moe_combine_weights``), the one-hot dispatch
+    product, the expert GEMMs (w1, w3, w2 from f32 masters) and the
+    one-hot combine product.  {part: (forward ms, forward + backward
+    ms)}."""
+    import torch.nn.functional as F
+
+    from bluefog_tpu_torch.models.llama import (moe_combine_weights,
+                                                moe_group_shape)
+
+    E, d, h, dt = cfg.n_experts, cfg.dim, cfg.ffn_dim, cfg.dtype
+    g, G, cap = moe_group_shape(cfg, tokens)
+    gen = torch.Generator("cuda").manual_seed(23)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale
+                ).to(dtype).requires_grad_(True)
+
+    x = rnd(tokens, d, dtype=dt)
+    wr = rnd(d, E, scale=d ** -0.5)
+    w1, w3 = rnd(E, d, h, scale=d ** -0.5), rnd(E, d, h, scale=d ** -0.5)
+    w2 = rnd(E, h, d, scale=h ** -0.5)
+    with torch.no_grad():
+        probs = torch.softmax(x.float() @ wr, -1).reshape(g, G, E)
+        comb0 = moe_combine_weights(probs, cfg.moe_top_k, cap)
+    disp = (comb0 > 0).to(dt)
+    comb = comb0.to(dt).requires_grad_(True)
+    e_in = rnd(E, g * cap, d, dtype=dt)
+    e_out = rnd(E, g, cap, d, dtype=dt)
+
+    def router():
+        p = torch.softmax(x.float() @ wr, -1).reshape(g, G, E)
+        return moe_combine_weights(p, cfg.moe_top_k, cap), (x, wr)
+
+    def dispatch():
+        return torch.einsum("gsec,gsd->egcd", disp, x.reshape(g, G, d)), (x,)
+
+    def experts():
+        a = torch.bmm(e_in, w1.to(dt))
+        b = torch.bmm(e_in, w3.to(dt))
+        return torch.bmm(F.silu(a) * b, w2.to(dt)), (e_in, w1, w3, w2)
+
+    def combine():
+        return torch.einsum("egcd,gsec->gsd", e_out, comb), (e_out, comb)
+
+    out = {}
+    for name, fn in (("router + routing", router), ("dispatch", dispatch),
+                     ("experts", experts), ("combine", combine)):
+        def fwd():
+            with torch.no_grad():
+                fn()
+
+        def fwd_bwd():
+            y, ins = fn()
+            torch.autograd.grad(y, ins, torch.ones_like(y))
+
+        out[name] = (time_ms(fwd, flush, reps=3),
+                     time_ms(fwd_bwd, flush, reps=3))
+    del x, wr, w1, w3, w2, comb, e_in, e_out, disp, comb0
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase23_train(seed):
+    """23a: the MoE Llama at 8B width, 2 layers, 1 rank.  Returns the
+    timed window's launches."""
+    import torch.nn.functional as F
+
+    from bluefog_tpu_torch.models.llama import llama_loss_fn
+
+    cfg = _moe8b_cfg(MOE_LAYERS)
+    warmup, timed = 2, 4
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, _, step, params, opt, batch = _llama_step(
+        cfg, 1, "none", seed, LLAMA_BATCH, LLAMA_SEQ)
+    tokens = LLAMA_BATCH * LLAMA_SEQ
+    n_params, flops, onehot = _moe_flops(cfg, params, tokens, LLAMA_SEQ, 2)
+    # the loss carries the aux term: ce + 0.01 x the layers' aux sum
+    with torch.no_grad():
+        p0 = {k: v[0] for k, v in params.items()}
+        logits, aux = model.apply(p0, batch[0][0], return_aux=True)
+        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                             batch[1][0].reshape(-1))
+        full = llama_loss_fn(model)(p0, (batch[0][0], batch[1][0]))
+        del logits
+    want_aux = (ce + cfg.moe_aux_weight * aux).item()
+    if not (aux.item() >= 0.99 and abs(full.item() - want_aux) < 1e-4):
+        raise AssertionError(f"23a: loss {full.item()} is not ce "
+                             f"{ce.item()} + 0.01 x aux {aux.item()}")
+    drops = _moe_drops(model, p0, batch[0][0])
+    del p0
+    torch.cuda.synchronize()
+    _reset_counts()
+    losses = []
+    for i in range(warmup):
+        params, opt, loss = step(params, opt, batch, i)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + timed):
+        params, opt, loss = step(params, opt, batch, i)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / timed
+    n = cfg.n_layers * (warmup + timed)
+    # remat recomputes each block's forward: K2 twice a layer and step
+    launches = _expect_launches("23a", {"flash_forward": 2 * n,
+                                        "flash_backward_dq": n,
+                                        "flash_backward_dkv": n})
+    losses = torch.cat(losses)
+    if not torch.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"23a: losses {losses.tolist()} not finite "
+                             "and falling")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[moe23a] MoE Llama at 8B width ({cfg.n_layers} layers, "
+        f"{n_params / 1e9:.3f} B params, {cfg.n_experts} experts top-"
+        f"{cfg.moe_top_k}, capacity factor {cfg.capacity_factor}, groups "
+        f"of {cfg.moe_group_size}), 1 rank, batch {LLAMA_BATCH} x "
+        f"{LLAMA_SEQ}, flash, remat, f32 head: {tokens / dt:.1f} tokens/s "
+        f"per card, step {dt * 1e3:.2f} ms, MFU {flops / dt / PEAK_BF16:.4f}"
+        f" of 989 TFLOP/s (6 x active params), the one-hot dispatch and "
+        f"combine {onehot / 1e12:.3f} TFLOP a step more "
+        f"({onehot / dt / PEAK_BF16:.4f}), peak memory {peak:.2f} GiB, losses "
+        f"{', '.join(f'{x:.4f}' for x in losses.tolist())} (aux "
+        f"{aux.item():.4f} at step 0), assignments dropped by capacity "
+        f"per layer {', '.join(f'{x:.4f}' for x in drops)}; launches "
+        f"{launches} over {warmup + timed} steps")
+    busy = _profile_llama(step, params, opt, batch, what="MoE Llama")
+    del step, params, opt, batch, model
+    torch.cuda.empty_cache()
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    parts = _moe_parts_ms(cfg, flush, tokens)
+    for name, (fwd, fwd_bwd) in parts.items():
+        # remat runs each forward twice: the step pays fwd + fwd_bwd
+        share = cfg.n_layers * (fwd + fwd_bwd)
+        log(f"[moe23a] {name} alone: forward {fwd:.3f} ms, forward + "
+            f"backward {fwd_bwd:.3f} ms a layer; x {cfg.n_layers} layers "
+            f"with remat's second forward {share:.2f} ms, "
+            f"{100 * share / busy:.1f}% of the step's device time")
+    return launches
+
+
+def _phase23_ranks(seed):
+    """23b: one layer over 2 stacked ranks under atc.  Returns the
+    launches."""
+    import bluefog_tpu_torch as bt
+
+    cfg = _moe8b_cfg(1)
+    topo = bt.uniform_topology_spec(bt.ExponentialTwoGraph(2))
+    warmup, timed, seq = 2, 3, LLAMA_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, _, step, params, opt, batch = _llama_step(
+        cfg, 2, "atc", seed, 1, seq, topology=topo)
+    n_params = sum(v[0].numel() for v in params.values())
+    torch.cuda.synchronize()
+    _reset_counts()
+    for i in range(warmup):
+        params, opt, loss = step(params, opt, batch, i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + timed):
+        params, opt, loss = step(params, opt, batch, i)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / timed
+    n = cfg.n_layers * 2 * (warmup + timed)
+    launches = _expect_launches("23b", {"flash_forward": 2 * n,
+                                        "flash_backward_dq": n,
+                                        "flash_backward_dkv": n})
+    if not torch.isfinite(loss).all():
+        raise AssertionError(f"23b: non-finite loss {loss.tolist()}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    combine = []
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step.combine(params, 0)
+        end.record()
+        combine.append((start, end))
+    torch.cuda.synchronize()
+    combine_ms = statistics.median(a.elapsed_time(b) for a, b in combine[1:])
+    log(f"[moe23b] MoE Llama at 8B width (1 layer, {n_params / 1e9:.3f} B "
+        f"params a rank, experts included), 2 ranks stacked, atc over "
+        f"ExponentialTwoGraph(2), batch 1 x {seq} a rank: "
+        f"{2 * seq / dt:.1f} tokens/s per card, step {dt * 1e3:.2f} ms, "
+        f"peak memory {peak:.2f} GiB, combine {combine_ms:.3f} ms a step "
+        f"over {n_params / 1e9:.3f} B f32 values a rank, loss "
+        f"{loss.tolist()}; launches {launches} over {warmup + timed} steps")
+    del step, params, opt, batch, model
+    torch.cuda.empty_cache()
+    spread = {}
+    for mode, kw in (("atc", dict(topology=topo)), ("none", {})):
+        _, model, _, step, params, opt, batch = _llama_step(
+            cfg, 2, mode, seed, 1, 512, **kw)
+        for i in range(3):
+            params, opt, loss = step(params, opt, batch, i)
+        spread[mode] = float(bt.consensus_distance(params))
+        del model, step, params, opt, batch
+        torch.cuda.empty_cache()
+    if not spread["atc"] < spread["none"]:
+        raise AssertionError(f"23b: consensus distance atc {spread['atc']} "
+                             f"not below none {spread['none']}")
+    log(f"[moe23b] consensus distance after 3 steps (1 x 512 a rank): atc "
+        f"{spread['atc']:.4g} < none {spread['none']:.4g}")
+    return launches
+
+
+def _phase23_serve(seed):
+    """23c: the MoE model served, bf16, 16 layers.  Returns the counted
+    runs' launches."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.serving import Request, ServingEngine
+
+    # served dropless (decode_config's factor), so the uncached forward
+    # of the same module is the no-cache dropless rollout; one group
+    # (moe_group_size 4096 > any context here) is moe_group_size=0's
+    cfg = _moe8b_cfg(MOE_SERVE_LAYERS, remat=False,
+                     capacity_factor=float(8))
+    L = cfg.n_layers
+    torch.cuda.empty_cache()
+    model = bt.Llama(cfg, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(seed))
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for k, p in model.named_parameters()
+                       if k != "tok_embeddings.embedding")
+    tally = {}
+    rng = np.random.RandomState(seed + 23)
+    reqs = _serve_reqs(rng, SERVE_CAP, cfg.vocab_size, (16, 600), 32)
+    eng = ServingEngine(model, cfg, capacity=SERVE_CAP, max_len=1024,
+                        prefill_chunk=256, device="cuda")
+    m, wall, peak = _run_engine(
+        eng, reqs, "23c engine",
+        lambda m: {"decode_attention": L * m["decode_steps"]}, tally)
+    busy, wall_step = _device_ms_per_step(eng, _clones(reqs))
+    bound = weight_bytes / mem_rate(torch.cuda.get_device_name(0)) * 1e3
+    log(f"[moe23c] MoE Llama at 8B width, {L} layers, bf16, "
+        f"{weight_bytes / 1e9:.2f} GB of weights a decode step reads: "
+        f"{m['tokens_generated']} tokens in {wall:.2f} s, tokens/s "
+        f"{m['tokens_per_sec']:.1f}, TTFT p50 {m['ttft_p50'] * 1e3:.1f} ms, "
+        f"decode step p50 {m['decode_step_ms_p50']:.2f} ms of wall, "
+        f"{busy:.2f} ms of device time ({wall_step:.2f} ms wall under the "
+        f"profiler) against the weight-read bound {bound:.2f} ms; peak "
+        f"{peak:.2f} GiB")
+    # the engine's streams against llama_generate's, one request a call
+    torch.cuda.synchronize()
+    _reset_counts()
+    gens = [bt.llama_generate(model, cfg, r.prompt[None], r.max_new_tokens,
+                              max_len=1024, device="cuda")[0, r.prompt.size:]
+            .cpu().numpy() for r in reqs]
+    for k, n in _expect_launches("23c llama_generate", {
+            "decode_attention": L * sum(r.max_new_tokens - 1
+                                        for r in reqs)}).items():
+        tally[k] = tally.get(k, 0) + n
+    n_diff = _explain_flips(model, cfg, [(r, g, r.tokens)
+                                         for r, g in zip(reqs, gens)],
+                            "23c engine vs llama_generate")
+    # 8 tokens of one short prompt: the cached decode (K4) against the
+    # rollout that runs the uncached forward over the whole sequence
+    prompt = rng.randint(0, cfg.vocab_size, (16,)).astype(np.int32)
+    torch.cuda.synchronize()
+    _reset_counts()
+    got = bt.llama_generate(model, cfg, prompt[None], 8, max_len=64,
+                            device="cuda")[0, 16:].cpu().numpy()
+    seq = torch.from_numpy(prompt[None]).cuda()
+    with torch.no_grad():
+        for _ in range(8):
+            nxt = model(seq)[:, -1].argmax(-1)
+            seq = torch.cat([seq, nxt[:, None].to(seq.dtype)], dim=1)
+    for k, n in _expect_launches("23c rollout", {
+            "decode_attention": L * 7, "flash_forward": L * 8}).items():
+        tally[k] = tally.get(k, 0) + n
+    roll = seq[0, 16:].cpu().numpy()
+    n_roll = _explain_flips(model, cfg, [(Request(prompt, 8), roll, got)],
+                            "23c cached decode vs no-cache rollout")
+    log(f"[moe23c] engine streams equal to llama_generate's: "
+        f"{len(reqs) - n_diff} of {len(reqs)} (the rest part at "
+        f"near-ties); 8 cached tokens of a 16-token prompt "
+        f"{'equal' if not n_roll else 'part at a near-tie from'} the "
+        f"no-cache dropless rollout; K4 {tally.get('decode_attention', 0)} "
+        f"launches, K2 {tally.get('flash_forward', 0)}")
+    del eng, model
+    torch.cuda.empty_cache()
+    return tally
+
+
+def _ep_batch(tokens, route, cmask, n):
+    return (tokens, torch.as_tensor(route, device=tokens.device),
+            torch.as_tensor(np.broadcast_to(cmask[None], (n, n)).copy(),
+                            device=tokens.device))
+
+
+def _ep_plan():
+    """23d's dispatch plan: the compiled all-to-all of a pod of 4
+    machines x 2 chips."""
+    from bluefog_tpu_torch import moe
+    from bluefog_tpu_torch.topology.compiler import (PodSpec,
+                                                     compile_all_to_all)
+
+    return moe.dispatch_plan(compile_all_to_all(PodSpec(4, 2)).schedule)
+
+
+def _ep_schedule():
+    """23d's neighbor mixing: one-peer exp2 rounds on the (4, 2) torus."""
+    from bluefog_tpu_torch.topology.torus import torus_one_peer_schedule
+
+    return torus_one_peer_schedule((4, 2), "exp2")
+
+
+def _ep_cycle(backend, dev, seed, d, h, t, steps_after=0, draw="cuda"):
+    """The expert-sharded step over ``backend`` (``EP_RANKS`` ranks,
+    ``EP_EXPERTS`` experts, f32 params drawn per rank from --seed,
+    SGD(1e-3, momentum 0.9), atc with guard and health) at width
+    ``d``/``h``, ``t`` tokens a rank: steps 0 (every rank live), 1 (rank
+    5 dead, the route healed), 2 (it returns), then ``steps_after`` live
+    steps.  The params and tokens are drawn on ``draw`` (the host, for
+    runs on two devices to start alike) and moved to ``dev``.  Returns
+    (step, params, optimizer, the live batch, losses, the router's
+    spread before)."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch import moe
+
+    n, E = EP_RANKS, EP_EXPERTS
+    cap = moe.default_capacity(t, n)
+    plan = _ep_plan()
+    g = torch.Generator(draw).manual_seed(seed)
+    params = {k: v.to(dev) for k, v in moe.init_moe_params(
+        g, d, h, E, n_ranks=n, device=draw).items()}
+    opt = torch.optim.SGD(params.values(), lr=1e-3, momentum=0.9)
+    step = bt.build_train_step(
+        moe.make_moe_loss(plan, backend, cap), opt, backend,
+        comm_mode="atc", schedule=_ep_schedule(),
+        guard=bt.GuardConfig(), health=bt.HealthConfig(),
+        moe=bt.MoEConfig(E, cap))
+    tokens = torch.randn(n, t, d, generator=g, device=draw).to(dev)
+    route = moe.default_route_table(n, E)
+    dead = np.zeros(n, bool)
+    dead[5] = True
+    live = _ep_batch(tokens, route, moe.capacity_mask_of(np.zeros(n)), n)
+    healed = _ep_batch(tokens, moe.heal_route_table(route, dead, E),
+                       moe.capacity_mask_of(dead), n)
+    rw = params["router.w"]
+    spread0 = (rw - rw.mean(0)).abs().max().item()
+    w = step.default_comm_weights
+    losses = []
+    for i, b in enumerate([live, healed] + [live] * (1 + steps_after)):
+        params, opt, loss, skipped, hv = step(params, opt, b, i, w)
+        losses.append(loss)
+    return step, params, opt, live, torch.stack(losses), spread0
+
+
+def _ep_experts_local(step, params, opt, batch, i):
+    """From one state, step ``i`` with the schedule's weights and again
+    with the identity combine (self weight 1, neighbors 0): every expert
+    leaf must come out bit-equal, so each rank's experts moved by their
+    own update alone, and the router must not.  Leaves the identity
+    step's state.  Returns what was compared, for the log."""
+    w = step.default_comm_weights
+    ident = tuple((torch.zeros_like(cw), torch.ones_like(sw))
+                  for cw, sw in w)
+    start = ({k: v.clone() for k, v in params.items()},
+             [s["momentum_buffer"].clone() for s in opt.state.values()])
+    mixed = {}
+    for weights in (w, ident):
+        with torch.no_grad():
+            for k, v in start[0].items():
+                params[k].copy_(v)
+            for st, m in zip(opt.state.values(), start[1]):
+                st["momentum_buffer"].copy_(m)
+        params, opt, *_ = step(params, opt, batch, i, weights)
+        if not mixed:
+            mixed = {k: v.clone() for k, v in params.items()}
+    experts = [k for k in params if k.startswith("expert.")]
+    moved = [k for k in experts
+             if not torch.equal(params[k], start[0][k])]
+    same = [k for k in experts if torch.equal(params[k], mixed[k])]
+    router_same = torch.equal(params["router.w"], mixed["router.w"])
+    if moved != experts or same != experts or router_same:
+        raise AssertionError(
+            f"23d: of {experts}, updated {moved}, equal under the identity "
+            f"combine {same}; the router equal under it: {router_same}")
+    return (f"{', '.join(experts)} bit-equal to a step under the identity "
+            f"combine, the router not")
+
+
+def _phase23_ep(seed):
+    """23d: the expert-sharded step at Mixtral's expert width over 8
+    stacked ranks."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch import moe
+    from bluefog_tpu_torch.observe import fleet
+
+    n = EP_RANKS
+    backend = bt.StackedBackend(n, device="cuda")
+    cap = moe.default_capacity(EP_TOKENS, n)
+    plan = _ep_plan()
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    x = torch.randn(n, n, cap, EP_DIM, generator=g, device="cuda")
+    got = moe.all_to_all_dispatch(x, plan, backend)
+    if not torch.equal(got, moe.naive_all_to_all(x, backend)):
+        raise AssertionError("23d: the compiled dispatch differs from the "
+                             "naive all-to-all")
+    if not torch.equal(moe.all_to_all_dispatch(got, plan.transpose(),
+                                                backend), x):
+        raise AssertionError("23d: the transpose round trip is not the "
+                             "identity")
+    q1 = moe.all_to_all_dispatch(x, plan, backend, wire_dtype="int8")
+    q2 = moe.all_to_all_dispatch(x, plan, backend, wire_dtype="int8")
+    # half a code of the largest scale, plus the f32 rounding of the
+    # dequantized product (half an ulp of the largest value)
+    err = (q1 - got).abs().max().item()
+    limit = x.abs().max().item() * (1 / 254 + 2 ** -24)
+    if not torch.equal(q1, q2) or err > limit:
+        raise AssertionError(f"23d: int8 wire repeatable "
+                             f"{torch.equal(q1, q2)}, error {err} against "
+                             f"half a code {limit}")
+    del q1, q2, got
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    ms = {name: time_ms(fn, flush, reps=10) for name, fn in (
+        ("compiled", lambda: moe.all_to_all_dispatch(x, plan, backend)),
+        ("naive", lambda: moe.naive_all_to_all(x, backend)),
+        ("int8", lambda: moe.all_to_all_dispatch(x, plan, backend,
+                                                 wire_dtype="int8")))}
+    shard = cap * EP_DIM * 4
+    wire = n * (n - 1) * shard
+    log(f"[moe23d] dispatch of [{n}, {n}, {cap}, {EP_DIM}] f32 over "
+        f"compile_all_to_all(PodSpec(4, 2)) ({plan.permutes_per_period} "
+        f"permutes): bit-equal to the naive all-to-all, round trip exact, "
+        f"int8 repeatable within half a code ({err:.4g} <= {limit:.4g}); "
+        f"compiled {ms['compiled']:.3f} ms, naive {ms['naive']:.3f} ms, "
+        f"int8 {ms['int8']:.3f} ms; {wire / 1e6:.1f} MB on the wire a "
+        f"dispatch (f32)")
+    del x
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    traffic0 = fleet.traffic_snapshot()
+    timed = 3
+    step, params, opt, live, losses, spread0 = _ep_cycle(
+        backend, "cuda", seed, EP_DIM, EP_HIDDEN, EP_TOKENS)
+    w = step.default_comm_weights
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3, 3 + timed):
+        params, opt, loss, skipped, hv = step(params, opt, live, i, w)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / timed
+    syncs = _count_syncs(lambda: step(params, opt, live, 3 + timed, w))
+    steps = 4 + timed
+    sched = _ep_schedule()
+    router_bytes = params["router.w"][0].numel() * 4
+    want = {}
+    for i in range(steps):
+        for e in fleet.edge_list(sched[i % len(sched)]):
+            want[e] = want.get(e, 0.0) + router_bytes
+    billed = fleet.traffic_snapshot(since=traffic0)
+    rw = params["router.w"]
+    spread = (rw - rw.mean(0)).abs().max().item()
+    if not (torch.isfinite(torch.cat([losses, loss[None]], 0)).all()
+            and syncs == 0 and billed == want and spread < spread0):
+        raise AssertionError(
+            f"23d: losses {losses.tolist()}, host syncs {syncs}, edge "
+            f"account {billed} (want {want}), router spread {spread0} -> "
+            f"{spread}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    local = _ep_experts_local(step, params, opt, live, 4 + timed)
+    a2a = 4 * wire   # dispatch and return, forward and backward
+    log(f"[moe23d] expert-sharded step, {n} ranks x {EP_TOKENS} tokens, "
+        f"d {EP_DIM}, hidden {EP_HIDDEN}, {EP_EXPERTS} experts (two "
+        f"replicas each), capacity {cap}, atc over torus_one_peer_schedule("
+        f"(4, 2), 'exp2') with guard and health: kill of rank 5 -> heal -> "
+        f"return on one step object, mean losses "
+        f"{', '.join(f'{x:.5f}' for x in losses.mean(1).tolist())}; "
+        f"steady step "
+        f"{dt * 1e3:.2f} ms, {syncs} host syncs; router spread {spread0:.4g}"
+        f" -> {spread:.4g}, experts rank-local ({local}); wire a step: "
+        f"{a2a / 1e9:.3f} GB of all-to-all, {sum(want.values()) / steps:.0f}"
+        f" B of mixing (the router only, as bf_edge_bytes_total bills); "
+        f"peak {peak:.2f} GiB")
+    del step, params, opt, live
+    torch.cuda.empty_cache()
+
+
+def _phase23_reference(seed):
+    """23e: card against host: the tiny f32 MoE Llama (flash, D = 16, both
+    routers, capacity drops) forward and gradients, and a tiny 23d cycle
+    over 8 stacked ranks, each within phase 10's bound (1e-4 of each
+    leaf's largest entry plus 1e-7, losses 1e-5)."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.models.llama import llama_loss_fn
+
+    def close(what, got, want):
+        worst = 0.0
+        for k, w in want.items():
+            scale = w.abs().max().item()
+            err = (got[k] - w).abs().max().item()
+            worst = max(worst, err / max(scale, 1e-12))
+            if err > 1e-4 * scale + 1e-7:
+                raise AssertionError(f"23e {what}: {k} differs by {err} "
+                                     f"(largest entry {scale})")
+        return worst
+
+    for router in ("topk", "expert_choice"):
+        cfg = bt.LlamaConfig.tiny(
+            dtype=torch.float32, attn_impl="flash", n_experts=4,
+            moe_top_k=2, capacity_factor=0.5, moe_aux_weight=0.01,
+            moe_router=router,
+            allow_noncausal_router=router == "expert_choice")
+        init = bt.Llama(cfg, device="cpu", param_dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(seed)
+                        ).state_dict()
+        raw = torch.from_numpy(np.random.RandomState(seed).randint(
+            0, cfg.vocab_size, (2, 33)))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model = bt.Llama(cfg, device=dev, param_dtype=torch.float32)
+            model.load_state_dict(init)
+            params = {k: v.requires_grad_(True)
+                      for k, v in model.state().items()}
+            _reset_counts()
+            loss = llama_loss_fn(model)(params, (raw[:, :-1].to(dev),
+                                                 raw[:, 1:].to(dev)))
+            grads = torch.autograd.grad(loss, list(params.values()))
+            if dev == "cuda":
+                _expect_launches(f"23e tiny MoE Llama ({router})",
+                                 dict.fromkeys(FLASH_KERNELS, cfg.n_layers))
+            elif any(_launches().values()):
+                raise AssertionError("23e: the host run launched a kernel")
+            out[dev] = (loss.item(), {k: g.cpu() for k, g in
+                                      zip(params, grads)})
+        worst = close(f"tiny MoE Llama ({router})", out["cuda"][1],
+                      out["cpu"][1])
+        loss_err = abs(out["cuda"][0] - out["cpu"][0])
+        if loss_err > 1e-5:
+            raise AssertionError(f"23e: losses differ by {loss_err}")
+        log(f"[moe23e] tiny f32 MoE Llama ({router}, capacity factor 0.5, "
+            f"flash D=16): card vs host gradients agree to {worst:.3g} of "
+            f"each leaf's largest entry, losses to {loss_err:.3g}")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        backend = bt.StackedBackend(EP_RANKS, device=dev)
+        _, params, _, _, losses, _ = _ep_cycle(backend, dev, seed, 16, 32,
+                                               12, steps_after=1,
+                                               draw="cpu")
+        out[dev] = ({k: v.cpu() for k, v in params.items()}, losses.cpu())
+    worst = close("tiny expert-sharded cycle", out["cuda"][0], out["cpu"][0])
+    loss_err = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    if loss_err > 1e-5:
+        raise AssertionError(f"23e: cycle losses differ by {loss_err}")
+    log(f"[moe23e] tiny expert-sharded cycle (8 ranks, d 16, hidden 32, 12 "
+        f"tokens a rank; kill, heal, return and a live step): card vs host "
+        f"params agree to {worst:.3g} of each leaf's largest entry, losses "
+        f"to {loss_err:.3g}")
+
+
+def phase_moe(seed):
+    """Phase 23 (see the module docstring).  Returns the launches of its
+    counted runs (K2, K3a, K3b from 23a and 23b; K4 and K2 from 23c)."""
+    t0 = time.perf_counter()
+    launches = {}
+    for part in (_phase23_train, _phase23_ranks, _phase23_serve):
+        for k, n in part(seed).items():
+            launches[k] = launches.get(k, 0) + n
+    _phase23_ep(seed)
+    _phase23_reference(seed)
+    log(f"[moe23] phase 23 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5410,6 +6127,8 @@ def main() -> int:
     for kname, n in phase_sp(name, args.seed).items():
         launches[kname] += n
     for kname, n in phase_resilience(args.seed).items():
+        launches[kname] += n
+    for kname, n in phase_moe(args.seed).items():
         launches[kname] += n
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):

@@ -126,6 +126,9 @@ def test_dropping_the_last_live_split_is_a_different_result():
 @pytest.mark.parametrize("seq_len,pairs,sms,want", [
     (2048, 64, 132, 256),   # Llama-3.1-8B serving: B=8, KV=8 -> 8 splits
     (8192, 64, 132, 928),
+    (1024, 64, 132, 128),   # MoE serving at 8B width: 8 slots
+    (1024, 8, 132, 32),     # one row: 32 splits
+    (64, 8, 132, 32),       # a 64-position cache: 2 splits
     (77, 8, 132, 32),       # short caches: 32 positions per split
     (100, 1024, 132, 128),  # more pairs than 4 blocks per SM: one split
 ])

@@ -350,6 +350,36 @@ def test_kernel_check_rejects_noncausal_planted_faults():
             assert torch.equal(bad[:, :start], ref[key][:, :start])
 
 
+def test_kernel_check_rejects_planted_faults_within_one_tile():
+    """At the uncached rollout's shape (one 23-token causal row at 8B
+    width, under one tile) the faults lose a block of 8 keys within the
+    tile: rows from 8 on see only the keys of the blocks before their
+    own (out, dQ), and keys from 8 on lose the last group member (dK,
+    dV); the bound rejects each, and rows before 8 stay as they were."""
+    case = flash_check.CASES[flash_check.N_MODEL - 1]
+    b, t, h, kv, d, dtype, causal, q_off, kv_off = case
+    assert (b, t, causal, q_off, kv_off) == (1, 23, True, 0, 0)
+    g = torch.Generator().manual_seed(23)
+    q, do = (torch.randn(b, t, h, d, generator=g).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, t, kv, d, generator=g).to(dtype)
+            for _ in range(2))
+    out, lse = tfa.flash_forward_plain(q, k, v, True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    ref = dict(zip(("out", "dq", "dk", "dv"),
+                   (out, *tfa.flash_backward_plain(q, k, v, do, lse, delta,
+                                                   True))))
+    terms = flash_check.term_sizes(q, k, v, do, lse, delta, True)
+    faults = flash_check.planted_faults(q, k, v, do, lse, delta, ref,
+                                        tile=tfa.DQ_KEY_TILE)
+    assert [key for _, key, _ in faults] == ["out", "dq", "dk", "dv"]
+    for fault, key, bad in faults:
+        assert flash_check.mismatch(bad, ref[key], terms[key]) > 1, \
+            (fault, key)
+        assert torch.equal(bad[:, :8], ref[key][:, :8])
+        assert not torch.equal(bad[:, 8:], ref[key][:, 8:])
+
+
 def test_kernel_check_rejects_planted_faults(bf16_at_training_length):
     """The same bound rejects wrong kernels whose error lies only past
     T/2, where entries are smallest: a skipped diagonal key tile (out,

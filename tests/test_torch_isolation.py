@@ -53,7 +53,9 @@ def test_no_port_file_imports_jax_or_the_jax_package():
         "observe/stepprof", "serving/fleet", "parallel/ulysses", "data",
         "checkpoint", "_tree", "native/__init__", "resilience/detector",
         "resilience/healing", "resilience/runner", "elastic/__init__",
-        "elastic/bootstrap", "elastic/membership")} <= names
+        "elastic/bootstrap", "elastic/membership", "moe/__init__",
+        "moe/dispatch", "moe/layer", "topology/torus",
+        "topology/compiler")} <= names
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
            for p in files}
@@ -149,6 +151,8 @@ def _entry_points():
             tree, bt.MnistNet(device="cpu")),
         "init": lambda: bt.init(size=4),
         "BluefogContext": lambda: BluefogContext(4),
+        "init_moe_params": lambda: bt.moe.init_moe_params(
+            torch.Generator(), 8, 16, 4),
     }
 
 
@@ -161,7 +165,7 @@ def _entry_points():
                                   "ViT_B16", "MLP", "MnistNet",
                                   "vit_params_from_flax",
                                   "mlp_params_from_flax", "init",
-                                  "BluefogContext"])
+                                  "BluefogContext", "init_moe_params"])
 def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is valid here")

@@ -226,13 +226,15 @@ def test_config_maps_one_to_one():
 
 @pytest.mark.parametrize("over,match", [
     (dict(tp_axis="tp", tp_size=2), "tensor parallelism"),
-    (dict(n_experts=4), "MoE"),
-    (dict(decode=True, n_experts=4, capacity_factor=4.0), "MoE"),
+    (dict(n_experts=4, ep_axis="ep", ep_size=2), "MoE"),
+    (dict(decode=True, n_experts=4, capacity_factor=4.0, ep_axis="ep",
+          ep_size=2), "MoE"),
 ])
 def test_unported_knobs_raise_naming_the_slice(over, match):
     """Splash (K5) trains since slice 4 (tests/test_torch_splash.py),
     ring and Ulysses attention since slice 13
-    (tests/test_torch_llama_sp.py)."""
+    (tests/test_torch_llama_sp.py), the routed MoE at ep_size 1 since
+    slice 15 (tests/test_torch_moe.py): MoE over an expert axis waits."""
     with pytest.raises(NotImplementedError, match=match):
         bt.Llama(bt.LlamaConfig.tiny(**over), device="cpu")
 

@@ -259,11 +259,11 @@ def _refusals():
     cases = [
         lambda: bt.Llama(bt.LlamaConfig.tiny(tp_axis="tp", tp_size=2),
                          device="cpu"),
-        lambda: bt.Llama(bt.LlamaConfig.tiny(n_experts=4), device="cpu"),
+        lambda: bt.Llama(bt.LlamaConfig.tiny(n_experts=4, ep_axis="ep",
+                                             ep_size=2), device="cpu"),
         lambda: build(pp_axis="pp"),
         lambda: build(param_specs={}),
         lambda: build(opt_state_specs={}),
-        lambda: build(moe=object()),
         lambda: build(sp_axis=bt.SeqAxis("sp", 2),
                       batch_specs=("bf", "tp", "sp")),
     ]

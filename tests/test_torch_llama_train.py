@@ -198,14 +198,15 @@ def test_released_state_is_the_one_copy():
 @pytest.mark.parametrize("over,match", [
     (dict(tp_size=2, tp_axis="tp"), "tensor parallelism"),
     (dict(tp_size=2, tp_axis="tp", vocab_parallel=True), "TP decode"),
-    (dict(n_experts=2, moe_top_k=1), "MoE"),
-    (dict(n_experts=2), "moe/"),
+    (dict(n_experts=2, moe_top_k=1, ep_axis="ep", ep_size=2), "MoE"),
+    (dict(n_experts=2, ep_axis="ep", ep_size=2), "moe/"),
 ])
 def test_unported_training_knobs_raise_naming_their_item(over, match):
-    """splash (K5), remat_policy="dots" and ring/Ulysses attention are
-    ported (tests/test_torch_splash.py, tests/test_torch_remat.py,
-    tests/test_torch_llama_sp.py); what is still refused names its
-    ROADMAP item."""
+    """splash (K5), remat_policy="dots", ring/Ulysses attention and the
+    routed MoE at ep_size 1 are ported (tests/test_torch_splash.py,
+    tests/test_torch_remat.py, tests/test_torch_llama_sp.py,
+    tests/test_torch_moe.py); what is still refused (MoE over an expert
+    axis among it) names its ROADMAP item."""
     with pytest.raises(NotImplementedError, match=match) as info:
         bt.Llama(bt.LlamaConfig.tiny(**over), device="cpu")
     assert "ROADMAP.md" in str(info.value)

@@ -284,16 +284,16 @@ def test_prompt_filling_the_slot_is_exact(weights):
 
 
 def test_unported_options_raise(weights):
-    """The prefix cache, speculation, weight_quant, drain and profile are
-    ported (tests/test_torch_{prefix_cache,speculative,quant,
-    serving_resilience,observe}.py); what is left (MoE decode) raises
-    naming its item, and misused options are refused."""
+    """The prefix cache, speculation, weight_quant, drain, profile and
+    MoE decode are ported (tests/test_torch_{prefix_cache,speculative,
+    quant,serving_resilience,observe,moe_decode}.py); misused options are
+    refused: an MoE config over a dense model is another config."""
     with pytest.raises(TypeError, match="SpeculativeConfig"):
         _engine(weights, speculative=object())
     with pytest.raises(ValueError, match="quantize_llama_params"):
         _engine(weights, weight_quant="int8")
     moe = dataclasses.replace(weights[2], n_experts=4)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="another config"):
         ServingEngine(weights[3], moe, capacity=1, max_len=MAX_LEN,
                       prefill_chunk=4, device="cpu")
     other = bt.LlamaConfig.tiny(dtype=torch.float32, n_layers=3)

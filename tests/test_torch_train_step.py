@@ -205,7 +205,8 @@ def test_no_aux_step_and_adam():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(moe=object()), "item 10"),
+    (dict(moe=bt.MoEConfig(4, 2), sp_axis=bt.SeqAxis("sp", 2)),
+     "item 10"),
     (dict(opt_state_specs={}), "item 10"),
     (dict(pp_axis="pp"), "item 10"),
     (dict(param_specs={}), "item 10"),
