@@ -31,7 +31,10 @@ sampler, the native loader, ``device_prefetch``), checkpoints
 mixture-of-experts Llama (``models.llama``'s ``MoEFeedForward``, its
 dropless decode) and the expert-sharded step over the compiled
 all-to-all (``moe``, ``optim.MoEConfig``, ``topology.torus``,
-``topology.compiler``).  CUDA sources live in ``csrc/``.  Entry points
+``topology.compiler``), the closed-loop topology control plane
+(``topology.TopologyControlPlane``, ``run_resilient(control=)``) and the
+fleet simulator (``sim``, with the arrival generators of
+``benchutil``).  CUDA sources live in ``csrc/``.  Entry points
 take ``device=`` (default ``"cuda"``) and raise without CUDA unless
 ``device="cpu"`` is passed.
 """

@@ -8,7 +8,8 @@ timeline writers, the elastic membership policy, the knobs
 ``build_train_step`` reads, the MoE capacity factor, and the eager op
 layer's: logging, the timeline path, fusion, the stall watchdog, the op
 timeout, ``BLUEFOG_OPS_ON_CPU``, and the launcher's job: the process
-identity, ranks per process and the group's timeout).  The
+identity, ranks per process and the group's timeout; and the topology
+control plane's re-plan knobs).  The
 environment-variable names and defaults are the JAX package's, so one
 environment configures both packages.  Every environment read of the
 port lives in this module.
@@ -35,6 +36,7 @@ __all__ = [
     "ranks_per_process",
     "process_group_timeout",
     "environ_passthrough",
+    "observe",
     "observe_raw",
     "timeline_flush_every",
     "timeline_queue_capacity",
@@ -56,6 +58,12 @@ __all__ = [
     "moe_capacity_factor",
     "elastic_bootstrap_rounds",
     "elastic_quarantine_threshold",
+    "topology_replan_window",
+    "topology_replan_patience",
+    "topology_replan_degrade_ratio",
+    "topology_replan_margin",
+    "topology_replan_cooldown",
+    "topology_replan_probation",
 ]
 
 
@@ -197,10 +205,18 @@ def environ_passthrough(base=None) -> dict:
     return dict(os.environ if base is None else base)
 
 
-def observe_raw() -> bool:
+def observe() -> bool:
     """BLUEFOG_OBSERVE (default on): whether the built-in publishers
-    write into the observability registry/tracer; ``0`` opts out.  Read
-    through :func:`bluefog_tpu_torch.observe.registry.enabled`."""
+    write into the observability registry/tracer
+    (:mod:`bluefog_tpu_torch.observe`).  ``0`` opts out."""
+    return observe_raw()
+
+
+def observe_raw() -> bool:
+    """The raw BLUEFOG_OBSERVE read.
+    :func:`bluefog_tpu_torch.observe.registry.enabled` is the public gate
+    the publishers call; it delegates here so the environment access
+    itself lives in this module."""
     return _env("BLUEFOG_OBSERVE", "1") not in ("0", "false", "False")
 
 
@@ -427,3 +443,79 @@ def elastic_quarantine_threshold() -> float:
         return float(_env("BLUEFOG_ELASTIC_QUARANTINE_THRESHOLD", "1.0"))
     except ValueError:
         return 1.0
+
+
+def topology_replan_window() -> int:
+    """BLUEFOG_TOPOLOGY_REPLAN_WINDOW (steps, default 8): how often the
+    topology control plane (:class:`bluefog_tpu_torch.topology.control.
+    TopologyControlPlane`) takes a telemetry window — per-edge
+    byte/second DELTAS, straggler z snapshot, live-set — and re-scores
+    the incumbent schedule against it.  Larger windows smooth noise;
+    smaller ones react faster."""
+    try:
+        return max(1, int(_env("BLUEFOG_TOPOLOGY_REPLAN_WINDOW", "8")))
+    except ValueError:
+        return 8
+
+
+def topology_replan_patience() -> int:
+    """BLUEFOG_TOPOLOGY_REPLAN_PATIENCE (windows, default 2): consecutive
+    DEGRADED telemetry windows before the control plane triggers a
+    background re-synthesis — the debounce half of the hysteresis pair
+    (one noisy window never re-plans).  A live-set transition (death,
+    promotion) bypasses patience: membership is structural, not
+    noise."""
+    try:
+        return max(1, int(_env("BLUEFOG_TOPOLOGY_REPLAN_PATIENCE", "2")))
+    except ValueError:
+        return 2
+
+
+def topology_replan_degrade_ratio() -> float:
+    """BLUEFOG_TOPOLOGY_REPLAN_DEGRADE (default 1.3): a telemetry window
+    counts as degraded when some active edge's measured
+    seconds-per-activation (normalized by its nominal link cost)
+    exceeds the fleet-wide median by this factor — a RELATIVE test, so
+    uniform load (every link equally busy) never trips it and the units
+    of the seconds counters cancel out."""
+    try:
+        return float(_env("BLUEFOG_TOPOLOGY_REPLAN_DEGRADE", "1.3"))
+    except ValueError:
+        return 1.3
+
+
+def topology_replan_margin() -> float:
+    """BLUEFOG_TOPOLOGY_REPLAN_MARGIN (default 0.05): fractional
+    cost-to-consensus improvement a synthesized candidate must show
+    over the RE-SCORED incumbent to be accepted for a hot swap — the
+    anti-flap half of the hysteresis pair (a candidate that merely
+    ties the incumbent is noise, and swapping on noise would oscillate
+    between near-equal plans)."""
+    try:
+        return float(_env("BLUEFOG_TOPOLOGY_REPLAN_MARGIN", "0.05"))
+    except ValueError:
+        return 0.05
+
+
+def topology_replan_cooldown() -> int:
+    """BLUEFOG_TOPOLOGY_REPLAN_COOLDOWN (steps, default 16): minimum
+    steps between topology swaps (and after a rollback, before the
+    next trigger may fire).  Bounds the worst-case swap rate no matter
+    how noisy telemetry gets."""
+    try:
+        return max(0, int(_env("BLUEFOG_TOPOLOGY_REPLAN_COOLDOWN", "16")))
+    except ValueError:
+        return 16
+
+
+def topology_replan_probation() -> int:
+    """BLUEFOG_TOPOLOGY_REPLAN_PROBATION (steps, default 8): how long a
+    freshly swapped-in schedule is on probation — the control plane
+    watches the consensus-distance health signal and rolls back to the
+    incumbent if it worsens past the pre-swap baseline; after this
+    many clean steps the candidate is committed as the new
+    incumbent."""
+    try:
+        return max(1, int(_env("BLUEFOG_TOPOLOGY_REPLAN_PROBATION", "8")))
+    except ValueError:
+        return 8

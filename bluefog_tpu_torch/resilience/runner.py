@@ -59,7 +59,9 @@ class ResilienceEvent:
     """One entry of the run's event log: ``kind`` in {"checkpoint",
     "skip", "rank_dead", "rollback", "straggler",
     "bad_window_unattributed", "rank_joining", "rank_promoted",
-    "rank_join_failed"};
+    "rank_join_failed"}, plus the ``topology_*`` kinds of the topology
+    control plane when the run was started with ``control=`` (their
+    ``detail`` carries the plane's reason/schedule/score fields);
     ``step`` is the step index the event fired at;
     ``detail`` carries kind-specific fields (rollback:
     ``restored_step``, ``backoff``, ``dead``; straggler: ``ranks``,
@@ -169,8 +171,19 @@ def run_resilient(
     never mix into the fleet as live weight.  Requires ``schedule=``;
     while elastic is on, the controller owns ``comm_weights``.
 
-    ``control`` (the JAX package's topology control plane) is not ported
-    yet and raises ``NotImplementedError``.
+    ``control`` (a :class:`bluefog_tpu_torch.topology.
+    TopologyControlPlane` built over this step's schedule as its
+    carrier) closes the topology loop: at every step boundary the loop
+    calls ``control.on_step(step, dead_mask=, params=)`` and, after a
+    ``topology_swap`` or ``topology_rollback``, re-delivers the plane's
+    ACTIVE schedule healed under the current dead mask (swap and heal
+    compose in ``swap_comm_weights``) as the step's ``comm_weights``:
+    new data, carrier-shaped, for the same step object.  When elastic is
+    also on, a swap ``reschedule``-s the ``MembershipController`` onto
+    the new specs and the controller keeps owning ``comm_weights``.
+    Requires ``schedule=``; flat steps only (a hierarchical schedule is
+    machine-level while the plane projects rank-level candidates), with
+    every rank in this process.
     """
     if not hasattr(train_step, "default_comm_weights"):
         raise ValueError(
@@ -182,12 +195,6 @@ def run_resilient(
             "(params, opt_state, batch, step, comm_weights); a "
             "has_aux=True guarded step takes an extra aux tree — drive "
             "it with your own loop, or fold the aux state into params")
-    if control is not None:
-        raise NotImplementedError(
-            "run_resilient(control=...) needs the topology control plane "
-            "(topology/control.py), which is not ported to "
-            "bluefog_tpu_torch yet; see ROADMAP.md Queue 1, item 12 "
-            "(topology)")
     # policy default: the GuardConfig the step was BUILT with (attached
     # by build_train_step) — passing guard= here only to repeat it
     # would be a silent-drift trap
@@ -206,15 +213,46 @@ def run_resilient(
     # detector stays RANK-level, and every heal delivery collapses the
     # rank mask through the machine failure domain
     hier_l = getattr(train_step, "hierarchical_local_size", None)
+    if control is not None:
+        if not schedule:
+            raise ValueError(
+                "run_resilient(control=...) needs schedule= — the "
+                "control plane is a weight re-plan over the step's "
+                "carrier specs")
+        if hier_l:
+            raise ValueError(
+                "run_resilient(control=...) does not drive a "
+                "hierarchical step: the plane projects RANK-level "
+                "candidates while a hierarchical schedule is "
+                "MACHINE-level — synthesize hierarchically offline or "
+                "train flat")
+        if len(control.carrier) != len(schedule):
+            raise ValueError(
+                f"control plane carrier has {len(control.carrier)} "
+                f"rounds but the step's schedule has {len(schedule)} — "
+                "build the plane over the schedule the step compiled")
+        if gather is not None:
+            raise ValueError(
+                "run_resilient(control=...) needs every rank's rows in "
+                "this process (a StackedBackend): the plane's probation "
+                "health reads every rank-major leaf, as the JAX "
+                "package's reads fully addressable arrays")
 
     def heal(dead_mask):
+        # with a control plane, healing applies to the ACTIVE (possibly
+        # swapped) schedule, not the build-time one — a heal right
+        # after a hot swap must not silently revert the swap
+        if control is not None:
+            return control.healed_weights(dead_mask)
         if hier_l:
             return healed_hierarchical_comm_weights(
                 schedule, dead_mask, hier_l)
         return healed_comm_weights(schedule, dead_mask)
 
     dead = detector.dead_mask()
-    if schedule and dead.any():
+    if schedule and (dead.any() or control is not None):
+        # the control plane's initial active plan may differ from the
+        # carrier's own weights (``initial=``) — deliver it up front
         comm_weights = heal(dead)
 
     controller = None
@@ -254,6 +292,10 @@ def run_resilient(
         admit_fn = elastic.admit
         if admit_fn is None and fault_plan is not None:
             admit_fn = fault_plan.rejoinable_ranks
+        if control is not None:
+            # the controller renders weights over the plane's ACTIVE
+            # plan (swap-aware) while keeping membership authority
+            controller.reschedule(control.active_schedule())
         comm_weights = controller.comm_weights()
 
     events: List[ResilienceEvent] = []
@@ -541,6 +583,23 @@ def run_resilient(
             if backoff > 0:
                 sleep(backoff)
             continue
+
+        if control is not None:
+            # step boundary: the plane may hand back a swap (accepted
+            # candidate), a probation verdict, or telemetry-window
+            # transitions — re-deliver weights whenever the active
+            # schedule changed hands
+            acts = control.on_step(step, dead_mask=detector.dead_mask(),
+                                   params=params)
+            for kind, detail in acts:
+                emit(kind, step, **detail)
+            if any(k in ("topology_swap", "topology_rollback")
+                   for k, _ in acts):
+                if controller is not None:
+                    controller.reschedule(control.active_schedule())
+                    comm_weights = controller.comm_weights()
+                else:
+                    comm_weights = heal(detector.dead_mask())
 
         if (force_ckpt or (checkpoint_every > 0
                            and step % checkpoint_every == 0)) \

@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Union
 
@@ -166,10 +167,25 @@ def _fold_seed(seed: int, count: int, salt: int = 0) -> int:
     return int(ss.generate_state(1, np.uint64)[0])
 
 
+_draw_generators = threading.local()
+
+
+def _generator(device: torch.device) -> torch.Generator:
+    """This thread's generator on ``device``, reused for every draw:
+    ``manual_seed`` resets its whole state, so a draw gives the bits of a
+    fresh generator with the draw's seed."""
+    cache = getattr(_draw_generators, "by_device", None)
+    if cache is None:
+        cache = _draw_generators.by_device = {}
+    g = cache.get(device)
+    if g is None:
+        g = cache[device] = torch.Generator(device)
+    return g
+
+
 def _uniform(req: Request, count: int, salt: int, n: int,
              device: torch.device) -> torch.Tensor:
-    g = torch.Generator(device).manual_seed(_fold_seed(req.seed, count,
-                                                       salt))
+    g = _generator(device).manual_seed(_fold_seed(req.seed, count, salt))
     return torch.rand(n, generator=g, device=device)
 
 

@@ -1,12 +1,10 @@
 """Virtual topology library of the port: static graph generators,
 weights, dynamic schedules, reverse-edge inference (``infer``), the
 device-ready ``Topology`` spec, the torus schedules and congestion
-accounting (``torus``) and the topology compiler (``compiler``, with
-the all-to-all schedule the MoE dispatch runs): ``bluefog_tpu.
-topology``'s counterpart, numpy only.
-
-``control`` (the topology control plane) waits for a later slice
-(ROADMAP.md, Queue 1, item 12, the topology part).
+accounting (``torus``), the topology compiler (``compiler``, with
+the all-to-all schedule the MoE dispatch runs) and the closed-loop
+topology control plane (``control``: detect, re-plan, hot-swap the
+combine weights as data): ``bluefog_tpu.topology``'s counterpart.
 """
 
 from bluefog_tpu_torch.topology.graphs import (  # noqa: F401
@@ -66,4 +64,9 @@ from bluefog_tpu_torch.topology.compiler import (  # noqa: F401
     compile_topology,
     expand_machine_pairs,
     menu_schedules,
+)
+from bluefog_tpu_torch.topology.control import (  # noqa: F401
+    TopologyControlPlane,
+    swap_comm_weights,
+    swap_mix_ratio,
 )

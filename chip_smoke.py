@@ -246,7 +246,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    once, and one request arrives a round through router.submit.  Each
    run with the launch counts reset just before and read just after (K4
    n_layers x decode steps summed over replicas, draft steps included):
-   a. 24 requests (prompts 16-1500 tokens, 8 of them a shared 1024-token
+   a. 12 requests (prompts 16-1500 tokens, 4 of them a shared 1024-token
       prefix, 32-128 new tokens, half greedy and half at temperature
       0.8): every request completes its budget with finite logits;
       placements per replica, fleet tokens/s, TTFT p50 and p99,
@@ -255,7 +255,11 @@ Phases (any failure raises and exits non-zero, printing no result):
       replica (tokens/s beside the fleet's; one card's replicas share its
       SMs and host thread, so the pair is not a scaling number).
    b. The same requests with replica 1 behind a FaultyReplica that dies
-      at its 20th step: the staleness guard (0.5 s) excises it,
+      at its 20th step, on a round clock (the harness seconds at the
+      start of the round: the replicas of a fleet step side by side, so
+      a live one's heartbeat is as old as the round, whatever the steps
+      of the others on this one host thread cost): the staleness guard
+      (0.5 s) excises it at the first poll past the window,
       failover_stranded(resubmit=router.submit) moves its requests to
       the survivors, and every request completes; polls to excision,
       the time from death to the last moved request's first new token,
@@ -290,7 +294,7 @@ Phases (any failure raises and exits non-zero, printing no result):
       off-diagonal block (q_offset 2048, kv_offset 0): kernel, plain,
       bound and SDPA ms (causal, non-causal), launches a 21b ring step.
    b. training on 1 rank, batch 1 x 8192, SGD(1e-3, momentum 0.9), 3
-      warm-up and 10 timed steps each: (i) attn_mode "full" with flash,
+      warm-up and 5 timed steps each: (i) attn_mode "full" with flash,
       (ii) ring + flash and (iii) Ulysses + flash, both over SeqAxis("sp",
       4) with batch_specs ("bf", None, "sp"): tokens/s per card, step ms,
       MFU, peak memory, the losses; K2, K3a and K3b launched n_layers x
@@ -395,11 +399,36 @@ Phases (any failure raises and exits non-zero, printing no result):
    e. Card against host (phase 10's bound): a tiny f32 MoE Llama (flash,
       D = 16, both routers, capacity factor 0.5) forward and gradients,
       and a tiny 23d cycle over 8 ranks.
+24. The topology control plane and the fleet simulator:
+   a. ViT-B/16 at full width and depth over 8 stacked ranks of 32 random
+      images (22b's K2/K3a/K3b shape), guarded atc over a 4-round
+      carrier declaring shifts 1, 2, 4, 6, 7, under run_resilient(
+      control=TopologyControlPlane(PodSpec(4, 2, ici_cost=1.0,
+      dcn_cost=4.0), ..., synchronous=True)) for 22 steps, checkpoints
+      at 0 and 12: a LinkWire bills the plane's registry each step from a
+      FaultPlan that slows DCN links (0, 2) and (1, 3) 4x from step 2
+      (trigger, swap, commit), and kills ranks 6 and 7 at step 13
+      (rank_dead, rollback to 12, a membership trigger, swap, commit).
+      The port's SimTrainingFleet on the same congestion makes the same
+      decisions at the same steps with the same candidate and costs;
+      every swap's weights equal swap_comm_weights(plane, dead) and
+      every call's weights are carrier-shaped; the live params finite.
+      Step wall before and after the swap (img/s per card), on_step's
+      host ms, one probation health read's CUDA-event ms, peak memory.
+   b. Llama-3.1-8B at full width and depth in bf16 as phase 20 builds it
+      (capacity 8, max_len 2048, prefill chunk 256: K4 at B=8, S=2048):
+      sim.measure_step_cost(engine, prompts, timer=time.perf_counter) on
+      one engine at full slots; then 3 real engines on one VirtualClock
+      behind FleetRouter and SimServingFleet under a CostModel with that
+      cost, on one RequestTrace from the port's poisson_arrivals and one
+      router seed: every routing decision bit-equal, and the ticks,
+      makespan, tokens and virtual TTFTs equal.  The measured step cost
+      and the simulated makespan.
 
 The line before the last is a JSON object with one entry per kernel
-(seven; K4's launches are phase 3's, 19's, 20's and 23c's; K2's, K3a's
-and K3b's phase 8's, 21b's, 21c's, 22b's, 23a's and 23b's, K2's 23c's
-rollout too); the last line is {"ok": true, "device": {...}}.
+(seven; K4's launches are phase 3's, 19's, 20's, 23c's and 24b's; K2's,
+K3a's and K3b's phase 8's, 21b's, 21c's, 22b's, 23a's, 23b's and 24a's,
+K2's 23c's rollout too); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -3536,7 +3565,7 @@ def _f32_reference(cfg):
     return ref
 
 
-def _explain_flips(model, cfg, pairs, what):
+def _explain_flips(model, cfg, pairs, what, paths=None):
     """Each pair is (request, reference tokens, tokens).  Where the two
     greedy (or sampled) streams first part, the flip must sit at a
     near-tie: the two tokens' margin in the multi-token path's logits
@@ -3546,12 +3575,16 @@ def _explain_flips(model, cfg, pairs, what):
     rounding can move a margin there.  That gap is itself held to a
     ceiling that neither path sets: each path's sup-norm distance to the
     f32 forward over the same weights must stay within
-    ``PATH_ERR_CEILING`` times the uncached bf16 forward's.  Returns the
-    number of streams that differ."""
+    ``PATH_ERR_CEILING`` times the uncached bf16 forward's.  ``paths``,
+    a dict the caller keeps across calls over the same ``model``, holds
+    ``_four_paths``' logits by (prompt, tokens before the flip): two
+    runs that part from one reference at the same place read them once.
+    Returns the number of streams that differ."""
     from bluefog_tpu_torch.serving.engine import _gumbel
 
     n_diff = 0
     ref_model = None
+    paths = {} if paths is None else paths
     for req, ref, got in pairs:
         ref, got = list(ref), list(got)
         j = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
@@ -3559,10 +3592,13 @@ def _explain_flips(model, cfg, pairs, what):
         if j is None:
             continue
         n_diff += 1
-        if ref_model is None:
-            ref_model = _f32_reference(cfg)
-        whole, k4, plain, f32 = _four_paths(model, ref_model, cfg,
-                                            req.prompt, ref[:j])
+        key = (req.prompt.tobytes(), tuple(ref[:j]))
+        if key not in paths:
+            if ref_model is None:
+                ref_model = _f32_reference(cfg)
+            paths[key] = _four_paths(model, ref_model, cfg, req.prompt,
+                                     ref[:j])
+        whole, k4, plain, f32 = paths[key]
         e_whole, e_k4, e_plain = ((x - f32).abs().max().item()
                                   for x in (whole, k4, plain))
         if max(e_whole, e_k4) > PATH_ERR_CEILING * e_plain:
@@ -3858,6 +3894,7 @@ def _phase19_spec(model, cfg, seed, rng, tally):
     dcfg = dataclasses.replace(cfg, n_layers=2)
     small = bt.Llama(dcfg, device="cuda",
                      generator=torch.Generator("cuda").manual_seed(seed + 1))
+    paths = {}
     for name, draft, draft_cfg in (("self-draft", model, cfg),
                                    ("2-layer draft", small, dcfg)):
         spec = SpeculativeConfig(draft, draft_cfg, lookahead=LOOKAHEAD)
@@ -3870,7 +3907,7 @@ def _phase19_spec(model, cfg, seed, rng, tally):
                        * (LOOKAHEAD + 1) * m["spec_steps"]}, tally)
         n_diff = _explain_flips(model, cfg, [(r, b.tokens, r.tokens)
                                              for r, b in zip(run, base)],
-                                f"19d {name}")
+                                f"19d {name}", paths)
         _log_serve(f"19d {name}, lookahead {LOOKAHEAD}", m, wall, peak,
                    f"; accepted {m['accepted_per_step']:.3f} tokens a step "
                    f"over {m['spec_steps']} steps; K4 launches "
@@ -3881,7 +3918,7 @@ def _phase19_spec(model, cfg, seed, rng, tally):
             raise AssertionError("19d: the self-draft accepted nothing")
         del eng
         torch.cuda.empty_cache()
-    del small
+    del small, paths
     torch.cuda.empty_cache()
 
 
@@ -3993,7 +4030,7 @@ def phase_serving_rest(seed):
 # phase 20: the serving fleet at Llama-3.1-8B's width and depth
 # ------------------------------------------------------------------ #
 FLEET = 3            # replicas on the one card
-FLEET_REQS = 24      # 20a's requests, one arrival a round
+FLEET_REQS = 12      # 20a's requests, one arrival a round
 STALE_S = 0.5        # 20b's staleness window, harness seconds
 DEATH_STEP = 20      # 20b: replica 1 dies at its 20th step
 
@@ -4009,8 +4046,27 @@ class _HarnessClock:
         return time.perf_counter() - self.t0
 
 
+class _RoundClock(_HarnessClock):
+    """20b's clock: the harness seconds at the start of the current
+    round (``tick``).  On this card the replicas step one after another
+    on one host thread; in a fleet they step side by side.  Every step
+    of a round, and the poll after them, read the round's start, so a
+    live replica's heartbeat is never older than the round, and a dead
+    one's ages by the wall time of the rounds since its last step."""
+
+    def __init__(self):
+        super().__init__()
+        self.t = 0.0
+
+    def tick(self):
+        self.t = time.perf_counter() - self.t0
+
+    def __call__(self):
+        return self.t
+
+
 def _fleet_reqs(rng, vocab):
-    """20a's requests: prompts of 16-1500 tokens (8 of them a shared
+    """20a's requests: prompts of 16-1500 tokens (4 of them a shared
     1024-token prefix and a 16-476-token tail), 32-128 new tokens, half
     greedy and half at temperature 0.8."""
     from bluefog_tpu_torch.serving import Request
@@ -4046,12 +4102,15 @@ def _drive_fleet(replicas, router, reqs, clock, twin=None, on_round=None,
     """Arrivals through ``router.submit``, one a round; each round steps
     every live replica, then polls the router once (and ``twin``, a
     second router over the same registries, which must rank alike).
-    ``on_round(snap)`` runs after each poll.  Returns (placements, rounds,
-    wall seconds)."""
+    A round clock ticks at each round's start.  ``on_round(snap)`` runs
+    after each poll.  Returns (placements, rounds, wall seconds)."""
     placed, rounds = [], 0
     t0 = time.perf_counter()
+    tick = getattr(clock, "tick", lambda: None)
+    tick()
     snap = router.poll()
     while rounds < max_rounds:
+        tick()
         if len(placed) < len(reqs):
             i, _ = router.submit(reqs[len(placed)], snapshot=snap)
             placed.append(i)
@@ -4221,23 +4280,28 @@ def _phase20_failover(model, cfg, reqs, base, tally):
     from bluefog_tpu_torch.serving import (FaultyReplica, FleetRouter,
                                            PrefixCache, failover_stranded)
 
-    clock = _HarnessClock()
+    clock = _RoundClock()
     cache = PrefixCache(256, 4 << 30)
     engines = _fleet_engines(model, cfg, clock, cache)
     plan = ServingFaultPlan.replica_death(FLEET, 1, step=DEATH_STEP)
     reps = [FaultyReplica(e, plan, i) for i, e in enumerate(engines)]
     router = FleetRouter(reps, stale_after=STALE_S)
     run = _clones(reqs)
-    st = dict(death=None, polls=0, excised=None, moved=[], resumed={})
+    st = dict(death=None, polls=0, excised=None, moved=[], resumed={},
+              prev=None, window=None)
 
     def on_round(snap):
         now = clock()
+        if any(snap.suspect[i] for i in range(FLEET) if i != 1):
+            raise AssertionError(f"20b: a live replica went suspect "
+                                 f"(ages {snap.ages})")
         if st["death"] is None and reps[1].dead:
             st["death"] = now
         if st["death"] is not None and st["excised"] is None:
             st["polls"] += 1
             if snap.suspect[1]:
                 st["excised"] = now
+                st["window"] = (st["prev"], snap.ages[1])
                 n0 = {r.rid: len(r.tokens) for r in
                       list(engines[1]._running.values())}
                 moved, expired = failover_stranded(reps[1], router.submit)
@@ -4248,6 +4312,7 @@ def _phase20_failover(model, cfg, reqs, base, tally):
         for r, n in st["moved"]:
             if r.rid not in st["resumed"] and len(r.tokens) > n:
                 st["resumed"][r.rid] = now
+        st["prev"] = snap.ages[1]
 
     torch.cuda.synchronize()
     _reset_counts()
@@ -4260,9 +4325,12 @@ def _phase20_failover(model, cfg, reqs, base, tally):
     if st["excised"] is None or not st["moved"]:
         raise AssertionError("20b: replica 1 was not excised with requests")
     age = st["excised"] - engines[1].metrics.last_step_ts
-    if age > STALE_S + 1.0:
-        raise AssertionError(f"20b: excised {age:.2f} s after its last "
-                             f"heartbeat (stale_after {STALE_S})")
+    prev, seen = st["window"]
+    if not (seen == age > STALE_S >= prev):
+        raise AssertionError(f"20b: excised {age:.3f} s after its last "
+                             f"heartbeat (the router saw {seen:.3f} s, "
+                             f"{prev:.3f} s a poll before; stale_after "
+                             f"{STALE_S}): not the first poll past it")
     _check_done(run, "20b", engines)
     resumed = max(st["resumed"].values()) if st["resumed"] else None
     if resumed is None or len(st["resumed"]) != len(st["moved"]):
@@ -4749,7 +4817,7 @@ def _phase21_train(seed):
     within SP_LOSS_LIMIT of (i)'s, and the same steps with a ring pair
     left out or Ulysses' head groups mispaired beyond it.  Returns the
     windows' launches."""
-    warmup, timed = 3, 10
+    warmup, timed = 3, 5
     n_layers = 4
     steps = warmup + timed
     total = dict.fromkeys(FLASH_KERNELS, 0)
@@ -6069,6 +6137,481 @@ def phase_moe(seed):
     return launches
 
 
+# ------------------------------------------------------------------ #
+# phase 24: the topology control plane and the fleet simulator
+# ------------------------------------------------------------------ #
+P24_RANKS, P24_BATCH = 8, 32     # 8 stacked ranks of 32 images (22b's shape)
+P24_STEPS, P24_EVERY = 22, 12    # 24a's steps; checkpoints at 0 and 12
+P24_CONGEST, P24_KILL = 2, 13    # DCN links slow from step 2; 6, 7 die at 13
+P24_SHIFTS = (1, 2, 4, 6, 7)     # the carrier's declared shifts
+P24_WIRE_UNIT = 1e-3             # virtual seconds per unit of pod cost
+P24_REQS = 24                    # 24b's requests
+
+
+def _p24_pod(TT):
+    return TT.PodSpec(4, 2, ici_cost=1.0, dcn_cost=4.0)
+
+
+def _p24_carrier(TT):
+    """4 rounds, each declaring the full permutations of shifts 1, 2, 4,
+    6 and 7: every candidate of the plane is weight data over them."""
+    w = 1.0 / (len(P24_SHIFTS) + 1)
+    ew = {(i, (i + s) % P24_RANKS): w for s in P24_SHIFTS
+          for i in range(P24_RANKS)}
+    return [TT.DynamicTopology.from_edges(P24_RANKS, ew,
+                                          [w] * P24_RANKS)] * 4
+
+
+def _p24_initial(TT):
+    """The running plan: three machine-ring DCN rounds and one ICI round
+    a period (benchmarks/chaos_adaptive_topology.py's incumbent)."""
+    def dcn(direction):
+        order = list(range(4)) if direction > 0 else [3, 2, 1, 0]
+        pairs = TT.expand_machine_pairs(
+            [(order[i], order[(i + 1) % 4]) for i in range(4)], 2)
+        return TT.DynamicTopology.from_edges(
+            P24_RANKS, {p: 0.5 for p in pairs}, [0.5] * P24_RANKS)
+
+    ici = {}
+    for m in range(4):
+        ici[(2 * m, 2 * m + 1)] = ici[(2 * m + 1, 2 * m)] = 0.5
+    return [dcn(+1), TT.DynamicTopology.from_edges(
+        P24_RANKS, ici, [0.5] * P24_RANKS), dcn(+1), dcn(-1)]
+
+
+def _p24_congestion(R):
+    """The DCN links of machine link 0 -> 1 (rank pairs (0, 2) and
+    (1, 3)) carry bytes 4x slower from step P24_CONGEST on."""
+    plan = R.FaultPlan.congest_link(P24_RANKS, 0, 2, 4.0,
+                                    start=P24_CONGEST, duration=1000)
+    return plan.merged(R.FaultPlan.congest_link(
+        P24_RANKS, 1, 3, 4.0, start=P24_CONGEST, duration=1000))
+
+
+def _p24_plane(TT, registry):
+    return TT.TopologyControlPlane(
+        _p24_pod(TT), _p24_carrier(TT), registry=registry, window=4,
+        patience=2, degrade_ratio=1.3, margin=0.05, cooldown=4,
+        probation=3, rollback_tolerance=4.0, contention=3.0,
+        synchronous=True, initial=_p24_initial(TT))
+
+
+def _p24_wire(S, TT, plane, registry, plan, dead_fn):
+    return S.LinkWire(
+        _p24_pod(TT), registry,
+        schedule_fn=lambda s: plane.active_schedule()[s % 4],
+        dead_fn=dead_fn, congestion_fn=plan.congested_links,
+        wire_unit=P24_WIRE_UNIT, period=4)
+
+
+def _p24_sim_events(steps):
+    """The port's SimTrainingFleet on 24a's congestion (no deaths) over
+    ``steps`` steps: its topology events as (kind, step, detail)."""
+    import bluefog_tpu_torch.resilience as R
+    from bluefog_tpu_torch import sim as S
+    from bluefog_tpu_torch import topology as TT
+    from bluefog_tpu_torch.observe.registry import MetricsRegistry
+
+    reg = MetricsRegistry()
+    plan = _p24_congestion(R)
+    plane = _p24_plane(TT, reg)
+    wire = _p24_wire(S, TT, plane, reg, plan,
+                     lambda: np.zeros(P24_RANKS, bool))
+    fleet = S.SimTrainingFleet(
+        control=plane, wire=wire, fault_plan=plan,
+        cost=S.CostModel(train_step_s=1e-3, wire_unit_s=P24_WIRE_UNIT))
+    fleet.run(steps)
+    return [e for e in fleet.events if e[0].startswith("topology_")]
+
+
+def _p24_control(cfg, dev, seed, tmp):
+    """24a: ViT ``cfg`` over 8 stacked ranks on ``dev`` under
+    run_resilient(control=TopologyControlPlane(...)): a LinkWire bills the
+    plane's registry from a plan that congests one DCN link (trigger,
+    swap, commit), then kills ranks 6 and 7 (rank_dead, rollback,
+    membership trigger, swap, commit).  Returns a dict of the run's
+    results and measurements."""
+    import torch.nn.functional as F
+
+    import bluefog_tpu_torch as bt
+    import bluefog_tpu_torch.resilience as R
+    from bluefog_tpu_torch import sim as S
+    from bluefog_tpu_torch import topology as TT
+    from bluefog_tpu_torch.checkpoint import Checkpointer
+    from bluefog_tpu_torch.observe.registry import MetricsRegistry
+    from bluefog_tpu_torch.topology import control as TC
+
+    model = bt.ViT(cfg, device=dev,
+                   generator=torch.Generator(dev).manual_seed(seed))
+    backend = bt.StackedBackend(P24_RANKS, device=dev)
+    params = bt.rank_major(model.state(), backend)
+    opt = torch.optim.SGD(params.values(), lr=1e-3, momentum=0.9)
+    carrier = _p24_carrier(TT)
+
+    def loss_fn(p, b):
+        return F.cross_entropy(model.apply(p, b[0]), b[1])
+
+    step = bt.build_train_step(loss_fn, opt, backend, comm_mode="atc",
+                               schedule=carrier, guard=bt.GuardConfig())
+    g = torch.Generator(dev).manual_seed(seed + 24)
+    size = cfg.image_size
+    batches = [(torch.rand(P24_RANKS, P24_BATCH, size, size, 3, generator=g,
+                           device=dev).mul_(2).sub_(1).to(cfg.dtype),
+                torch.randint(0, cfg.num_classes, (P24_RANKS, P24_BATCH),
+                              generator=g, device=dev)) for _ in range(4)]
+
+    reg = MetricsRegistry()
+    plan = _p24_congestion(R).merged(R.FaultPlan(P24_RANKS, [
+        R.Fault(P24_KILL, 6, "dead"), R.Fault(P24_KILL, 7, "dead")]))
+    plane = _p24_plane(TT, reg)
+    det = R.FailureDetector(P24_RANKS)
+    wire = _p24_wire(S, TT, plane, reg, plan, det.dead_mask)
+
+    def batch_fn(s):
+        # a pure function of the step; the wire bills each step call
+        wire.bill(s)
+        return batches[s % len(batches)]
+
+    ref = [(tuple(cw.shape), tuple(sw.shape), cw.dtype)
+           for cw, sw in step.default_comm_weights]
+    pending, calls, delivered = [], [], []
+
+    def recorded(p, o, batch, i, weights):
+        # one step object; carrier-shaped weights at every call, and the
+        # first call after a swap or rollback runs swap_comm_weights
+        if [(tuple(cw.shape), tuple(sw.shape), cw.dtype)
+                for cw, sw in weights] != ref:
+            raise AssertionError(f"24a: step {i} got weights shaped "
+                                 f"unlike the carrier's")
+        if pending:
+            want = pending.pop()
+            for (cw, sw), (wcw, wsw) in zip(weights, want, strict=True):
+                if not (torch.equal(cw.cpu(), wcw.cpu())
+                        and torch.equal(sw.cpu(), wsw.cpu())):
+                    raise AssertionError(
+                        f"24a: step {i} after a swap ran weights other "
+                        f"than swap_comm_weights(plane, dead)")
+            delivered.append(i)
+        calls.append((i, time.perf_counter()))
+        return step(p, o, batch, i, weights)
+
+    for attr in ("default_comm_weights", "backend", "guard_config"):
+        setattr(recorded, attr, getattr(step, attr))
+
+    def on_event(ev):
+        if ev.kind in ("topology_swap", "topology_rollback"):
+            pending.append(TC.swap_comm_weights(plane, det.dead_mask()))
+
+    on_step_ms = []
+    plane_on_step = plane.on_step
+
+    def timed_on_step(*a, **k):
+        t0 = time.perf_counter()
+        out = plane_on_step(*a, **k)
+        on_step_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    plane.on_step = timed_on_step
+    ck = Checkpointer(tempfile.mkdtemp(prefix="ck24a_", dir=tmp),
+                      max_to_keep=1)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = R.run_resilient(
+        recorded, params, opt, batch_fn, steps=P24_STEPS, checkpointer=ck,
+        schedule=carrier,
+        guard=bt.GuardConfig(max_consecutive_bad=3, backoff_base=0.0),
+        fault_plan=plan, detector=det, checkpoint_every=P24_EVERY,
+        sleep=lambda s: None, on_event=on_event, control=plane)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ck.close()
+    # a step's wall in the loop: from its call to the next call (the
+    # runner's host transfer, bookkeeping and on_step included); a
+    # replayed step keeps its first run's
+    walls = {}
+    for (i, t), (_, t_next) in zip(calls, calls[1:]):
+        walls.setdefault(i, t_next - t)
+    return dict(res=res, plane=plane, calls=calls, delivered=delivered,
+                on_step_ms=on_step_ms, wall=wall, walls=walls,
+                params=params, dead=det.dead_mask(), model=model)
+
+
+def _p24_check_control(out, what):
+    """24a's asserts: trigger (degraded) -> swap -> commit at the sim's
+    steps with the sim's candidate and costs; rank_dead 6 and 7, the
+    rollback, a membership trigger -> swap -> commit; every swap's
+    weights delivered; the live ranks finite."""
+    import bluefog_tpu_torch.resilience as R
+
+    res, plane = out["res"], out["plane"]
+    ev = res.events
+    first_dead = next(i for i, e in enumerate(ev) if e.kind == "rank_dead")
+    real = [(e.kind, e.step, e.detail) for e in ev[:first_dead]
+            if e.kind.startswith("topology_")]
+    sim = _p24_sim_events(P24_KILL)
+    if real != sim:
+        raise AssertionError(f"{what}: the real run's decisions {real} "
+                             f"differ from SimTrainingFleet's {sim}")
+    kinds = [(e.kind, e.step) for e in ev if e.kind.startswith("topology_")]
+    if [k for k, _ in kinds] != ["topology_trigger", "topology_swap",
+                                 "topology_commit"] * 2:
+        raise AssertionError(f"{what}: topology events {kinds}")
+    reasons = [e.detail["reason"] for e in ev
+               if e.kind == "topology_trigger"]
+    if reasons != ["degraded", "membership"]:
+        raise AssertionError(f"{what}: trigger reasons {reasons}")
+    dead = [e.detail["rank"] for e in ev if e.kind == "rank_dead"]
+    rb = [e for e in ev if e.kind == "rollback"]
+    if dead != [6, 7] or len(rb) != 1 \
+            or rb[0].detail["restored_step"] != P24_EVERY:
+        raise AssertionError(f"{what}: deaths {dead}, rollbacks {rb}")
+    swaps = [e.step for e in ev if e.kind == "topology_swap"]
+    if out["delivered"] != swaps or plane.swaps != 2 or plane.rollbacks:
+        raise AssertionError(f"{what}: swaps at {swaps}, weights checked "
+                             f"at {out['delivered']}")
+    if res.step != P24_STEPS or list(np.flatnonzero(res.dead_mask)) != [6, 7]:
+        raise AssertionError(f"{what}: ends at {res.step}, dead "
+                             f"{np.flatnonzero(res.dead_mask)}")
+    if not R.update_health(res.params)[~res.dead_mask].all():
+        raise AssertionError(f"{what}: non-finite live params")
+    return real, kinds
+
+
+def _p24a(seed, tmp):
+    """24a on the card at ViT-B/16's full width and depth.  Returns its
+    K2/K3a/K3b launches."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.topology import control as TC
+
+    cfg = bt.ViTConfig.base(attn_impl="flash")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = _p24_control(cfg, "cuda", seed, tmp)
+    n_calls = len(out["calls"])
+    launches = _expect_flash("24a", cfg.depth * P24_RANKS * n_calls)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    real, kinds = _p24_check_control(out, "24a")
+    swap_at = real[1][1]
+    walls = out["walls"]
+    before = [walls[s] for s in range(3, swap_at)]
+    after = [walls[s] for s in range(swap_at, P24_KILL)]
+    imgs = P24_RANKS * P24_BATCH
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    live = ~out["dead"]
+    health_ms = time_ms(lambda: TC._consensus_distance(out["params"], live),
+                        flush, reps=9)
+    health = TC._consensus_distance(out["params"], live)
+    swap = real[1][2]
+    n_params = sum(v[0].numel() for v in out["params"].values())
+    log(f"[ctl24a] ViT-B/16 ({n_params / 1e6:.1f} M params a rank), "
+        f"{P24_RANKS} stacked ranks x {P24_BATCH} images, "
+        f"guarded atc over a 4-round carrier of shifts {P24_SHIFTS}, "
+        f"run_resilient(control=TopologyControlPlane(PodSpec(4, 2), "
+        f"synchronous=True)) {P24_STEPS} steps ({n_calls} step calls, "
+        f"replays included) in {out['wall']:.2f} s; a LinkWire bills "
+        f"DCN links (0, 2), (1, 3) 4x slow from step {P24_CONGEST}: "
+        f"events {kinds}; the congestion swap to {swap['schedule']} at "
+        f"cost-to-consensus {swap['cost_to_consensus']:.6g} against the "
+        f"incumbent's {swap['incumbent']:.6g}, the same decisions at the "
+        f"same steps as SimTrainingFleet; ranks 6, 7 dead at step "
+        f"{P24_KILL}, rollback to {P24_EVERY}, membership swap to "
+        f"{out['plane'].active_name()}; every swap's weights equal "
+        f"swap_comm_weights(plane, dead) at steps {out['delivered']}; "
+        f"step wall p50 before the swap "
+        f"{1e3 * statistics.median(before):.2f} ms "
+        f"({imgs / statistics.median(before):.1f} img/s per card), after "
+        f"{1e3 * statistics.median(after):.2f} ms "
+        f"({imgs / statistics.median(after):.1f} img/s; the step's work "
+        f"does not change with the weights); on_step host ms p50 "
+        f"{statistics.median(out['on_step_ms']):.3f}, max "
+        f"{max(out['on_step_ms']):.3f} over {len(out['on_step_ms'])} "
+        f"boundaries; one probation health read (consensus distance "
+        f"{health:.4g} over the 6 live ranks, float64 on the card, one "
+        f"transfer) {health_ms:.3f} ms by CUDA events; peak memory "
+        f"{peak:.2f} GiB; launches {launches} = 12 layers x {P24_RANKS} "
+        f"ranks x {n_calls} step calls each")
+    del out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _p24_lockstep(model, cfg, trace, step_s, eng_kw, seed):
+    """The real fleet of 24b: FLEET engines on one VirtualClock behind
+    FleetRouter, one poll a tick with arrivals, each tick stepping every
+    engine and advancing the clock ``step_s``."""
+    from bluefog_tpu_torch import sim as S
+    from bluefog_tpu_torch.observe.registry import MetricsRegistry
+    from bluefog_tpu_torch.serving import FleetRouter, Request, ServingEngine
+
+    clock = S.VirtualClock()
+    regs = [MetricsRegistry() for _ in range(FLEET)]
+    engines = [ServingEngine(model, cfg, clock=clock, registry=regs[i],
+                             **eng_kw) for i in range(FLEET)]
+    router = FleetRouter(engines, registries=regs, clock=clock,
+                         sleep=clock.advance, seed=seed)
+    rs = np.random.RandomState(seed)
+    reqs = [Request(rs.randint(0, cfg.vocab_size,
+                               (int(trace.prompt_lens[k]),)).astype(np.int32),
+                    int(trace.budgets[k]), rid=k) for k in range(trace.n)]
+    dead = np.zeros(FLEET, bool)
+    route, ticks, i = [], 0, 0
+    t0 = time.perf_counter()
+    while True:
+        if i < trace.n and trace.arrivals[i] <= clock.t:
+            snap = router.poll(dead_mask=dead)
+            while i < trace.n and trace.arrivals[i] <= clock.t:
+                j, _ = router.submit(reqs[i], snapshot=snap, dead_mask=dead)
+                route.append(j)
+                i += 1
+        if not any(e._running or e._admitting or e.scheduler.queue_depth
+                   for e in engines):
+            if i >= trace.n:
+                break
+            clock.jump_to(float(trace.arrivals[i]))
+            continue
+        for e in engines:
+            e.step()
+        clock.advance(step_s)
+        ticks += 1
+        if ticks > 5000:
+            raise AssertionError("24b: the real fleet did not drain")
+    wall = time.perf_counter() - t0
+    _check_done(reqs, "24b", engines)
+    return dict(route=route, ticks=ticks, makespan=clock.t, wall=wall,
+                tokens=[len(r.tokens) for r in reqs],
+                ttfts=sorted(t for e in engines for t in e.metrics.ttfts()),
+                decode_steps=sum(e.metrics.summary()["decode_steps"]
+                                 for e in engines))
+
+
+def _p24_fleet(model, cfg, dev, seed):
+    """24b's runs over ``model``: measure_step_cost on one engine at full
+    slots (a timer injected), then the real lockstep fleet and
+    SimServingFleet under a CostModel with that cost, on one trace from
+    the port's poisson_arrivals and one router seed; every routing
+    decision, the ticks, makespan, tokens and TTFTs must agree exactly.
+    Returns (step seconds, the real run, the sim's summary, decode steps
+    of every engine)."""
+    import re
+
+    from bluefog_tpu_torch import sim as S
+    from bluefog_tpu_torch.benchutil import poisson_arrivals
+    from bluefog_tpu_torch.observe.registry import MetricsRegistry
+    from bluefog_tpu_torch.serving import ServingEngine
+
+    rng = np.random.RandomState(seed + 24)
+    eng_kw = dict(capacity=SERVE_CAP, max_len=2048, prefill_chunk=256,
+                  max_queue=64, device=dev)
+    probe = ServingEngine(model, cfg, registry=MetricsRegistry(), **eng_kw)
+    prompts = [rng.randint(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in rng.randint(16, 257, SERVE_CAP)]
+    # every slot admitted (one prefill chunk a step) before the timed steps
+    step_s = S.measure_step_cost(probe, prompts, timer=time.perf_counter,
+                                 new_tokens=32, warmup=SERVE_CAP + 1,
+                                 reps=12)
+    if len(probe._running) != SERVE_CAP:
+        raise AssertionError("24b: the cost was not measured at full slots")
+    probe_steps = probe.metrics.summary()["decode_steps"]
+    del probe
+    cost = S.CostModel(step_s=step_s, gossip_round_s=0.0)
+    trace = S.RequestTrace.build(
+        poisson_arrivals(0.5 / step_s, P24_REQS, seed), seed=seed + 1,
+        prompt_len=(16, 256), new_tokens=(8, 32))
+    real = _p24_lockstep(model, cfg, trace, step_s, eng_kw, seed + 11)
+    clock = S.VirtualClock()
+    sim_kw = {k: v for k, v in eng_kw.items() if k != "device"}
+    reps = [S.SimReplica(f"replica-{i}", clock=clock, cost=cost, **sim_kw)
+            for i in range(FLEET)]
+    fleet = S.SimServingFleet(reps, cost=cost,
+                              sim=S.Simulation(clock=clock,
+                                               log=S.EventLog()),
+                              router_kwargs=dict(seed=seed + 11))
+    s = fleet.run(trace)
+    route_re = re.compile(r" route replica-(\d+) rid=(\d+)$")
+    sim_route = {}
+    for line in fleet.log.lines:
+        m = route_re.search(line)
+        if m:
+            sim_route[int(m.group(2))] = int(m.group(1))
+    sim_ttfts = sorted(
+        v for rep in fleet.replicas
+        for name, kind, _h, _l, m in rep.registry.collect()
+        if name == "bf_serving_ttft_seconds" and kind == "histogram"
+        for v in m.window_values)
+    if [sim_route.get(k) for k in range(trace.n)] != real["route"] \
+            or s["ticks"] != real["ticks"] \
+            or s["virtual_seconds"] != real["makespan"] \
+            or s["tokens_total"] != float(sum(real["tokens"])) \
+            or real["tokens"] != [int(b) for b in trace.budgets] \
+            or sim_ttfts != real["ttfts"]:
+        raise AssertionError(
+            f"24b: sim and real fleets part: routes {sim_route} / "
+            f"{real['route']}, ticks {s['ticks']} / {real['ticks']}, "
+            f"makespan {s['virtual_seconds']} / {real['makespan']}, tokens "
+            f"{s['tokens_total']} / {sum(real['tokens'])}")
+    if len(set(real["route"])) != FLEET:
+        raise AssertionError(f"24b: a replica took no request: "
+                             f"{real['route']}")
+    return step_s, trace, real, s, probe_steps + real["decode_steps"]
+
+
+def _p24b(seed):
+    """24b: Llama-3.1-8B at full width and depth in bf16, as phase 20
+    builds it, through _p24_fleet.  Returns its K4 launches."""
+    import bluefog_tpu_torch as bt
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = bt.LlamaConfig.llama3_8b(rope_scaling_kind="llama3")
+    model = bt.Llama(cfg, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    _reset_counts()
+    step_s, trace, real, s, decode_steps = _p24_fleet(model, cfg, "cuda",
+                                                      seed)
+    torch.cuda.synchronize()
+    k4 = _expect_launches("24b", {"decode_attention":
+                                  cfg.n_layers * decode_steps})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[sim24b] Llama-3.1-8B bf16 (32 layers), engines at capacity "
+        f"{SERVE_CAP}, max_len 2048, prefill chunk 256: measure_step_cost "
+        f"at full slots {1e3 * step_s:.3f} ms a step (median of 12, "
+        f"time.perf_counter); {FLEET} real replicas on one VirtualClock "
+        f"behind FleetRouter and SimServingFleet under CostModel(step_s="
+        f"{step_s:.6g}) on one trace ({trace.n} Poisson arrivals at "
+        f"{0.5 / step_s:.2f}/s, prompts 16-256, 8-32 new tokens), router "
+        f"seed {seed + 11}: routes bit-equal "
+        f"{[real['route'].count(r) for r in range(FLEET)]} a replica, "
+        f"{real['ticks']} ticks each, simulated makespan "
+        f"{s['virtual_seconds']:.6f} s (the real drive's virtual "
+        f"{real['makespan']:.6f} s, its wall {real['wall']:.2f} s), "
+        f"{int(s['tokens_total'])} tokens, TTFT p50 "
+        f"{1e3 * s['ttft_p50_vs']:.3f} virtual ms in both; peak memory "
+        f"{peak:.2f} GiB; K4 launches {k4['decode_attention']}")
+    del model
+    torch.cuda.empty_cache()
+    return k4
+
+
+def phase_control(seed):
+    """Phase 24 (see the module docstring).  Returns its launches."""
+    import shutil
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="bf_phase24_")
+    try:
+        launches = _p24a(seed, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches.update(_p24b(seed))
+    log(f"[ctl24] phase 24 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6093,43 +6636,83 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    laps = [t0]
+
+    def lap(what):
+        # each phase's seconds, for cutting depth when the whole
+        # smoke nears its time limit
+        laps.append(time.perf_counter())
+        log(f"[time] {what} {laps[-1] - laps[-2]:.1f} s, "
+            f"{laps[-1] - t0:.1f} s in all")
+
     name = phase_device()
+    lap("device")
     kernels = phase_kernels(name, args.seed)
+    lap("kernels")
     kernels.update(phase_k1(name, args.seed))
+    lap("k1")
     kernels.update(phase_flash(name, args.seed))
+    lap("flash")
     kernels.update(phase_splash(name, args.seed))
+    lap("splash")
     launches = phase_serving(args.seed)
+    lap("serving")
     phase_reference(args.seed)
+    lap("reference")
     torch.backends.cudnn.benchmark = True   # the training path's convs
     launches["conv1x1_backward"] = phase_train_1rank(args.seed)
+    lap("train_1rank")
     phase_train_4ranks(args.seed)
+    lap("train_4ranks")
     phase_train_modes(args.seed)
+    lap("train_modes")
     torch.backends.cudnn.benchmark = False
     phase_train_reference(args.seed)
+    lap("train_reference")
     phase_train_modes_reference(args.seed)
+    lap("train_modes_reference")
     launches.update(phase_llama_train_1rank(args.seed))
+    lap("llama_train_1rank")
     phase_llama_train_2ranks(args.seed)
+    lap("llama_train_2ranks")
     phase_llama_reference(args.seed)
+    lap("llama_reference")
     launches["splash_backward"] = phase_llama1b(args.seed)["splash_backward"]
+    lap("llama1b")
     phase_llama1b_2ranks(args.seed)
+    lap("llama1b_2ranks")
     phase_llama_reference(args.seed, attn_impl="splash", seq=128)
+    lap("llama_reference_splash")
     phase_vit(args.seed)
+    lap("vit")
     phase_eager_ops(args.seed)
+    lap("eager_ops")
     torch.backends.cudnn.benchmark = True   # the training path's convs
     phase_eager_resnet(args.seed)
+    lap("eager_resnet")
     torch.backends.cudnn.benchmark = False
     phase_eager_reference(args.seed)
+    lap("eager_reference")
     phase_process(args.seed)
+    lap("process")
     for kname, n in phase_serving_rest(args.seed).items():
         launches[kname] += n
+    lap("serving_rest")
     for kname, n in phase_fleet(args.seed).items():
         launches[kname] += n
+    lap("fleet")
     for kname, n in phase_sp(name, args.seed).items():
         launches[kname] += n
+    lap("sp")
     for kname, n in phase_resilience(args.seed).items():
         launches[kname] += n
+    lap("resilience")
     for kname, n in phase_moe(args.seed).items():
         launches[kname] += n
+    lap("moe")
+    for kname, n in phase_control(args.seed).items():
+        launches[kname] += n
+    lap("control")
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):
         entries.append(dict(

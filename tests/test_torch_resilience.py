@@ -440,7 +440,8 @@ def test_runner_refusals(tmp_path):
         R.run_resilient(aux_step, params, opt, _tbatch, steps=1,
                         checkpointer=None)
     step, params, opt = _tstep()
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # the control plane is a weight re-plan over the step's schedule
+    with pytest.raises(ValueError, match="needs schedule="):
         R.run_resilient(step, params, opt, _tbatch, steps=1,
                         checkpointer=None, control=object())
     with pytest.raises(ValueError, match="schedule"):

@@ -204,18 +204,32 @@ def test_speculative_rejection_sampling_matches_the_target(weights):
     first = np.zeros(6)
     second = np.zeros(6)
     accepted = 0
-    for seed in range(n):
-        req = Request(np.zeros(1, np.int32), 4, temperature=temp,
-                      seed=seed)
-        props = torch.stack([eng._sample(dlg[i:i + 1], {0: req}, i,
-                                         salt=1)[0] for i in range(3)])
-        n_acc, corr = eng._spec_sampled(req, vlogits, dlg, props, 2)
-        n_acc = int(n_acc)
-        emitted = [int(t) for t in props[:n_acc]] + [int(corr)]
-        first[emitted[0]] += 1
-        if n_acc >= 1:
-            accepted += 1
-            second[emitted[1]] += 1
+    # tens of thousands of ops on a few elements each: one intra-op
+    # thread, or on a loaded host every op waits for the pool's threads
+    # (the draws are sequential per generator either way)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        reqs = [Request(np.zeros(1, np.int32), 4, temperature=temp,
+                        seed=seed) for seed in range(n)]
+        # every seed's proposals in one _sample call a position: each row
+        # draws from its own request's (seed, position, salt) generator,
+        # as the one-row calls do
+        slots = dict(enumerate(reqs))
+        all_props = torch.stack([
+            eng._sample(dlg[i:i + 1].expand(n, -1), slots, i, salt=1)
+            for i in range(3)], 1)
+        for seed, req in enumerate(reqs):
+            props = all_props[seed]
+            n_acc, corr = eng._spec_sampled(req, vlogits, dlg, props, 2)
+            n_acc = int(n_acc)
+            emitted = [int(t) for t in props[:n_acc]] + [int(corr)]
+            first[emitted[0]] += 1
+            if n_acc >= 1:
+                accepted += 1
+                second[emitted[1]] += 1
+    finally:
+        torch.set_num_threads(threads)
     assert _chi2(first, p[0]) < _CHI2_5_999
     assert _chi2(second, p[1]) < _CHI2_5_999
     rate = np.minimum(p[0], q[0]).sum()
