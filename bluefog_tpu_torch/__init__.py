@@ -16,7 +16,10 @@ of the ResNet family (``models.resnet``, kernel ``parallel.conv1x1``)
 and of Llama (``models.llama``'s training forward and
 ``llama_loss_fn``, kernels ``parallel.flash_attention`` and
 ``parallel.splash``; sequence parallelism over a ``SeqAxis``:
-``parallel.ring_attention``, ``parallel.ulysses``), ViT
+``parallel.ring_attention``, ``parallel.ulysses``; tensor parallelism,
+vocab parallelism, sequence-sharded activations and experts over an ep
+axis over a ``MeshAxis``, with the train step's ``mesh_axes`` /
+``param_specs`` and the tp-sharded decode), ViT
 (``models.vit``), ``MLP`` and ``MnistNet``,
 with the train step's decentralized modes (the skip guard, health
 telemetry, bucketed overlap, the int8 and stochastic-rounding wires,
@@ -92,7 +95,8 @@ from bluefog_tpu_torch.optim import (GuardConfig, HealthConfig,
                                      MixState, build_train_step,
                                      consensus_distance, push_sum_weights,
                                      rank_major)
-from bluefog_tpu_torch.parallel.collectives import (ProcessBackend, SeqAxis,
+from bluefog_tpu_torch.parallel.collectives import (MeshAxis,
+                                                    ProcessBackend, SeqAxis,
                                                     StackedBackend,
                                                     bind_axis)
 from bluefog_tpu_torch.serving import Request, ServingEngine
@@ -119,7 +123,8 @@ __all__ = ["__version__", "models", "optim", "serving", "topology", "Llama",
            "ViT_B16", "MLP", "MnistNet", "build_train_step", "rank_major",
            "consensus_distance", "push_sum_weights", "GuardConfig",
            "HealthConfig", "HealthVector", "MixCompressConfig", "MixState",
-           "StackedBackend", "ProcessBackend", "SeqAxis", "bind_axis",
+           "StackedBackend", "ProcessBackend", "SeqAxis", "MeshAxis",
+           "bind_axis",
            "ExponentialTwoGraph",
            "Topology", "DynamicTopology", "one_peer_dynamic_schedule",
            "uniform_topology_spec", "InferDestinationFromSourceRanks",

@@ -5,13 +5,21 @@ ResNet family (slice 2), the Llama training forward with its losses
 (slice 3; splash attention and ``remat_policy="dots"`` in slice 4), and
 the ViT family, ``MLP`` and ``MnistNet`` (slice 4): the whole zoo; and
 the int8 weight layouts of serving (``quantize_llama_params``, slice
-11).
+11); and the model axes (slice 17): tensor parallelism with
+``vocab_parallel`` and ``tp_seq_shard``, experts over an ep axis, TP
+decode, ``llama_param_specs`` and ``vocab_parallel_xent``.  The
+pipeline's ``llama_pp_loss_fn``/``llama_circular_layout`` raise
+``NotImplementedError`` naming ROADMAP.md Queue 1, item 10.
 """
 
 from bluefog_tpu_torch.models.llama import (KVCache, Llama, LlamaConfig,
                                             chunked_xent,
                                             llama_chunked_xent_loss_fn,
-                                            llama_loss_fn)
+                                            llama_circular_layout,
+                                            llama_loss_fn,
+                                            llama_param_specs,
+                                            llama_pp_loss_fn,
+                                            vocab_parallel_xent)
 from bluefog_tpu_torch.models.generate import (decode_config, init_cache,
                                                llama_generate)
 from bluefog_tpu_torch.models.quant import quantize_llama_params
@@ -23,6 +31,8 @@ from bluefog_tpu_torch.models.vit import ViT, ViT_B16, ViT_S16, ViTConfig
 
 __all__ = ["Llama", "LlamaConfig", "KVCache", "llama_loss_fn",
            "chunked_xent", "llama_chunked_xent_loss_fn", "llama_generate",
+           "llama_param_specs", "vocab_parallel_xent", "llama_pp_loss_fn",
+           "llama_circular_layout",
            "init_cache", "decode_config", "quantize_llama_params",
            "ResNet", "BasicBlock",
            "BottleneckBlock", "ResNet18", "ResNet34", "ResNet50",

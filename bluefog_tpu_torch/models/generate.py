@@ -31,13 +31,23 @@ layouts).  Deviations from the JAX package:
   top-k combine whatever it is batched with, so the cached decode equals
   the dropless full forward), keeps ``moe_group_size``, and refuses the
   non-causal ``moe_router="expert_choice"``.
-* Not ported yet: the tp-sharded decode (``keep_tp=True``, ``mesh=``,
-  ``_tp_generate_program``) waits for ROADMAP.md Queue 1, item 10's
-  tensor parallelism.  It raises ``NotImplementedError``.
+* The tp-sharded decode (``keep_tp=True``, ``llama_generate(...,
+  mesh=)``): ``mesh=`` takes the tp axis itself
+  (:class:`~bluefog_tpu_torch.parallel.collectives.MeshAxis`, the port's
+  stand-in for a one-axis tp mesh), bound over the whole generation.
+  Every shard runs at once on one device: its heads' K/V cache folded
+  into the cache's batch (``init_cache(..., keep_tp=True)``), its
+  attention through the decode kernel at the per-shard shape, its
+  row-parallel partials merged by the axis's psum.  The logits are
+  replicated (held once), so every shard samples the same token from
+  the one generator.  The weights are the tp=1 tree: each shard
+  computes from its slice (per-output-channel scales shard with their
+  kernel under ``weight_quant``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Mapping, Optional, Union
 
@@ -45,28 +55,22 @@ import torch
 
 from bluefog_tpu_torch._device import resolve_device
 from bluefog_tpu_torch.models.llama import (KVCache, Llama, LlamaConfig,
-                                            _dropless_factor,
-                                            require_ported)
+                                            _dropless_factor)
+from bluefog_tpu_torch.parallel.collectives import MeshAxis, bind_axis
 
 __all__ = ["init_cache", "llama_generate", "decode_config",
            "prefill_cache", "decode_token_step", "verify_window",
            "build_model"]
 
-_TP_DECODE = ("waits for ROADMAP.md Queue 1, item 10's tensor parallelism, "
-              "which ports it with the tp-sharded model")
-
-
 def decode_config(cfg: LlamaConfig, max_len: int, *, keep_tp: bool = False,
                   kv_quant: str = "none", weight_quant: str = "none",
                   decode_attn: str = "auto") -> LlamaConfig:
     """The decode layout of ``cfg``: ``decode=True``, cache length
-    ``max_len``, training-time knobs cleared (as in JAX); an MoE config
-    decodes dropless (capacity factor raised to ``n_experts``).  Raises
-    ``NotImplementedError`` for what the port does not serve yet and for
-    ``moe_router="expert_choice"`` (non-causal)."""
-    if keep_tp:
-        raise NotImplementedError(
-            f"tp-sharded decode (keep_tp=True) {_TP_DECODE}")
+    ``max_len``, training-time knobs cleared (as in JAX; tensor
+    parallelism KEPT with ``keep_tp``); an MoE config decodes dropless
+    (capacity factor raised to ``n_experts``).  Raises
+    ``NotImplementedError`` for ``moe_router="expert_choice"``
+    (non-causal)."""
     moe = {}
     if cfg.n_experts:
         if cfg.moe_router != "topk":
@@ -76,15 +80,13 @@ def decode_config(cfg: LlamaConfig, max_len: int, *, keep_tp: bool = False,
         moe = dict(capacity_factor=_dropless_factor(cfg))
     if decode_attn == "auto":
         decode_attn = "pallas"  # the port has one decode lowering
-    dcfg = dataclasses.replace(
+    tp = {} if keep_tp else {"tp_axis": None, "tp_size": 1}
+    return dataclasses.replace(
         cfg, decode=True, max_seq_len=max_len, attn_mode="full",
         attn_impl="xla", sp_axis=None, ep_axis=None, ep_size=1,
         remat=False, remat_policy="none", kv_quant=kv_quant,
         param_quant=weight_quant, decode_attn=decode_attn,
-        vocab_parallel=False, tp_seq_shard=False, tp_axis=None, tp_size=1,
-        **moe)
-    require_ported(dcfg)
-    return dcfg
+        vocab_parallel=False, tp_seq_shard=False, **moe, **tp)
 
 
 def check_decode_attn(dcfg: LlamaConfig, device: torch.device) -> None:
@@ -102,30 +104,34 @@ def init_cache(cfg: LlamaConfig, batch_size: int, max_len: int,
                device: Union[str, torch.device] = "cuda") -> KVCache:
     """Zero K/V caches for ``batch_size`` sequences of up to ``max_len``
     tokens; ``kv_quant='int8'`` gives the int8 + per-vector-scale
-    layout."""
-    if keep_tp:
-        raise NotImplementedError(f"tp-sharded caches {_TP_DECODE}")
+    layout.  With ``keep_tp`` and ``cfg.tp_size > 1`` the cache is
+    PER-SHARD: each shard's ``n_kv_heads / tp`` heads, the shards folded
+    into the batch (:class:`KVCache`)."""
     if kv_quant not in ("none", "int8"):
         raise ValueError(f"kv_quant {kv_quant!r} not in ('none', 'int8')")
     return _zero_cache(cfg, batch_size, max_len, kv_quant,
-                       resolve_device(device))
+                       resolve_device(device),
+                       cfg.tp_size if keep_tp else 1)
 
 
 def _zero_cache(cfg: LlamaConfig, batch_size: int, max_len: int,
-                kv_quant: str, dev: torch.device) -> KVCache:
+                kv_quant: str, dev: torch.device,
+                shards: int = 1) -> KVCache:
     """The cache layout on ``dev`` (the ``meta`` device gives its shapes
     alone)."""
-    shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, max_len,
-             cfg.head_dim)
+    shape = (cfg.n_layers, shards * batch_size, cfg.n_kv_heads // shards,
+             max_len, cfg.head_dim)
     index = torch.zeros(batch_size, dtype=torch.int32, device=dev)
     if kv_quant == "int8":
         return KVCache(
             torch.zeros(shape, dtype=torch.int8, device=dev),
             torch.zeros(shape, dtype=torch.int8, device=dev), index,
             torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
-            torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
+            torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+            shards)
     return KVCache(torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                   torch.zeros(shape, dtype=cfg.dtype, device=dev), index)
+                   torch.zeros(shape, dtype=cfg.dtype, device=dev), index,
+                   shards=shards)
 
 
 def prefill_cache(model: Llama, cache: KVCache, tokens: torch.Tensor):
@@ -193,6 +199,12 @@ def build_model(variables: Union[Llama, Mapping[str, torch.Tensor]],
         if variables.device != device:
             raise ValueError(f"the Llama module lives on "
                              f"{variables.device}, not {device}")
+        tp = dict(tp_axis=dcfg.tp_axis, tp_size=dcfg.tp_size)
+        if (variables.cfg.tp_axis, variables.cfg.tp_size) != tuple(
+                tp.values()):
+            # the same weights in the decode's tp layout
+            return variables.retarget(dataclasses.replace(variables.cfg,
+                                                          **tp))
         return variables
     model = Llama(dcfg, device)
     model.load_state_dict(variables)
@@ -228,8 +240,16 @@ def llama_generate(variables, cfg: LlamaConfig, prompt, max_new_tokens: int,
     :func:`~bluefog_tpu_torch.models.quant.quantize_llama_params`)."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens ({max_new_tokens}) must be >= 1")
-    if mesh is not None:
-        raise NotImplementedError(f"mesh= (tp-sharded decode) {_TP_DECODE}")
+    tp = cfg.tp_size > 1 and mesh is not None
+    if tp:
+        if not isinstance(mesh, MeshAxis):
+            raise TypeError(
+                f"mesh= takes the tp axis itself, MeshAxis("
+                f"{cfg.tp_axis!r}, {cfg.tp_size}) (the port has no Mesh), "
+                f"got {type(mesh).__name__}")
+        if mesh.name != cfg.tp_axis or mesh.size != cfg.tp_size:
+            raise ValueError(f"mesh={mesh!r} is not the config's tp axis "
+                             f"({cfg.tp_axis!r}, {cfg.tp_size})")
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
     b, t_prompt = prompt.shape
@@ -240,12 +260,23 @@ def llama_generate(variables, cfg: LlamaConfig, prompt, max_new_tokens: int,
                          f"({total})")
     if temperature > 0.0 and rng is None:
         raise ValueError("temperature sampling needs rng=")
-    dcfg = decode_config(cfg, max_len, kv_quant=kv_quant,
+    dcfg = decode_config(cfg, max_len, keep_tp=tp, kv_quant=kv_quant,
                          weight_quant=weight_quant, decode_attn=decode_attn)
     check_decode_attn(dcfg, dev)
     model = build_model(variables, dcfg, dev)
-    cache = init_cache(dcfg, b, max_len, kv_quant=kv_quant, device=dev)
+    cache = init_cache(dcfg, b, max_len, keep_tp=tp, kv_quant=kv_quant,
+                       device=dev)
+    with bind_axis(mesh) if tp else contextlib.nullcontext():
+        return _generate(model, cache, prompt, max_new_tokens, temperature,
+                         rng, eos_id)
 
+
+def _generate(model: Llama, cache: KVCache, prompt: torch.Tensor,
+              max_new_tokens: int, temperature: float,
+              rng: Optional[torch.Generator], eos_id: Optional[int]
+              ) -> torch.Tensor:
+    b = prompt.shape[0]
+    dev = prompt.device
     logits, cache = prefill_cache(model, cache, prompt)
     tok = _sample(logits[:, -1], temperature, rng)
     out = [tok]

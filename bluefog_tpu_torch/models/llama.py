@@ -43,10 +43,32 @@ Deviations from the JAX package:
   term (f32 scalar; ``[S]``, one per shard, under sequence parallelism,
   where each shard routes its own tokens as each JAX device does; 0 for
   a dense model).  :func:`llama_loss_fn` adds ``moe_aux_weight * aux``.
-* Not ported yet, and refused with ``NotImplementedError`` naming the
-  ROADMAP item (:func:`require_ported`): tensor parallelism (TP decode
-  included) and expert parallelism over an axis (``ep_size > 1``,
-  ``ep_axis``), the model axes.
+* The model axes (``tp_axis``/``tp_size`` with ``vocab_parallel`` and
+  ``tp_seq_shard``; ``ep_axis``/``ep_size``): the JAX model runs per
+  device under ``shard_map``; here every shard of the bound
+  :class:`~bluefog_tpu_torch.parallel.collectives.MeshAxis` runs at
+  once on one device.  A per-shard value is stacked shard-major
+  ``[tp, ...]``; a value JAX replicates over the axis is held ONCE.  So
+  a replicated input that every shard reads collects the sum of their
+  cotangents, and the psum that merges the shards' partials hands each
+  the one cotangent: Megatron's conjugate pair (JAX's ``_tp_region_in``
+  / ``_tp_region_out``, and all-gather / reduce-scatter under
+  ``tp_seq_shard``) is plain autograd over the axis's collectives, with
+  no custom backward.  The param tree is the tp=1 tree (global shapes):
+  a shard computes from its slice (``llama_param_specs``): column-
+  parallel ``wq/wk/wv/w1/w3`` as one product whose columns are the
+  shards' (shard-major views), row-parallel ``wo/w2`` per shard (a
+  batched product) before the psum; each shard's heads folded into the
+  attention's batch (K2/K3a/K3b and K4 at the per-shard shape).
+  Outputs: logits ``[B, T, vocab]`` held once, or under
+  ``vocab_parallel`` each shard's columns ``[tp, B, T, vocab / tp]``
+  (train with :func:`vocab_parallel_xent`); under ``tp_seq_shard`` the
+  residual stream (``return_hidden``) is ``[tp, B, T / tp, dim]``.
+  Experts over an ep axis: shard ``s`` holds experts ``s * E / ep ..``
+  and its partial combine meets the others' in one psum.
+* Not ported yet, and refused with ``NotImplementedError`` naming
+  ROADMAP.md Queue 1 item 10: the pipeline (``llama_pp_loss_fn``,
+  ``llama_circular_layout``, ``llama_param_specs(pp_axis=)``).
 * The integer products of ``param_quant="w8a8"`` (s8 x s8 -> s32, which
   JAX leaves to XLA) go to ``torch._int_mm``: cuBLASLt on the card, an
   exact integer product on the CPU (:func:`int8_matmul`).  The w8a8
@@ -87,8 +109,10 @@ Deviations from the JAX package:
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
+import itertools
 import math
 from typing import Dict, Optional, Tuple, Union
 
@@ -110,10 +134,11 @@ from bluefog_tpu_torch.parallel.splash import splash_attention
 from bluefog_tpu_torch.parallel.ulysses import ulysses_attention
 
 __all__ = ["LlamaConfig", "Llama", "KVCache", "RMSNorm", "QuantDense",
-           "MoEFeedForward", "moe_combine_weights", "moe_group_shape",
-           "int8_matmul",
-           "rotary_embed",
-           "chunked_xent", "llama_chunked_xent_loss_fn", "llama_loss_fn"]
+           "MoEFeedForward", "vocab_parallel_embed", "moe_combine_weights",
+           "moe_group_shape", "int8_matmul", "rotary_embed",
+           "chunked_xent", "llama_chunked_xent_loss_fn", "llama_loss_fn",
+           "vocab_parallel_xent", "llama_param_specs", "llama_pp_loss_fn",
+           "llama_circular_layout"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -331,23 +356,105 @@ class LlamaConfig:
         return LlamaConfig(**base)
 
 
-def require_ported(cfg: LlamaConfig) -> None:
-    """Raise ``NotImplementedError`` for a config that needs a part of
-    the JAX model not ported yet, naming the ROADMAP.md item that ports
-    it."""
-    later = []
-    if cfg.tp_size > 1 or cfg.tp_axis is not None:
-        later.append("tensor parallelism (tp_axis/tp_size), TP decode "
-                     "included: ROADMAP.md Queue 1, item 10's model axes "
-                     "(TP, ep and param_specs)")
-    if cfg.ep_size > 1 or cfg.ep_axis is not None:
-        later.append("MoE expert parallelism over a model axis (ep_size "
-                     "> 1, ep_axis; the routed MoE at ep_size 1 and moe/'s "
-                     "expert-sharded step are ported): ROADMAP.md Queue 1, "
-                     "item 10's model axes (TP, ep and param_specs)")
-    if later:
-        raise NotImplementedError(
-            "not ported to bluefog_tpu_torch yet: " + "; ".join(later))
+_PIPELINE = ("ROADMAP.md Queue 1, item 10 (the pipeline: "
+             "parallel/pipeline.py, the train step's pp_axis, "
+             "llama_pp_loss_fn and llama_circular_layout)")
+
+
+def llama_pp_loss_fn(cfg: LlamaConfig, *, pp_axis: str, n_stages: int,
+                     n_micro: int, n_loops: int = 1):
+    """The pipeline loss builder of the JAX package: not ported yet,
+    refused with ``NotImplementedError`` naming the ROADMAP.md item that
+    ports it."""
+    raise NotImplementedError(
+        f"llama_pp_loss_fn (pipeline parallelism) is not ported to "
+        f"bluefog_tpu_torch yet; see {_PIPELINE}")
+
+
+def llama_circular_layout(variables, n_stages: int, n_loops: int,
+                          inverse: bool = False):
+    """The circular pipeline's layer order: not ported yet (see
+    :func:`llama_pp_loss_fn`)."""
+    raise NotImplementedError(
+        f"llama_circular_layout (the circular pipeline) is not ported to "
+        f"bluefog_tpu_torch yet; see {_PIPELINE}")
+
+
+def _model_axis(name: Optional[str], size: int, what: str):
+    """The bound axis of a ``tp_axis``/``ep_axis`` over ``size > 1``
+    shards, or None (``NameError`` when the name is unbound, as
+    ``lax.axis_index`` outside ``shard_map``)."""
+    if name is None or size <= 1:
+        return None
+    axis = bound_axis(name)
+    if axis.size != size:
+        raise ValueError(f"{what}={size} but the bound axis {axis!r} has "
+                         f"{axis.size} shards")
+    return axis
+
+
+def _tp_axis(cfg: LlamaConfig):
+    return _model_axis(cfg.tp_axis, cfg.tp_size, "tp_size")
+
+
+def _ep_axis(cfg: LlamaConfig):
+    return _model_axis(cfg.ep_axis, cfg.ep_size, "ep_size")
+
+
+def _enter_tp_region(x: torch.Tensor, cfg: LlamaConfig, axis):
+    """The residual stream as a tp region reads it: full rows.  Held
+    once, a replicated stream needs no operator (every shard's product
+    reads the one copy, and autograd sums their cotangents: Megatron's
+    ``f``); under ``tp_seq_shard`` the shard-major rows ``[tp, B, T/tp,
+    D]`` are all-gathered along the sequence (the backward
+    reduce-scatters)."""
+    if cfg.tp_seq_shard:
+        return axis.all_gather(x, axis=1)
+    return x
+
+
+def _leave_tp_region(y: torch.Tensor, cfg: LlamaConfig, axis):
+    """The shards' partial outputs ``y [tp, B, T, D]`` merged onto the
+    stream's layout: one psum (Megatron's ``g``), or under
+    ``tp_seq_shard`` a reduce-scatter to ``[tp, B, T/tp, D]``."""
+    if cfg.tp_seq_shard:
+        return axis.psum_scatter(y, scatter_dimension=1)
+    return axis.psum(y)
+
+
+def _shard_cols(y: torch.Tensor, n: int) -> torch.Tensor:
+    """A column-parallel product's output ``[..., out]`` as its ``n``
+    shards' columns, shard-major ``[n, ..., out / n]`` (a view): shard
+    ``s`` owns columns ``s * out / n ..``, the slice
+    ``llama_param_specs`` gives it, so one product over the whole kernel
+    computes every shard's own product."""
+    return y.unflatten(-1, (n, y.shape[-1] // n)).movedim(-2, 0)
+
+
+def _shard_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``[B, T, H, D]`` heads as ``n`` shards of ``H / n`` heads folded
+    into the batch, shard-major: ``[n * B, T, H / n, D]`` (contiguous, the
+    attention kernels' layout).  Shard ``s``'s query heads map to its own
+    kv heads under GQA, as on a device of the JAX mesh."""
+    b, t, h, d = x.shape
+    return x.reshape(b, t, n, h // n, d).permute(2, 0, 1, 3, 4).reshape(
+        n * b, t, h // n, d)
+
+
+def _row_parallel(layer: nn.Module, x: torch.Tensor, n: int
+                  ) -> torch.Tensor:
+    """A row-parallel projection of shard-major ``x [n, ..., in / n]``:
+    each shard's partial ``x_s @ kernel_s`` over its rows ``s * in / n
+    ..`` of the kernel (``[n, ..., out]``), what each device computes
+    before the region's psum."""
+    lead = x.shape[1:-1]
+    x2 = x.reshape(n, -1, x.shape[-1])
+    if isinstance(layer, QuantDense):
+        y = layer.forward_shards(x2, n)
+    else:
+        w = layer.kernel.to(layer.dtype)
+        y = torch.bmm(x2.to(layer.dtype), w.view(n, w.shape[0] // n, -1))
+    return y.reshape(n, *lead, y.shape[-1])
 
 
 def _sp_axis(cfg: LlamaConfig):
@@ -537,12 +644,18 @@ class KVCache:
     int8 with ``key_scale``/``value_scale`` ``[L, B, KV, S]`` f32 (one
     scale per cached vector).  ``index``: ``[B]`` int32, each row's next
     write position.  A forward writes its K/V in place at ``index`` and
-    then advances it; positions above a row's index are masked."""
+    then advances it; positions above a row's index are masked.
+
+    A tp-sharded cache (``shards = tp > 1``, from ``init_cache(...,
+    keep_tp=True)``) holds each shard's own ``KV / tp`` heads, the shards
+    folded into the batch shard-major: ``[L, tp * B, KV / tp, S, D]``
+    (rows ``s * B ..`` are shard ``s``'s), with one ``[B]`` index."""
     key: torch.Tensor
     value: torch.Tensor
     index: torch.Tensor
     key_scale: Optional[torch.Tensor] = None
     value_scale: Optional[torch.Tensor] = None
+    shards: int = 1
 
     @property
     def quantized(self) -> bool:
@@ -562,6 +675,9 @@ class KVCache:
     def rows(self, start: int, stop: int) -> "KVCache":
         """Views of rows ``start:stop``: writes through them land in
         this cache."""
+        if self.shards > 1:
+            raise ValueError("a tp-sharded cache keeps each row's shards "
+                             "apart; it has no contiguous row views")
         return KVCache(
             self.key[:, start:stop], self.value[:, start:stop],
             self.index[start:stop],
@@ -631,6 +747,26 @@ class QuantDense(nn.Module):
             return y.float() * self.scale
         return (y.float() * self.scale).to(self.dtype)
 
+    def forward_shards(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """The row-parallel form: ``x [n, M, in / n]``, shard ``s``
+        multiplying its kernel rows ``s * in / n ..`` and applying the
+        whole (replicated) scale, as a device of the JAX mesh does before
+        the psum; under ``act_quant`` each shard quantizes its own slice
+        of a row.  Returns ``[n, M, out]``."""
+        k = self.kernel.shape[0] // n
+        if self.act_quant:
+            xq, xs = _amax_quantize(x)
+            y = torch.stack([int8_matmul(xq[s], self.kernel[s * k:
+                                                           (s + 1) * k])
+                             for s in range(n)])
+            out = y.float() * xs * self.scale
+            return out if self.out_f32 else out.to(self.dtype)
+        w = self.kernel.to(self.dtype)
+        y = torch.bmm(x.to(self.dtype), w.view(n, k, -1))
+        if self.out_f32:
+            return y.float() * self.scale
+        return (y.float() * self.scale).to(self.dtype)
+
 
 def _dense(cfg: LlamaConfig, n_in: int, n_out: int, device,
            param_dtype=None) -> nn.Module:
@@ -676,6 +812,67 @@ class Embed(nn.Module):
         return F.embedding(tokens.long(), self.embedding).to(self.dtype)
 
 
+def vocab_parallel_embed(embed: Embed, tokens: torch.Tensor,
+                         cfg: LlamaConfig) -> torch.Tensor:
+    """JAX's ``VocabParallelEmbed`` over the token embedding ``embed``
+    (``cfg.vocab_parallel``): the ``[vocab, dim]`` table's VOCAB rows
+    shard over the bound ``tp_axis``, shard ``s`` holding rows ``s *
+    vocab / tp ..`` (the parameter keeps its full shape and its name, so
+    checkpoints move between layouts); an id outside a shard's rows looks
+    up a clamped row masked to zero, and the shards' partial rows merge
+    through one psum (a reduce-scatter to the seq-sharded stream under
+    ``tp_seq_shard``).  Each shard's table gradient is its own rows'."""
+    axis = _tp_axis(cfg)
+    n = axis.size
+    v_local = cfg.vocab_size // n
+    lo = axis.index(tokens.device) * v_local                  # [n]
+    lo = lo.reshape(n, *(1,) * tokens.dim())
+    local = tokens.long()[None] - lo                          # [n, ...]
+    valid = (local >= 0) & (local < v_local)
+    # each shard's clamped row of its own slice, as a global row
+    rows = local.clamp(0, v_local - 1) + lo
+    x = F.embedding(rows, embed.embedding).to(embed.dtype)
+    x = torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                     device=x.device))
+    return _leave_tp_region(x, cfg, axis)
+
+
+def _pmax_nograd(x: torch.Tensor, axis) -> torch.Tensor:
+    """``lax.pmax`` with a zero gradient: the log-sum-exp shift, whose
+    gradient cancels in ``logz - tlogit``."""
+    return axis.pmax(x.detach())
+
+
+def vocab_parallel_xent(local_logits: torch.Tensor, targets: torch.Tensor,
+                        axis_name) -> torch.Tensor:
+    """Exact next-token cross-entropy over VOCAB-SHARDED logits.
+
+    ``local_logits``: ``[tp, ..., vocab / tp]``, each shard's columns
+    stacked shard-major (what a ``vocab_parallel`` :class:`Llama`
+    returns); ``targets``: ``[...]`` global token ids; ``axis_name``: the
+    tp axis (a bound name or the :class:`MeshAxis`).  One ``pmax`` (no
+    gradient: the log-sum-exp shift) and two psums; each shard's logit
+    gradient is ``softmax - onehot`` on its own columns.  Returns the
+    mean loss, replicated (a scalar held once: JAX's identical per-shard
+    scalar)."""
+    axis = bound_axis(axis_name)
+    n = axis.size
+    v_local = local_logits.shape[-1]
+    logits32 = local_logits.float()
+    m = _pmax_nograd(logits32.amax(dim=-1), axis)                 # [...]
+    se = axis.psum(torch.exp(logits32 - m[None, ..., None]).sum(-1))
+    logz = m + torch.log(se)
+    lo = (axis.index(logits32.device) * v_local).reshape(
+        n, *(1,) * targets.dim())
+    local = targets.long()[None] - lo                             # [n, ...]
+    valid = (local >= 0) & (local < v_local)
+    tlogit = torch.gather(logits32, -1, local.clamp(0, v_local - 1)[
+        ..., None])[..., 0]
+    tlogit = axis.psum(torch.where(valid, tlogit, torch.zeros(
+        (), dtype=tlogit.dtype, device=tlogit.device)))
+    return (logz - tlogit).mean()
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig, device, param_dtype=None):
         super().__init__()
@@ -691,8 +888,15 @@ class Attention(nn.Module):
     def forward(self, x, rope, cache: Optional[KVCache] = None,
                 layer: int = 0, idx=None, rows=None, write_pos=None):
         """The full-sequence causal path (``Attention.__call__`` without
-        ``decode``), or with ``cache`` the decode path."""
+        ``decode``), or with ``cache`` the decode path.  Under tensor
+        parallelism every shard of the bound ``tp_axis`` runs at once:
+        its ``n_heads / tp`` query and ``n_kv_heads / tp`` kv heads folded
+        into the attention's batch, shard-major, and its row-parallel
+        ``wo`` partial merged by the region's psum."""
         cfg = self.cfg
+        tp = _tp_axis(cfg)
+        if tp is not None:
+            x = _enter_tp_region(x, cfg, tp)
         b, t, _ = x.shape
         hd = cfg.head_dim
         q = self.wq(x).reshape(b, t, cfg.n_heads, hd)
@@ -700,19 +904,29 @@ class Attention(nn.Module):
         v = self.wv(x).reshape(b, t, cfg.n_kv_heads, hd)
         q = _apply_rotary(q, *rope)
         k = _apply_rotary(k, *rope)
+        n = 1
+        if tp is not None:
+            n = tp.size
+            q, k, v = (_shard_heads(z, n) for z in (q, k, v))
+        bb, h = n * b, cfg.n_heads // n
         if cache is not None:
             out = self._decode_attend(q, k, v, cache, layer, idx, rows,
                                       write_pos)
         elif cfg.attn_mode in ("ring", "ulysses"):
-            # the shards ride folded in the batch: [S * B, ...] -> [S, B,
-            # ...] for the sequence-parallel attention, and back
+            # the sequence shards ride folded in the batch: [(tp,) S, B,
+            # ...] -> [S, tp * B, ...] for the sequence-parallel
+            # attention, and back
             axis = _sp_axis(cfg)
-            split = lambda x: x.reshape(  # noqa: E731
-                axis.n_local, b // axis.n_local, *x.shape[1:])
+            s_n = axis.n_local
+            split = lambda z: z.reshape(  # noqa: E731
+                n, s_n, b // s_n, *z.shape[1:]).transpose(0, 1).reshape(
+                    s_n, bb // s_n, *z.shape[1:])
             attend = (ring_attention if cfg.attn_mode == "ring"
                       else ulysses_attention)
             out = attend(split(q), split(k), split(v), axis, causal=True,
                          impl=cfg.attn_impl)
+            out = out.reshape(s_n, n, b // s_n, *out.shape[2:]).transpose(
+                0, 1)
         elif cfg.attn_impl == "flash":
             out = flash_attention(
                 q, k, v, causal=True,
@@ -728,7 +942,11 @@ class Attention(nn.Module):
                                       causal=True)
         else:
             out = full_attention(q, k, v, causal=True)
-        return self.wo(out.reshape(b, t, cfg.n_heads * hd))
+        t_out = out.shape[-3]
+        if tp is None:
+            return self.wo(out.reshape(b, t_out, cfg.n_heads * hd))
+        out = out.reshape(n, b, t_out, h * hd)
+        return _leave_tp_region(_row_parallel(self.wo, out, n), cfg, tp)
 
     def _decode_attend(self, q, k, v, cache, layer, idx, rows, write_pos):
         """Write this call's K/V at the rows' cache positions (rotary
@@ -767,16 +985,25 @@ class Attention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """SwiGLU: ``w2(silu(w1 x) * w3 x)``."""
+    """SwiGLU: ``w2(silu(w1 x) * w3 x)``; under tensor parallelism
+    column-parallel ``w1``/``w3`` and a row-parallel ``w2`` over the
+    bound ``tp_axis`` (``ffn_dim / tp`` hidden units a shard), one psum."""
 
     def __init__(self, cfg: LlamaConfig, device, param_dtype=None):
         super().__init__()
+        self.cfg = cfg
         self.w1 = _dense(cfg, cfg.dim, cfg.ffn_dim, device, param_dtype)
         self.w3 = _dense(cfg, cfg.dim, cfg.ffn_dim, device, param_dtype)
         self.w2 = _dense(cfg, cfg.ffn_dim, cfg.dim, device, param_dtype)
 
     def forward(self, x):
-        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+        cfg = self.cfg
+        tp = _tp_axis(cfg)
+        if tp is None:
+            return self.w2(F.silu(self.w1(x)) * self.w3(x))
+        x = _enter_tp_region(x, cfg, tp)
+        h = _shard_cols(F.silu(self.w1(x)) * self.w3(x), tp.size)
+        return _leave_tp_region(_row_parallel(self.w2, h, tp.size), cfg, tp)
 
 
 def moe_combine_weights(probs: torch.Tensor, top_k: int, cap: int,
@@ -858,8 +1085,11 @@ def moe_group_shape(cfg: LlamaConfig, tokens: int, dropless: bool = False
 
 
 class MoEFeedForward(nn.Module):
-    """Top-k routed mixture-of-experts SwiGLU FFN (JAX ``MoEFeedForward``
-    at ``ep_size = 1``: every expert on this device).
+    """Top-k routed mixture-of-experts SwiGLU FFN (JAX
+    ``MoEFeedForward``).  Over an expert axis (``ep_size > 1``, the bound
+    ``ep_axis``) shard ``s`` evaluates its ``E / ep`` experts ``s * E / ep
+    ..`` on the replicated tokens and the shards' partial outputs merge
+    through one psum.
 
     Routing is GROUPED (``cfg.moe_group_size``): tokens route within
     groups of ``G`` tokens, the largest divisor of the token count ``s``
@@ -926,7 +1156,18 @@ class MoEFeedForward(nn.Module):
         up_h = torch.bmm(expert_in, self.w3.to(dt))
         expert_out = torch.bmm(F.silu(gate_h) * up_h, self.w2.to(dt))
         expert_out = expert_out.reshape(E, g, cap, d)
-        out = torch.einsum("egcd,gsec->gsd", expert_out, combine.to(dt))
+        ep = _ep_axis(cfg)
+        if ep is None:
+            out = torch.einsum("egcd,gsec->gsd", expert_out,
+                               combine.to(dt))
+        else:
+            # shard s holds experts s * E / ep ..: its partial combine
+            # over them, merged by the axis's psum (the tokens and the
+            # router logits are replicated, held once)
+            n = ep.size
+            out = ep.psum(torch.einsum(
+                "negcd,gsnec->ngsd", expert_out.unflatten(0, (n, E // n)),
+                combine.to(dt).unflatten(2, (n, E // n))))
         # the Switch load-balancing loss (eq. 4) of each shard's tokens
         probs = probs.reshape(shards, s, E)
         top1 = (torch.argmax(probs, dim=-1)[..., None]
@@ -981,7 +1222,6 @@ class Llama(nn.Module):
                  = "cuda", generator: Optional[torch.Generator] = None,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        require_ported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         self.tok_embeddings = Embed(cfg.vocab_size, cfg.dim, cfg.dtype, dev,
@@ -1030,6 +1270,19 @@ class Llama(nn.Module):
                     w.normal_(0.0, w.shape[-2] ** -0.5,
                               generator=generator)
 
+    def retarget(self, cfg: LlamaConfig) -> "Llama":
+        """A twin of this module that shares its parameters and buffers
+        and runs ``cfg``: a config of the same parameter layout, another
+        tp layout of the same model, say (the param tree does not depend
+        on ``tp_size``)."""
+        memo = {id(t): t for t in itertools.chain(self.parameters(),
+                                                  self.buffers())}
+        twin = copy.deepcopy(self, memo)
+        for mod in twin.modules():
+            if hasattr(mod, "cfg"):
+                mod.cfg = cfg
+        return twin
+
     def state(self, release: bool = False) -> Dict[str, torch.Tensor]:
         """The parameters as ``{state-dict name: tensor}``: detached
         copies, or with ``release=True`` the tensors themselves, the
@@ -1076,6 +1329,10 @@ class Llama(nn.Module):
         if t > cfg.max_seq_len:
             raise ValueError(f"sequence {t} exceeds max_seq_len "
                              f"{cfg.max_seq_len}")
+        tp = _tp_axis(cfg)
+        if cfg.tp_seq_shard and t % cfg.tp_size:
+            raise ValueError(f"sequence length {t} must divide by tp_size "
+                             f"({cfg.tp_size}) under tp_seq_shard")
         positions = torch.arange(t, device=tokens.device)
         shards = None
         if cfg.attn_mode in ("ring", "ulysses"):
@@ -1096,7 +1353,8 @@ class Llama(nn.Module):
         else:
             positions = pos_offset + positions
         rope = _rope_tables(positions, self.rope_freqs)
-        x = self.tok_embeddings(tokens)
+        x = (vocab_parallel_embed(self.tok_embeddings, tokens, cfg)
+             if cfg.vocab_parallel else self.tok_embeddings(tokens))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.layers:
             x, layer_aux = (_remat(block, x, rope, cfg.remat_policy)
@@ -1104,9 +1362,15 @@ class Llama(nn.Module):
             if layer_aux is not None:
                 aux = aux + layer_aux
         x = self.norm(x)
-        if not return_hidden:
+        if not return_hidden and cfg.vocab_parallel:
+            # column-parallel over the vocab: each shard's own logits
+            # columns, not merged (the rows re-gathered once under
+            # tp_seq_shard: every row's softmax needs every shard)
+            x = _shard_cols(self.output(_enter_tp_region(x, cfg, tp)),
+                            tp.size).float()
+        elif not return_hidden:
             x = self.output(x).float()
-        x = x if shards is None else x.reshape(*shards, *x.shape[1:])
+        x = x if shards is None else x.unflatten(-3, shards)
         return (x, aux) if return_aux else x
 
     @torch.no_grad()
@@ -1127,7 +1391,15 @@ class Llama(nn.Module):
         # a write window that would cross the cache end starts earlier,
         # as XLA clamps a dynamic_update_slice start into [0, S - T]
         write_pos = idx.long().clamp(0, s - t)[:, None] + steps  # [B, T]
-        rows = torch.arange(b, device=dev)[:, None]
+        n = cache.shards
+        tp = _tp_axis(self.cfg)
+        if (tp.size if tp is not None else 1) != n:
+            raise ValueError(f"a cache of {n} shard(s) for a model of "
+                             f"tp_size {self.cfg.tp_size}: build it with "
+                             "init_cache(..., keep_tp=tp_size > 1)")
+        if n > 1:   # every shard's rows, shard-major
+            idx, write_pos = idx.repeat(n), write_pos.repeat(n, 1)
+        rows = torch.arange(n * b, device=dev)[:, None]
         x = self.tok_embeddings(tokens)
         for layer, block in enumerate(self.layers):
             x, _ = block(x, rope, cache, layer, idx, rows, write_pos)
@@ -1212,9 +1484,14 @@ def llama_chunked_xent_loss_fn(model: Llama, *, n_chunks: int = 8):
     is ``{state-dict name: tensor}`` (``model.state()``).  As the JAX
     builder does, it refuses an MoE config with ``moe_aux_weight > 0``
     (the chunked path carries no aux term: use :func:`llama_loss_fn`);
-    the other configs JAX refuses (vocab-parallel, tp_seq_shard) need
-    tensor parallelism, which ``Llama`` refuses already."""
+    and, as JAX does, a vocab-parallel or tp_seq_shard config."""
     cfg = model.cfg
+    if cfg.vocab_parallel:
+        raise ValueError("chunked xent: use vocab_parallel_xent with "
+                         "vocab_parallel configs")
+    if cfg.tp_seq_shard:
+        raise ValueError("chunked xent: hidden states are seq-sharded "
+                         "under tp_seq_shard but targets are not")
     if cfg.n_experts and cfg.moe_aux_weight > 0.0:
         raise ValueError("chunked xent does not collect MoE aux "
                          "intermediates; use the plain loss")
@@ -1243,7 +1520,9 @@ def llama_loss_fn(model: Llama, *, pos_offset: int = 0):
 
     An MoE config with ``moe_aux_weight > 0`` adds ``moe_aux_weight`` x
     the layers' summed aux loss (each shard's own under sequence
-    parallelism), as ``examples/llama_benchmark.py``'s loss does."""
+    parallelism), as ``examples/llama_benchmark.py``'s loss does.  A
+    ``vocab_parallel`` config takes :func:`vocab_parallel_xent` over its
+    vocab-sharded logits (the same loss), as the benchmark does."""
     cfg = model.cfg
     sp = cfg.attn_mode in ("ring", "ulysses")
     want_aux = cfg.n_experts > 0 and cfg.moe_aux_weight > 0.0
@@ -1257,11 +1536,74 @@ def llama_loss_fn(model: Llama, *, pos_offset: int = 0):
                              return_aux=want_aux)
         if want_aux:
             logits, aux = logits
-        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                             tgt.reshape(-1).long(),
-                             reduction="none" if sp else "mean")
-        if sp:
-            ce = ce.reshape(inp.shape[0], -1).mean(1)
+        if cfg.vocab_parallel and sp:
+            # each sequence shard's loss over the vocab-sharded columns
+            ce = torch.stack([vocab_parallel_xent(
+                logits[:, i], tgt[i], cfg.tp_axis)
+                for i in range(inp.shape[0])])
+        elif cfg.vocab_parallel:
+            ce = vocab_parallel_xent(logits, tgt, cfg.tp_axis)
+        else:
+            ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                 tgt.reshape(-1).long(),
+                                 reduction="none" if sp else "mean")
+            if sp:
+                ce = ce.reshape(inp.shape[0], -1).mean(1)
         return ce + cfg.moe_aux_weight * aux if want_aux else ce
 
     return loss_fn
+
+
+def llama_param_specs(params_or_shapes, rank_axis: Optional[str] = "bf",
+                      tp_axis: Optional[str] = "tp",
+                      ep_axis: Optional[str] = "ep",
+                      pp_axis: Optional[str] = None,
+                      vocab_axis: Optional[str] = None
+                      ) -> Dict[str, tuple]:
+    """The JAX package's ``llama_param_specs`` over the port's state
+    dict (``{name: tensor or shape}``, the leaves WITHOUT the rank
+    axis): ``{name: spec}``, a spec being the tuple of axis names (or
+    None) per dim of the rank-major leaf that ``batch_specs`` uses (JAX's
+    ``PartitionSpec``), trailing Nones stripped.  Column-parallel kernels
+    (``wq/wk/wv/w1/w3``) and their per-output-channel ``scale`` shard
+    their last dim over ``tp_axis``, row-parallel kernels (``wo/w2``)
+    their second-to-last; MoE expert tensors (under ``moe_ffn``, not the
+    router) their expert dim over ``ep_axis``; with ``vocab_axis`` the
+    embedding its vocab rows and the head its vocab columns.
+    ``rank_axis=None`` gives specs without the rank dim.  ``pp_axis``
+    (the scanned pipeline layout) is not ported: the pipeline waits for
+    ROADMAP.md Queue 1, item 10."""
+    if pp_axis is not None:
+        raise NotImplementedError(
+            f"llama_param_specs(pp_axis=) (the pipeline's layer sharding) "
+            f"is not ported to bluefog_tpu_torch yet; see {_PIPELINE}")
+    column = ("wq", "wk", "wv", "w1", "w3")
+    row = ("wo", "w2")
+    out = {}
+    for name, leaf in params_or_shapes.items():
+        parts = name.split(".")
+        tagged = "/" + "/".join(parts) + "/"
+        nd = len(leaf.shape)
+        is_scale = parts[-1] == "scale"
+        dims = [None] * nd
+        if vocab_axis is not None and "/tok_embeddings/" in tagged \
+                and nd >= 2:
+            dims[0] = vocab_axis
+        elif vocab_axis is not None and "/output/" in tagged and nd >= 1:
+            dims[-1] = vocab_axis
+        elif "/moe_ffn/" in tagged:
+            if ep_axis is not None and "/router/" not in tagged and nd >= 3:
+                dims[-3] = ep_axis
+        elif any(f"/{k}/" in tagged for k in column) \
+                and (nd >= 2 or (is_scale and nd >= 1)):
+            if tp_axis is not None:
+                dims[-1] = tp_axis
+        elif any(f"/{k}/" in tagged for k in row) and nd >= 2 \
+                and not is_scale:
+            if tp_axis is not None:
+                dims[-2] = tp_axis
+        while dims and dims[-1] is None:
+            dims.pop()
+        out[name] = tuple(dims) if rank_axis is None else (rank_axis,
+                                                           *dims)
+    return out

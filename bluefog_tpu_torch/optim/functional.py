@@ -65,14 +65,17 @@ optimizer itself, or ``(optimizer, ps_weight)`` under push-sum, or
 ``(optimizer, MixState)`` under top-k mixing.  No step reads a device
 value on the host.
 
-Sequence parallelism (``sp_axis``) runs inside step 1: each rank's
-forward and backward take all of its sequence shards at once (see
+Sequence parallelism (``sp_axis``) and the model axes (``mesh_axes``:
+tensor and expert parallelism, with ``param_specs`` /
+``opt_state_specs``) run inside step 1: each rank's forward and backward
+take all of its shards at once, the axes bound (see
 :func:`build_train_step`).  The expert-sharded step (``moe=``,
 :class:`MoEConfig`) runs step 1 once over every rank this process holds,
 since its all-to-all crosses ranks inside the forward, and mixes only
 the shared leaves.  Features of the JAX builder not ported yet
-(``pp_axis``, ``param_specs``, ``opt_state_specs``) raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+(``pp_axis``; ``moe=`` with ``sp_axis``; the int8 wires and top-k mixing
+under model-parallel specs) raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -96,15 +99,19 @@ CommSpec = Union[Topology, DynamicTopology]
 
 __all__ = ["GuardConfig", "HealthConfig", "HealthVector",
            "MixCompressConfig", "MixState", "MoEConfig", "build_train_step",
-           "rank_major", "consensus_distance", "comm_weight_inputs",
+           "rank_major", "rank_major_init", "rank_spec_tree",
+           "optax_state_specs", "consensus_distance", "comm_weight_inputs",
            "push_sum_weights", "ELEMENTWISE_OPTIMIZERS"]
 
 ELEMENTWISE_OPTIMIZERS = (torch.optim.SGD, torch.optim.Adam,
                           torch.optim.AdamW)
 
-_LLAMA_ITEM = ("ROADMAP.md Queue 1, item 10 (the model axes: tensor "
-               "parallelism with ep_size > 1 and param_specs, then the "
-               "pipeline)")
+_PIPELINE_ITEM = ("ROADMAP.md Queue 1, item 10 (the pipeline: "
+                  "parallel/pipeline.py and the train step's pp_axis)")
+_MOE_SP_ITEM = ("ROADMAP.md Queue 1, item 10 (moe= with sp_axis, a "
+                "sequence-sharded expert step)")
+_WIRE_SHARD_ITEM = ("ROADMAP.md Queue 1, item 10 (per-shard wire buckets "
+                    "under model-parallel param_specs)")
 # the name of the rank axis in a batch spec, the JAX package's mesh axis
 RANK_AXIS = "bf"
 
@@ -115,7 +122,7 @@ RANK_AXIS = "bf"
 _FLAT_BYTES = 1 << 28
 
 
-def _not_ported(what: str, item: str = _LLAMA_ITEM):
+def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to bluefog_tpu_torch yet; see {item}")
 
@@ -235,14 +242,125 @@ def _moe_shared_mask(names: Sequence[str], moe: MoEConfig) -> list:
             for name in names]
 
 
-def rank_major(tree: Dict[str, torch.Tensor],
-               backend: RankBackend) -> Dict[str, torch.Tensor]:
+def rank_major(tree: Dict[str, torch.Tensor], backend: RankBackend,
+               specs: Optional[Dict[str, tuple]] = None
+               ) -> Dict[str, torch.Tensor]:
     """Stack ``backend.n_local`` copies of every leaf of ``{name:
     tensor}`` (one per rank this process holds) along a new leading rank
     axis on the backend's device: the initial state of decentralized
     training, every rank at the same point (the reference gets this from
-    broadcast_parameters)."""
+    broadcast_parameters).  ``specs`` (``llama_param_specs``' form, the
+    rank axis first) names a model-parallel layout: each rank still holds
+    every shard of its leaves (the model takes each shard's slice), so
+    only the specs' form is checked."""
+    if specs is not None:
+        _check_spec_form(tree, specs)
     return backend.rank_major(tree)
+
+
+def _check_spec_form(tree, specs) -> None:
+    """Every spec of ``specs`` names a leaf of ``tree`` (leaves without
+    the rank axis) and is a tuple that starts with the rank axis, one
+    entry per dim of the rank-major leaf at most."""
+    for k, spec in specs.items():
+        if k not in tree:
+            raise ValueError(f"specs names {k!r}, which the tree does "
+                             "not hold")
+        if not (isinstance(spec, tuple) and spec and spec[0] == RANK_AXIS
+                and len(spec) <= tree[k].dim() + 1):
+            raise ValueError(f"specs[{k!r}] = {spec!r}: a tuple of axis "
+                             f"names that starts with {RANK_AXIS!r}, one "
+                             "per dim at most")
+
+
+def rank_major_init(init_fn: Callable[[], Dict[str, torch.Tensor]],
+                    backend: RankBackend,
+                    specs: Optional[Dict[str, tuple]] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Rank-major state built on the backend's device with no host
+    staging copy: ``init_fn()`` builds one rank's leaves, on the device,
+    leaf after leaf they are broadcast into an uninitialized ``[n_local,
+    ...]`` stack there, and each single copy is dropped before the next
+    stack is allocated.  Under ``bfrun`` each process builds only its own
+    rows (``n_local``).  ``specs``: as :func:`rank_major`."""
+    dev = backend.device
+    with torch.device(dev):
+        tree = init_fn()
+    if specs is not None:
+        _check_spec_form(tree, specs)
+    out = {}
+    for k in list(tree):
+        leaf = tree.pop(k).detach()
+        stacked = torch.empty((backend.n_local,) + tuple(leaf.shape),
+                              dtype=leaf.dtype, device=dev)
+        stacked.copy_(leaf.to(dev).unsqueeze(0).expand_as(stacked))
+        out[k] = stacked
+        del leaf
+    return out
+
+
+def rank_spec_tree(tree, axis_name: str = RANK_AXIS) -> Dict[str, tuple]:
+    """The spec of every leaf of ``{name: ...}``: the leading rank axis
+    only, ``(axis_name,)``."""
+    return {k: (axis_name,) for k in tree}
+
+
+def optax_state_specs(optimizer: torch.optim.Optimizer, params_shapes,
+                      param_specs, axis_name: str = RANK_AXIS
+                      ) -> Dict[str, Dict[str, tuple]]:
+    """The specs of a torch optimizer's state, the port's counterpart of
+    JAX's map over an optax state: ``{param name: {state key: spec}}``.
+    ``params_shapes``: ``{name: tensor or shape}`` WITHOUT the rank
+    axis, ``param_specs``: ``{name: spec}`` (``llama_param_specs``).  A
+    state tensor of its param's shape (momentum, Adam's moments)
+    inherits the param's spec; every other entry (Adam's per-rank
+    ``step``, a shape-reduced statistic) is ``(axis_name,)`` — but a
+    shape-reduced leaf of a MODEL-PARALLEL param raises, as in JAX:
+    factored optimizers do not compose with model-parallel shardings.
+    The state is read from one step of ``type(optimizer)`` with its
+    hyperparameters on zero tensors of the params' shapes (on the
+    ``meta`` device where the optimizer runs there)."""
+    shapes = {k: tuple(getattr(v, "shape", v)) for k, v in
+              params_shapes.items()}
+    state = None
+    for device in ("meta", "cpu"):
+        probe = [torch.zeros(sh, device=device, requires_grad=True)
+                 for sh in shapes.values()]
+        opt = type(optimizer)(probe, **optimizer.defaults)
+        for t in probe:
+            t.grad = torch.zeros_like(t)
+        try:
+            opt.step()
+        except (RuntimeError, NotImplementedError):
+            if device == "meta":
+                continue
+            raise
+        state = [opt.state[t] for t in probe]
+        break
+    out = {}
+    for (name, shape), st in zip(shapes.items(), state):
+        spec = (param_specs if isinstance(param_specs, tuple)
+                else param_specs[name])
+        entry = {}
+        for key, v in st.items():
+            v_shape = tuple(getattr(v, "shape", ()))
+            if v_shape == shape:
+                entry[key] = spec
+                continue
+            model_axes = [a for a in _spec_axes(spec) if a != axis_name]
+            if v_shape and model_axes:
+                raise ValueError(
+                    f"optimizer state leaf of shape {v_shape} is "
+                    f"shape-reduced relative to its param {shape} whose "
+                    f"spec {spec} is model-parallel over {model_axes} — "
+                    "factored optimizers (e.g. adafactor) do not compose "
+                    "with model-parallel param shardings here; pass an "
+                    "explicit opt_state_specs tree that shards the "
+                    "factored moments to match, or use a non-factored "
+                    "optimizer")
+            entry[key] = (axis_name,)
+        out[name] = entry
+    return out
 
 
 def consensus_distance(params: Dict[str, torch.Tensor],
@@ -407,7 +525,8 @@ def _select_state(optimizer, tensors, snap, ok, n) -> None:
 
 def _observed_step(step_fn: Callable, labels: dict,
                    edge_traffic: Optional[tuple] = None,
-                   mixed: Optional[Callable[[str], bool]] = None
+                   mixed: Optional[Callable[[str], bool]] = None,
+                   leaf_shards: Optional[Callable] = None
                    ) -> Callable:
     """Host-side observability of a built step: each call increments
     ``bf_train_steps_total{comm_mode,overlap,guarded}`` and runs inside a
@@ -429,7 +548,10 @@ def _observed_step(step_fn: Callable, labels: dict,
     the intra-machine ring edges bill as ``link="ici"`` and the expanded
     machine edges as ``link="dcn"``, as in the JAX package.  ``mixed``
     (a predicate on param names) bills only the leaves the combine moves
-    (the shared leaves under ``moe=``)."""
+    (the shared leaves under ``moe=``).  ``leaf_shards`` (params ->
+    ``{name: pieces}``, under model-parallel ``param_specs``) bills what
+    one JAX device sends: each leaf's bytes over the pieces its spec
+    splits it into."""
     from bluefog_tpu_torch import observe
 
     payload_cache: list = []
@@ -445,8 +567,10 @@ def _observed_step(step_fn: Callable, labels: dict,
         if step_i % k_comm != 0:
             return
         if not payload_cache:
+            pieces = (leaf_shards(args[0]) if leaf_shards is not None
+                      else {})
             payload_cache.append(sum(
-                t.numel() * t.element_size()
+                t.numel() * t.element_size() // pieces.get(k, 1)
                 for k, t in args[0].items()
                 if mixed is None or mixed(k)) // max(n_local, 1))
         from bluefog_tpu_torch.observe import fleet as _fleet
@@ -486,25 +610,78 @@ def _observed_step(step_fn: Callable, labels: dict,
     return step
 
 
-def _check_specs(spec, sp) -> None:
+def _check_specs(spec, axes) -> None:
     """``batch_specs`` is one spec for every batch leaf: a tuple of axis
     names, one per dim, that starts with the rank axis ``"bf"`` and names
-    the sequence axis at most once; any other axis is a model-parallel
-    layout, not ported."""
+    at most one of the step's axes (``axes``: name -> axis, the sequence
+    axis and the ``mesh_axes``), once."""
     if not (isinstance(spec, tuple) and spec and spec[0] == RANK_AXIS
             and all(e is None or isinstance(e, str) for e in spec)):
         raise ValueError(
             f"batch_specs {spec!r}: a tuple of axis names (str or None), one "
             f"per batch dim, the first the rank axis {RANK_AXIS!r}")
     names = [e for e in spec[1:] if e is not None]
-    other = [e for e in names if sp is None or e != sp.name]
-    if other and sp is None:
-        raise ValueError(f"batch_specs {spec!r} names {names} but sp_axis "
-                         "is not set")
-    if other:
-        _not_ported(f"batch_specs over {other} (model-parallel layouts)")
+    unknown = [e for e in names if e not in axes]
+    if unknown:
+        raise ValueError(f"batch_specs {spec!r} names {unknown}, which "
+                         "neither sp_axis nor mesh_axes holds")
     if len(names) > 1:
-        raise ValueError(f"batch_specs {spec!r} names {sp.name!r} twice")
+        raise ValueError(f"batch_specs {spec!r} splits the batch over "
+                         f"{names}: name one axis, once")
+
+
+def _spec_axes(spec) -> list:
+    """The axis names a spec tuple shards over (entries may be a name,
+    None, or a tuple of names)."""
+    out = []
+    for e in spec or ():
+        for a in (e if isinstance(e, tuple) else (e,)):
+            if a is not None:
+                out.append(a)
+    return out
+
+
+def _spec_is_model_parallel(spec, axis_name: str = RANK_AXIS) -> bool:
+    return any(a != axis_name for a in _spec_axes(spec))
+
+
+def _check_param_specs(params, param_specs, axes) -> Dict[str, int]:
+    """Hold ``param_specs`` (``{name: spec}`` or one spec for every leaf)
+    to the rank-major ``params``: each spec starts with the rank axis,
+    fits its leaf's dims, names only ``axes`` (the step's mesh axes) and
+    splits each named dim evenly.  Returns ``{name: shards}``, the number
+    of pieces each leaf is split into (its bytes over that are what one
+    JAX device holds)."""
+    out = {}
+    for name, leaf in params.items():
+        spec = (param_specs if isinstance(param_specs, tuple)
+                else param_specs.get(name))
+        if spec is None:
+            raise ValueError(f"param_specs has no spec for {name!r}")
+        if not (isinstance(spec, tuple) and spec and spec[0] == RANK_AXIS):
+            raise ValueError(f"param_specs[{name!r}] = {spec!r}: a tuple "
+                             f"of axis names that starts with "
+                             f"{RANK_AXIS!r}")
+        if len(spec) > leaf.dim():
+            raise ValueError(f"param_specs[{name!r}] = {spec!r} has more "
+                             f"dims than the leaf {tuple(leaf.shape)}")
+        shards = 1
+        for d, e in enumerate(spec[1:], start=1):
+            for a in (e if isinstance(e, tuple) else (e,)):
+                if a is None:
+                    continue
+                if a not in axes:
+                    raise ValueError(
+                        f"param_specs[{name!r}] shards over {a!r}, which "
+                        "mesh_axes does not hold")
+                if leaf.shape[d] % axes[a].size:
+                    raise ValueError(
+                        f"param_specs[{name!r}]: dim {d} of {name!r} "
+                        f"({leaf.shape[d]}) does not split over "
+                        f"{axes[a]!r}")
+                shards *= axes[a].size
+        out[name] = shards
+    return out
 
 
 def _shard_batch(tree, spec, n: int):
@@ -542,9 +719,10 @@ def _shard_mean(loss: torch.Tensor, n: int) -> torch.Tensor:
 def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
                    hierarchical_local_size, sp_axis, pp_axis, batch_specs,
                    param_specs, opt_state_specs, compress, overlap,
-                   overlap_buckets, guard, moe):
+                   overlap_buckets, guard, moe, mesh_axes):
     """The JAX builder's checks, in its order and with its messages.
-    Returns (specs, hierarchical_local_size, compress, mix, fused)."""
+    Returns (specs, hierarchical_local_size, compress, mix, fused, the
+    mesh axes by name, the batch-splittable axes by name)."""
     if comm_mode not in ("cta", "atc", "gradient_allreduce", "push_sum",
                          "none"):
         raise ValueError(f"unknown comm_mode {comm_mode!r}")
@@ -582,16 +760,36 @@ def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
     elif comm_mode not in ("cta", "atc"):
         hls = None
     if pp_axis is not None:
-        _not_ported("pp_axis (pipeline parallelism)")
-    if param_specs is not None or opt_state_specs is not None:
-        _not_ported("model-parallel layouts (param_specs / "
-                    "opt_state_specs)")
+        _not_ported("pp_axis (pipeline parallelism)", _PIPELINE_ITEM)
     if sp_axis is not None and not isinstance(sp_axis, C.SeqAxis):
         raise TypeError(
             f"sp_axis must be the axis itself, SeqAxis({sp_axis!r}, size): "
             "the port has no mesh to hold its size")
+    axes = {}
+    for ax in mesh_axes:
+        if not isinstance(ax, C.MeshAxis) or isinstance(ax, C.SeqAxis):
+            raise TypeError(
+                f"mesh_axes takes the model axes themselves, MeshAxis("
+                f"name, size) (the sequence axis goes to sp_axis=), got "
+                f"{ax!r}")
+        if ax.name == RANK_AXIS or ax.name in axes or (
+                sp_axis is not None and ax.name == sp_axis.name):
+            raise ValueError(f"mesh_axes: axis name {ax.name!r} is taken")
+        axes[ax.name] = ax
+    if sp_axis is not None:
+        axes_b = dict(axes, **{sp_axis.name: sp_axis})
+    else:
+        axes_b = axes
     if batch_specs is not None:
-        _check_specs(batch_specs, sp_axis)
+        _check_specs(batch_specs, axes_b)
+    if param_specs is not None and not isinstance(param_specs,
+                                                  (tuple, dict)):
+        raise TypeError("param_specs is {name: spec} or one spec tuple, "
+                        f"got {type(param_specs).__name__}")
+    model_parallel = param_specs is not None and any(
+        _spec_is_model_parallel(sp) for sp in (
+            [param_specs] if isinstance(param_specs, tuple)
+            else param_specs.values()))
     if compress is None and comm_mode in ("cta", "atc"):
         compress = _config.mix_compress()
     mix = None
@@ -638,7 +836,16 @@ def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
             "average expert gradients across ranks hosting DIFFERENT "
             "experts, and push_sum's (x, w) pair cannot be split")
     if moe is not None and sp_axis is not None:
-        _not_ported("moe= with sp_axis (a sequence-sharded expert step)")
+        _not_ported("moe= with sp_axis (a sequence-sharded expert step)",
+                    _MOE_SP_ITEM)
+    if model_parallel and (compress in ("int8", "int8_sr")
+                           or mix is not None):
+        _not_ported(
+            f"compress={compress or 'topk'!r} with model-parallel "
+            "param_specs (the int8 wire's absmax scale and top-k mixing's "
+            "selection are per bucket of what ONE device holds, and the "
+            "port's buckets hold every shard of a rank; the elementwise "
+            "exchange, compress=None or 'bf16', runs)", _WIRE_SHARD_ITEM)
     if overlap == "bucketed":
         if comm_mode not in ("cta", "atc", "push_sum"):
             raise ValueError(
@@ -667,7 +874,7 @@ def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
                 "overlap='bucketed' with comm_mode='push_sum' needs the "
                 "fused epilogue pipeline (unset BLUEFOG_FUSE_EPILOGUES=0): "
                 "the unfused builder mixes the extended payload whole")
-    return specs, hls, compress, mix, fused
+    return specs, hls, compress, mix, fused, axes, axes_b
 
 
 def build_train_step(
@@ -682,6 +889,7 @@ def build_train_step(
     hierarchical_local_size: Optional[int] = None,
     hierarchical: Any = None,
     sp_axis: Optional[C.SeqAxis] = None,
+    mesh_axes: Sequence[C.MeshAxis] = (),
     pp_axis: Optional[str] = None,
     batch_specs: Any = None,
     param_specs: Any = None,
@@ -747,6 +955,27 @@ def build_train_step(
       ``comm_mode``, the guard, health and bucketed overlap compose with
       it, on either backend.
 
+    * ``mesh_axes=(MeshAxis("tp", tp),)`` with ``param_specs`` and
+      ``opt_state_specs``: the model axes a JAX mesh carries besides
+      ``"bf"`` (tensor parallelism, experts over an ep axis), each given
+      as the axis object (the port has no mesh to hold their sizes) and
+      bound over every forward and backward, as ``shard_map`` binds its
+      axis names.  ``param_specs`` (``{name: spec}`` or one spec, a
+      spec the tuple of axis names ``llama_param_specs`` gives, the
+      rank axis first) and ``opt_state_specs`` (``optax_state_specs``'
+      map) are checked against the params and the optimizer at the first
+      step.  A rank holds every shard of its leaves (the model computes
+      each shard from its slice), so the update and every elementwise
+      exchange (cta, atc, gradient_allreduce, push_sum, hierarchical,
+      the bf16 wire) are the same arithmetic as JAX's per device; the
+      edge account bills what one JAX device sends (each leaf's bytes
+      over its spec's shard count).  The int8 wires and top-k mixing,
+      whose scale and selection are per bucket of one device's shards,
+      are refused under a model-parallel spec.  The guard and health
+      read every shard of a rank (JAX's outputs read its first shard's
+      device).  ``batch_specs`` may split one batch dim over a model
+      axis as over the sequence axis.
+
     * ``moe=MoEConfig(n_experts, capacity)``: the expert-sharded step
       (cta or atc).  ``loss_fn(params, batch)`` (``loss_fn(params, aux,
       batch)`` with ``has_aux``) then runs ONCE over every rank this
@@ -779,11 +1008,11 @@ def build_train_step(
     after ``loss``; under ``health=`` the ``HealthVector`` comes last.
     """
     del donate
-    specs, hls, compress, mix, fused = _resolve_modes(
+    specs, hls, compress, mix, fused, axes, axes_b = _resolve_modes(
         backend, comm_mode, topology, schedule, hierarchical,
         hierarchical_local_size, sp_axis, pp_axis, batch_specs,
         param_specs, opt_state_specs, compress, overlap, overlap_buckets,
-        guard, moe)
+        guard, moe, tuple(mesh_axes))
     if not isinstance(backend, RankBackend):
         raise TypeError(f"backend must be a StackedBackend or a "
                         f"ProcessBackend, got {type(backend).__name__}")
@@ -794,9 +1023,45 @@ def build_train_step(
             f"{[c.__name__ for c in ELEMENTWISE_OPTIMIZERS]} update each "
             "rank's slice with its own values")
     adam = type(optimizer) is not torch.optim.SGD
-    # which batch dims the sequence shards split; JAX's default P("bf")
+    # which batch dim an axis's shards split; JAX's default P("bf")
     # splits none
     specs_b = batch_specs if batch_specs is not None else (RANK_AXIS,)
+    split_names = [e for e in specs_b[1:] if e is not None]
+    split_axis = axes_b[split_names[0]] if split_names else None
+    # the axes bound over every forward and backward, as shard_map binds
+    # its mesh axis names
+    bound = ([sp_axis] if sp_axis is not None else []) + list(axes.values())
+    shards_of: Dict[tuple, Dict[str, int]] = {}
+    opt_specs_checked: list = []
+
+    def bind_axes():
+        stack = contextlib.ExitStack()
+        for ax in bound:
+            stack.enter_context(C.bind_axis(ax))
+        return stack
+
+    def leaf_shards(params) -> Dict[str, int]:
+        """``{name: pieces}`` of the model-parallel layout (every leaf 1
+        without ``param_specs``), checked once per param tree."""
+        key = tuple((k, tuple(v.shape)) for k, v in params.items())
+        got = shards_of.get(key)
+        if got is None:
+            got = (dict.fromkeys(params, 1) if param_specs is None
+                   else _check_param_specs(params, param_specs, axes))
+            if opt_state_specs is not None and not opt_specs_checked:
+                want = optax_state_specs(
+                    optimizer, {k: v[0] for k, v in params.items()},
+                    param_specs if param_specs is not None
+                    else rank_spec_tree(params))
+                if opt_state_specs != want:
+                    raise ValueError(
+                        "opt_state_specs differ from optax_state_specs("
+                        "optimizer, params, param_specs): the port's "
+                        "optimizer state follows its params leaf for "
+                        f"leaf ({want!r})")
+                opt_specs_checked.append(True)
+            shards_of[key] = got
+        return got
     if adam and any(g.get("amsgrad") for g in optimizer.param_groups):
         raise ValueError("amsgrad=True is not supported by the port's "
                          "per-rank Adam update")
@@ -1044,6 +1309,7 @@ def build_train_step(
             if p.shape[0] != n:
                 raise ValueError(f"param {name!r} has {p.shape[0]} ranks, "
                                  f"the backend {n}")
+        leaf_shards(params)
         dev = tensors[0].device
         on_cycle = step % k_comm == 0
         overlap_dev = bucketed and dev.type == "cuda"
@@ -1070,7 +1336,7 @@ def build_train_step(
             # the expert-sharded forward crosses ranks: every rank at once
             p_all = {k: v.detach().requires_grad_(True)
                      for k, v in params.items()}
-            with torch.enable_grad():
+            with torch.enable_grad(), bind_axes():
                 if has_aux:
                     loss, new_aux = loss_fn(p_all, aux, batch)
                 else:
@@ -1091,18 +1357,16 @@ def build_train_step(
             p_r = {k: v[r].detach().requires_grad_(True)
                    for k, v in params.items()}
             b_r = _slice(batch, r)
-            if sp_axis is not None:
-                b_r = _shard_batch(b_r, specs_b, sp_axis.size)
-            # the sequence axis is bound over the forward and backward
-            with torch.enable_grad(), (
-                    C.bind_axis(sp_axis) if sp_axis is not None
-                    else contextlib.nullcontext()):
+            if split_axis is not None:
+                b_r = _shard_batch(b_r, specs_b, split_axis.size)
+            # the step's axes are bound over the forward and backward
+            with torch.enable_grad(), bind_axes():
                 if has_aux:
                     loss, new_aux = loss_fn(p_r, _slice(aux, r), b_r)
                 else:
                     loss = loss_fn(p_r, b_r)
-                if sp_axis is not None:
-                    loss = _shard_mean(loss, sp_axis.size)
+                if sp_axis is not None or split_axis is not None:
+                    loss = _shard_mean(loss, (sp_axis or split_axis).size)
                 gs = torch.autograd.grad(loss, list(p_r.values()))
             with torch.no_grad():
                 for g_all, g in zip(grads, gs):
@@ -1249,7 +1513,8 @@ def build_train_step(
         comm_mode=comm_mode, overlap="bucketed" if bucketed else "none",
         guarded="true" if guarded else "false"), edge_traffic,
         None if moe is None
-        else lambda k: _moe_shared_mask((k,), moe)[0])
+        else lambda k: _moe_shared_mask((k,), moe)[0],
+        None if param_specs is None else leaf_shards)
 
     def init_mix_state(params) -> MixState:
         """The MixState for rank-major ``params``: ``err`` zero, ``ref``

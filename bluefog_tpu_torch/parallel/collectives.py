@@ -22,9 +22,10 @@ host tensors, and gloo through pinned host buffers for device tensors).
 The math above the primitives is one copy for both, so a
 ``ProcessBackend`` job gives the stacked backend's bits.
 
-The sequence-parallel axis (:class:`SeqAxis`) is a :class:`RankAxis`
-too, over the sequence shards of one data-parallel rank; see its
-docstring for the convention.
+The model axes (:class:`MeshAxis`: tensor and expert parallelism; its
+case :class:`SeqAxis`: sequence parallelism) are :class:`RankAxis`es
+too, over the shards of one data-parallel rank; see its docstring for
+the convention.
 
 The weighted combine ``w_self·x + Σ_c w_c·recv_c`` is accumulated in
 float32 for low-precision payloads (``_accum_dtype``), in the same
@@ -49,6 +50,7 @@ CommSpec = Union[Topology, DynamicTopology]
 
 __all__ = [
     "RankAxis",
+    "MeshAxis",
     "SeqAxis",
     "bind_axis",
     "bound_axis",
@@ -248,29 +250,47 @@ class RankAxis:
         return _machine_mean(x, local_size, dtype, average)
 
 
-class SeqAxis(RankAxis):
-    """A sequence-parallel axis: the counterpart of a mesh axis that
-    ``shard_map`` binds by name (``"sp"``), over which a sequence is
-    split into ``size`` shards of ``T / size`` positions.
+class MeshAxis(RankAxis):
+    """A named mesh axis besides the rank axis ``"bf"``: the counterpart
+    of an axis that ``shard_map`` binds by name (``"sp"``, ``"tp"``,
+    ``"ep"``), over ``size`` shards.
 
     The convention: every shard of one data-parallel rank lives in one
-    process, on one device, stacked SHARD-MAJOR along a leading axis:
-    a tensor ``[size, ...]`` holds shard ``s``'s rows at ``[s]``, what
-    device ``s`` of the JAX mesh holds.  The object is the one place
-    that holds the axis size, as the JAX mesh does; ``LlamaConfig.
-    sp_axis`` names it and ``build_train_step(sp_axis=axis)`` binds it
-    (:func:`bind_axis`) for the duration of each forward and backward,
-    as ``shard_map`` binds its axis names.  A ring or Ulysses model
-    called with the name unbound raises, as ``lax.axis_index`` does
-    outside ``shard_map``.
+    process, on one device, stacked SHARD-MAJOR along a leading axis: a
+    per-shard tensor ``[size, ...]`` holds shard ``s``'s value at
+    ``[s]``, what device ``s`` of the JAX mesh holds.  A value that JAX
+    keeps REPLICATED over the axis (an identical copy on every device) is
+    held ONCE, without the leading axis.  The object is the one place
+    that holds the axis size, as the JAX mesh does; a config names it
+    (``LlamaConfig.sp_axis``/``tp_axis``/``ep_axis``) and
+    ``build_train_step(sp_axis=, mesh_axes=)`` or ``llama_generate(mesh=)``
+    binds it (:func:`bind_axis`) for the duration of each forward and
+    backward, as ``shard_map`` binds its axis names.  A model called with
+    the name unbound raises, as ``lax.axis_index`` does outside
+    ``shard_map``.
 
     * :meth:`index`: each shard's index, ``lax.axis_index``;
     * :meth:`permute` (a gather along the leading axis, the base
       class's) and :meth:`shift`, ``lax.ppermute`` and the ring's hop;
-    * :meth:`all_to_all`: ``lax.all_to_all(..., tiled=True)``.
+    * :meth:`all_to_all`: ``lax.all_to_all(..., tiled=True)``;
+    * :meth:`psum`, :meth:`pmax`: ``lax.psum``/``lax.pmax`` of per-shard
+      values, the result replicated (held once);
+    * :meth:`all_gather`: ``lax.all_gather(..., tiled=True)`` of
+      per-shard blocks, the result replicated;
+    * :meth:`psum_scatter`: ``lax.psum_scatter(..., tiled=True)``, the
+      result per shard.
 
-    Ring and Ulysses attention move data only through these, so an axis
-    whose shards span processes can override them alone."""
+    Because a replicated value is held once, a sum over the shard axis
+    and a broadcast along it are conjugate under autograd: the backward
+    of :meth:`psum` hands every shard the one cotangent (Megatron's ``g``:
+    psum forward, identity backward), and a replicated input read by
+    every shard collects the sum of the shards' cotangents (``f``:
+    identity forward, psum backward).  :meth:`all_gather` and
+    :meth:`psum_scatter` are each other's backward in the same way.  So
+    every method is plain differentiable torch, and the gradients equal
+    JAX's through its custom-VJP pairs.  Sequence, tensor and expert
+    parallelism move data only through these methods, so an axis whose
+    shards span processes can override them alone."""
 
     def __init__(self, name: str, size: int):
         if int(size) < 1:
@@ -279,7 +299,7 @@ class SeqAxis(RankAxis):
         self.name = str(name)
 
     def __repr__(self) -> str:
-        return f"SeqAxis({self.name!r}, {self.size})"
+        return f"{type(self).__name__}({self.name!r}, {self.size})"
 
     def index(self, device=None) -> torch.Tensor:
         """``lax.axis_index``: the index of each shard this process
@@ -287,6 +307,12 @@ class SeqAxis(RankAxis):
         copy)."""
         return torch.arange(self.first_rank, self.first_rank + self.n_local,
                             device=device)
+
+    def _shards(self, x: torch.Tensor, what: str) -> None:
+        if x.dim() == 0 or x.shape[0] != self.size:
+            raise ValueError(f"{what} over {self!r} takes [{self.size}, "
+                             f"...] shard-major tensors, got "
+                             f"{tuple(x.shape)}")
 
     def shift(self, x: torch.Tensor) -> torch.Tensor:
         """The ring's hop: shard ``i``'s rows go to shard ``(i + 1) %
@@ -306,9 +332,7 @@ class SeqAxis(RankAxis):
         the senders' order.  Differentiable: the backward is the reverse
         all-to-all."""
         n = self.size
-        if x.shape[0] != n:
-            raise ValueError(f"all_to_all over {self!r} takes [{n}, ...] "
-                             f"shard-major tensors, got {tuple(x.shape)}")
+        self._shards(x, "all_to_all")
         a = split_axis + 1
         if x.shape[a] % n:
             raise ValueError(f"axis {split_axis} of size {x.shape[a]} "
@@ -320,20 +344,82 @@ class SeqAxis(RankAxis):
             y = y.movedim(1, 1 + concat_axis)
             return y.flatten(1 + concat_axis, 2 + concat_axis).contiguous()
 
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.psum``: the sum of the shards' values ``x [size, ...]``
+        in shard order, replicated (``[...]``, held once)."""
+        self._shards(x, "psum")
+        with torch.profiler.record_function(EXCHANGE):
+            _tally_exchange("all-reduce", _row_bytes(x))
+            out = x[0]
+            for s in range(1, self.size):
+                out = out + x[s]
+            return out
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.pmax``: the shards' elementwise maximum, replicated."""
+        self._shards(x, "pmax")
+        with torch.profiler.record_function(EXCHANGE):
+            _tally_exchange("all-reduce", _row_bytes(x))
+            return x.amax(dim=0)
+
+    def all_gather(self, x: torch.Tensor, axis: int = 0,
+                   tiled: bool = True) -> torch.Tensor:
+        """``lax.all_gather(x, name, axis=axis, tiled=True)``: the shards'
+        blocks ``x [size, ...]`` concatenated along their dim ``axis`` in
+        shard order, replicated (``[...]``, that dim ``size`` times
+        longer)."""
+        if not tiled:
+            raise NotImplementedError("all_gather(tiled=False): the port's "
+                                      "model axes gather tiled")
+        self._shards(x, "all_gather")
+        with torch.profiler.record_function(EXCHANGE):
+            _tally_exchange("all-gather", x.numel() * x.element_size())
+            return x.movedim(0, axis).flatten(axis, axis + 1)
+
+    def psum_scatter(self, x: torch.Tensor, scatter_dimension: int = 0,
+                     tiled: bool = True) -> torch.Tensor:
+        """``lax.psum_scatter(x, name, scatter_dimension=d, tiled=True)``:
+        the sum of the shards' values ``x [size, ...]``, each shard
+        keeping its block of dim ``d``: ``[size, ..., x_d / size, ...]``,
+        per shard."""
+        if not tiled:
+            raise NotImplementedError("psum_scatter(tiled=False): the "
+                                      "port's model axes scatter tiled")
+        n = self.size
+        self._shards(x, "psum_scatter")
+        d = scatter_dimension
+        if x.shape[d + 1] % n:
+            raise ValueError(f"dim {d} of size {x.shape[d + 1]} does not "
+                             f"scatter over {n} shards")
+        with torch.profiler.record_function(EXCHANGE):
+            _tally_exchange("reduce-scatter", _row_bytes(x) // n)
+            out = x[0]
+            for s in range(1, n):
+                out = out + x[s]
+            return out.unflatten(d, (n, out.shape[d] // n)).movedim(d, 0)
+
+
+class SeqAxis(MeshAxis):
+    """A sequence-parallel axis (:class:`MeshAxis`): a sequence split
+    into ``size`` shards of ``T / size`` positions, stacked shard-major.
+    ``build_train_step(sp_axis=)`` takes it; ring and Ulysses attention
+    move data only through its :meth:`~MeshAxis.shift`,
+    :meth:`~MeshAxis.permute` and :meth:`~MeshAxis.all_to_all`."""
+
 
 # The axes bound by name (``bind_axis``): process-wide, not per thread, so
 # a recompute that autograd runs on its own thread finds them too.
-_bound_axes: Dict[str, SeqAxis] = {}
+_bound_axes: Dict[str, MeshAxis] = {}
 
 
 @contextlib.contextmanager
-def bind_axis(axis: SeqAxis):
+def bind_axis(axis: MeshAxis):
     """Bind ``axis`` under ``axis.name`` for the ``with`` block, as
     ``shard_map`` binds its mesh axis names: the forward and the backward
-    of a ring or Ulysses model must run inside it (a remat recompute
-    looks the axis up again)."""
-    if not isinstance(axis, SeqAxis):
-        raise TypeError(f"bind_axis takes a SeqAxis, got "
+    of a sequence-, tensor- or expert-parallel model must run inside it
+    (a remat recompute looks the axis up again)."""
+    if not isinstance(axis, MeshAxis):
+        raise TypeError(f"bind_axis takes a SeqAxis or a MeshAxis, got "
                         f"{type(axis).__name__}")
     prev = _bound_axes.get(axis.name)
     _bound_axes[axis.name] = axis
@@ -346,18 +432,19 @@ def bind_axis(axis: SeqAxis):
             _bound_axes[axis.name] = prev
 
 
-def bound_axis(name) -> SeqAxis:
-    """The :class:`SeqAxis` bound under ``name`` (an axis is returned
+def bound_axis(name) -> MeshAxis:
+    """The :class:`MeshAxis` bound under ``name`` (an axis is returned
     as it is); ``NameError`` when none is, as ``lax.axis_index`` outside
     ``shard_map``."""
-    if isinstance(name, SeqAxis):
+    if isinstance(name, MeshAxis):
         return name
     axis = _bound_axes.get(name)
     if axis is None:
         raise NameError(
             f"unbound axis name: {name!r}; run inside bind_axis("
-            f"SeqAxis({name!r}, size)) or under build_train_step("
-            f"sp_axis=SeqAxis({name!r}, size))")
+            f"MeshAxis({name!r}, size)) or under build_train_step("
+            f"sp_axis=SeqAxis({name!r}, size)) / build_train_step("
+            f"mesh_axes=(MeshAxis({name!r}, size),))")
     return axis
 
 

@@ -6,9 +6,10 @@ hold the kernels to one bound.
 * :data:`CASES`: the shapes K2, K3a and K3b are checked at, the Llama
   training shape first, the ViT-B/16 shape second, Llama-1B's third,
   ViT-B/16's at 32 images (a rank's share of a resilient 4-rank step)
-  fourth, the longest forward of an uncached greedy rollout at 8B width
-  (one 23-token row, under one tile) fifth (:data:`N_MODEL` model
-  shapes in all);
+  fourth, the 8B width's training shape at tp 2 (each shard's heads,
+  the shards in the batch) fifth, the longest forward of an uncached
+  greedy rollout at 8B width (one 23-token row, under one tile) sixth
+  (:data:`N_MODEL` model shapes in all);
   :data:`SPLASH_CASES` those of K5 (causal, no offsets), its two
   training shapes first.
 * :func:`term_sizes`: for each entry of out, dQ, dK and dV, the sum of
@@ -53,6 +54,9 @@ CASES = [
     (128, 200, 12, 12, 64, torch.bfloat16, False, 0, 0),  # ViT-B/16 b128
     (4, 2048, 32, 8, 64, torch.bfloat16, True, 0, 0),   # Llama-1B
     (32, 200, 12, 12, 64, torch.bfloat16, False, 0, 0),  # ViT-B/16 b32
+    # 8B width at tp 2 (phase 25a): each shard's 16 q and 4 kv heads,
+    # the two shards folded into the batch
+    (8, 2048, 16, 4, 128, torch.bfloat16, True, 0, 0),
     (1, 23, 32, 8, 128, torch.bfloat16, True, 0, 0),    # 8B rollout
     (2, 100, 4, 4, 16, torch.float32, True, 0, 0),
     (2, 1000, 8, 2, 64, torch.float32, True, 0, 0),
@@ -63,7 +67,7 @@ CASES = [
     (1, 100, 4, 1, 32, torch.bfloat16, True, 128, 0),
     (1, 1000, 8, 2, 128, torch.float32, False, 128, 0),
 ]
-N_MODEL = 5   # CASES[:N_MODEL] are the models' shapes
+N_MODEL = 6   # CASES[:N_MODEL] are the models' shapes
 
 # (B, T, H, KV, D, dtype): K5, causal with no offsets
 SPLASH_CASES = [

@@ -17,7 +17,8 @@ Phases (any failure raises and exits non-zero, printing no result):
    operations over the peak rate of its input type):
    a. K4 split-KV decode attention, bf16 and int8 cache, at the serving
       shapes of Llama-3.1-8B (KV=8, rep=4, D=128: B=8 at S 2048 and
-      8192, and phase 23c's B=8 and B=1 at S=1024 and B=1 at S=64;
+      8192, phase 23c's B=8 and B=1 at S=1024 and B=1 at S=64, and
+      phase 25b's tp 2 decode, B=16 KV=4 at S=128;
       positions drawn per row from --seed with rows at 0 and S-1, and
       positions either side of the split boundaries, checked only) and
       one small odd f32 shape, bit-equal across two runs, SDPA beside it
@@ -38,9 +39,10 @@ Phases (any failure raises and exits non-zero, printing no result):
       100 and 1000; rep 1, 2, 4; non-causal; every row masked by
       kv_offset=64; q_offset=128): max |err| per output, every output
       bit-equal across two runs; K2 (the wgmma kernel in bf16 at D 64 and
-      128) and SDPA's forward timed at every shape; at the five model
-      shapes (ViT-B/16 at 32 images too, phase 22b's launch shape, and
-      phase 23c's uncached rollout at B=1, T=23, under one tile) K3a's
+      128) and SDPA's forward timed at every shape; at the six model
+      shapes (ViT-B/16 at 32 images too, phase 22b's launch shape, the
+      8B width's at tp 2, phase 25a's B=8, H=16, KV=4, and phase 23c's
+      uncached rollout at B=1, T=23, under one tile) K3a's
       and K3b's (wgmma) kernel, plain, bound and library ms (SDPA's
       backward for K3a + K3b together), K2's at the training shape
       (SDPA's forward), and at each of them the planted faults in K3a's
@@ -58,9 +60,9 @@ Phases (any failure raises and exits non-zero, printing no result):
       count and bytes), K3a + K3b, plain, SDPA's backward and bound ms.
 3. Serving: Llama-3.1-8B at full width (32 layers, random bf16 weights
    from --seed at flax's initializer scales) through ServingEngine
-   (capacity 8, max_len 2048, prefill chunk 256): 16 requests, prompt
+   (capacity 8, max_len 2048, prefill chunk 256): 8 requests, prompt
    lengths 16-1500, 32-128 new tokens, half greedy and half at
-   temperature 0.8; then 4 requests with the int8 K/V cache.  Every
+   temperature 0.8; then 2 requests with the int8 K/V cache.  Every
    request must complete its budget with finite logits, and the kernel's
    launch count in the run must equal n_layers x decode steps.  A
    torch.profiler window of 10 decode steps gives the device-busy share
@@ -88,7 +90,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    from one state on the same per-rank data (batch 16), the consensus
    distance under atc is below that of comm_mode="none".
 6b. Train-step modes, 4 ranks stacked, ResNet-50 at full width, batch
-   128 per rank, each mode its own build (2 warm-up, 3 timed steps, then
+   128 per rank, each mode its own build (1 warm-up, 3 timed steps, then
    one step under torch.profiler for the device-busy ms), plain atc
    first as the yardstick, then: atc with guard= and health= (a NaN in rank 2's images at step 3: skipped
    [0, 0, 1, 0], rank 2's momentum and batch statistics kept bit for bit,
@@ -115,8 +117,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    heads, ffn 14336, vocab 128256, llama3 rope) cut to 4 layers,
    attn_impl="flash", f32 master params and bf16 compute, SGD(1e-3,
    momentum 0.9), comm_mode="none", batch 4 x 2048 synthetic tokens
-   from --seed (examples/llama_benchmark.py's protocol: 3 warm-up and
-   10 timed steps).  tokens/s per card, step ms, MFU over 989 TFLOP/s,
+   from --seed (2 warm-up and 5 timed steps).  tokens/s per card, step ms, MFU over 989 TFLOP/s,
    peak memory, losses finite near ln(vocab); K2, K3a and K3b launched
    n_layers x steps times each.  torch.profiler over 2 steps: device
    busy share, top kernels, the attention kernels' and the f32 head's
@@ -134,9 +135,9 @@ Phases (any failure raises and exits non-zero, printing no result):
    llama_benchmark.py --model 1b: vocab 32000, dim 2048, 16 layers, 32
    heads, 8 kv heads, ffn 5632; remat=True), f32 master params, bf16
    compute, the f32 head, SGD(1e-3, momentum 0.9), batch 4 x 2048 from
-   --seed, 3 warm-up and 10 timed steps per window: (a) splash, remat
-   policy "none" (K2 2 x 16 x 13 launches, K5 16 x 13, K3a/K3b none);
-   (b) flash (K3a/K3b 16 x 13 each, K5 none); (c) splash with remat
+   --seed, 2 warm-up and 3 timed steps per window: (a) splash, remat
+   policy "none" (K2 2 x 16 x 5 launches, K5 16 x 5, K3a/K3b none);
+   (b) flash (K3a/K3b 16 x 5 each, K5 none); (c) splash with remat
    policy "dots".  tokens/s per card, step ms, MFU, peak memory, losses
    finite near ln(vocab); torch.profiler over 2 steps of each window.
 12. Llama-1B, splash, 2 ranks stacked, atc over ExponentialTwoGraph(2),
@@ -164,9 +165,9 @@ Phases (any failure raises and exits non-zero, printing no result):
    ExponentialTwoGraph(4), batch 128 per rank, SGD(0.1, momentum 0.9)
    wrapped in the ATC, CTA (neighbor allreduce), gradient-allreduce,
    win-put and push-sum optimizers; each rank's forward and backward
-   through ResNet.apply, .grad written rank-major, opt.step(); 2 warm-up
+   through ResNet.apply, .grad written rank-major, opt.step(); 1 warm-up
    and 3 timed steps, then one profiled step: img/s per card, step ms,
-   device-busy ms and share, peak memory, window bytes; K1 20 x 4 x 6
+   device-busy ms and share, peak memory, window bytes; K1 20 x 4 x 5
    launches and no other kernel; push-sum's weights sum to 4; the eager
    ATC wrapper and build_train_step(comm_mode="atc") from one state on
    the same data agree after 2 steps (and whether bit-equal).
@@ -208,18 +209,19 @@ Phases (any failure raises and exits non-zero, printing no result):
       SimpleNamespace config) and llama_params_from_hf: every tensor and
       the logits of a 40-token prompt bit-equal to the source.
    b. quantize_llama_params on the card; 8 greedy requests (prompts
-      16-700, 32 new tokens) at max_len 1024 with bf16 weights, then
+      16-700, 8 new tokens) at max_len 1024 with bf16 weights, then
       weight_quant="int8", then "w8a8" with the int8 K/V cache (the
       integer attention on every (layer, prefill chunk), counted): the
       probe's logits within tests/test_quant.py's bound of bf16's, first
       greedy tokens against bf16's (a flip only at a margin within twice
       the quantized logits' gap), decode step ms, tokens/s, peak memory
       and the int8 weight bytes.
-   c. The prefix cache: two waves of 8 requests sharing a 1024-token
+   c. The prefix cache: two waves of 8 requests (8 new tokens each)
+      sharing a 1024-token
       prefix (four 256-token chunks) through one PrefixCache; the second
       wave restores 32 chunks and its greedy streams equal a cold
       engine's bit for bit; TTFT p50 with and without the cache.
-   d. Speculative decoding, lookahead 4, 8 greedy requests of 40 tokens:
+   d. Speculative decoding, lookahead 4, 8 greedy requests of 12 tokens:
       the target as its own draft and a 2-layer draft at 8B width from
       --seed + 1, against plain greedy; accepted tokens a step, tokens/s.
    e. Drain and failover (capacity 4, a virtual clock, 8 requests, half
@@ -293,8 +295,8 @@ Phases (any failure raises and exits non-zero, printing no result):
       K3b on the ring's diagonal block (offsets equal) and a full
       off-diagonal block (q_offset 2048, kv_offset 0): kernel, plain,
       bound and SDPA ms (causal, non-causal), launches a 21b ring step.
-   b. training on 1 rank, batch 1 x 8192, SGD(1e-3, momentum 0.9), 3
-      warm-up and 5 timed steps each: (i) attn_mode "full" with flash,
+   b. training on 1 rank, batch 1 x 8192, SGD(1e-3, momentum 0.9), 1
+      warm-up and 3 timed steps each: (i) attn_mode "full" with flash,
       (ii) ring + flash and (iii) Ulysses + flash, both over SeqAxis("sp",
       4) with batch_specs ("bf", None, "sp"): tokens/s per card, step ms,
       MFU, peak memory, the losses; K2, K3a and K3b launched n_layers x
@@ -339,7 +341,7 @@ Phases (any failure raises and exits non-zero, printing no result):
       launched 12 layers x 4 ranks x step calls each (replays included).
       img/s per card over the run; the runner's own cost in one window
       (a bare loop of the same step and run_resilient over 8 clean steps
-      with a checkpointer that writes nothing, alternated 3 times);
+      with a checkpointer that writes nothing, alternated 2 times);
       device ms of a profiled step, checkpoint bytes, save (snapshot and
       write apart), restore (load and copy apart), the rollback's wall
       time, peak memory.  Phase 2c holds K2, K3a and K3b to their plain
@@ -376,7 +378,7 @@ Phases (any failure raises and exits non-zero, printing no result):
       distance under atc below comm_mode="none"'s.
    c. 16 of 32 layers in bf16 (random weights from --seed), served
       dropless by ServingEngine (8 slots, max_len 1024, 256-token
-      chunks): 8 greedy requests (prompts 16-600, 32 new tokens) with K4
+      chunks): 8 greedy requests (prompts 16-600, 16 new tokens) with K4
       n_layers x decode steps; tokens/s, TTFT p50, the decode step's
       wall and device ms beside the weight-read bound; each request's
       stream against llama_generate's (K4 counted), and 8 cached tokens
@@ -424,16 +426,43 @@ Phases (any failure raises and exits non-zero, printing no result):
       router seed: every routing decision bit-equal, and the ticks,
       makespan, tokens and virtual TTFTs equal.  The measured step cost
       and the simulated makespan.
+25. The model axes (a rank's tp or ep shards stacked on the one card,
+   bound as a MeshAxis):
+   a. Llama-3.1-8B's width at phase 8's depth (4 layers) and batch (4 x
+      2048), f32 masters, bf16 compute, flash: step 0 of tp 2 and of tp
+      2 with vocab_parallel + tp_seq_shard on the same params as tp 1,
+      the loss within TP_LOSS_LIMIT and every leaf's gradient within
+      TP_GRAD_LIMIT of its largest entry, and a planted fault (shard 1's
+      slice of layer 0's wq zeroed) beyond them; K2, K3a and K3b at each
+      shard's heads folded into the batch (q [8, 2048, 16, 128], kv 4,
+      held to the plain version in 2c).  Then 1 warm-up and 2 timed
+      steps of each at dp 1 (tokens/s, step ms, MFU, peak memory, the
+      profile's device ms beside phase 8's) and of tp 2 at dp 2 under
+      atc (the combine's ms).
+   b. Llama-3.1-8B at full width and depth (bf16, random weights):
+      llama_generate of 8 prompts x 120 tokens, 8 greedy tokens, at tp 1
+      and at tp 2 (mesh=MeshAxis("tp", 2)), every single-token step of
+      the tp 2 decode through K4 at [16, 4, S, 128] (held in 2a); where
+      the streams part, both layouts' logits within PATH_ERR_CEILING of
+      the uncached bf16 forward's distance to the f32 forward (phase 19's
+      near-tie rule); the decode step's wall and device ms.
+   c. Phase 23a's MoE model (2 layers, 8 experts) over ep 2: step 0 of
+      its first layer held to ep 1 as in a (a planted fault, shard 1's
+      experts' w2 zeroed, beyond the limits), then 2 steps of the ep step
+      through build_train_step(mesh_axes=, param_specs=): ms, tokens/s,
+      peak memory.
 
 The line before the last is a JSON object with one entry per kernel
-(seven; K4's launches are phase 3's, 19's, 20's, 23c's and 24b's; K2's,
-K3a's and K3b's phase 8's, 21b's, 21c's, 22b's, 23a's, 23b's and 24a's,
-K2's 23c's rollout too); the last line is {"ok": true, "device": {...}}.
+(seven; K4's launches are phase 3's, 19's, 20's, 23c's, 24b's and
+25b's; K2's, K3a's and K3b's phase 8's, 21b's, 21c's, 22b's, 23a's,
+23b's, 24a's and 25's, K2's 23c's rollout too); the last line is {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -537,7 +566,8 @@ def _ratio_to_tol(got, want, tol):
 def phase_kernels(name, seed):
     """K4 against its plain version at the serving shapes (KV=8, rep=4,
     D=128, bf16 and int8 caches: B=8 at S 2048 and 8192, and phase 23c's
-    B=8 and B=1 at S=1024 and B=1 at S=64) and a small odd f32 shape,
+    B=8 and B=1 at S=1024 and B=1 at S=64; phase 25b's tp 2 decode, B=16
+    KV=4 at S=128) and a small odd f32 shape,
     bit-equal across two runs, on the positions drawn per row from
     ``seed`` (with rows at 0 and S-1 where B > 1; the timed set) and on
     positions at 0, S-1 and one before, at and one after the boundaries
@@ -563,6 +593,9 @@ def phase_kernels(name, seed):
              (8, 8, 4, 1024, 128, torch.bfloat16),
              (1, 8, 4, 1024, 128, torch.bfloat16),
              (1, 8, 4, 64, 128, torch.bfloat16),
+             # phase 25b's tp 2 decode: 8 prompts' two shards folded into
+             # the batch, 4 kv heads a shard, a 96 + 32-position cache
+             (16, 4, 4, 128, 128, torch.bfloat16),
              (3, 2, 1, 40, 16, torch.float32)]
     results = {}
     for b, n_kv, rep, s, d, dt in cases:
@@ -801,10 +834,10 @@ def phase_serving(seed):
     _serve(model, cfg, "none", [Request(np.arange(300) % 997, 4)],
            "decode_attention")
     _, launches = _serve(model, cfg, "none",
-                         _requests(rng, 16, cfg.vocab_size),
+                         _requests(rng, 8, cfg.vocab_size),
                          "decode_attention")
     _, launches8 = _serve(model, cfg, "int8",
-                          _requests(rng, 4, cfg.vocab_size),
+                          _requests(rng, 2, cfg.vocab_size),
                           "decode_attention_int8")
     log(f"[serve] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
@@ -1804,10 +1837,10 @@ def _cta_bit_equal(seed):
 def phase_train_modes(seed):
     """Phase 6b: plain atc, then each train-step mode, on ResNet-50 at
     full width, 4 stacked ranks, batch 128 per rank, each its own build,
-    2 warm-up and 3 timed steps, then one profiled step (device-busy ms)
-    and one step under the sync debug mode; K1 20 x 4 x 5 launches and no
+    1 warm-up and 3 timed steps, then one profiled step (device-busy ms)
+    and one step under the sync debug mode; K1 20 x 4 x 4 launches and no
     other kernel; no mode makes more host syncs than plain atc."""
-    timed, warmup = 3, 2
+    timed, warmup = 3, 1
     spread_none = _spread_after_3(seed, "none", {})
     rows = {}
     for name in ("atc",) + TRAIN_MODES:
@@ -2263,7 +2296,7 @@ def phase_llama_train_1rank(seed):
     import bluefog_tpu_torch as bt
     from bluefog_tpu_torch.models.llama import llama_loss_fn
 
-    n_layers, warmup, timed = 4, 3, 10
+    n_layers, warmup, timed = 4, 2, 5
     cfg = _llama8b_cfg(n_layers)
     launches, state, flops, _ = _llama_window(
         cfg, seed, warmup, timed, "[llama1] Llama-3.1-8B width",
@@ -2302,20 +2335,22 @@ def phase_llama_train_1rank(seed):
     return launches
 
 
-def _llama_train_2ranks(cfg, seed, label, per_step):
+def _llama_train_2ranks(cfg, seed, label, per_step, warmup=2, timed=3,
+                        **kw):
     """``cfg`` over 2 ranks stacked on the card, atc over
     ExponentialTwoGraph(2), batch 4 x 2048 per rank, 2 warm-up and 3
-    timed steps; each kernel of ``per_step`` ({kernel: launches per layer
-    and rank-step}) launched that many times.  Logs tokens/s per card,
-    step ms, MFU, peak memory and the combine's ms per step."""
+    timed steps by default; each kernel of ``per_step`` ({kernel: launches per layer
+    and rank-step}) launched that many times (``warmup`` and ``timed``
+    steps).  Logs tokens/s per card,
+    step ms, MFU, peak memory and the combine's ms per step.  ``kw`` goes
+    to build_train_step.  Returns the launches."""
     import bluefog_tpu_torch as bt
 
-    warmup, timed = 2, 3
     topo = bt.uniform_topology_spec(bt.ExponentialTwoGraph(2))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg, model, _, step, params, opt, batch = _llama_step(
-        cfg, 2, "atc", seed, LLAMA_BATCH, LLAMA_SEQ, topology=topo)
+        cfg, 2, "atc", seed, LLAMA_BATCH, LLAMA_SEQ, topology=topo, **kw)
     tokens = 2 * LLAMA_BATCH * LLAMA_SEQ
     n_params, flops = _model_flops(cfg, params, tokens)
     torch.cuda.synchronize()
@@ -2354,6 +2389,7 @@ def _llama_train_2ranks(cfg, seed, label, per_step):
         f"{warmup + timed} steps")
     del step, params, opt, batch, model
     torch.cuda.empty_cache()
+    return launches
 
 
 def phase_llama_train_2ranks(seed):
@@ -2461,7 +2497,7 @@ def phase_llama1b(seed):
     whose device time is the A/B's steady measure (the host this card
     shares makes wall times vary between windows).  Under remat K2 runs
     twice per layer (forward and recompute)."""
-    warmup, timed = 3, 10
+    warmup, timed = 2, 3
     n = 16 * (warmup + timed)    # 16 layers x steps
     windows = [
         ("(a) splash", {}, {"flash_forward": 2 * n, "splash_backward": n}),
@@ -2835,14 +2871,14 @@ def eager_setup(wrapper, p0, s0, n, dev, compress=False):
 
 def phase_eager_resnet(seed):
     """Phase 16: ResNet-50 at full width, 4 stacked ranks, batch 128 per
-    rank, trained through five eager wrappers (2 warm-up and 3 timed
+    rank, trained through five eager wrappers (1 warm-up and 3 timed
     steps, then one profiled step): img/s, step ms, device-busy ms,
-    peak memory, K1 20 x 4 x 6 launches and no other kernel; the eager
+    peak memory, K1 20 x 4 x 5 launches and no other kernel; the eager
     ATC wrapper against build_train_step(comm_mode="atc") after 2 steps;
     push-sum's weights sum to 4."""
     import bluefog_tpu_torch as bf
 
-    n, warmup, timed = 4, 2, 3
+    n, warmup, timed = 4, 1, 3
     model = bf.ResNet50(num_classes=1000, pallas_conv1x1=True,
                         device="cuda",
                         generator=torch.Generator("cuda").manual_seed(seed))
@@ -3742,7 +3778,7 @@ def _phase19_quant(model, cfg, rng, tally):
         f"{time.perf_counter() - t0:.2f} s: int8 kernels {q_bytes / 1e9:.3f} "
         f"GB + scales {scale_bytes / 1e6:.2f} MB, against "
         f"{full_bytes / 1e9:.3f} GB of bf16 projections and f32 head")
-    reqs = _serve_reqs(rng, 8, cfg.vocab_size, (16, 700), 32)
+    reqs = _serve_reqs(rng, 8, cfg.vocab_size, (16, 700), 8)
     # the logits criterion of tests/test_quant.py on one prompt
     probe = torch.from_numpy(reqs[0].prompt[None]).cuda()
     s = 1024
@@ -3839,7 +3875,7 @@ def _phase19_prefix(model, cfg, rng, tally):
     from bluefog_tpu_torch.serving import PrefixCache, ServingEngine
 
     prefix = rng.randint(0, cfg.vocab_size, (PREFIX_LEN,)).astype(np.int32)
-    waves = [_serve_reqs(rng, 8, cfg.vocab_size, (16, 200), 32,
+    waves = [_serve_reqs(rng, 8, cfg.vocab_size, (16, 200), 8,
                          prefix=prefix) for _ in range(2)]
     cache = PrefixCache(256, 4 << 30)
     warm = ServingEngine(model, cfg, capacity=SERVE_CAP, max_len=2048,
@@ -3881,7 +3917,7 @@ def _phase19_spec(model, cfg, seed, rng, tally):
     import bluefog_tpu_torch as bt
     from bluefog_tpu_torch.serving import ServingEngine, SpeculativeConfig
 
-    reqs = _serve_reqs(rng, 8, cfg.vocab_size, (16, 500), 40)
+    reqs = _serve_reqs(rng, 8, cfg.vocab_size, (16, 500), 12)
     plain = ServingEngine(model, cfg, capacity=SERVE_CAP, max_len=2048,
                           prefill_chunk=256)
     base = _clones(reqs)
@@ -4368,7 +4404,7 @@ def _phase20_profile(model, cfg, rng, tally):
     speculative; the later streams equal those of a run without it."""
     from bluefog_tpu_torch.serving import ServingEngine, SpeculativeConfig
 
-    reqs = _serve_reqs(rng, 8, cfg.vocab_size, (16, 500), 24,
+    reqs = _serve_reqs(rng, 8, cfg.vocab_size, (16, 500), 12,
                        temperature=0.8)
     spec = SpeculativeConfig(model, cfg, lookahead=LOOKAHEAD)
     for what, kw in (("plain", {}), ("self-draft", {"speculative": spec})):
@@ -4817,7 +4853,7 @@ def _phase21_train(seed):
     within SP_LOSS_LIMIT of (i)'s, and the same steps with a ring pair
     left out or Ulysses' head groups mispaired beyond it.  Returns the
     windows' launches."""
-    warmup, timed = 3, 5
+    warmup, timed = 1, 3
     n_layers = 4
     steps = warmup + timed
     total = dict.fromkeys(FLASH_KERNELS, 0)
@@ -5296,7 +5332,7 @@ class _NoWrite:
         raise AssertionError("22b: a clean run rolled back")
 
 
-def _p22_bare(step, params, opt, batch_fn, sched, rounds=3, n=8):
+def _p22_bare(step, params, opt, batch_fn, sched, rounds=2, n=8):
     """The runner's own cost in one window: on the run's first ``n``
     batches, a bare loop of the same guarded step and run_resilient over
     ``n`` clean steps (no faults, a checkpointer that writes nothing),
@@ -5797,7 +5833,7 @@ def _phase23_serve(seed):
                        if k != "tok_embeddings.embedding")
     tally = {}
     rng = np.random.RandomState(seed + 23)
-    reqs = _serve_reqs(rng, SERVE_CAP, cfg.vocab_size, (16, 600), 32)
+    reqs = _serve_reqs(rng, SERVE_CAP, cfg.vocab_size, (16, 600), 16)
     eng = ServingEngine(model, cfg, capacity=SERVE_CAP, max_len=1024,
                         prefill_chunk=256, device="cuda")
     m, wall, peak = _run_engine(
@@ -6145,7 +6181,7 @@ P24_STEPS, P24_EVERY = 22, 12    # 24a's steps; checkpoints at 0 and 12
 P24_CONGEST, P24_KILL = 2, 13    # DCN links slow from step 2; 6, 7 die at 13
 P24_SHIFTS = (1, 2, 4, 6, 7)     # the carrier's declared shifts
 P24_WIRE_UNIT = 1e-3             # virtual seconds per unit of pod cost
-P24_REQS = 24                    # 24b's requests
+P24_REQS = 12                    # 24b's requests
 
 
 def _p24_pod(TT):
@@ -6612,6 +6648,392 @@ def phase_control(seed):
     return launches
 
 
+# ------------------------------------------------------------------ #
+# phase 25: the model axes (tensor parallelism, experts over an ep
+# axis, TP decode), the tp shards stacked on the one card
+# ------------------------------------------------------------------ #
+TP_SIZE = 2
+# step 0 held to the unsharded (tp 1 / ep 1) model on the same params:
+# |loss - loss_1| and, for every leaf, max |g - g_1| over max |g_1|
+# (bf16 compute: the shards' row-parallel partials are rounded to bf16
+# before the psum, one product's output rounding more than tp 1's)
+TP_LOSS_LIMIT = 2e-3
+TP_GRAD_LIMIT = 0.1
+TP_LAYERS = 4            # 25a's depth: phase 8's
+TP_PROMPTS, TP_PROMPT_LEN, TP_NEW = 8, 120, 8   # 25b
+
+
+def _loss_grads(model, params, batch, axis=None):
+    """Step 0 of ``model`` on one rank's ``params`` and ``batch``: the
+    loss and every leaf's gradient, the axis bound."""
+    from bluefog_tpu_torch.models.llama import llama_loss_fn
+    import bluefog_tpu_torch as bt
+
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad(), (bt.bind_axis(axis) if axis is not None
+                               else contextlib.nullcontext()):
+        loss = llama_loss_fn(model)(p, batch)
+        grads = torch.autograd.grad(loss, list(p.values()))
+    return loss.item(), dict(zip(p, grads))
+
+
+def _tp_gap(loss, grads, ref_loss, ref_grads):
+    """(|loss - ref|, the worst leaf's max |g - ref| over max |ref|, that
+    leaf)."""
+    worst, leaf = 0.0, None
+    for k, want in ref_grads.items():
+        scale = max(want.abs().max().item(), 1e-30)
+        r = (grads[k] - want).abs().max().item() / scale
+        if r > worst:
+            worst, leaf = r, k
+    return abs(loss - ref_loss), worst, leaf
+
+
+def _first_layer(model, cfg):
+    """A twin of ``model`` (its parameters shared) that runs ``cfg``'s
+    first layer alone."""
+    twin = model.retarget(dataclasses.replace(cfg, n_layers=1))
+    twin.layers = torch.nn.ModuleList(list(twin.layers)[:1])
+    return twin
+
+
+def _hold_to_unsharded(label, model, cfgs, params, batch, axis, plant,
+                       retarget=None):
+    """Step 0 of each of ``cfgs`` ({label: config of ``model``'s params})
+    with ``axis`` bound, held to ``model``'s own config unbound within
+    TP_LOSS_LIMIT / TP_GRAD_LIMIT; ``plant`` (label, {name: tensor}) is a
+    fault in the first config's shards that the limits must reject.
+    ``retarget(model, cfg)`` builds each config's twin (default
+    ``model.retarget``).  Returns {label: (loss gap, grad gap)}."""
+    if retarget is None:
+        retarget = lambda m, c: m.retarget(c)  # noqa: E731
+    ref_loss, ref_grads = _loss_grads(model, params, batch)
+    gaps = {}
+    for what, cfg in cfgs.items():
+        loss, grads = _loss_grads(retarget(model, cfg), params, batch, axis)
+        gap, worst, leaf = _tp_gap(loss, grads, ref_loss, ref_grads)
+        del grads
+        log(f"{label} {what}: step-0 loss {loss:.6f} against the unsharded "
+            f"{ref_loss:.6f} (|gap| {gap:.3g}, limit {TP_LOSS_LIMIT}); "
+            f"gradients within {worst:.3g} of each leaf's largest entry "
+            f"(worst {leaf}; limit {TP_GRAD_LIMIT})")
+        if not (gap <= TP_LOSS_LIMIT and worst <= TP_GRAD_LIMIT):
+            raise AssertionError(f"{label} {what}: step 0 differs from the "
+                                 f"unsharded model's (loss {gap}, grad "
+                                 f"{worst} at {leaf})")
+        gaps[what] = (gap, worst)
+    fault, change = plant
+    bad = dict(params, **change)
+    loss, grads = _loss_grads(retarget(model, next(iter(cfgs.values()))),
+                              bad, batch, axis)
+    gap, worst, leaf = _tp_gap(loss, grads, ref_loss, ref_grads)
+    del grads, bad
+    log(f"{label} planted fault, {fault}: loss gap {gap:.3g}, gradients "
+        f"{worst:.3g} of the leaf's largest entry ({leaf}): rejected")
+    if gap <= TP_LOSS_LIMIT and worst <= TP_GRAD_LIMIT:
+        raise AssertionError(f"{label}: the limits pass a planted fault "
+                             f"({fault})")
+    del ref_grads
+    torch.cuda.empty_cache()
+    return gaps
+
+
+def _p25_train(seed):
+    """25a: Llama-3.1-8B's width at phase 8's depth and batch, tp 2 on the
+    one card (the shards stacked): step 0 held to tp 1 on the same
+    params (tp 2, and tp 2 with vocab_parallel + tp_seq_shard), a planted
+    fault (one shard's slice of layer 0's wq zeroed) rejected; then
+    training windows at dp 1 (both layouts) and dp 2 x tp 2 under atc.
+    Returns the windows' launches."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.models.llama import llama_param_specs
+
+    tp = bt.MeshAxis("tp", TP_SIZE)
+    cfg1 = _llama8b_cfg(TP_LAYERS)
+    cfgs = {"tp 2": dataclasses.replace(cfg1, tp_axis="tp",
+                                        tp_size=TP_SIZE),
+            "tp 2 + vocab_parallel + tp_seq_shard": dataclasses.replace(
+                cfg1, tp_axis="tp", tp_size=TP_SIZE, vocab_parallel=True,
+                tp_seq_shard=True)}
+    torch.cuda.empty_cache()
+    model = bt.Llama(cfg1, device="cuda", param_dtype=torch.float32,
+                     generator=torch.Generator("cuda").manual_seed(seed))
+    params = model.state(release=True)
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    raw = torch.randint(0, cfg1.vocab_size, (LLAMA_BATCH, LLAMA_SEQ + 1),
+                        generator=g, device="cuda")
+    batch = (raw[:, :-1].contiguous(), raw[:, 1:].contiguous())
+    wq = "layers.0.attention.wq.kernel"
+    w = params[wq].clone()
+    w[:, w.shape[1] // TP_SIZE:] = 0    # shard 1's columns: its q heads
+    _reset_counts()
+    _hold_to_unsharded("[tp25a]", model, cfgs, params, batch, tp,
+                       ("shard 1's slice of layer 0's wq zeroed", {wq: w}))
+    # the shards' attention at the per-shard shape, one launch a layer
+    # for all shards (three forwards and backwards with the axis bound,
+    # one without)
+    _expect_flash("25a step-0 checks", 4 * TP_LAYERS)
+    specs = llama_param_specs(params)
+    vspecs = llama_param_specs(params, vocab_axis="tp")
+    del model, params, batch, raw, w
+    torch.cuda.empty_cache()
+    total = dict.fromkeys(FLASH_KERNELS, 0)
+    warmup, timed = 1, 2
+    for what, cfg, sp in (("tp 2", cfgs["tp 2"], specs),
+                          ("tp 2 + vocab_parallel + tp_seq_shard",
+                           cfgs["tp 2 + vocab_parallel + tp_seq_shard"],
+                           vspecs)):
+        got, state, _, _ = _llama_window(
+            cfg, seed, warmup, timed, f"[tp25a] {what}, dp 1",
+            dict.fromkeys(FLASH_KERNELS, TP_LAYERS * (warmup + timed)),
+            batch_rows=LLAMA_BATCH, seq=LLAMA_SEQ, mesh_axes=(tp,),
+            param_specs=sp)
+        for kname in FLASH_KERNELS:
+            total[kname] += got[kname]
+        busy = _profile_llama(*state[2:], what=f"25a {what}")
+        log(f"[tp25a] {what}: {busy:.2f} ms of device time a step against "
+            "phase 8's tp 1 (628.06 ms, the f32 head 78.0%; PERF.md)")
+        del state
+        torch.cuda.empty_cache()
+    got = _llama_train_2ranks(
+        cfgs["tp 2"], seed, "[tp25a] tp 2 x dp 2",
+        dict.fromkeys(FLASH_KERNELS, 1), warmup=1, timed=2, mesh_axes=(tp,),
+        param_specs=specs)
+    for kname in FLASH_KERNELS:
+        total[kname] += got[kname]
+    return total
+
+
+def _p25_decode(seed):
+    """25b: Llama-3.1-8B at full width and depth (bf16, seeded random
+    weights), tp 2 decode of TP_PROMPTS greedy prompts through K4 at the
+    per-shard shape; its tokens equal the tp 1 decode's under phase 19's
+    near-tie rule.  Returns K4's launches."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.models.generate import (decode_config,
+                                                   decode_token_step,
+                                                   init_cache,
+                                                   prefill_cache)
+    from torch.profiler import ProfilerActivity, profile
+
+    tp = bt.MeshAxis("tp", TP_SIZE)
+    cfg = bt.LlamaConfig.llama3_8b(rope_scaling_kind="llama3")
+    cfg_tp = dataclasses.replace(cfg, tp_axis="tp", tp_size=TP_SIZE)
+    torch.cuda.empty_cache()
+    model = bt.Llama(cfg, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(seed))
+    rng = np.random.RandomState(seed)
+    prompts = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (TP_PROMPTS, TP_PROMPT_LEN)).astype(np.int32))
+    prompts = prompts.cuda()
+    want = bt.llama_generate(model, cfg, prompts, TP_NEW)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = bt.llama_generate(model, cfg_tp, prompts, TP_NEW, mesh=tp)
+    torch.cuda.synchronize()
+    wall_gen = time.perf_counter() - t0
+    launches = _expect_launches("25b", {
+        "decode_attention": (TP_NEW - 1) * cfg.n_layers})
+    # the decode step alone, tp 2: wall and device ms (a cache at the
+    # prompts' end, the same token for every row)
+    max_len = TP_PROMPT_LEN + TP_NEW
+    dcfg = decode_config(cfg_tp, max_len, keep_tp=True)
+    twin = model.retarget(dataclasses.replace(model.cfg, tp_axis="tp",
+                                              tp_size=TP_SIZE))
+    with bt.bind_axis(tp), torch.no_grad():
+        cache = init_cache(dcfg, TP_PROMPTS, max_len, keep_tp=True,
+                           device="cuda")
+        prefill_cache(twin, cache, prompts)
+        tok = prompts[:, -1:]
+        steps = 8
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(steps):
+                decode_token_step(twin, cache, tok)
+            torch.cuda.synchronize()
+            step_wall = (time.perf_counter() - t1) * 1e3 / steps
+        del cache
+    busy = sum(e.self_device_time_total for e in _device_kernels(prof))
+    k4 = sum(e.self_device_time_total for e in _device_kernels(prof)
+             if "decode" in e.key)
+    # phase 19's near-tie rule: where a tp 2 stream parts from tp 1's,
+    # both layouts' logits at that context sit within PATH_ERR_CEILING x
+    # the uncached bf16 forward's distance to the f32 forward
+    n_diff = _tp_flips(model, cfg, twin, tp, prompts.cpu().numpy(),
+                       want.cpu().numpy(), got.cpu().numpy())
+    log(f"[tp25b] Llama-3.1-8B (32 layers, bf16, random weights), tp 2 "
+        f"decode of {TP_PROMPTS} prompts x {TP_PROMPT_LEN} tokens, "
+        f"{TP_NEW} greedy tokens each: {n_diff} of {TP_PROMPTS} streams "
+        f"part from tp 1's (each at a near-tie); llama_generate "
+        f"{wall_gen * 1e3:.1f} ms ({TP_PROMPTS * TP_NEW / wall_gen:.1f} "
+        f"tokens/s); the decode step {step_wall:.2f} ms of wall, "
+        f"{busy / steps / 1e3:.3f} ms of device time ({100 * busy / steps / 1e3 / step_wall:.1f}% busy), K4 "
+        f"{k4 / steps / 1e3:.3f} ms of it at [{TP_SIZE * TP_PROMPTS}, "
+        f"{cfg.n_kv_heads // TP_SIZE}, S, {cfg.head_dim}] a layer; K4 "
+        f"launches {launches}")
+    del model, twin
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _tp_flips(model, cfg, twin, tp, prompts, want, got):
+    """The rows whose tp 2 stream parts from the tp 1 stream: at the first
+    parting token, the tp 2 K4 path's logits (``twin`` with ``tp`` bound)
+    and the tp 1 paths of ``_four_paths`` must each stay within
+    PATH_ERR_CEILING x the uncached bf16 forward's distance to the f32
+    forward; the two tokens' margin in tp 1's K4 logits is logged beside
+    twice the two layouts' logit gap.  Returns the number of rows that
+    differ."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.models.generate import (decode_config,
+                                                   decode_token_step,
+                                                   init_cache,
+                                                   prefill_cache)
+
+    n_diff, ref = 0, None
+    p_len = prompts.shape[1]
+    for r in range(prompts.shape[0]):
+        j = next((i for i in range(p_len, want.shape[1])
+                  if want[r, i] != got[r, i]), None)
+        if j is None:
+            continue
+        n_diff += 1
+        if ref is None:
+            ref = _f32_reference(cfg)
+        ctx = want[r, :j]
+        whole, k4, plain, f32 = _four_paths(model, ref, cfg, prompts[r],
+                                            ctx[p_len:])
+        s = -(-ctx.size // 64) * 64
+        with bt.bind_axis(tp), torch.no_grad():
+            cache = init_cache(decode_config(twin.cfg, s, keep_tp=True), 1,
+                               s, keep_tp=True, device="cuda")
+            prefill_cache(twin, cache, torch.from_numpy(ctx[None, :-1])
+                          .cuda())
+            last, _ = decode_token_step(twin, cache, torch.tensor(
+                [[int(ctx[-1])]], device="cuda"))
+            del cache
+        k4_tp = last[0].float()
+        e_plain = (plain - f32).abs().max().item()
+        errs = {k: (x - f32).abs().max().item()
+                for k, x in (("multi-token", whole), ("K4", k4),
+                             ("tp 2 K4", k4_tp))}
+        a, b = int(want[r, j]), int(got[r, j])
+        margin = (k4[a] - k4[b]).item()
+        # the rounding noise between the ways of computing these logits:
+        # the two layouts' K4 paths and tp 1's multi-token path
+        gap = max((x - y).abs().max().item() for x, y in (
+            (k4, k4_tp), (whole, k4), (whole, k4_tp)))
+        log(f"[tp25b] prompt {r} parts at token {j - p_len} of "
+            f"{want.shape[1] - p_len}: {a} against {b}, margin "
+            f"{abs(margin):.4g} (2 x the largest gap between the tp 1 K4, "
+            f"tp 2 K4 and multi-token logits {2 * gap:.4g}); distance to "
+            "the f32 forward: "
+            + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
+            + f", uncached bf16 {e_plain:.4g}")
+        if max(errs.values()) > PATH_ERR_CEILING * e_plain or \
+                abs(margin) > 2 * gap:
+            raise AssertionError(f"25b: prompt {r} parts at token "
+                                 f"{j - p_len} beyond the near-tie rule")
+    del ref
+    torch.cuda.empty_cache()
+    return n_diff
+
+
+def _p25_moe(seed):
+    """25c: phase 23a's MoE model (8B width, 8 experts, 2 layers) over an
+    ep axis of 2: step 0 of its first layer held to ep 1 as in 25a (a
+    planted fault, one shard's experts' w2 in layer 0 zeroed, rejected),
+    then 2 steps of the ep step.  Returns its launches."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.models.llama import (llama_loss_fn,
+                                                llama_param_specs)
+
+    ep = bt.MeshAxis("ep", TP_SIZE)
+    cfg1 = _moe8b_cfg(MOE_LAYERS)
+    cfg2 = dataclasses.replace(cfg1, ep_axis="ep", ep_size=TP_SIZE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = bt.Llama(cfg1, device="cuda", param_dtype=torch.float32,
+                     generator=torch.Generator("cuda").manual_seed(seed))
+    params = model.state(release=True)
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    raw = torch.randint(0, cfg1.vocab_size, (LLAMA_BATCH, LLAMA_SEQ + 1),
+                        generator=g, device="cuda")
+    batch = (raw[:, :-1].contiguous(), raw[:, 1:].contiguous())
+    w2 = "layers.0.moe_ffn.w2"
+    w = params[w2].clone()
+    w[cfg1.n_experts // TP_SIZE:] = 0   # shard 1's experts
+    # held at the first layer: its router reads the same inputs in both
+    # layouts, so the routing is the same and the gap is the ep psum's
+    # rounding.  From the second layer on, that rounding can flip a
+    # near-tied routing decision and shift the capacity drops behind it,
+    # moving single tokens' hidden states, and the head's gradient
+    # columns of the targets only they hold, by O(1) (even in f32).
+    first = {k: v for k, v in params.items()
+             if not k.startswith("layers.") or k.startswith("layers.0.")}
+    _hold_to_unsharded("[ep25c] (layer 0)", _first_layer(model, cfg1),
+                       {"ep 2": dataclasses.replace(cfg2, n_layers=1)},
+                       first, batch, ep,
+                       ("shard 1's experts' w2 in layer 0 zeroed", {w2: w}),
+                       _first_layer)
+    del w, first
+    backend = bt.StackedBackend(1, device="cuda")
+    specs = llama_param_specs(params, tp_axis=None, ep_axis="ep")
+    stacked = bt.rank_major(params, backend, specs=specs)
+    del params
+    torch.cuda.empty_cache()
+    opt = torch.optim.SGD(stacked.values(), lr=1e-3, momentum=0.9)
+    step = bt.build_train_step(llama_loss_fn(model.retarget(cfg2)), opt,
+                               backend, comm_mode="none", mesh_axes=(ep,),
+                               param_specs=specs)
+    b = (batch[0][None], batch[1][None])
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(2):
+        stacked, opt, loss = step(stacked, opt, b, i)
+        losses.append(loss.item())
+    dt = (time.perf_counter() - t0) / 2
+    n = cfg2.n_layers * 2
+    launches = _expect_launches("25c", {"flash_forward": 2 * n,
+                                        "flash_backward_dq": n,
+                                        "flash_backward_dkv": n})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = LLAMA_BATCH * LLAMA_SEQ
+    log(f"[ep25c] MoE Llama at 8B width ({cfg2.n_layers} layers, "
+        f"{cfg2.n_experts} experts over ep {TP_SIZE}, remat), 1 rank, "
+        f"batch {LLAMA_BATCH} x {LLAMA_SEQ}: 2 steps {dt * 1e3:.2f} ms each "
+        f"(the first included), {tokens / dt:.1f} tokens/s, losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}, peak memory {peak:.2f} "
+        f"GiB; launches {launches}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"25c: losses {losses}")
+    del step, stacked, opt, batch, b, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_model_axes(seed):
+    """Phase 25: the model axes.  Returns the kernels' launches."""
+    t0 = time.perf_counter()
+    out = _p25_train(seed)
+    log(f"[tp25a] {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    for kname, n in _p25_decode(seed).items():
+        out[kname] = out.get(kname, 0) + n
+    log(f"[tp25b] {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    for kname, n in _p25_moe(seed).items():
+        out[kname] = out.get(kname, 0) + n
+    log(f"[ep25c] {time.perf_counter() - t1:.1f} s; phase 25 "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6713,6 +7135,9 @@ def main() -> int:
     for kname, n in phase_control(args.seed).items():
         launches[kname] += n
     lap("control")
+    for kname, n in phase_model_axes(args.seed).items():
+        launches[kname] += n
+    lap("model_axes")
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):
         entries.append(dict(

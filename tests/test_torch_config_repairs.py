@@ -12,9 +12,9 @@ import bluefog_tpu_torch as bt
 from bluefog_tpu_torch import config as CFG
 from bluefog_tpu_torch import optim as TO
 
-# JAX's optim names the port still refuses: the model-parallel layouts
-# (ROADMAP.md Queue 1, item 10)
-REFUSED = {"rank_spec_tree"}
+# JAX's optim names the port still refuses: none since the model axes
+# (ROADMAP.md Queue 1, item 10) brought rank_spec_tree
+REFUSED = set()
 
 
 def test_optim_exports_the_jax_packages_names():

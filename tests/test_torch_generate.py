@@ -7,6 +7,8 @@ sampling is deterministic for a generator seed, and EOS freezing keeps
 the contract that tests/test_generate.py states (checked on the port's
 own output)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -114,8 +116,12 @@ def test_generate_validates_inputs(weights):
         _port(weights, temperature=0.7)
     with pytest.raises(ValueError, match="max_new_tokens"):
         _port(weights, 0)
-    with pytest.raises(NotImplementedError, match="tp"):
-        _port(weights, mesh=object())
+    # mesh= takes the tp axis itself, for a tp config (a tp=1 config
+    # ignores it, as JAX's does)
+    with pytest.raises(TypeError, match="tp axis"):
+        bt.llama_generate(weights[3], dataclasses.replace(
+            weights[2], tp_axis="tp", tp_size=2), np.zeros((1, 2), np.int32),
+            2, mesh=object(), device="cpu")
     # weight_quant is ported: full-precision weights are refused for it
     with pytest.raises(ValueError, match="quantize_llama_params"):
         _port(weights, weight_quant="int8")
@@ -133,5 +139,7 @@ def test_decode_attn_on_card_takes_only_the_kernel(weights):
         check_decode_attn(decode_config(tcfg, 32, decode_attn="xla"), cuda)
     check_decode_attn(decode_config(tcfg, 32, decode_attn="xla"),
                       torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="keep_tp"):
-        decode_config(tcfg, 32, keep_tp=True)
+    # keep_tp keeps the tp layout of a tp config (TP decode, slice 17)
+    tp_cfg = dataclasses.replace(tcfg, tp_axis="tp", tp_size=2)
+    assert decode_config(tp_cfg, 32, keep_tp=True).tp_size == 2
+    assert decode_config(tp_cfg, 32).tp_size == 1

@@ -234,9 +234,29 @@ def test_unported_knobs_raise_naming_the_slice(over, match):
     """Splash (K5) trains since slice 4 (tests/test_torch_splash.py),
     ring and Ulysses attention since slice 13
     (tests/test_torch_llama_sp.py), the routed MoE at ep_size 1 since
-    slice 15 (tests/test_torch_moe.py): MoE over an expert axis waits."""
-    with pytest.raises(NotImplementedError, match=match):
-        bt.Llama(bt.LlamaConfig.tiny(**over), device="cpu")
+    slice 15 (tests/test_torch_moe.py), and the model axes (``match``:
+    tensor parallelism, MoE over an expert axis) since slice 17
+    (tests/test_torch_tp.py, tests/test_torch_moe_ep.py): each of these
+    configs now builds and, with its axis bound, gives the unsharded
+    model's logits on the same weights (a decode config through a
+    cache)."""
+    cfg = bt.LlamaConfig.tiny(dtype=torch.float32, **over)
+    plain = dataclasses.replace(cfg, tp_axis=None, tp_size=1, ep_axis=None,
+                                ep_size=1)
+    model = bt.Llama(cfg, device="cpu")
+    ref = bt.Llama(plain, device="cpu")
+    ref.load_state_dict(model.state_dict())
+    name = cfg.tp_axis or cfg.ep_axis
+    tokens = torch.randint(0, 256, (2, 8),
+                           generator=torch.Generator().manual_seed(0))
+    with torch.no_grad(), bt.bind_axis(bt.MeshAxis(name, 2)):
+        if cfg.decode:
+            got = model(tokens, tgen.init_cache(cfg, 2, 8, device="cpu"))
+            want = ref(tokens, tgen.init_cache(plain, 2, 8, device="cpu"))
+        else:
+            got, want = model(tokens), ref(tokens)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4, err_msg=match)
 
 
 def test_decode_config_with_flash_serves_like_xla():

@@ -247,7 +247,9 @@ def test_dp_sp_train_step_matches_jax(name):
 
 
 def _refusals():
-    """Every refusal of the Llama model and the train step that is left."""
+    """Every refusal of the Llama model and the train step that is left:
+    the pipeline and an expert step over a sequence axis (the model axes
+    run since slice 17, ``tests/test_torch_tp.py``)."""
     backend = bt.StackedBackend(2, device="cpu")
     p = bt.rank_major({"w": torch.zeros(3)}, backend)
     opt = torch.optim.SGD(p.values(), lr=0.1)
@@ -256,16 +258,23 @@ def _refusals():
         bt.build_train_step(lambda p, b: p["w"].sum(), opt, backend,
                             comm_mode="none", **kw)
 
+    cfg = bt.LlamaConfig.tiny(scan_layers=True)
     cases = [
-        lambda: bt.Llama(bt.LlamaConfig.tiny(tp_axis="tp", tp_size=2),
-                         device="cpu"),
-        lambda: bt.Llama(bt.LlamaConfig.tiny(n_experts=4, ep_axis="ep",
-                                             ep_size=2), device="cpu"),
+        lambda: bt.models.llama_pp_loss_fn(cfg, pp_axis="pp", n_stages=2,
+                                           n_micro=2),
+        lambda: bt.models.llama_circular_layout({}, 2, 2),
+        lambda: bt.models.llama_param_specs(
+            bt.Llama(cfg, device="cpu").state(), pp_axis="pp"),
         lambda: build(pp_axis="pp"),
-        lambda: build(param_specs={}),
-        lambda: build(opt_state_specs={}),
-        lambda: build(sp_axis=bt.SeqAxis("sp", 2),
-                      batch_specs=("bf", "tp", "sp")),
+        lambda: bt.build_train_step(
+            lambda p, b: p["w"].sum(), opt, backend, comm_mode="atc",
+            topology=bt.uniform_topology_spec(bt.ExponentialTwoGraph(2)),
+            moe=bt.MoEConfig(2, 2), sp_axis=bt.SeqAxis("sp", 2)),
+        lambda: bt.build_train_step(
+            lambda p, b: p["w"].sum(), opt, backend, comm_mode="atc",
+            topology=bt.uniform_topology_spec(bt.ExponentialTwoGraph(2)),
+            compress="int8", mesh_axes=(bt.MeshAxis("tp", 3),),
+            param_specs={"w": ("bf", "tp")}),
     ]
     out = []
     for case in cases:
@@ -276,10 +285,10 @@ def _refusals():
 
 
 def test_refusals_name_item_10_only():
-    """Tensor parallelism (TP decode included), the pipeline, MoE and
-    model-parallel layouts still raise, each naming ROADMAP.md Queue 1
-    item 10 and no finished item; an sp_axis given as a bare name is
-    refused (the axis object holds the size)."""
+    """The pipeline, the expert step over a sequence axis and the
+    per-device wires under model-parallel specs still raise, each naming
+    ROADMAP.md Queue 1 item 10 and no finished item; an sp_axis given as
+    a bare name is refused (the axis object holds the size)."""
     for msg in _refusals():
         assert "ROADMAP.md" in msg and "item 10" in msg, msg
         assert set(re.findall(r"items? (\d+)", msg)) == {"10"}, msg

@@ -8,6 +8,7 @@ interpret mode; the port's on CPU tensors run their plain versions),
 rtol = 1e-4: f32 matmuls summed in another order), and the same loss and
 gradient of every leaf (1e-4 of each leaf's largest entry)."""
 
+import dataclasses
 import functools
 
 import jax
@@ -205,11 +206,34 @@ def test_unported_training_knobs_raise_naming_their_item(over, match):
     """splash (K5), remat_policy="dots", ring/Ulysses attention and the
     routed MoE at ep_size 1 are ported (tests/test_torch_splash.py,
     tests/test_torch_remat.py, tests/test_torch_llama_sp.py,
-    tests/test_torch_moe.py); what is still refused (MoE over an expert
-    axis among it) names its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=match) as info:
-        bt.Llama(bt.LlamaConfig.tiny(**over), device="cpu")
-    assert "ROADMAP.md" in str(info.value)
+    tests/test_torch_moe.py), and since slice 17 the model axes
+    (``match``: tensor parallelism, its vocab-parallel head, MoE over an
+    expert axis; tests/test_torch_tp.py, tests/test_torch_moe_ep.py):
+    each config now trains, its loss and gradients with the axis bound
+    equal to the unsharded model's on the same weights."""
+    cfg = bt.LlamaConfig.tiny(dtype=torch.float32, **over)
+    plain = dataclasses.replace(cfg, tp_axis=None, tp_size=1, ep_axis=None,
+                                ep_size=1, vocab_parallel=False)
+    model = bt.Llama(cfg, device="cpu", param_dtype=torch.float32)
+    ref = bt.Llama(plain, device="cpu", param_dtype=torch.float32)
+    params = model.state()
+    g = torch.Generator().manual_seed(1)
+    batch = (torch.randint(0, 256, (2, 8), generator=g),
+             torch.randint(0, 256, (2, 8), generator=g))
+    out = []
+    for m, axis in ((model, cfg.tp_axis or cfg.ep_axis), (ref, None)):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        with bt.bind_axis(bt.MeshAxis(axis, 2)) if axis else \
+                torch.enable_grad():
+            loss = tllama.llama_loss_fn(m)(p, batch)
+            out.append((loss.item(), torch.autograd.grad(
+                loss, list(p.values()))))
+    np.testing.assert_allclose(out[0][0], out[1][0], rtol=1e-5,
+                               err_msg=match)
+    for k, a, b in zip(params, out[0][1], out[1][1]):
+        scale = max(float(b.abs().max()), 1e-6)
+        np.testing.assert_allclose(a.numpy() / scale, b.numpy() / scale,
+                                   rtol=0, atol=5e-5, err_msg=k)
 
 
 def test_decode_config_needs_a_cache():

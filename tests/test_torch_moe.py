@@ -13,6 +13,7 @@ order); the routing weights exactly.  The train step: 3 atc steps over
 test_torch_train_step.py's 5e-4 of each leaf's largest entry.  Inputs
 are random draws without exact ties in the router's probabilities."""
 
+import dataclasses
 import functools
 
 import jax
@@ -158,9 +159,26 @@ def test_expert_choice_requires_acknowledgement():
     dict(n_experts=4, ep_axis="ep", ep_size=2),
     dict(tp_axis="tp", tp_size=2)])
 def test_model_axes_are_refused(over):
+    """The model axes run since slice 17 (tests/test_torch_moe_ep.py,
+    tests/test_torch_tp.py): an ep or tp config builds, needs its axis
+    bound (as ``lax.psum`` outside ``shard_map``), and then gives the
+    unsharded model's logits on the same weights."""
     cfg = bt.LlamaConfig.tiny(dtype=torch.float32, **over)
-    with pytest.raises(NotImplementedError, match="item 10's model axes"):
-        bt.Llama(cfg, device="cpu")
+    plain = dataclasses.replace(cfg, tp_axis=None, tp_size=1, ep_axis=None,
+                                ep_size=1)
+    model = bt.Llama(cfg, device="cpu")
+    ref = bt.Llama(plain, device="cpu")
+    ref.load_state_dict(model.state_dict())
+    tokens = torch.randint(0, 256, (2, 8),
+                           generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        with pytest.raises(NameError, match="unbound axis name"):
+            model(tokens)
+        with bt.bind_axis(bt.MeshAxis(cfg.tp_axis or cfg.ep_axis, 2)):
+            got = model(tokens)
+        want = ref(tokens)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)
 
 
 def test_chunked_xent_refuses_moe_aux():

@@ -171,6 +171,9 @@ if __name__ == "__main__":
 
     from bluefog_tpu_torch.context import get_context
 
+    # one intra-op thread: two processes of tiny ops on a shared host
+    # otherwise wait on each other's spinning thread pools
+    torch.set_num_threads(1)
     bt.init()
     backend = get_context().backend
     assert type(backend).__name__ == "ProcessBackend"
@@ -278,13 +281,18 @@ def runs(tmp_path_factory):
             for k in parts[0]["wrappers"][w]} for w in parts[0]["wrappers"]}
     ns: dict = {}
     exec(RUN, ns)
-    stacked = ns["run"](StackedBackend(N, device="cpu"), setup, MODES)
     import bluefog_tpu_torch as bt
-    bt.init(size=N, device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # the processes' own setting
     try:
-        stacked["wrappers"] = ns["run_wrappers"]()
+        stacked = ns["run"](StackedBackend(N, device="cpu"), setup, MODES)
+        bt.init(size=N, device="cpu")
+        try:
+            stacked["wrappers"] = ns["run_wrappers"]()
+        finally:
+            bt.shutdown()
     finally:
-        bt.shutdown()
+        torch.set_num_threads(threads)
     return jm, setup, process, stacked
 
 

@@ -212,11 +212,35 @@ def test_no_aux_step_and_adam():
     (dict(param_specs={}), "item 10"),
 ])
 def test_unported_features_raise(kw, item):
+    """What stays refused (the expert step over a sequence axis, the
+    pipeline) names ROADMAP item 10; the model-parallel layouts run since
+    slice 17 (``tests/test_torch_tp.py``): rank-only ``param_specs`` and
+    their ``opt_state_specs`` step as the plain step does, and a spec
+    tree that misses a leaf or a state tree that is not the optimizer's
+    is an error."""
     kw.setdefault("comm_mode", "atc")
     kw.setdefault("topology", TT.uniform_topology_spec(
         TT.ExponentialTwoGraph(N)))
-    with pytest.raises(NotImplementedError, match=item):
-        _tiny_step(**kw)
+    if "param_specs" not in kw and "opt_state_specs" not in kw:
+        with pytest.raises(NotImplementedError, match=item):
+            _tiny_step(**kw)
+        return
+    batch = torch.arange(N, dtype=torch.float32)[:, None].expand(N, 3)
+    params, opt, step = _tiny_step(**kw)
+    with pytest.raises(ValueError, match="spec"):
+        step(params, opt, batch, 0)
+    specs = TF.rank_spec_tree(params)
+    state = TF.optax_state_specs(opt, {"w": torch.ones(3)}, specs)
+    assert state == {"w": {}}
+    params, opt, step = _tiny_step(
+        **dict(kw, param_specs=specs, opt_state_specs=state))
+    p0, o0, plain = _tiny_step(comm_mode=kw["comm_mode"],
+                               topology=kw["topology"])
+    for i in range(2):
+        params, opt, loss = step(params, opt, batch, i)
+        p0, o0, loss0 = plain(p0, o0, batch, i)
+        assert torch.equal(loss, loss0)
+    assert torch.equal(params["w"], p0["w"])
 
 
 def _knob_run(env_monkeypatch, env, value, **kw):
