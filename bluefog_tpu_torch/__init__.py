@@ -19,7 +19,9 @@ and of Llama (``models.llama``'s training forward and
 ``parallel.ring_attention``, ``parallel.ulysses``; tensor parallelism,
 vocab parallelism, sequence-sharded activations and experts over an ep
 axis over a ``MeshAxis``, with the train step's ``mesh_axes`` /
-``param_specs`` and the tp-sharded decode), ViT
+``param_specs`` and the tp-sharded decode; pipeline parallelism,
+``parallel.pipeline``'s GPipe and circular schedules under
+``models.llama_pp_loss_fn`` and the train step's ``pp_axis``), ViT
 (``models.vit``), ``MLP`` and ``MnistNet``,
 with the train step's decentralized modes (the skip guard, health
 telemetry, bucketed overlap, the int8 and stochastic-rounding wires,

@@ -7,9 +7,9 @@ the ViT family, ``MLP`` and ``MnistNet`` (slice 4): the whole zoo; and
 the int8 weight layouts of serving (``quantize_llama_params``, slice
 11); and the model axes (slice 17): tensor parallelism with
 ``vocab_parallel`` and ``tp_seq_shard``, experts over an ep axis, TP
-decode, ``llama_param_specs`` and ``vocab_parallel_xent``.  The
-pipeline's ``llama_pp_loss_fn``/``llama_circular_layout`` raise
-``NotImplementedError`` naming ROADMAP.md Queue 1, item 10.
+decode, ``llama_param_specs`` and ``vocab_parallel_xent``; and the
+pipeline (slice 18): ``llama_pp_loss_fn``, ``llama_circular_layout`` and
+``llama_param_specs(pp_axis=)``.
 """
 
 from bluefog_tpu_torch.models.llama import (KVCache, Llama, LlamaConfig,

@@ -66,9 +66,26 @@ Deviations from the JAX package:
   residual stream (``return_hidden``) is ``[tp, B, T / tp, dim]``.
   Experts over an ep axis: shard ``s`` holds experts ``s * E / ep ..``
   and its partial combine meets the others' in one psum.
-* Not ported yet, and refused with ``NotImplementedError`` naming
-  ROADMAP.md Queue 1 item 10: the pipeline (``llama_pp_loss_fn``,
-  ``llama_circular_layout``, ``llama_param_specs(pp_axis=)``).
+* Pipeline parallelism (:func:`llama_pp_loss_fn` over a pp axis,
+  :func:`llama_circular_layout`, ``llama_param_specs(pp_axis=)``): the
+  JAX package shards dim 0 of the SCANNED block stack over the pp axis;
+  the port keeps its per-layer leaves ``layers.{i}.…`` (the tree
+  ``interop/from_jax.py`` maps JAX's scanned rows to, so checkpoints and
+  ``llama_params_from_flax`` carry over unchanged), and layer ``i`` in
+  storage order belongs to stage ``i // (n_layers / S)``, the stage
+  JAX's contiguous sharding gives its row.  Every stage of a rank runs
+  on one device (``parallel/pipeline.py``): the loss stacks the stages'
+  weights per layer slot, in the dtype each product computes in (one
+  copy of the layer weights, bf16 when the model computes in bf16),
+  and runs each slot as ONE pass over all stages: a kernel with a
+  leading stage axis multiplies each stage's rows by its own slice
+  (:class:`Dense`, :class:`RMSNorm`, the row-parallel products), and
+  the stages fold into the attention's batch, stage-major (under ring
+  or Ulysses attention the sequence shards fold inside each stage).  A
+  MoE FFN routes each stage's tokens on their own, so routing groups
+  and capacities stay inside one stage's microbatch.  Values JAX
+  replicates over pp run once: the embedding (stage 0's input) and the
+  final norm and head (on the last stage's outputs).
 * The integer products of ``param_quant="w8a8"`` (s8 x s8 -> s32, which
   JAX leaves to XLA) go to ``torch._int_mm``: cuBLASLt on the card, an
   exact integer product on the CPU (:func:`int8_matmul`).  The w8a8
@@ -356,30 +373,6 @@ class LlamaConfig:
         return LlamaConfig(**base)
 
 
-_PIPELINE = ("ROADMAP.md Queue 1, item 10 (the pipeline: "
-             "parallel/pipeline.py, the train step's pp_axis, "
-             "llama_pp_loss_fn and llama_circular_layout)")
-
-
-def llama_pp_loss_fn(cfg: LlamaConfig, *, pp_axis: str, n_stages: int,
-                     n_micro: int, n_loops: int = 1):
-    """The pipeline loss builder of the JAX package: not ported yet,
-    refused with ``NotImplementedError`` naming the ROADMAP.md item that
-    ports it."""
-    raise NotImplementedError(
-        f"llama_pp_loss_fn (pipeline parallelism) is not ported to "
-        f"bluefog_tpu_torch yet; see {_PIPELINE}")
-
-
-def llama_circular_layout(variables, n_stages: int, n_loops: int,
-                          inverse: bool = False):
-    """The circular pipeline's layer order: not ported yet (see
-    :func:`llama_pp_loss_fn`)."""
-    raise NotImplementedError(
-        f"llama_circular_layout (the circular pipeline) is not ported to "
-        f"bluefog_tpu_torch yet; see {_PIPELINE}")
-
-
 def _model_axis(name: Optional[str], size: int, what: str):
     """The bound axis of a ``tp_axis``/``ep_axis`` over ``size > 1``
     shards, or None (``NameError`` when the name is unbound, as
@@ -451,6 +444,14 @@ def _row_parallel(layer: nn.Module, x: torch.Tensor, n: int
     x2 = x.reshape(n, -1, x.shape[-1])
     if isinstance(layer, QuantDense):
         y = layer.forward_shards(x2, n)
+    elif layer.kernel.dim() == 3:
+        # stage-stacked [S, in, out] over stage-major rows: shard t of
+        # stage s multiplies its rows t * in / n .. of stage s's kernel
+        w = layer.kernel.to(layer.dtype)
+        s = w.shape[0]
+        y = torch.einsum("tsri,stio->tsro",
+                         x2.to(layer.dtype).reshape(n, s, -1, x.shape[-1]),
+                         w.view(s, n, w.shape[1] // n, -1))
     else:
         w = layer.kernel.to(layer.dtype)
         y = torch.bmm(x2.to(layer.dtype), w.view(n, w.shape[0] // n, -1))
@@ -701,7 +702,14 @@ class Dense(nn.Module):
                         device=device), requires_grad=False)
 
     def forward(self, x):
-        return x.to(self.dtype) @ self.kernel.to(self.dtype)
+        w = self.kernel.to(self.dtype)
+        if w.dim() == 3:
+            # a stage-stacked kernel [S, in, out] (the pipeline): x's
+            # rows are stage-major, stage s's multiplied by its slice
+            s = w.shape[0]
+            y = torch.bmm(x.to(self.dtype).reshape(s, -1, x.shape[-1]), w)
+            return y.reshape(*x.shape[:-1], w.shape[-1])
+        return x.to(self.dtype) @ w
 
 
 class QuantDense(nn.Module):
@@ -793,6 +801,11 @@ class RMSNorm(nn.Module):
         x32 = x.float()
         normed = x32 * torch.rsqrt(
             torch.mean(x32 * x32, dim=-1, keepdim=True) + self.eps)
+        if self.scale.dim() == 2:
+            # stage-stacked scales [S, dim] over stage-major rows
+            s = self.scale.shape[0]
+            return (normed.reshape(s, -1, x.shape[-1])
+                    * self.scale[:, None]).reshape(x.shape).to(x.dtype)
         return (normed * self.scale).to(x.dtype)
 
 
@@ -822,6 +835,14 @@ def vocab_parallel_embed(embed: Embed, tokens: torch.Tensor,
     up a clamped row masked to zero, and the shards' partial rows merge
     through one psum (a reduce-scatter to the seq-sharded stream under
     ``tp_seq_shard``).  Each shard's table gradient is its own rows'."""
+    return _vocab_parallel_rows(embed.embedding, embed.dtype, tokens, cfg)
+
+
+def _vocab_parallel_rows(table: torch.Tensor, dtype: torch.dtype,
+                         tokens: torch.Tensor, cfg: LlamaConfig
+                         ) -> torch.Tensor:
+    """:func:`vocab_parallel_embed` over the table ``[vocab, dim]``
+    itself (rows in ``dtype``)."""
     axis = _tp_axis(cfg)
     n = axis.size
     v_local = cfg.vocab_size // n
@@ -831,7 +852,7 @@ def vocab_parallel_embed(embed: Embed, tokens: torch.Tensor,
     valid = (local >= 0) & (local < v_local)
     # each shard's clamped row of its own slice, as a global row
     rows = local.clamp(0, v_local - 1) + lo
-    x = F.embedding(rows, embed.embedding).to(embed.dtype)
+    x = F.embedding(rows, table).to(dtype)
     x = torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype,
                                                      device=x.device))
     return _leave_tp_region(x, cfg, axis)
@@ -913,20 +934,22 @@ class Attention(nn.Module):
             out = self._decode_attend(q, k, v, cache, layer, idx, rows,
                                       write_pos)
         elif cfg.attn_mode in ("ring", "ulysses"):
-            # the sequence shards ride folded in the batch: [(tp,) S, B,
-            # ...] -> [S, tp * B, ...] for the sequence-parallel
-            # attention, and back
+            # the sequence shards ride folded in the batch: [(tp,)
+            # (stages,) S, B, ...] -> [S, tp * stages * B, ...] for the
+            # sequence-parallel attention, and back
             axis = _sp_axis(cfg)
             s_n = axis.n_local
+            o = n * (self.wq.kernel.shape[0] if self.wq.kernel.dim() == 3
+                     else 1)
             split = lambda z: z.reshape(  # noqa: E731
-                n, s_n, b // s_n, *z.shape[1:]).transpose(0, 1).reshape(
-                    s_n, bb // s_n, *z.shape[1:])
+                o, s_n, bb // (o * s_n), *z.shape[1:]).transpose(
+                    0, 1).reshape(s_n, bb // s_n, *z.shape[1:])
             attend = (ring_attention if cfg.attn_mode == "ring"
                       else ulysses_attention)
             out = attend(split(q), split(k), split(v), axis, causal=True,
                          impl=cfg.attn_impl)
-            out = out.reshape(s_n, n, b // s_n, *out.shape[2:]).transpose(
-                0, 1)
+            out = out.reshape(s_n, o, bb // (o * s_n),
+                              *out.shape[2:]).transpose(0, 1)
         elif cfg.attn_impl == "flash":
             out = flash_attention(
                 q, k, v, causal=True,
@@ -1124,6 +1147,20 @@ class MoEFeedForward(nn.Module):
                                requires_grad=False)
 
     def forward(self, x, dropless: bool = False):
+        if self.w1.dim() == 4:
+            # stage-stacked experts [S, E, ...] (the pipeline): each stage
+            # routes its own stage-major rows, so routing groups and
+            # capacities stay inside one stage's microbatch
+            n = self.w1.shape[0]
+            outs, auxes = zip(*(
+                self._route(xs, self.router.kernel[i], self.w1[i],
+                            self.w3[i], self.w2[i], dropless)
+                for i, xs in enumerate(x.reshape(n, -1, *x.shape[1:]))))
+            return torch.cat(outs), torch.stack(auxes)
+        return self._route(x, self.router.kernel, self.w1, self.w3, self.w2,
+                           dropless)
+
+    def _route(self, x, router, w1, w3, w2, dropless):
         cfg = self.cfg
         b, t, d = x.shape
         E = cfg.n_experts
@@ -1133,7 +1170,7 @@ class MoEFeedForward(nn.Module):
         s = b * t // shards                      # tokens a shard routes
         g, G, cap = moe_group_shape(cfg, s, dropless)
         g *= shards
-        logits = self.router(x.reshape(-1, d).float())          # [., E]
+        logits = x.reshape(-1, d).float() @ router.float()      # [., E]
         probs = torch.softmax(logits, dim=-1)
         combine = moe_combine_weights(probs.reshape(g, G, E),
                                       cfg.moe_top_k, cap, cfg.moe_router)
@@ -1152,9 +1189,9 @@ class MoEFeedForward(nn.Module):
         flat = x.reshape(g, G, d).to(dt)
         expert_in = torch.einsum("gsec,gsd->egcd", dispatch, flat)
         expert_in = expert_in.reshape(E, g * cap, d)
-        gate_h = torch.bmm(expert_in, self.w1.to(dt))
-        up_h = torch.bmm(expert_in, self.w3.to(dt))
-        expert_out = torch.bmm(F.silu(gate_h) * up_h, self.w2.to(dt))
+        gate_h = torch.bmm(expert_in, w1.to(dt))
+        up_h = torch.bmm(expert_in, w3.to(dt))
+        expert_out = torch.bmm(F.silu(gate_h) * up_h, w2.to(dt))
         expert_out = expert_out.reshape(E, g, cap, d)
         ep = _ep_axis(cfg)
         if ep is None:
@@ -1424,15 +1461,18 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def _remat(block: Block, x: torch.Tensor, rope,
-           policy: str = "none") -> torch.Tensor:
+           policy: str = "none", params=None) -> torch.Tensor:
     """``block(x, rope)`` under ``torch.utils.checkpoint``, its parameters
     passed in as inputs: under ``functional_call`` (``Llama.apply``) the
     recompute in the backward must see the same tensors as the forward,
     not the module's own.  ``policy`` is ``cfg.remat_policy``: "none" and
     "everything" recompute the whole block (flax's ``policy=None`` and
     ``nothing_saveable`` save the same: nothing), "dots" keeps the
-    projections' outputs (:func:`_dots_policy`)."""
-    names, tensors = zip(*block.named_parameters())
+    projections' outputs (:func:`_dots_policy`).  ``params`` (``{name:
+    tensor}``, the block's names) replaces the block's own parameters
+    (the pipeline's stage-stacked slots)."""
+    names, tensors = zip(*(params.items() if params is not None
+                           else block.named_parameters()))
 
     def run(x, rope, *tensors):
         return torch.func.functional_call(block, dict(zip(names, tensors)),
@@ -1536,20 +1576,209 @@ def llama_loss_fn(model: Llama, *, pos_offset: int = 0):
                              return_aux=want_aux)
         if want_aux:
             logits, aux = logits
-        if cfg.vocab_parallel and sp:
-            # each sequence shard's loss over the vocab-sharded columns
-            ce = torch.stack([vocab_parallel_xent(
-                logits[:, i], tgt[i], cfg.tp_axis)
-                for i in range(inp.shape[0])])
-        elif cfg.vocab_parallel:
-            ce = vocab_parallel_xent(logits, tgt, cfg.tp_axis)
-        else:
-            ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                                 tgt.reshape(-1).long(),
-                                 reduction="none" if sp else "mean")
-            if sp:
-                ce = ce.reshape(inp.shape[0], -1).mean(1)
+        ce = _xent(cfg, logits, tgt, sp)
         return ce + cfg.moe_aux_weight * aux if want_aux else ce
+
+    return loss_fn
+
+
+def _xent(cfg: LlamaConfig, logits: torch.Tensor, tgt: torch.Tensor,
+          sp: bool) -> torch.Tensor:
+    """The mean next-token cross-entropy of :meth:`Llama.forward`'s
+    logits: over the vocab-sharded columns under ``vocab_parallel``, and
+    each sequence shard's own (``[S]``) under ``sp``."""
+    if cfg.vocab_parallel and sp:
+        # each sequence shard's loss over the vocab-sharded columns
+        return torch.stack([vocab_parallel_xent(
+            logits[:, i], tgt[i], cfg.tp_axis)
+            for i in range(tgt.shape[0])])
+    if cfg.vocab_parallel:
+        return vocab_parallel_xent(logits, tgt, cfg.tp_axis)
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                         tgt.reshape(-1).long(),
+                         reduction="none" if sp else "mean")
+    return ce.reshape(tgt.shape[0], -1).mean(1) if sp else ce
+
+
+def llama_circular_layout(variables: Dict[str, torch.Tensor], n_stages: int,
+                          n_loops: int, inverse: bool = False
+                          ) -> Dict[str, torch.Tensor]:
+    """Permute the layers into (or, with ``inverse=True``, back out of)
+    the circular pipeline's storage order: storage slot ``g``
+    (``layers.{g}.…``) takes the leaves of layer ``perm[g]``
+    (``parallel.pipeline.circular_layer_permutation``), every other leaf
+    as it is, in the same key order.  Apply it before ``rank_major``
+    when training with ``llama_pp_loss_fn(..., n_loops > 1)``, and
+    inversely to export the natural layer order.  The tensors are not
+    copied."""
+    from bluefog_tpu_torch.parallel.pipeline import \
+        circular_layer_permutation
+
+    n_layers = 1 + max(int(k.split(".")[1]) for k in variables
+                       if k.startswith("layers."))
+    perm = circular_layer_permutation(n_layers, n_stages, n_loops).tolist()
+    if inverse:
+        perm = sorted(range(n_layers), key=perm.__getitem__)
+    out = {}
+    for k in variables:
+        if k.startswith("layers."):
+            _, g, leaf = k.split(".", 2)
+            out[k] = variables[f"layers.{perm[int(g)]}.{leaf}"]
+        else:
+            out[k] = variables[k]
+    return out
+
+
+def llama_pp_loss_fn(cfg: LlamaConfig, *, pp_axis: str, n_stages: int,
+                     n_micro: int, n_loops: int = 1):
+    """The next-token cross-entropy ``loss_fn(params, (inputs, targets))``
+    with the decoder stack run as a pipeline over ``pp_axis``
+    (``parallel.pipeline.gpipe``; ``gpipe_circular`` when ``n_loops >
+    1``), the JAX package's builder of the same name.
+
+    ``params`` is the port's state dict (``{name: tensor}``, the plain
+    model's tree: checkpoints move freely between pipeline layouts);
+    stage ``s`` owns layers ``s * L / S ..`` in storage order
+    (``llama_param_specs(pp_axis=)``), and with ``n_loops > 1`` the layers
+    must be in the circular storage order first
+    (:func:`llama_circular_layout`; ``n_micro >= n_stages``).  Every stage
+    runs on the one device, each layer slot one pass over all stages
+    (see the module docstring); the pp axis must be bound (the train
+    step binds it).  The batch size must divide by ``n_micro``.
+
+    Returns each stage's loss, ``[S]`` (``[S, S_sp]`` under ring or
+    Ulysses attention, each sequence shard's): the last stage's
+    cross-entropy, 0 on the others (JAX's masked per-device loss), plus,
+    for a MoE config with ``moe_aux_weight > 0``, each stage's own aux
+    over its real microbatch ticks divided by ``n_micro``, unmasked.
+    ``build_train_step(pp_axis=)`` sums the stages (JAX's psum over pp).
+    The embedding runs once (stage 0's input) and the final norm and
+    head run once (on the last stage's outputs).  Composes with
+    ``vocab_parallel`` over a tp axis and with ring or Ulysses sequence
+    parallelism (rotary offsets from the sp shard index); refuses, with
+    JAX's errors, ``scan_layers=False``, a depth that does not divide by
+    ``n_stages * n_loops``, and ``tp_seq_shard``."""
+    if not cfg.scan_layers:
+        raise ValueError("pipeline parallelism requires scan_layers=True "
+                         "(the stacked-layer param layout is what shards "
+                         "over the pipeline axis)")
+    if cfg.n_layers % (n_stages * n_loops):
+        raise ValueError(f"n_layers ({cfg.n_layers}) must divide by "
+                         f"n_stages*n_loops ({n_stages}*{n_loops})")
+    if cfg.tp_seq_shard:
+        raise ValueError(
+            "tp_seq_shard is not supported in the pipeline loss builder "
+            "yet (the stage boundary would have to carry seq-sharded "
+            "activations through the pp permute); use it with the plain "
+            "stack, or pp without tp_seq_shard")
+
+    from bluefog_tpu_torch.parallel.pipeline import gpipe, gpipe_circular
+
+    # the modules the plain model runs, applied to the given tensors, so
+    # the pipeline cannot diverge from the plain model's math
+    block = Block(cfg, "meta")
+    final_norm = RMSNorm(cfg.dim, cfg.norm_eps, "meta")
+    head = Dense(cfg.dim, cfg.vocab_size, torch.float32
+                 if cfg.logits_dot_in_fp32 else cfg.dtype, "meta")
+    want_aux = cfg.n_experts > 0 and cfg.moe_aux_weight > 0.0
+    sp = cfg.attn_mode in ("ring", "ulysses")
+    per_stage = cfg.n_layers // n_stages
+    chunk = per_stage // n_loops
+    # each leaf stacked in the dtype its product computes in: the norms'
+    # scales and the MoE router in f32
+    leaves = {name: torch.float32 if name.endswith("norm.scale")
+              or name.startswith("moe_ffn.router.") else cfg.dtype
+              for name, _ in block.named_parameters()}
+
+    def stacked(params):
+        """Each layer slot of a chunk: ``{leaf: [S, ...]}`` (``[S,
+        n_loops, ...]`` for the circular schedule)."""
+        slots = []
+        for l in range(chunk):
+            rows = [s * per_stage + r * chunk + l for s in range(n_stages)
+                    for r in range(n_loops)]
+            slot = {}
+            for name, dt in leaves.items():
+                w = torch.stack([params[f"layers.{i}.{name}"].to(dt)
+                                 for i in rows])
+                slot[name] = (w.unflatten(0, (n_stages, n_loops))
+                              if n_loops > 1 else w)
+            slots.append(slot)
+        return slots
+
+    def loss_fn(params, batch):
+        inp, tgt = batch
+        b, t = inp.shape[-2:]
+        if b % n_micro:
+            raise ValueError(f"batch size {b} must divide by n_micro "
+                             f"({n_micro})")
+        bm = b // n_micro
+        dev = inp.device
+        positions = torch.arange(t, device=dev)
+        s_n = 1
+        if sp:
+            axis = _sp_axis(cfg)
+            s_n = axis.n_local
+            if inp.dim() != 3 or inp.shape[0] != s_n:
+                raise ValueError(
+                    f"attn_mode={cfg.attn_mode!r} takes the {s_n} shards "
+                    f"of {axis!r} stacked: tokens [S, B, T_local], got "
+                    f"{tuple(inp.shape)}")
+            # rows stage-major, then sequence shard, each shard's rows at
+            # its own global positions
+            off = (axis.index(dev) * t).reshape(1, s_n, 1, 1)
+            positions = (off + positions).expand(
+                n_stages, s_n, bm, t).reshape(-1, t)
+        rope = _rope_tables(positions, _rope_freqs(
+            cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, dev))
+        table = params["tok_embeddings.embedding"]
+        x = (_vocab_parallel_rows(table, cfg.dtype, inp, cfg)
+             if cfg.vocab_parallel
+             else F.embedding(inp.long(), table).to(cfg.dtype))
+        d = x.shape[-1]
+        x_micro = (x.reshape(s_n, n_micro, bm, t, d).transpose(0, 1)
+                   if sp else x.reshape(n_micro, bm, t, d))
+
+        def stage_fn(slots, x):
+            h, aux = x.reshape(-1, t, d), None
+            for lp in slots:
+                h, a = (_remat(block, h, rope, cfg.remat_policy, lp)
+                        if cfg.remat
+                        else torch.func.functional_call(block, lp,
+                                                        (h, rope)))
+                if a is not None:
+                    aux = a if aux is None else aux + a
+            return (h.reshape(x.shape), aux) if want_aux \
+                else h.reshape(x.shape)
+
+        slots = stacked(params)
+        run = (functools.partial(gpipe_circular, n_loops=n_loops)
+               if n_loops > 1 else gpipe)
+        outs = run(stage_fn, slots, x_micro, pp_axis, n_stages,
+                   with_aux=want_aux)
+        if want_aux:
+            outs, aux_sum = outs
+        h = (outs.transpose(0, 1) if sp else outs).reshape(-1, t, d)
+        h = torch.func.functional_call(final_norm,
+                                       {"scale": params["norm.scale"]}, (h,))
+        w = {"kernel": params["output.kernel"]}
+        if cfg.vocab_parallel:
+            tp = _tp_axis(cfg)
+            logits = _shard_cols(torch.func.functional_call(
+                head, w, (_enter_tp_region(h, cfg, tp),)), tp.size).float()
+        else:
+            logits = torch.func.functional_call(head, w, (h,)).float()
+        if sp:
+            logits = logits.unflatten(-3, (s_n, b))
+        ce = _xent(cfg, logits, tgt, sp)
+        # the last stage's loss; the other stages' are masked to 0
+        loss = torch.cat([ce.new_zeros((n_stages - 1,) + ce.shape),
+                          ce[None]])
+        if want_aux:
+            # each stage's own routers' aux, unmasked, a mean over its
+            # real microbatches
+            loss = loss + cfg.moe_aux_weight * aux_sum / n_micro
+        return loss
 
     return loss_fn
 
@@ -1570,13 +1799,21 @@ def llama_param_specs(params_or_shapes, rank_axis: Optional[str] = "bf",
     their second-to-last; MoE expert tensors (under ``moe_ffn``, not the
     router) their expert dim over ``ep_axis``; with ``vocab_axis`` the
     embedding its vocab rows and the head its vocab columns.
-    ``rank_axis=None`` gives specs without the rank dim.  ``pp_axis``
-    (the scanned pipeline layout) is not ported: the pipeline waits for
-    ROADMAP.md Queue 1, item 10."""
-    if pp_axis is not None:
-        raise NotImplementedError(
-            f"llama_param_specs(pp_axis=) (the pipeline's layer sharding) "
-            f"is not ported to bluefog_tpu_torch yet; see {_PIPELINE}")
+    ``rank_axis=None`` gives specs without the rank dim.
+
+    ``pp_axis`` marks the leaves the pipeline's stages own: every leaf
+    under ``layers.*``, the set JAX shards over pp (dim 0 of its scanned
+    stack).  The port keeps per-layer leaves, so a stage owns whole
+    leaves (layer ``i`` is stage ``i // (L / S)``'s): the rank entry of
+    such a leaf's spec is ``(rank_axis, pp_axis)``, the rank axis and
+    the stage axis that holds the leaf, its other dims as without pp.
+    ``build_train_step``, ``optax_state_specs`` and the edge account read
+    the pp axis there (a stage-owned leaf counts as split over the
+    stages, what one JAX device holds).  It needs ``rank_axis``."""
+    if pp_axis is not None and rank_axis is None:
+        raise ValueError("llama_param_specs(pp_axis=) marks a stage-owned "
+                         "leaf on its rank entry (rank_axis, pp_axis): "
+                         "give rank_axis")
     column = ("wq", "wk", "wv", "w1", "w3")
     row = ("wo", "w2")
     out = {}
@@ -1604,6 +1841,7 @@ def llama_param_specs(params_or_shapes, rank_axis: Optional[str] = "bf",
                 dims[-2] = tp_axis
         while dims and dims[-1] is None:
             dims.pop()
-        out[name] = tuple(dims) if rank_axis is None else (rank_axis,
-                                                           *dims)
+        rank = (rank_axis if pp_axis is None or parts[0] != "layers"
+                else (rank_axis, pp_axis))
+        out[name] = tuple(dims) if rank_axis is None else (rank, *dims)
     return out

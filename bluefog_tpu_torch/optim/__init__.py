@@ -5,9 +5,9 @@ push-sum), the functional train step over the stacked and process
 backends with every mode of the JAX builder, sequence parallelism
 (``sp_axis``), the model axes (``mesh_axes``, ``param_specs``,
 ``opt_state_specs``, with ``rank_major_init``, ``rank_spec_tree`` and
-``optax_state_specs``) and the expert-sharded MoE step (``moe=``, with
-:class:`MoEConfig`), but the pipeline (ROADMAP.md Queue 1, item 10),
-and the shared bucket planner (``fusion``)."""
+``optax_state_specs``), the pipeline (``pp_axis``) and the
+expert-sharded MoE step (``moe=``, with :class:`MoEConfig`, also over
+``sp_axis``), and the shared bucket planner (``fusion``)."""
 
 from bluefog_tpu_torch.optim import functional, fusion, wrappers  # noqa: F401
 from bluefog_tpu_torch.optim.functional import (ELEMENTWISE_OPTIMIZERS,

@@ -65,16 +65,16 @@ optimizer itself, or ``(optimizer, ps_weight)`` under push-sum, or
 ``(optimizer, MixState)`` under top-k mixing.  No step reads a device
 value on the host.
 
-Sequence parallelism (``sp_axis``) and the model axes (``mesh_axes``:
+Sequence parallelism (``sp_axis``), the model axes (``mesh_axes``:
 tensor and expert parallelism, with ``param_specs`` /
-``opt_state_specs``) run inside step 1: each rank's forward and backward
-take all of its shards at once, the axes bound (see
-:func:`build_train_step`).  The expert-sharded step (``moe=``,
-:class:`MoEConfig`) runs step 1 once over every rank this process holds,
-since its all-to-all crosses ranks inside the forward, and mixes only
-the shared leaves.  Features of the JAX builder not ported yet
-(``pp_axis``; ``moe=`` with ``sp_axis``; the int8 wires and top-k mixing
-under model-parallel specs) raise ``NotImplementedError`` naming the
+``opt_state_specs``) and pipeline parallelism (``pp_axis``) run inside
+step 1: each rank's forward and backward take all of its shards and
+stages at once, the axes bound (see :func:`build_train_step`).  The
+expert-sharded step (``moe=``, :class:`MoEConfig`) runs step 1 once over
+every rank this process holds, since its all-to-all crosses ranks inside
+the forward, and mixes only the shared leaves; it composes with
+``sp_axis``.  The int8 wires and top-k mixing under model-parallel specs
+are not ported yet and raise ``NotImplementedError`` naming the
 ROADMAP.md item that ports them.
 """
 
@@ -106,10 +106,6 @@ __all__ = ["GuardConfig", "HealthConfig", "HealthVector",
 ELEMENTWISE_OPTIMIZERS = (torch.optim.SGD, torch.optim.Adam,
                           torch.optim.AdamW)
 
-_PIPELINE_ITEM = ("ROADMAP.md Queue 1, item 10 (the pipeline: "
-                  "parallel/pipeline.py and the train step's pp_axis)")
-_MOE_SP_ITEM = ("ROADMAP.md Queue 1, item 10 (moe= with sp_axis, a "
-                "sequence-sharded expert step)")
 _WIRE_SHARD_ITEM = ("ROADMAP.md Queue 1, item 10 (per-shard wire buckets "
                     "under model-parallel param_specs)")
 # the name of the rank axis in a batch spec, the JAX package's mesh axis
@@ -258,15 +254,29 @@ def rank_major(tree: Dict[str, torch.Tensor], backend: RankBackend,
     return backend.rank_major(tree)
 
 
+def _rank_entry(entry) -> Optional[tuple]:
+    """The axes a spec's rank entry names beyond the rank axis: ``()``
+    for ``"bf"``, ``("pp",)`` for a stage-owned leaf's ``("bf", "pp")``
+    (``llama_param_specs(pp_axis=)``); None when it is neither."""
+    if entry == RANK_AXIS:
+        return ()
+    if (isinstance(entry, tuple) and entry and entry[0] == RANK_AXIS
+            and all(isinstance(a, str) for a in entry)):
+        return entry[1:]
+    return None
+
+
 def _check_spec_form(tree, specs) -> None:
     """Every spec of ``specs`` names a leaf of ``tree`` (leaves without
-    the rank axis) and is a tuple that starts with the rank axis, one
-    entry per dim of the rank-major leaf at most."""
+    the rank axis) and is a tuple that starts with the rank axis (or
+    ``(rank axis, pp axis)`` for a stage-owned leaf), one entry per dim
+    of the rank-major leaf at most."""
     for k, spec in specs.items():
         if k not in tree:
             raise ValueError(f"specs names {k!r}, which the tree does "
                              "not hold")
-        if not (isinstance(spec, tuple) and spec and spec[0] == RANK_AXIS
+        if not (isinstance(spec, tuple) and spec
+                and _rank_entry(spec[0]) is not None
                 and len(spec) <= tree[k].dim() + 1):
             raise ValueError(f"specs[{k!r}] = {spec!r}: a tuple of axis "
                              f"names that starts with {RANK_AXIS!r}, one "
@@ -647,18 +657,22 @@ def _spec_is_model_parallel(spec, axis_name: str = RANK_AXIS) -> bool:
 
 def _check_param_specs(params, param_specs, axes) -> Dict[str, int]:
     """Hold ``param_specs`` (``{name: spec}`` or one spec for every leaf)
-    to the rank-major ``params``: each spec starts with the rank axis,
-    fits its leaf's dims, names only ``axes`` (the step's mesh axes) and
-    splits each named dim evenly.  Returns ``{name: shards}``, the number
-    of pieces each leaf is split into (its bytes over that are what one
-    JAX device holds)."""
+    to the rank-major ``params``: each spec starts with the rank axis
+    (with the pp axis for a stage-owned leaf), fits its leaf's dims,
+    names only ``axes`` (the step's mesh axes) and splits each named dim
+    evenly.  Returns ``{name: shards}``, the number of pieces each leaf
+    is split into (its bytes over that are what one JAX device holds: a
+    stage-owned leaf counts the stages, each holding its share of the
+    layers)."""
     out = {}
     for name, leaf in params.items():
         spec = (param_specs if isinstance(param_specs, tuple)
                 else param_specs.get(name))
         if spec is None:
             raise ValueError(f"param_specs has no spec for {name!r}")
-        if not (isinstance(spec, tuple) and spec and spec[0] == RANK_AXIS):
+        extra = (_rank_entry(spec[0]) if isinstance(spec, tuple) and spec
+                 else None)
+        if extra is None:
             raise ValueError(f"param_specs[{name!r}] = {spec!r}: a tuple "
                              f"of axis names that starts with "
                              f"{RANK_AXIS!r}")
@@ -666,6 +680,12 @@ def _check_param_specs(params, param_specs, axes) -> Dict[str, int]:
             raise ValueError(f"param_specs[{name!r}] = {spec!r} has more "
                              f"dims than the leaf {tuple(leaf.shape)}")
         shards = 1
+        for a in extra:
+            if a not in axes:
+                raise ValueError(f"param_specs[{name!r}] gives {a!r} the "
+                                 "leaf's stage, but the step has no such "
+                                 "pp_axis")
+            shards *= axes[a].size
         for d, e in enumerate(spec[1:], start=1):
             for a in (e if isinstance(e, tuple) else (e,)):
                 if a is None:
@@ -684,34 +704,50 @@ def _check_param_specs(params, param_specs, axes) -> Dict[str, int]:
     return out
 
 
-def _shard_batch(tree, spec, n: int):
-    """One rank's batch with every leaf split along the dim the spec
-    names (counted with the rank axis, which ``tree`` no longer has)
-    into its ``n`` sequence shards, stacked shard-major; with no dim
-    named, the batch as it is (every shard sees it whole, as in JAX)."""
-    dims = [i - 1 for i, e in enumerate(spec) if i and e is not None]
+def _shard_batch(tree, spec, n: int, lead: int = 0):
+    """One rank's batch (``lead=0``; every rank's, rank-major, with
+    ``lead=1``) with every leaf split along the dim the spec names
+    (counted with the rank axis) into its ``n`` shards, stacked
+    shard-major after the ``lead`` dims; with no dim named, the batch as
+    it is (every shard sees it whole, as in JAX)."""
+    dims = [i - 1 + lead for i, e in enumerate(spec) if i and e is not None]
     if not dims:
         return tree
     if isinstance(tree, dict):
-        return {k: _shard_batch(v, spec, n) for k, v in tree.items()}
+        return {k: _shard_batch(v, spec, n, lead) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_shard_batch(v, spec, n) for v in tree)
+        return type(tree)(_shard_batch(v, spec, n, lead) for v in tree)
     d = dims[0]
     if tree.shape[d] % n:
-        raise ValueError(f"batch dim {d + 1} of size {tree.shape[d]} does "
-                         f"not split into {n} sequence shards")
+        raise ValueError(f"batch dim {d + 1 - lead} of size {tree.shape[d]} "
+                         f"does not split into {n} sequence shards")
     return tree.unflatten(d, (n, tree.shape[d] // n)).movedim(
-        d, 0).contiguous()
+        d, lead).contiguous()
 
 
-def _shard_mean(loss: torch.Tensor, n: int) -> torch.Tensor:
+def _shard_mean(loss: torch.Tensor, n: int, lead: int = 0) -> torch.Tensor:
     """The loss of a sequence-parallel ``loss_fn``: its per-shard losses'
-    mean (JAX's ``pmean`` over the axis), or a scalar as it is."""
-    if loss.dim() == 1 and loss.shape[0] == n:
-        return loss.mean()
-    if loss.dim():
+    mean (JAX's ``pmean`` over the axis), or a scalar as it is; with
+    ``lead=1`` each rank's (rank-major ``[n_local, n]`` or ``[n_local]``)."""
+    if loss.dim() == lead + 1 and loss.shape[lead] == n:
+        return loss.mean(lead)
+    if loss.dim() > lead:
         raise ValueError(f"under sp_axis loss_fn returns each of the {n} "
                          f"shards' losses ([{n}]) or a scalar, got "
+                         f"{tuple(loss.shape)}")
+    return loss
+
+
+def _stage_sum(loss: torch.Tensor, n: int, lead: int = 0) -> torch.Tensor:
+    """The loss of a pipeline ``loss_fn``: its per-stage losses ``[S,
+    ...]`` summed over the stages (JAX's ``psum`` over pp of the
+    last-stage-masked losses), or a scalar as it is; with ``lead=1``
+    each rank's."""
+    if loss.dim() > lead and loss.shape[lead] == n:
+        return loss.sum(lead)
+    if loss.dim() > lead:
+        raise ValueError(f"under pp_axis loss_fn returns each of the {n} "
+                         f"stages' losses ([{n}, ...]) or a scalar, got "
                          f"{tuple(loss.shape)}")
     return loss
 
@@ -722,7 +758,8 @@ def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
                    overlap_buckets, guard, moe, mesh_axes):
     """The JAX builder's checks, in its order and with its messages.
     Returns (specs, hierarchical_local_size, compress, mix, fused, the
-    mesh axes by name, the batch-splittable axes by name)."""
+    mesh axes by name (the pp axis among them), the batch-splittable
+    axes by name, the pp axis or None)."""
     if comm_mode not in ("cta", "atc", "gradient_allreduce", "push_sum",
                          "none"):
         raise ValueError(f"unknown comm_mode {comm_mode!r}")
@@ -759,8 +796,11 @@ def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
                 f"does not cover the {backend.size}-rank backend")
     elif comm_mode not in ("cta", "atc"):
         hls = None
-    if pp_axis is not None:
-        _not_ported("pp_axis (pipeline parallelism)", _PIPELINE_ITEM)
+    if pp_axis is not None and param_specs is None:
+        raise ValueError(
+            "pp_axis requires param_specs: the spec tree is what tells "
+            "pipeline-sharded leaves (layer stacks, NOT reduced over pp) "
+            "apart from pp-replicated ones (embeddings/head, psum'd)")
     if sp_axis is not None and not isinstance(sp_axis, C.SeqAxis):
         raise TypeError(
             f"sp_axis must be the axis itself, SeqAxis({sp_axis!r}, size): "
@@ -776,6 +816,16 @@ def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
                 sp_axis is not None and ax.name == sp_axis.name):
             raise ValueError(f"mesh_axes: axis name {ax.name!r} is taken")
         axes[ax.name] = ax
+    pp = pp_axis
+    if pp is not None:
+        if not isinstance(pp, C.MeshAxis) or isinstance(pp, C.SeqAxis):
+            raise TypeError(
+                f"pp_axis must be the axis itself, MeshAxis({pp!r}, "
+                "n_stages): the port has no mesh to hold its size")
+        if pp.name in axes or pp.name == RANK_AXIS or (
+                sp_axis is not None and pp.name == sp_axis.name):
+            raise ValueError(f"pp_axis: axis name {pp.name!r} is taken")
+        axes[pp.name] = pp
     if sp_axis is not None:
         axes_b = dict(axes, **{sp_axis.name: sp_axis})
     else:
@@ -835,9 +885,6 @@ def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
             f"'atc' (got {comm_mode!r}); gradient_allreduce would "
             "average expert gradients across ranks hosting DIFFERENT "
             "experts, and push_sum's (x, w) pair cannot be split")
-    if moe is not None and sp_axis is not None:
-        _not_ported("moe= with sp_axis (a sequence-sharded expert step)",
-                    _MOE_SP_ITEM)
     if model_parallel and (compress in ("int8", "int8_sr")
                            or mix is not None):
         _not_ported(
@@ -874,7 +921,7 @@ def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
                 "overlap='bucketed' with comm_mode='push_sum' needs the "
                 "fused epilogue pipeline (unset BLUEFOG_FUSE_EPILOGUES=0): "
                 "the unfused builder mixes the extended payload whole")
-    return specs, hls, compress, mix, fused, axes, axes_b
+    return specs, hls, compress, mix, fused, axes, axes_b, pp
 
 
 def build_train_step(
@@ -890,7 +937,7 @@ def build_train_step(
     hierarchical: Any = None,
     sp_axis: Optional[C.SeqAxis] = None,
     mesh_axes: Sequence[C.MeshAxis] = (),
-    pp_axis: Optional[str] = None,
+    pp_axis: Optional[C.MeshAxis] = None,
     batch_specs: Any = None,
     param_specs: Any = None,
     opt_state_specs: Any = None,
@@ -976,6 +1023,20 @@ def build_train_step(
       device).  ``batch_specs`` may split one batch dim over a model
       axis as over the sequence axis.
 
+    * ``pp_axis=MeshAxis("pp", S)``: pipeline parallelism
+      (``llama_pp_loss_fn``), the axis itself as for ``sp_axis``; it
+      needs ``param_specs`` (JAX's error), whose
+      stage-owned leaves carry the axis on their rank entry
+      (``llama_param_specs(pp_axis=)``).  The axis is bound over the
+      forward and backward with the others; ``loss_fn`` returns each
+      stage's loss (``[S]``, ``[S, S_sp]`` under ``sp_axis``) and the
+      step differentiates their sum, JAX's psum over pp.  The stages of
+      a rank are held together, so a leaf JAX replicates over pp (the
+      embedding, the final norm, the head) is held once and autograd
+      gives it the sum JAX's psum restores; every ``comm_mode``, the
+      guard and health compose with it, stage-owned leaves joining the
+      combine like any other leaf.
+
     * ``moe=MoEConfig(n_experts, capacity)``: the expert-sharded step
       (cta or atc).  ``loss_fn(params, batch)`` (``loss_fn(params, aux,
       batch)`` with ``has_aux``) then runs ONCE over every rank this
@@ -991,7 +1052,11 @@ def build_train_step(
       update and never touch the wire.  The guard and health read every
       leaf.  Under ``overlap="bucketed"`` atc applies the whole update
       before the combine, as JAX plans no interleaved branches under
-      ``moe``.
+      ``moe``.  With ``sp_axis`` the axis is bound over that one call,
+      ``batch_specs`` splits each leaf's named dim into shards placed
+      after the rank axis (``[n_local, S, ...]``), and ``loss_fn`` may
+      return each rank's shards' losses (``[n_local, S]``): each rank's
+      loss is their mean, JAX's pmean over the axis.
 
     ``BLUEFOG_FUSE_EPILOGUES=0`` takes the health reductions in the JAX
     package's pre-fusion order (per leaf, over the whole tree) and
@@ -1008,7 +1073,7 @@ def build_train_step(
     after ``loss``; under ``health=`` the ``HealthVector`` comes last.
     """
     del donate
-    specs, hls, compress, mix, fused, axes, axes_b = _resolve_modes(
+    specs, hls, compress, mix, fused, axes, axes_b, pp = _resolve_modes(
         backend, comm_mode, topology, schedule, hierarchical,
         hierarchical_local_size, sp_axis, pp_axis, batch_specs,
         param_specs, opt_state_specs, compress, overlap, overlap_buckets,
@@ -1031,6 +1096,7 @@ def build_train_step(
     # the axes bound over every forward and backward, as shard_map binds
     # its mesh axis names
     bound = ([sp_axis] if sp_axis is not None else []) + list(axes.values())
+    shard_axis = sp_axis or split_axis
     shards_of: Dict[tuple, Dict[str, int]] = {}
     opt_specs_checked: list = []
 
@@ -1336,11 +1402,19 @@ def build_train_step(
             # the expert-sharded forward crosses ranks: every rank at once
             p_all = {k: v.detach().requires_grad_(True)
                      for k, v in params.items()}
+            b_all = batch
+            if split_axis is not None:
+                b_all = _shard_batch(batch, specs_b, split_axis.size, lead=1)
             with torch.enable_grad(), bind_axes():
                 if has_aux:
-                    loss, new_aux = loss_fn(p_all, aux, batch)
+                    loss, new_aux = loss_fn(p_all, aux, b_all)
                 else:
-                    loss = loss_fn(p_all, batch)
+                    loss = loss_fn(p_all, b_all)
+                # each rank's stages summed and shards averaged
+                if pp is not None:
+                    loss = _stage_sum(loss, pp.size, lead=1)
+                if shard_axis is not None:
+                    loss = _shard_mean(loss, shard_axis.size, lead=1)
                 if tuple(loss.shape) != (n,):
                     raise ValueError(
                         f"under moe= loss_fn returns each of the {n} "
@@ -1365,8 +1439,10 @@ def build_train_step(
                     loss, new_aux = loss_fn(p_r, _slice(aux, r), b_r)
                 else:
                     loss = loss_fn(p_r, b_r)
-                if sp_axis is not None or split_axis is not None:
-                    loss = _shard_mean(loss, (sp_axis or split_axis).size)
+                if pp is not None:
+                    loss = _stage_sum(loss, pp.size)
+                if shard_axis is not None:
+                    loss = _shard_mean(loss, shard_axis.size)
                 gs = torch.autograd.grad(loss, list(p_r.values()))
             with torch.no_grad():
                 for g_all, g in zip(grads, gs):

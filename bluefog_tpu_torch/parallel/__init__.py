@@ -1,7 +1,8 @@
 """Data plane and kernels of the port: rank-major collectives
 (``collectives``: the stacked and process backends, the sequence axis
 ``SeqAxis``), sequence-parallel attention (``ring_attention``,
-``ulysses``), the single-device attention references
+``ulysses``), the pipeline schedules (``pipeline``: GPipe and the
+circular schedule over a ``MeshAxis``), the single-device attention references
 (``ring_attention``: ``full_attention``, ``blockwise_attention``) and
 hand-written CUDA for the Pallas kernels
 of ``bluefog_tpu.parallel``: the decode-attention kernel K4

@@ -50,7 +50,9 @@ __all__ = ["CASES", "N_MODEL", "SPLASH_CASES", "term_sizes", "mismatch",
 
 # (B, T, H, KV, D, dtype, causal, q_offset, kv_offset)
 CASES = [
-    (4, 2048, 32, 8, 128, torch.bfloat16, True, 0, 0),  # Llama-3.1-8B
+    # Llama-3.1-8B (phase 8; phase 26's pp 2: both stages' microbatches
+    # of 2 rows folded into the batch)
+    (4, 2048, 32, 8, 128, torch.bfloat16, True, 0, 0),
     (128, 200, 12, 12, 64, torch.bfloat16, False, 0, 0),  # ViT-B/16 b128
     (4, 2048, 32, 8, 64, torch.bfloat16, True, 0, 0),   # Llama-1B
     (32, 200, 12, 12, 64, torch.bfloat16, False, 0, 0),  # ViT-B/16 b32

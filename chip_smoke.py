@@ -329,7 +329,7 @@ Phases (any failure raises and exits non-zero, printing no result):
       over f32 params) over 4 stacked ranks, guarded atc over
       ExponentialTwoGraph(4), SGD(1e-3, momentum 0.9), fed by the native
       loader through device_prefetch (cast and normalized on the card),
-      under run_resilient for 48 steps with checkpoint_every=8 into a
+      under run_resilient for 36 steps with checkpoint_every=8 into a
       Checkpointer (max_to_keep=2, writes on a thread) and
       ElasticConfig(bootstrap_rounds=4, max_quarantine_steps=16,
       quarantine_threshold=2.0), through FaultPlan.nan_burst(4, rank=1,
@@ -451,12 +451,33 @@ Phases (any failure raises and exits non-zero, printing no result):
       experts' w2 zeroed, beyond the limits), then 2 steps of the ep step
       through build_train_step(mesh_axes=, param_specs=): ms, tokens/s,
       peak memory.
+26. Pipeline parallelism (a rank's stages stacked on the one card, the
+   pp axis bound as a MeshAxis) and the sequence-sharded expert step:
+   a. Llama-3.1-8B's width at phase 8's depth (4 layers) and batch (4 x
+      2048), f32 masters, bf16 compute, f32 head, remat, flash: step 0
+      of llama_pp_loss_fn at pp 2, GPipe (n_micro 2) and the circular
+      schedule (2 loops, n_micro 2, the layers in its storage order), on
+      the same params as pp 1, the loss within PP_LOSS_LIMIT and every
+      leaf's gradient within PP_GRAD_LIMIT of its largest entry, and a
+      planted fault (the hop into stage 1 dropped) beyond them; K2, K3a
+      and K3b at both stages' microbatches folded into the batch (q [4,
+      2048, 32, 128], held in 2c).  Then 1 warm-up and 2 timed steps of
+      each through build_train_step(pp_axis=): tokens/s, step ms, MFU,
+      peak memory, the profile's device ms and K2 / K3a+K3b ms beside
+      phase 8's.
+   b. dp 2 x pp 2 under atc at 2 layers: each rank's losses of steps 0
+      and 1 within PP_LOSS_LIMIT of dp 2 without pp; step ms, tokens/s.
+   c. The expert-sharded step (moe=) over sp_axis=SeqAxis("sp", 2) at
+      23d's expert width over 4 stacked ranks, each rank's tokens split
+      into two shards by batch_specs, each shard dispatched on its own:
+      0 host syncs in a steady step, finite losses, the expert leaves
+      bit-equal to a step under the identity combine.
 
 The line before the last is a JSON object with one entry per kernel
 (seven; K4's launches are phase 3's, 19's, 20's, 23c's, 24b's and
 25b's; K2's, K3a's and K3b's phase 8's, 21b's, 21c's, 22b's, 23a's,
-23b's, 24a's and 25's, K2's 23c's rollout too); the last line is {"ok":
-true, "device": {...}}.
+23b's, 24a's, 25's and 26's, K2's 23c's rollout too); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2129,23 +2150,39 @@ def _llama1b_cfg(**over):
     return bt.LlamaConfig(**base)
 
 
-def _llama_step(cfg, n_ranks, comm_mode, seed, batch, seq, **kw):
+def _llama_step(cfg, n_ranks, comm_mode, seed, batch, seq, pp_loops=None,
+                **kw):
     """``cfg``'s model (f32 master params from --seed, bf16 compute) over
     ``n_ranks`` stacked ranks: (cfg, model, backend, step, params,
     optimizer, synthetic batch), all from --seed; the module keeps no copy
     of the weights (``state(release=True)``), so the rank-major params are
-    the one copy on the card."""
+    the one copy on the card.  ``pp_loops`` (1 GPipe, 2 circular) trains
+    through ``llama_pp_loss_fn`` over PP_STAGES stages and PP_MICRO
+    microbatches instead (phase 26), the layers in the schedule's storage
+    order."""
     import bluefog_tpu_torch as bt
-    from bluefog_tpu_torch.models.llama import llama_loss_fn
+    from bluefog_tpu_torch.models.llama import (llama_circular_layout,
+                                                llama_loss_fn,
+                                                llama_param_specs,
+                                                llama_pp_loss_fn)
 
     model = bt.Llama(cfg, device="cuda", param_dtype=torch.float32,
                      generator=torch.Generator("cuda").manual_seed(seed))
     state = model.state(release=True)
+    loss_fn = llama_loss_fn(model)
+    if pp_loops is not None:
+        if pp_loops > 1:
+            state = llama_circular_layout(state, PP_STAGES, pp_loops)
+        loss_fn = llama_pp_loss_fn(cfg, pp_axis="pp", n_stages=PP_STAGES,
+                                   n_micro=PP_MICRO, n_loops=pp_loops)
+        kw.update(pp_axis=bt.MeshAxis("pp", PP_STAGES),
+                  param_specs=llama_param_specs(
+                      state, tp_axis=None, ep_axis=None, pp_axis="pp"))
     backend = bt.StackedBackend(n_ranks, device="cuda")
     params = bt.rank_major(state, backend)
     del state
     opt = torch.optim.SGD(params.values(), lr=1e-3, momentum=0.9)
-    step = bt.build_train_step(llama_loss_fn(model), opt, backend,
+    step = bt.build_train_step(loss_fn, opt, backend,
                                comm_mode=comm_mode, **kw)
     g = torch.Generator("cuda").manual_seed(seed + 1)
     raw = torch.randint(0, cfg.vocab_size, (n_ranks, batch, seq + 1),
@@ -2178,10 +2215,17 @@ KERNEL_SYMBOLS = {"K2": ("k2_forward",), "K3a+K3b": ("k3a_dq", "k3b_dkv"),
                   "K5": ("k5_wgmma", "k5_tc", "k5_fma", "k5_sum")}
 
 
+# the last _profile_llama's device ms a step: {"device", "K2", "K3a+K3b",
+# "K5", "head"}; phase 8 keeps its own in PHASE8_PROFILE
+LAST_PROFILE: dict = {}
+PHASE8_PROFILE: dict = {}
+
+
 def _profile_llama(step, params, opt, batch, steps=2, what="Llama"):
     """torch.profiler over ``steps`` train steps of ``what`` (a model
     with an f32 head): device-busy share, the top kernels, the attention
-    kernels' shares (K2, K3a+K3b, K5) and the head's."""
+    kernels' shares (K2, K3a+K3b, K5) and the head's (kept in
+    LAST_PROFILE)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2213,6 +2257,9 @@ def _profile_llama(step, params, opt, batch, steps=2, what="Llama"):
                     reverse=True)[:15]:
         log(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f} "
             f"ms/step  {e.count // steps:5d} calls/step  {e.key[:90]}")
+    LAST_PROFILE.clear()
+    LAST_PROFILE.update({k: us / steps / 1e3 for k, us in attn.items()},
+                        device=busy / steps / 1e3, head=head / steps / 1e3)
     return busy / steps / 1e3
 
 
@@ -2305,6 +2352,7 @@ def phase_llama_train_1rank(seed):
     del state
     tokens = LLAMA_BATCH * LLAMA_SEQ
     busy_ms = _profile_llama(step, params, opt, batch)
+    PHASE8_PROFILE.update(LAST_PROFILE)
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     head = _head_ms(cfg, flush, tokens)
     log(f"[llama1] the f32 head alone (x @ kernel, cross-entropy and their "
@@ -5058,7 +5106,9 @@ def phase_sp(name, seed):
 # phase 22: data, checkpoints and fault-tolerant training (ViT-B/16)
 # ------------------------------------------------------------------ #
 P22_IMAGES, P22_RANKS, P22_BATCH = 4096, 4, 128
-P22_STEPS, P22_EVERY = 48, 8
+# 36 steps: the last event, the promotion at step 27, leaves 9 steps of
+# the healed fleet
+P22_STEPS, P22_EVERY = 36, 8
 
 
 def _p22_plan(R):
@@ -6663,16 +6713,17 @@ TP_LAYERS = 4            # 25a's depth: phase 8's
 TP_PROMPTS, TP_PROMPT_LEN, TP_NEW = 8, 120, 8   # 25b
 
 
-def _loss_grads(model, params, batch, axis=None):
-    """Step 0 of ``model`` on one rank's ``params`` and ``batch``: the
-    loss and every leaf's gradient, the axis bound."""
+def _loss_grads(model, params, batch, axis=None, loss_fn=None):
+    """Step 0 of ``model`` (or of ``loss_fn``, whose per-stage losses
+    are summed) on one rank's ``params`` and ``batch``: the loss and
+    every leaf's gradient, the axis bound."""
     from bluefog_tpu_torch.models.llama import llama_loss_fn
     import bluefog_tpu_torch as bt
 
     p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad(), (bt.bind_axis(axis) if axis is not None
                                else contextlib.nullcontext()):
-        loss = llama_loss_fn(model)(p, batch)
+        loss = (loss_fn or llama_loss_fn(model))(p, batch).sum()
         grads = torch.autograd.grad(loss, list(p.values()))
     return loss.item(), dict(zip(p, grads))
 
@@ -7034,6 +7085,288 @@ def phase_model_axes(seed):
     return out
 
 
+# ------------------------------------------------------------------ #
+# phase 26: pipeline parallelism (GPipe and the circular schedule) and
+# the sequence-sharded expert step, a rank's stages stacked on the card
+# ------------------------------------------------------------------ #
+PP_STAGES, PP_MICRO, PP_LOOPS = 2, 2, 2
+# step 0 held to pp 1 on the same params (bf16 compute), as 25a holds tp:
+# a CPU bf16 run at dim 512-1024 (4 layers, B 4 x T 128) gave loss gaps
+# of 0 and gradients within 0.0072-0.0074 of each leaf's largest entry;
+# the card's batched products round in another order than pp 1's
+PP_LOSS_LIMIT = 2e-3
+PP_GRAD_LIMIT = 0.1
+PP_LAYERS = 4            # 26a's depth: phase 8's
+PP_DP_LAYERS = 2         # 26b's: phase 9's (memory)
+SP_EP_RANKS = 4          # 26c: 23d's width over 4 stacked ranks
+
+
+def _pp_cfg(n_layers):
+    """26's model: Llama-3.1-8B's width, the scanned layout the pipeline
+    needs, remat (the whole block recomputed)."""
+    return dataclasses.replace(_llama8b_cfg(n_layers), scan_layers=True,
+                               remat=True)
+
+
+def _pp_launches(n_loops, n_layers, ranks=1):
+    """K2/K3a/K3b launches of one pp forward and backward under remat: a
+    layer slot's one launch a tick for both stages, the forward twice."""
+    ticks = n_loops * PP_MICRO + PP_STAGES - 1
+    slots = n_layers // (PP_STAGES * n_loops)
+    n = ticks * slots * ranks
+    return {"flash_forward": 2 * n, "flash_backward_dq": n,
+            "flash_backward_dkv": n}
+
+
+def _dropped_hop_axis():
+    """A pp axis whose hop into stage 1 delivers zeros: 26a's planted
+    fault (stage 1 never sees stage 0's activations)."""
+    import bluefog_tpu_torch as bt
+
+    class DroppedHop(bt.MeshAxis):
+        def shift(self, x):
+            y = super().shift(x)
+            return torch.cat([y[:1], torch.zeros_like(y[1:2]), y[2:]])
+
+    return DroppedHop("pp", PP_STAGES)
+
+
+def _p26a(seed):
+    """26a: Llama-3.1-8B's width at phase 8's depth and batch, pp 2 on the
+    one card (the stages stacked): step 0 of GPipe and of the circular
+    schedule held to pp 1 on the same params, a planted fault (the hop
+    into stage 1 dropped) rejected; then a training window of each.
+    Returns the windows' launches."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.models.llama import (llama_circular_layout,
+                                                llama_pp_loss_fn)
+
+    cfg = _pp_cfg(PP_LAYERS)
+    pp = bt.MeshAxis("pp", PP_STAGES)
+    torch.cuda.empty_cache()
+    model = bt.Llama(cfg, device="cuda", param_dtype=torch.float32,
+                     generator=torch.Generator("cuda").manual_seed(seed))
+    params = model.state(release=True)
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    raw = torch.randint(0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ + 1),
+                        generator=g, device="cuda")
+    batch = (raw[:, :-1].contiguous(), raw[:, 1:].contiguous())
+    _reset_counts()
+    ref_loss, ref_grads = _loss_grads(model, params, batch)
+
+    def pp_loss(n_loops):
+        return llama_pp_loss_fn(cfg, pp_axis="pp", n_stages=PP_STAGES,
+                                n_micro=PP_MICRO, n_loops=n_loops)
+
+    for what, n_loops in (("GPipe", 1), ("circular", PP_LOOPS)):
+        p = (params if n_loops == 1 else
+             llama_circular_layout(params, PP_STAGES, n_loops))
+        loss, grads = _loss_grads(model, p, batch, pp, pp_loss(n_loops))
+        if n_loops > 1:
+            grads = llama_circular_layout(grads, PP_STAGES, n_loops,
+                                          inverse=True)
+        gap, worst, leaf = _tp_gap(loss, grads, ref_loss, ref_grads)
+        del grads
+        log(f"[pp26a] {what}, pp {PP_STAGES}, n_micro {PP_MICRO}"
+            f"{f', n_loops {n_loops}' if n_loops > 1 else ''}: step-0 loss "
+            f"{loss:.6f} against pp 1's {ref_loss:.6f} (|gap| {gap:.3g}, "
+            f"limit {PP_LOSS_LIMIT}); gradients within {worst:.3g} of each "
+            f"leaf's largest entry (worst {leaf}; limit {PP_GRAD_LIMIT})")
+        if not (gap <= PP_LOSS_LIMIT and worst <= PP_GRAD_LIMIT):
+            raise AssertionError(f"26a {what}: step 0 differs from pp 1's "
+                                 f"(loss {gap}, grad {worst} at {leaf})")
+    loss, grads = _loss_grads(model, params, batch, _dropped_hop_axis(),
+                              pp_loss(1))
+    gap, worst, leaf = _tp_gap(loss, grads, ref_loss, ref_grads)
+    del grads, ref_grads
+    log(f"[pp26a] planted fault, the hop into stage 1 dropped: loss gap "
+        f"{gap:.3g}, gradients {worst:.3g} of the leaf's largest entry "
+        f"({leaf}): rejected")
+    if gap <= PP_LOSS_LIMIT and worst <= PP_GRAD_LIMIT:
+        raise AssertionError("26a: the limits pass a planted fault (the "
+                             "hop into stage 1 dropped)")
+    # pp 1 under remat, then GPipe, the circular schedule, the fault
+    want = {k: PP_LAYERS * (2 if k == "flash_forward" else 1)
+            for k in FLASH_KERNELS}
+    for n_loops in (1, PP_LOOPS, 1):
+        for k, n in _pp_launches(n_loops, PP_LAYERS).items():
+            want[k] += n
+    _expect_launches("26a step-0 checks", want)
+    del model, params, batch, raw
+    torch.cuda.empty_cache()
+    total = dict.fromkeys(FLASH_KERNELS, 0)
+    warmup, timed = 1, 2
+    for what, n_loops in (("GPipe", 1), ("circular", PP_LOOPS)):
+        label = (f"[pp26a] pp {PP_STAGES} {what}, n_micro {PP_MICRO}"
+                 + (f", n_loops {n_loops}" if n_loops > 1 else ""))
+        got, state, _, _ = _llama_window(
+            cfg, seed, warmup, timed, label,
+            {k: n * (warmup + timed) for k, n in
+             _pp_launches(n_loops, PP_LAYERS).items()},
+            pp_loops=n_loops)
+        for kname in FLASH_KERNELS:
+            total[kname] += got[kname]
+        busy = _profile_llama(*state[2:], what=f"26a {what}")
+        ticks = n_loops * PP_MICRO + PP_STAGES - 1
+        log(f"{label}: {busy:.2f} ms of device time a step, K2 "
+            f"{LAST_PROFILE['K2']:.3f} and K3a+K3b "
+            f"{LAST_PROFILE['K3a+K3b']:.3f} ms a step beside phase 8's pp 1 "
+            f"({PHASE8_PROFILE.get('device', float('nan')):.2f} ms, K2 "
+            f"{PHASE8_PROFILE.get('K2', float('nan')):.3f}, K3a+K3b "
+            f"{PHASE8_PROFILE.get('K3a+K3b', float('nan')):.3f}, no remat); "
+            f"{ticks} ticks for {n_loops * PP_MICRO} chunk-microbatches a "
+            f"stage, bubble {(PP_STAGES - 1) / ticks:.3f} of the layer work")
+        del state
+        torch.cuda.empty_cache()
+    return total
+
+
+def _p26b(seed):
+    """26b: dp 2 x pp 2 under atc over ExponentialTwoGraph(2) at 2 layers,
+    held to dp 2 without pp: each rank's loss at steps 0 and 1 (the
+    first taken after the first atc combine) within PP_LOSS_LIMIT.
+    Returns the launches."""
+    import bluefog_tpu_torch as bt
+
+    topo = bt.uniform_topology_spec(bt.ExponentialTwoGraph(2))
+    cfg = _pp_cfg(PP_DP_LAYERS)
+    losses, total = {}, dict.fromkeys(FLASH_KERNELS, 0)
+    for what, pp_loops in (("dp 2", None), ("dp 2 x pp 2", 1)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, _, step, params, opt, batch = _llama_step(
+            cfg, 2, "atc", seed, LLAMA_BATCH, LLAMA_SEQ, pp_loops=pp_loops,
+            topology=topo)
+        _reset_counts()
+        got = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, batch, i)
+            torch.cuda.synchronize()
+            got.append(loss.clone())
+        dt = time.perf_counter() - t0
+        want = ({k: 2 * 2 * PP_DP_LAYERS * (2 if k == "flash_forward"
+                                            else 1) for k in FLASH_KERNELS}
+                if pp_loops is None else
+                {k: 2 * n for k, n in _pp_launches(1, PP_DP_LAYERS,
+                                                   2).items()})
+        launches = _expect_launches(f"26b {what}", want)
+        for kname in FLASH_KERNELS:
+            total[kname] += launches[kname]
+        losses[what] = torch.stack(got)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[pp26b] {what} ({PP_DP_LAYERS} layers, remat), atc over "
+            f"ExponentialTwoGraph(2), batch {LLAMA_BATCH} x {LLAMA_SEQ} a "
+            f"rank: step 1 {dt * 1e3:.2f} ms, "
+            f"{2 * LLAMA_BATCH * LLAMA_SEQ / dt:.1f} tokens/s per card, "
+            f"peak {peak:.2f} GiB, losses {losses[what].tolist()}")
+        del step, params, opt, batch
+        torch.cuda.empty_cache()
+    gap = (losses["dp 2 x pp 2"] - losses["dp 2"]).abs().max().item()
+    log(f"[pp26b] dp 2 x pp 2 against dp 2: losses of steps 0 and 1 within "
+        f"{gap:.3g} (limit {PP_LOSS_LIMIT})")
+    if not (gap <= PP_LOSS_LIMIT
+            and torch.isfinite(losses["dp 2 x pp 2"]).all()):
+        raise AssertionError(f"26b: dp 2 x pp 2 differs from dp 2 ({gap})")
+    return total
+
+
+def _p26c(seed):
+    """26c: the expert-sharded step over a sequence axis at 23d's width
+    (d 4096, hidden 14336, EP_EXPERTS experts, EP_TOKENS tokens a rank)
+    over SP_EP_RANKS stacked ranks, sp 2: each rank's tokens split into
+    two shards by batch_specs, each shard dispatched over the compiled
+    all-to-all of PodSpec(2, 2) on its own, atc over the (2, 2) torus
+    with guard and health.  0 host syncs in a steady step, finite losses,
+    the expert leaves bit-equal to a step under the identity combine."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch import moe
+    from bluefog_tpu_torch.parallel.collectives import bound_axis
+    from bluefog_tpu_torch.topology.compiler import (PodSpec,
+                                                     compile_all_to_all)
+    from bluefog_tpu_torch.topology.torus import torus_one_peer_schedule
+
+    n, E, sp = SP_EP_RANKS, EP_EXPERTS, 2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    backend = bt.StackedBackend(n, device="cuda")
+    plan = moe.dispatch_plan(compile_all_to_all(PodSpec(2, 2)).schedule)
+    cap = moe.default_capacity(EP_TOKENS // sp, n)
+    route = torch.as_tensor(moe.default_route_table(n, E), device="cuda")
+    live = torch.as_tensor(np.broadcast_to(
+        moe.capacity_mask_of(np.zeros(n))[None], (n, n)).copy(),
+        device="cuda")
+
+    def loss_fn(params, batch):
+        (tokens,) = batch           # [n, sp, tokens / sp, d]
+        out = []
+        for s in range(bound_axis("sp").size):
+            y, _ = moe.moe_apply(params, tokens[:, s], route, live,
+                                 plan=plan, backend=backend, capacity=cap)
+            out.append(torch.square(y - tokens[:, s]).mean(dim=(1, 2)))
+        return torch.stack(out, dim=1)
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    params = moe.init_moe_params(g, EP_DIM, EP_HIDDEN, E, n_ranks=n,
+                                 device="cuda")
+    opt = torch.optim.SGD(params.values(), lr=1e-3, momentum=0.9)
+    step = bt.build_train_step(
+        loss_fn, opt, backend, comm_mode="atc",
+        schedule=torus_one_peer_schedule((2, 2), "exp2"),
+        guard=bt.GuardConfig(), health=bt.HealthConfig(),
+        moe=bt.MoEConfig(E, cap), sp_axis=bt.SeqAxis("sp", sp),
+        batch_specs=("bf", "sp"))
+    batch = (torch.randn(n, EP_TOKENS, EP_DIM, generator=g, device="cuda"),)
+    w = step.default_comm_weights
+    losses = []
+    for i in range(2):
+        params, opt, loss, skipped, hv = step(params, opt, batch, i, w)
+        losses.append(loss)
+    timed = 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(2, 2 + timed):
+        params, opt, loss, skipped, hv = step(params, opt, batch, i, w)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / timed
+    syncs = _count_syncs(lambda: step(params, opt, batch, 2 + timed, w))
+    losses = torch.stack(losses)
+    if not (torch.isfinite(losses).all() and syncs == 0):
+        raise AssertionError(f"26c: losses {losses.tolist()}, host syncs "
+                             f"{syncs}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    local = _ep_experts_local(step, params, opt, batch, 3 + timed)
+    log(f"[moe26c] expert-sharded step over sp {sp}, {n} ranks x "
+        f"{EP_TOKENS} tokens ({EP_TOKENS // sp} a shard), d {EP_DIM}, "
+        f"hidden {EP_HIDDEN}, {E} experts, capacity {cap} a shard, atc "
+        f"over torus_one_peer_schedule((2, 2), 'exp2') with guard and "
+        f"health: mean losses "
+        f"{', '.join(f'{x:.5f}' for x in losses.mean(1).tolist())}; "
+        f"steady step {dt * 1e3:.2f} ms, {syncs} host syncs, experts "
+        f"rank-local ({local}); peak {peak:.2f} GiB")
+    del step, params, opt, batch
+    torch.cuda.empty_cache()
+
+
+def phase_pipeline(seed):
+    """Phase 26: pipeline parallelism and the sequence-sharded expert
+    step.  Returns the kernels' launches."""
+    t0 = time.perf_counter()
+    out = _p26a(seed)
+    log(f"[pp26a] {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    for kname, n in _p26b(seed).items():
+        out[kname] += n
+    log(f"[pp26b] {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    _p26c(seed)
+    log(f"[moe26c] {time.perf_counter() - t1:.1f} s; phase 26 "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7138,6 +7471,9 @@ def main() -> int:
     for kname, n in phase_model_axes(args.seed).items():
         launches[kname] += n
     lap("model_axes")
+    for kname, n in phase_pipeline(args.seed).items():
+        launches[kname] += n
+    lap("pipeline")
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):
         entries.append(dict(

@@ -14,7 +14,9 @@ the same weights (``llama_params_from_flax``) and numpy tokens:
   and Ulysses, with the guard and ``overlap="bucketed"`` once each; the
   step-0 losses also equal the unsharded model's
   (``tests/test_ulysses.py:97-137``);
-* the refusals that remain name ROADMAP item 10 and no finished item.
+* the refusal that remains names ROADMAP item 10 and no finished item;
+  what slice 18 ported (the pipeline, the expert step over a sequence
+  axis) runs, or raises JAX's errors.
 
 The JAX side runs ``attn_impl="xla"`` throughout, the same function as
 its flash (its ring and Ulysses flash in interpret mode cost ~20 s a
@@ -248,28 +250,13 @@ def test_dp_sp_train_step_matches_jax(name):
 
 def _refusals():
     """Every refusal of the Llama model and the train step that is left:
-    the pipeline and an expert step over a sequence axis (the model axes
-    run since slice 17, ``tests/test_torch_tp.py``)."""
+    the per-device wires under model-parallel specs (the model axes run
+    since slice 17, ``tests/test_torch_tp.py``; the pipeline and the
+    expert step over a sequence axis since slice 18)."""
     backend = bt.StackedBackend(2, device="cpu")
     p = bt.rank_major({"w": torch.zeros(3)}, backend)
     opt = torch.optim.SGD(p.values(), lr=0.1)
-
-    def build(**kw):
-        bt.build_train_step(lambda p, b: p["w"].sum(), opt, backend,
-                            comm_mode="none", **kw)
-
-    cfg = bt.LlamaConfig.tiny(scan_layers=True)
     cases = [
-        lambda: bt.models.llama_pp_loss_fn(cfg, pp_axis="pp", n_stages=2,
-                                           n_micro=2),
-        lambda: bt.models.llama_circular_layout({}, 2, 2),
-        lambda: bt.models.llama_param_specs(
-            bt.Llama(cfg, device="cpu").state(), pp_axis="pp"),
-        lambda: build(pp_axis="pp"),
-        lambda: bt.build_train_step(
-            lambda p, b: p["w"].sum(), opt, backend, comm_mode="atc",
-            topology=bt.uniform_topology_spec(bt.ExponentialTwoGraph(2)),
-            moe=bt.MoEConfig(2, 2), sp_axis=bt.SeqAxis("sp", 2)),
         lambda: bt.build_train_step(
             lambda p, b: p["w"].sum(), opt, backend, comm_mode="atc",
             topology=bt.uniform_topology_spec(bt.ExponentialTwoGraph(2)),
@@ -285,15 +272,38 @@ def _refusals():
 
 
 def test_refusals_name_item_10_only():
-    """The pipeline, the expert step over a sequence axis and the
-    per-device wires under model-parallel specs still raise, each naming
-    ROADMAP.md Queue 1 item 10 and no finished item; an sp_axis given as
-    a bare name is refused (the axis object holds the size)."""
+    """The per-device wires under model-parallel specs still raise,
+    naming ROADMAP.md Queue 1 item 10 and no finished item; what slice 18
+    ported runs or raises JAX's errors: the pipeline's builders
+    (``llama_pp_loss_fn``, ``llama_circular_layout``,
+    ``llama_param_specs(pp_axis=)``), the step's ``pp_axis`` (JAX's
+    ``ValueError`` without ``param_specs``) and the expert step over a
+    sequence axis; an sp_axis given as a bare name is refused (the axis
+    object holds the size)."""
     for msg in _refusals():
         assert "ROADMAP.md" in msg and "item 10" in msg, msg
         assert set(re.findall(r"items? (\d+)", msg)) == {"10"}, msg
     backend = bt.StackedBackend(2, device="cpu")
     p = bt.rank_major({"w": torch.zeros(3)}, backend)
+    opt = torch.optim.SGD(p.values(), lr=0.1)
+    cfg = bt.LlamaConfig.tiny(scan_layers=True)
+    assert callable(bt.models.llama_pp_loss_fn(cfg, pp_axis="pp",
+                                               n_stages=2, n_micro=2))
+    state = bt.Llama(cfg, device="cpu").state()
+    circ = bt.models.llama_circular_layout(state, 2, 1)
+    assert circ["layers.1.attention.wq.kernel"] is \
+        state["layers.1.attention.wq.kernel"]
+    specs = bt.models.llama_param_specs(state, pp_axis="pp")
+    assert specs["layers.0.attention_norm.scale"] == (("bf", "pp"),)
+    assert specs["norm.scale"] == ("bf",)
+    with pytest.raises(ValueError, match="pp_axis requires param_specs"):
+        bt.build_train_step(lambda p, b: p["w"].sum(), opt, backend,
+                            comm_mode="none", pp_axis="pp")
+    step = bt.build_train_step(
+        lambda p, b: p["w"].sum(), opt, backend, comm_mode="atc",
+        topology=bt.uniform_topology_spec(bt.ExponentialTwoGraph(2)),
+        moe=bt.MoEConfig(2, 2), sp_axis=bt.SeqAxis("sp", 2))
+    assert step.moe_config.n_experts == 2
     with pytest.raises(TypeError, match="SeqAxis"):
         bt.build_train_step(lambda p, b: p["w"].sum(),
                             torch.optim.SGD(p.values(), lr=0.1), backend,

@@ -3,8 +3,8 @@ port's Llama against the JAX package's ``tests/test_tp_seq_shard.py``,
 on the same weights (``llama_params_from_flax``, both layer layouts) and
 numpy-seeded tokens:
 
-* the config guards (and the pipeline builder's refusal: the pipeline
-  waits for ROADMAP.md Queue 1, item 10);
+* the config guards (and the pipeline builder's ``ValueError`` for
+  ``tp_seq_shard``, JAX's);
 * the loss and EVERY gradient (the replicated norm scales, whose
   per-shard row-partial gradients must sum back to full, and the
   vocab-sharded embedding and head included) of the seq-sharded tp=2
@@ -69,7 +69,7 @@ def test_tp_seq_shard_guards():
         bt.LlamaConfig.tiny(tp_axis="tp", tp_size=2, tp_seq_shard=True)
     with pytest.raises(ValueError, match="redundant"):
         bt.LlamaConfig.tiny(attn_mode="ring", sp_axis="sp", **SEQ)
-    with pytest.raises(NotImplementedError, match="pipeline"):
+    with pytest.raises(ValueError, match="pipeline loss builder"):
         bt.models.llama_pp_loss_fn(
             bt.LlamaConfig.tiny(scan_layers=True, **SEQ), pp_axis="pp",
             n_stages=2, n_micro=2)

@@ -212,20 +212,30 @@ def test_no_aux_step_and_adam():
     (dict(param_specs={}), "item 10"),
 ])
 def test_unported_features_raise(kw, item):
-    """What stays refused (the expert step over a sequence axis, the
-    pipeline) names ROADMAP item 10; the model-parallel layouts run since
-    slice 17 (``tests/test_torch_tp.py``): rank-only ``param_specs`` and
-    their ``opt_state_specs`` step as the plain step does, and a spec
-    tree that misses a leaf or a state tree that is not the optimizer's
-    is an error."""
+    """The features ROADMAP ``item`` once refused run now, with JAX's
+    errors: the expert step over a sequence axis (slice 18,
+    ``tests/test_torch_moe_sp.py``) builds, and its ``loss_fn`` must
+    return each rank's loss; the pipeline (slice 18,
+    ``tests/test_torch_pp.py``) needs ``param_specs`` (JAX's
+    ``ValueError``); the model-parallel layouts (slice 17,
+    ``tests/test_torch_tp.py``): rank-only ``param_specs`` and their
+    ``opt_state_specs`` step as the plain step does, and a spec tree that
+    misses a leaf or a state tree that is not the optimizer's is an
+    error."""
     kw.setdefault("comm_mode", "atc")
     kw.setdefault("topology", TT.uniform_topology_spec(
         TT.ExponentialTwoGraph(N)))
-    if "param_specs" not in kw and "opt_state_specs" not in kw:
-        with pytest.raises(NotImplementedError, match=item):
+    batch = torch.arange(N, dtype=torch.float32)[:, None].expand(N, 3)
+    if "moe" in kw:
+        params, opt, step = _tiny_step(**kw)
+        assert step.moe_config == kw["moe"]
+        with pytest.raises(ValueError, match="ranks' losses"):
+            step(params, opt, batch, 0)   # a scalar, not [n]
+        return
+    if "pp_axis" in kw:
+        with pytest.raises(ValueError, match="pp_axis requires param_specs"):
             _tiny_step(**kw)
         return
-    batch = torch.arange(N, dtype=torch.float32)[:, None].expand(N, 3)
     params, opt, step = _tiny_step(**kw)
     with pytest.raises(ValueError, match="spec"):
         step(params, opt, batch, 0)

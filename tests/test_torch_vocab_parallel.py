@@ -1,6 +1,6 @@
 """Vocab parallelism of the port's Llama against the JAX package's
-``tests/test_vocab_parallel.py`` (less its pipeline case, which waits
-for the pipeline, ROADMAP.md Queue 1 item 10), on the same weights
+``tests/test_vocab_parallel.py`` (its pipeline case, tp x pp, is
+``tests/test_torch_pp_compose.py``'s), on the same weights
 (``llama_params_from_flax``) and numpy-seeded tokens:
 
 * the config guards and ``llama_param_specs(vocab_axis="tp")``;
