@@ -18,9 +18,9 @@ step's error-feedback compressed mixing
 (``parallel.collectives.mix_compress_exchange``).
 
 Ties: ``lax.top_k`` breaks ties of equal magnitude by the lowest index;
-``torch.topk`` does not promise an order.  Exact zeros are harmless (a
-kept zero decodes to the same zero), so the two agree whenever no two
-nonzero magnitudes tie at the k-th place.
+``torch.topk`` does not promise an order, so :func:`topk_mask_encode`
+takes only the threshold from it and keeps the lowest-index ties itself:
+the JAX package's selection, ties included.
 """
 
 from __future__ import annotations
@@ -59,27 +59,43 @@ def topk_mask_encode(flat: torch.Tensor, k: int,
     (``[n, numel]``): ``(mask bool [n, numel], vals [n, k])``, the kept
     values in ascending-index order and zeros beyond the row's live count
     ``k_live`` (``[n]`` int, each ``<= k``; a runtime tensor, so a live
-    ratio change needs no new shapes).  Dropped candidates go to
-    out-of-range positions so the position sort never mixes them in."""
+    ratio change needs no new shapes).  The selection is ``lax.top_k``'s:
+    of the magnitudes equal to the live count's smallest kept one, the
+    lowest indices are kept (``torch.topk`` gives the threshold only, as
+    it promises no order among ties); a NaN counts as the largest
+    magnitude, as in both.  Each temporary of the rows' size is freed
+    as soon as it is used: a bucket at 8B width is gigabytes."""
     n, numel = flat.shape
-    idx = torch.topk(flat.abs(), k, dim=1, sorted=True).indices
+    inf = float("inf")
+    mag = flat.abs().nan_to_num_(nan=inf, posinf=inf)
+    live = (torch.full((n, 1), k, dtype=torch.int64, device=flat.device)
+            if k_live is None else k_live.to(torch.int64).reshape(n, 1))
+    # the live count's smallest kept magnitude; every larger one is kept,
+    # and of the ties at it the lowest indices fill the count
+    t = torch.topk(mag, k, dim=1, sorted=True).values.gather(1, live - 1)
+    above = mag > t
+    tied = mag == t
+    del mag
+    room = live - above.sum(dim=1, keepdim=True)
+    mask = _row_cumsum(tied.to(torch.int32), inplace=True) <= room
+    mask &= tied
+    mask |= above
+    del tied, above
+    # the j-th kept entry's position: the first index where the running
+    # count of kept entries reaches j + 1 (numel past the last one)
     ar = torch.arange(k, device=flat.device)
-    if k_live is None:
-        live = torch.ones((n, k), dtype=torch.bool, device=flat.device)
-    else:
-        live = ar[None, :] < k_live.reshape(n, 1)
-    pos = torch.where(live, idx, numel + ar[None, :])
-    pos = torch.sort(pos, dim=1).values
+    pos = torch.searchsorted(_row_cumsum(mask.to(torch.int32), inplace=True),
+                             (ar + 1).to(torch.int32).expand(n, k)
+                             .contiguous())
     valid = pos < numel
     safe = torch.where(valid, pos, torch.zeros_like(pos))
     vals = torch.where(valid, flat.gather(1, safe),
                        torch.zeros((), dtype=flat.dtype, device=flat.device))
-    # scatter-ADD of the valid flags: dropped entries clamp to position 0,
-    # and addition cannot let them clobber a kept flag there
-    mask = torch.zeros((n, numel), dtype=torch.int32, device=flat.device
-                       ).scatter_add_(1, safe, valid.to(torch.int32)) > 0
     return mask, vals
 
+
+# columns of one gather in topk_mask_decode
+_GATHER_COLUMNS = 1 << 24
 
 # block of the two-level row scan: a scan along a few long rows runs one
 # block a row on the card, so each row is scanned in blocks of this many
@@ -87,17 +103,25 @@ def topk_mask_encode(flat: torch.Tensor, k: int,
 _SCAN_BLOCK = 1024
 
 
-def _row_cumsum(x: torch.Tensor) -> torch.Tensor:
+def _row_cumsum(x: torch.Tensor, inplace: bool = False) -> torch.Tensor:
     """Inclusive int32 cumsum along dim 1 of a ``[n, numel]`` integer
     tensor (exact: integers), as a scan within blocks plus a scan of the
-    block totals."""
+    block totals, returned contiguous.  ``inplace``: ``x`` is a
+    contiguous int32 temporary of the caller's that may hold the scan
+    (no copy of the rows' size when ``numel`` is a whole number of
+    blocks)."""
     n, numel = x.shape
-    blocks = torch.nn.functional.pad(
-        x, (0, (-numel) % _SCAN_BLOCK)).reshape(n, -1, _SCAN_BLOCK)
-    inner = blocks.cumsum(dim=2, dtype=torch.int32)
-    totals = inner[:, :, -1].cumsum(dim=1, dtype=torch.int32)
-    offsets = torch.nn.functional.pad(totals[:, :-1], (1, 0))
-    return (inner + offsets[:, :, None]).reshape(n, -1)[:, :numel]
+    pad = (-numel) % _SCAN_BLOCK
+    if inplace and not pad:
+        blocks = x.view(n, -1, _SCAN_BLOCK)
+    else:
+        blocks = torch.nn.functional.pad(x.to(torch.int32), (0, pad)
+                                         ).reshape(n, -1, _SCAN_BLOCK)
+    blocks.cumsum_(dim=2)
+    totals = blocks[:, :, -1].cumsum(dim=1, dtype=torch.int32)
+    blocks[:, 1:] += totals[:, :-1, None]
+    out = blocks.reshape(n, -1)
+    return out if not pad else out[:, :numel].contiguous()
 
 
 def topk_mask_decode(mask: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -105,10 +129,16 @@ def topk_mask_decode(mask: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     values: the inverse of :func:`topk_mask_encode`, a pure gather, so the
     same ``(mask, vals)`` decodes to the same bits on sender and
     receiver."""
-    cum = _row_cumsum(mask.to(torch.int32)) - 1
-    safe = cum.clamp(0, vals.shape[1] - 1).long()
-    return torch.where(mask, vals.gather(1, safe),
-                       torch.zeros((), dtype=vals.dtype, device=vals.device))
+    cum = _row_cumsum(mask.to(torch.int32), inplace=True)
+    cum.sub_(1).clamp_(0, vals.shape[1] - 1)
+    # the gather's int64 index a block of columns at a time (a bucket's
+    # index at 8B width would be twice its values' bytes)
+    out = torch.empty(cum.shape, dtype=vals.dtype, device=vals.device)
+    for c in range(0, cum.shape[1], _GATHER_COLUMNS):
+        torch.gather(vals, 1, cum[:, c:c + _GATHER_COLUMNS].long(),
+                     out=out[:, c:c + _GATHER_COLUMNS])
+    del cum
+    return out.masked_fill_(~mask, 0)
 
 
 class TopKCompressor:

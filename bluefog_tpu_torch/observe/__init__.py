@@ -6,8 +6,10 @@ counterpart), every name the JAX package exports:
 * ``stepprof`` — ``profile_step`` returns a :class:`StepProfile`
   (FLOPs, per-collective bytes, device time by kernel, MFU), rebuilt on
   ``torch.profiler`` and the flop counter in place of XLA's compiled
-  module; ``hlo_op_breakdown`` and ``verify_collective_contract`` read
-  HLO and raise ``NotImplementedError`` (ROADMAP.md Queue 1, item 13);
+  module; ``verify_collective_contract`` (``benchutil``'s) holds a
+  profiled step's exchanges to their predicted sketch, and
+  ``hlo_op_breakdown`` reads HLO and raises ``NotImplementedError``
+  (ROADMAP.md Queue 1, item 13);
 * ``export`` — Prometheus text / JSONL event log / Chrome trace, plus
   the one-call ``snapshot()``;
 * ``fleet`` — decentralized cross-rank aggregation by push-sum gossip

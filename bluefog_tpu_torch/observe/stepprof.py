@@ -25,14 +25,20 @@ twice:
     prof.op_breakdown          # {kernel: {count, ms}}
     prof.mfu()                 # against the card's bf16 peak
 
+Each exchange's payload is kept beside the totals
+(``collective_payloads``, one device's bytes per exchange, in order), and
+a grouped all-reduce's rank groups (``collective_groups``): what
+``benchutil``'s :func:`verify_collective_contract` holds a step to,
+where the JAX package reads the HLO's permutes and ``replica_groups``.
+
 What the JAX profiler does that this one cannot: XLA's ahead-of-time
 cost analysis (``cost_bytes_accessed`` stays 0.0, so
 ``hbm_utilization`` is 0.0), and the HLO schedule's per-collective
 overlap windows (``windows`` is empty, ``overlap`` None).
-:func:`hlo_op_breakdown` and :func:`verify_collective_contract` read HLO
-text and raise ``NotImplementedError``; their place is ROADMAP.md Queue
-1, item 13's port of ``benchutil``.  ``fn`` runs twice, so it must be
-safe to repeat (a train step takes two steps).
+:func:`hlo_op_breakdown` reads HLO text and raises
+``NotImplementedError``; its place is ROADMAP.md Queue 1, item 13's port
+of ``benchutil``.  ``fn`` runs twice, so it must be safe to repeat (a
+train step takes two steps).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from bluefog_tpu_torch.benchutil import verify_collective_contract
 from bluefog_tpu_torch.observe.registry import enabled, get_registry
 
 __all__ = ["StepProfile", "profile_step", "hlo_op_breakdown",
@@ -88,7 +95,6 @@ def _benchutil(name: str):
 
 
 hlo_op_breakdown = _benchutil("hlo_op_breakdown")
-verify_collective_contract = _benchutil("verify_collective_contract")
 
 
 @dataclasses.dataclass
@@ -100,7 +106,9 @@ class StepProfile:
     ``kernel_flops`` the hand-written kernels' share of ``flops``;
     ``step_seconds`` the caller's, else the profiled run's wall time;
     ``device_seconds`` the summed kernel time of that run (0.0 on the
-    CPU)."""
+    CPU); ``collective_payloads`` each exchange's bytes by kind, in
+    order, and ``collective_groups`` the rank groups of the grouped
+    all-reduces (machine means)."""
 
     name: str
     flops: float
@@ -114,6 +122,10 @@ class StepProfile:
     step_seconds: Optional[float] = None
     device_seconds: float = 0.0
     kernel_flops: Dict[str, float] = dataclasses.field(default_factory=dict)
+    collective_payloads: Dict[str, list] = dataclasses.field(
+        default_factory=dict)
+    collective_groups: Dict[str, list] = dataclasses.field(
+        default_factory=dict)
 
     def mfu(self, step_seconds: Optional[float] = None) -> float:
         """Achieved FLOP/s over peak; 0.0 when either is unknown."""
@@ -246,7 +258,8 @@ def profile_step(fn, *args, name: str = "step",
         name=name,
         flops=float(counter.get_total_flops()) + sum(kernel_ops.values()),
         cost_bytes_accessed=0.0,
-        collective_bytes=tally,
+        collective_bytes={k: {"count": r["count"], "bytes": r["bytes"]}
+                          for k, r in tally.items()},
         op_breakdown=breakdown,
         windows=[],
         overlap=None,
@@ -256,6 +269,9 @@ def profile_step(fn, *args, name: str = "step",
         device_seconds=(sum(r["ms"] for r in breakdown.values()) / 1e3
                         if cuda else 0.0),
         kernel_flops=kernel_ops,
+        collective_payloads={k: r["payloads"] for k, r in tally.items()},
+        collective_groups={k: [[list(g) for g in gs] for gs in r["groups"]]
+                           for k, r in tally.items() if "groups" in r},
     )
     if publish and enabled():
         prof_rec.publish()

@@ -73,9 +73,21 @@ stages at once, the axes bound (see :func:`build_train_step`).  The
 expert-sharded step (``moe=``, :class:`MoEConfig`) runs step 1 once over
 every rank this process holds, since its all-to-all crosses ranks inside
 the forward, and mixes only the shared leaves; it composes with
-``sp_axis``.  The int8 wires and top-k mixing under model-parallel specs
-are not ported yet and raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+``sp_axis``.
+
+**Per-device wire buckets.**  Under model-parallel specs the int8 wires
+and top-k mixing keep a state per bucket of what ONE JAX device holds
+(its absmax scale, its selection, its stochastic-rounding stream, its
+``MixState`` rows).  The port stacks every shard and stage of a rank on
+one device, so those modes plan and exchange their buckets over the
+per-device view of the rank's leaves (``optim/fusion.py``'s
+``DeviceLayout``): each sharded leaf's slice, each replicated leaf whole
+on every device, and under ``pp_axis`` a stage's layers of one weight
+name as one leaf.  A bucket is packed ``[n, devices, numel]`` and
+exchanged in one pass for every device; a replicated leaf is written
+back from device 0 (JAX's ``out_specs=P("bf")`` keeps the first
+device's copy).  The elementwise exchanges (none, bf16) keep the
+whole-rank buckets: per element they are the same arithmetic.
 """
 
 from __future__ import annotations
@@ -106,8 +118,6 @@ __all__ = ["GuardConfig", "HealthConfig", "HealthVector",
 ELEMENTWISE_OPTIMIZERS = (torch.optim.SGD, torch.optim.Adam,
                           torch.optim.AdamW)
 
-_WIRE_SHARD_ITEM = ("ROADMAP.md Queue 1, item 10 (per-shard wire buckets "
-                    "under model-parallel param_specs)")
 # the name of the rank axis in a batch spec, the JAX package's mesh axis
 RANK_AXIS = "bf"
 
@@ -116,11 +126,6 @@ RANK_AXIS = "bf"
 # transient memory (three buffers of this size times the ranks) at
 # Llama width, where one buffer per dtype would be gigabytes.
 _FLAT_BYTES = 1 << 28
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to bluefog_tpu_torch yet; see {item}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,7 +193,10 @@ class MixState(NamedTuple):
     ``train_step.init_mix_state(params)``.  ``ratio`` [n]: each rank's
     live ratio; per compressible bucket, ``err`` [n, numel], ``ref``
     [n, R, numel] (one row per schedule round) and ``mirror`` [n, G,
-    numel] (``G`` = the sum of ``mix_mirror_slots`` over the rounds)."""
+    numel] (``G`` = the sum of ``mix_mirror_slots`` over the rounds).
+    Under per-device buckets ``numel`` is ``devices * numel``: each
+    device's row, shard-major (JAX's ``P("bf", None, rest)`` gathered;
+    ``train_step.mix_state_specs``)."""
 
     ratio: Any
     err: Any
@@ -434,6 +442,32 @@ def _finite_rows(x: torch.Tensor) -> torch.Tensor:
     return torch.isfinite(x).reshape(x.shape[0], -1).all(dim=1)
 
 
+class _Plan(NamedTuple):
+    """The exchange plan of a leaf list: per exchange group its leaf
+    indices and ``EpiloguePlan`` bucket (None for a flat dtype group),
+    its compressible-bucket index (or None), and under per-device
+    buckets its ``DeviceLayout`` view indices (``layout``; None
+    otherwise)."""
+
+    groups: list
+    comp: list
+    views: list
+    layout: Optional[_fusion.DeviceLayout]
+
+    def pack(self, tensors, g: int) -> torch.Tensor:
+        """Group ``g``'s buffer: ``[n, numel]``, or ``[n, devices,
+        numel]`` for per-device buckets."""
+        if self.layout is not None:
+            return self.layout.pack(tensors, self.views[g])
+        return _fusion.pack_bucket(tensors, self.groups[g][0])
+
+    def unpack(self, out, tensors, g: int) -> None:
+        if self.layout is not None:
+            self.layout.unpack(out, tensors, self.views[g])
+        else:
+            _unpack_into(out, tensors, self.groups[g][0])
+
+
 def _unpack_into(out, tensors, idx):
     """Copy a combined bucket buffer back into its leaves."""
     if len(idx) == 1:
@@ -445,6 +479,45 @@ def _unpack_into(out, tensors, idx):
         k = tensors[i][0].numel()
         tensors[i].copy_(out[:, off:off + k].view(tensors[i].shape))
         off += k
+
+
+# The loops over a step's leaves live in functions of their own: a
+# loop variable left bound in the step's frame keeps the last leaf's
+# gradient, update or snapshot alive through the combine (gigabytes
+# at 8B width).
+def _copy_rank_rows(dst, r: int, src) -> None:
+    """Row ``r`` of each rank-major tensor of ``dst`` from ``src``."""
+    for d, x in zip(dst, src):
+        d[r].copy_(x)
+
+
+def _grad_sq(grads, zero: torch.Tensor) -> torch.Tensor:
+    """Per-rank float32 sum of squares of every floating gradient."""
+    acc = zero
+    for g in grads:
+        if g.dtype.is_floating_point:
+            acc = acc + _sq_rows(g)
+    return acc
+
+
+def _track_update(tensors, old, idx, ok, upd_sq, floats_only: bool):
+    """``ok`` and-ed with each rank's update of the leaves ``idx`` being
+    finite, and ``upd_sq`` (or None) plus their squares."""
+    for i in idx:
+        if floats_only and not tensors[i].dtype.is_floating_point:
+            continue
+        u = tensors[i] - old[i]
+        ok = ok & _finite_rows(u)
+        if upd_sq is not None:
+            upd_sq = upd_sq + _sq_rows(u)
+    return ok, upd_sq
+
+
+def _guard_select(tensors, old, ok) -> None:
+    """The skip guard's select: a rank whose ``ok`` is false gets its
+    old values back, elementwise, in place."""
+    for p, o in zip(tensors, old):
+        torch.where(_ranks(ok, p), p, o, out=p)
 
 
 def _leaf_cons_sq(pre, out, tensors, idx, n):
@@ -651,10 +724,6 @@ def _spec_axes(spec) -> list:
     return out
 
 
-def _spec_is_model_parallel(spec, axis_name: str = RANK_AXIS) -> bool:
-    return any(a != axis_name for a in _spec_axes(spec))
-
-
 def _check_param_specs(params, param_specs, axes) -> Dict[str, int]:
     """Hold ``param_specs`` (``{name: spec}`` or one spec for every leaf)
     to the rank-major ``params``: each spec starts with the rank axis
@@ -836,10 +905,6 @@ def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
                                                   (tuple, dict)):
         raise TypeError("param_specs is {name: spec} or one spec tuple, "
                         f"got {type(param_specs).__name__}")
-    model_parallel = param_specs is not None and any(
-        _spec_is_model_parallel(sp) for sp in (
-            [param_specs] if isinstance(param_specs, tuple)
-            else param_specs.values()))
     if compress is None and comm_mode in ("cta", "atc"):
         compress = _config.mix_compress()
     mix = None
@@ -885,14 +950,6 @@ def _resolve_modes(backend, comm_mode, topology, schedule, hierarchical,
             f"'atc' (got {comm_mode!r}); gradient_allreduce would "
             "average expert gradients across ranks hosting DIFFERENT "
             "experts, and push_sum's (x, w) pair cannot be split")
-    if model_parallel and (compress in ("int8", "int8_sr")
-                           or mix is not None):
-        _not_ported(
-            f"compress={compress or 'topk'!r} with model-parallel "
-            "param_specs (the int8 wire's absmax scale and top-k mixing's "
-            "selection are per bucket of what ONE device holds, and the "
-            "port's buckets hold every shard of a rank; the elementwise "
-            "exchange, compress=None or 'bf16', runs)", _WIRE_SHARD_ITEM)
     if overlap == "bucketed":
         if comm_mode not in ("cta", "atc", "push_sum"):
             raise ValueError(
@@ -1018,7 +1075,9 @@ def build_train_step(
       edge account bills what one JAX device sends (each leaf's bytes
       over its spec's shard count).  The int8 wires and top-k mixing,
       whose scale and selection are per bucket of one device's shards,
-      are refused under a model-parallel spec.  The guard and health
+      run over per-device buckets (see the module docstring), their
+      ``MixState`` one row per device; the consensus partial sums every
+      device's.  The guard and health
       read every shard of a rank (JAX's outputs read its first shard's
       device).  ``batch_specs`` may split one batch dim over a model
       axis as over the sequence axis.
@@ -1158,15 +1217,22 @@ def build_train_step(
     # per-bucket exchanges wherever a bucket carries its own state: an
     # int8 scale, a stochastic-rounding draw, the top-k mixing rows
     per_bucket = bucketed or wire_compress == "int8" or mix_on
+    # the model axes' devices of a rank (each one a (rank, index on every
+    # axis)); where a bucket carries its own state the buckets are
+    # planned and exchanged per device, as JAX's devices hold them
+    dev_axes = [(a, ax.size) for a, ax in axes.items()]
+    per_device = (param_specs is not None
+                  and int(np.prod([s for _, s in dev_axes])) > 1
+                  and (wire_compress == "int8" or mix_on))
     default_w = comm_weight_inputs(specs) if neighbor else ()
     shared_names: Dict[tuple, list] = {}
 
-    def mixed_leaves(params):
-        """The leaves the combine moves: every leaf, or under ``moe`` the
-        shared ones (raising when the tokens match every leaf)."""
-        tensors = list(params.values())
+    def mixed_leaves(params) -> Dict[str, torch.Tensor]:
+        """The leaves the combine moves, by name: every leaf, or under
+        ``moe`` the shared ones (raising when the tokens match every
+        leaf)."""
         if moe is None:
-            return tensors
+            return params
         key = tuple(params)
         mask = shared_names.get(key)
         if mask is None:
@@ -1177,24 +1243,36 @@ def build_train_step(
                 f"{moe.expert_path_tokens!r} match EVERY param "
                 "leaf — nothing left to mix, the fleet would "
                 "never reach consensus")
-        return [t for t, m in zip(tensors, mask) if m]
+        return {k: v for (k, v), m in zip(params.items(), mask) if m}
     opt_params = {id(p) for g in optimizer.param_groups for p in g["params"]}
     weights_dev: Dict[tuple, tuple] = {}
-    plans: Dict[tuple, tuple] = {}
+    plans: Dict[tuple, _Plan] = {}
     streams: Dict[str, Any] = {}
 
-    def plan_for(tensors):
-        """(exchange groups, compressible-bucket index per group) from the
-        EpiloguePlan, cached per leaf signature.  A group is (leaf
-        indices, plan bucket or None)."""
-        key = _fusion.leaf_signature(tensors)
+    def plan_for(leaves: Dict[str, torch.Tensor]) -> _Plan:
+        """The exchange plan of ``{name: rank-major leaf}`` from the
+        EpiloguePlan, cached per leaf signature.  Under per-device
+        buckets the plan is made on each device's leaves (the
+        ``DeviceLayout`` of ``param_specs``), which every device of a
+        rank shares."""
+        tensors = list(leaves.values())
+        key = (tuple(leaves), _fusion.leaf_signature(tensors))
         got = plans.get(key)
         if got is None:
-            plan = _fusion.EpiloguePlan.for_leaves(
-                tensors, n_buckets, compress=stage_compress, guard=guarded,
-                health=want_health, consensus=want_cons, mix=mix_on,
-                skip_leading_axis=True)
-            if per_bucket:
+            layout, views = None, []
+            kw = dict(compress=stage_compress, guard=guarded,
+                      health=want_health, consensus=want_cons, mix=mix_on)
+            if per_device:
+                layout = _fusion.DeviceLayout.for_leaves(
+                    list(leaves), tensors, param_specs, dev_axes)
+                plan = _fusion.EpiloguePlan.for_leaves(layout.views,
+                                                       n_buckets, **kw)
+                groups = [(layout.members(b.leaves), b)
+                          for b in plan.buckets]
+                views = [list(b.leaves) for b in plan.buckets]
+            elif per_bucket:
+                plan = _fusion.EpiloguePlan.for_leaves(
+                    tensors, n_buckets, skip_leading_axis=True, **kw)
                 groups = [(list(b.leaves), b) for b in plan.buckets]
             else:
                 rows = _fusion.bucket_signature(tensors, True)
@@ -1206,7 +1284,7 @@ def build_train_step(
                     ("float", "bfloat"))
                 comp.append(ci if mix_on and inexact else None)
                 ci += comp[-1] is not None
-            got = plans[key] = (groups, comp)
+            got = plans[key] = _Plan(groups, comp, views, layout)
         return got
 
     def round_weights(r, comm_weights, device, dtype):
@@ -1231,12 +1309,13 @@ def build_train_step(
         return streams[key]
 
     def exchange(pre, spec, r, bucket, ci, step, comm_weights, mix_state):
-        """One bucket's (or one dtype group's) exchange stage."""
+        """One bucket's (or one dtype group's) exchange stage; a
+        per-device bucket is ``[n, devices, numel]``."""
         dev = pre.device
         if ci is not None:
             cw, sw = round_weights(r, comm_weights, dev, torch.float32)
             off, rows = mix_offsets[r], mix_slots[r]
-            numel = pre[0].numel()
+            numel = pre.shape[-1] if per_device else pre[0].numel()
             out, nr, nm, ne = backend.mix_compress_exchange(
                 pre, spec, ref_row=mix_state.ref[ci][:, r],
                 mirrors=mix_state.mirror[ci][:, off:off + rows],
@@ -1246,7 +1325,7 @@ def build_train_step(
                 self_weights=sw,
                 generator=(C.wire_generator(dev, step, bucket.index)
                            if mix.values == "int8_sr" else None),
-                hierarchical_local_size=hls)
+                hierarchical_local_size=hls, per_device=per_device)
             mix_state.ref[ci][:, r].copy_(nr)
             mix_state.mirror[ci][:, off:off + rows].copy_(nm)
             mix_state.err[ci].copy_(ne)
@@ -1258,60 +1337,73 @@ def build_train_step(
         if hls is not None:
             return backend.hierarchical_neighbor_allreduce(
                 pre, spec, hls, compress=wire_compress, class_weights=cw,
-                self_weights=sw, generator=gen)
+                self_weights=sw, generator=gen, per_device=per_device)
         return backend.neighbor_allreduce(
             pre, spec, compress=wire_compress, class_weights=cw,
-            self_weights=sw, generator=gen)
+            self_weights=sw, generator=gen, per_device=per_device)
 
     def cons_part(pre, out, tensors, idx):
-        if not fused:
+        """The consensus partial [n] of one group: summed over every
+        device of a per-device bucket (a replicated leaf once per
+        device, as each JAX device holds its copy)."""
+        if not fused and not per_device:
             return _leaf_cons_sq(pre, out, tensors, idx, n)
         return _sq_rows(pre.float() - out.float())
 
-    def combine_group(tensors, g, step, comm_weights, mix_state):
-        """Pack, exchange and consensus partial of exchange group ``g``:
-        (out buffer, partial or None)."""
-        groups, comp = plan_for(tensors)
-        idx, bucket = groups[g]
+    def combine_group(leaves, g, step, comm_weights, mix_state):
+        """Pack, exchange and consensus partial of exchange group ``g``
+        of ``{name: leaf}``: (out buffer, partial or None)."""
+        plan = plan_for(leaves)
+        tensors = list(leaves.values())
+        idx, bucket = plan.groups[g]
         r = step % len(specs)
-        pre = _fusion.pack_bucket(tensors, idx)
-        out = exchange(pre, specs[r], r, bucket, comp[g], step,
+        pre = plan.pack(tensors, g)
+        out = exchange(pre, specs[r], r, bucket, plan.comp[g], step,
                        comm_weights, mix_state)
         part = None
         if want_cons and pre.dtype.is_floating_point:
             part = cons_part(pre, out, tensors, idx)
         return out, part
 
-    def combine(tensors, step, comm_weights, mix_state, on_side=False):
-        """Every exchange group of ``tensors`` into its own out buffer;
-        returns (outs, consensus sq [n]).  ``on_side``: on the CUDA side
-        stream, which first waits for the main stream's work so far."""
-        dev = tensors[0].device
+    def combine(leaves, step, comm_weights, mix_state, on_side=False,
+                commit_each=False):
+        """Every exchange group of ``{name: leaf}`` into its own out
+        buffer; returns (outs, consensus sq [n]).  ``on_side``: on the
+        CUDA side stream, which first waits for the main stream's work so
+        far.  ``commit_each``: write each group back into its leaves as
+        soon as it is exchanged (no group reads another's leaves), and
+        return no buffers: one group's buffer alive at a time."""
+        dev = next(iter(leaves.values())).device
         cons = torch.zeros(n, dtype=torch.float32, device=dev)
-        groups, _ = plan_for(tensors)
         if on_side:
             main, side = torch.cuda.current_stream(dev), side_stream(dev)
             side.wait_stream(main)
             with torch.cuda.stream(side):
-                outs, cons = combine(tensors, step, comm_weights, mix_state)
+                outs, cons = combine(leaves, step, comm_weights, mix_state)
             for o in outs:
                 o.record_stream(main)
             cons.record_stream(main)
             return outs, cons
         outs = []
-        for g in range(len(groups)):
-            out, part = combine_group(tensors, g, step, comm_weights,
+        plan = plan_for(leaves)
+        for g in range(len(plan.groups)):
+            out, part = combine_group(leaves, g, step, comm_weights,
                                       mix_state)
-            outs.append(out)
+            if commit_each:
+                plan.unpack(out, list(leaves.values()), g)
+            else:
+                outs.append(out)
             if part is not None:
                 cons = cons + part
+            del out, part
         return outs, cons
 
-    def commit(tensors, outs):
-        groups, _ = plan_for(tensors)
+    def commit(leaves, outs):
+        plan = plan_for(leaves)
+        tensors = list(leaves.values())
         with torch.no_grad():
-            for (idx, _), out in zip(groups, outs):
-                _unpack_into(out, tensors, idx)
+            for g, out in enumerate(outs):
+                plan.unpack(out, tensors, g)
 
     def apply_update(tensors, grads, subset=None):
         """The optimizer's update of ``tensors`` (or of the leaf indices
@@ -1327,10 +1419,11 @@ def build_train_step(
         for i in sel:
             tensors[i].grad = None
 
-    def push_sum_round(tensors, ps, step):
+    def push_sum_round(leaves, ps, step):
         """Re-bias, mix and de-bias the params in place (f32 throughout);
         returns the consensus partial [n]."""
-        groups, _ = plan_for(tensors)
+        groups = plan_for(leaves).groups
+        tensors = list(leaves.values())
         spec = specs[step % len(specs)]
         bufs = [_fusion.pack_bucket(tensors, idx) for idx, _ in groups]
         ps_b = lambda x: _ranks(ps, x)  # noqa: E731
@@ -1343,7 +1436,7 @@ def build_train_step(
             if want_cons and pre.dtype.is_floating_point:
                 cons = cons + cons_part(pre, deb, tensors, idx)
             outs.append(deb)
-        commit(tensors, outs)
+        commit(leaves, outs)
         ps.copy_(mixed_ps)
         return cons
 
@@ -1381,7 +1474,7 @@ def build_train_step(
         overlap_dev = bucketed and dev.type == "cuda"
         # the leaves the combine moves (the shared ones under moe)
         mixed = mixed_leaves(params)
-        groups, _ = plan_for(mixed)
+        plan = plan_for(mixed)
         zero = torch.zeros(n, dtype=torch.float32, device=dev)
         cons = zero
         # cta + bucketed: the exchange reads the step's starting params,
@@ -1445,24 +1538,18 @@ def build_train_step(
                     loss = _shard_mean(loss, shard_axis.size)
                 gs = torch.autograd.grad(loss, list(p_r.values()))
             with torch.no_grad():
-                for g_all, g in zip(grads, gs):
-                    g_all[r].copy_(g)
+                _copy_rank_rows(grads, r, gs)
                 losses[r] = loss.detach().float()
                 if has_aux:
                     for k, v in new_aux.items():
                         aux[k][r].copy_(v)
             del loss, gs, p_r
         with torch.no_grad():
-            grad_sq = None
-            if want_health:
-                grad_sq = zero
-                for g in grads:
-                    if g.dtype.is_floating_point:
-                        grad_sq = grad_sq + _sq_rows(g)
+            grad_sq = _grad_sq(grads, zero) if want_health else None
             if comm_mode == "gradient_allreduce":
                 grads = [backend.allreduce(g, average=True) for g in grads]
             if push_sum and on_cycle:
-                cons = push_sum_round(tensors, ps, step)
+                cons = push_sum_round(mixed, ps, step)
             if neighbor and comm_mode == "cta" and on_cycle:
                 if early is None:
                     outs, cons = combine(mixed, step, comm_weights,
@@ -1473,6 +1560,7 @@ def build_train_step(
                         torch.cuda.current_stream(dev).wait_stream(
                             side_stream(dev))
                 commit(mixed, outs)
+                del outs, early
             track = guarded or want_health
             old = [p.clone() for p in tensors] if track else None
             snap = _snapshot_state(optimizer, tensors, n) if guarded else None
@@ -1485,29 +1573,27 @@ def build_train_step(
                 # on CUDA) while bucket i+1's update is applied
                 main = torch.cuda.current_stream(dev) if overlap_dev else None
                 parts = []
-                for g, (idx, _) in enumerate(groups):
+                for g, (idx, _) in enumerate(plan.groups):
                     apply_update(tensors, grads, idx)
                     if track:
-                        for i in idx:
-                            u = tensors[i] - old[i]
-                            ok = ok & _finite_rows(u)
-                            if want_health:
-                                upd_sq = upd_sq + _sq_rows(u)
+                        ok, upd_sq = _track_update(tensors, old, idx, ok,
+                                                   upd_sq, False)
                     if overlap_dev:
                         side = side_stream(dev)
                         side.wait_stream(main)
                         with torch.cuda.stream(side):
                             out, part = combine_group(
-                                tensors, g, step, comm_weights, mix_state)
-                            _unpack_into(out, tensors, idx)
+                                mixed, g, step, comm_weights, mix_state)
+                            plan.unpack(out, tensors, g)
                         if part is not None:
                             part.record_stream(main)
                     else:
-                        out, part = combine_group(tensors, g, step,
+                        out, part = combine_group(mixed, g, step,
                                                   comm_weights, mix_state)
-                        _unpack_into(out, tensors, idx)
+                        plan.unpack(out, tensors, g)
                     if part is not None:
                         parts.append(part)
+                    del out, part
                 if overlap_dev:
                     main.wait_stream(side_stream(dev))
                 for part in parts:
@@ -1515,12 +1601,9 @@ def build_train_step(
             else:
                 apply_update(tensors, grads)
                 if track:
-                    for p, o in zip(tensors, old):
-                        if p.dtype.is_floating_point:
-                            u = p - o
-                            ok = ok & _finite_rows(u)
-                            if want_health:
-                                upd_sq = upd_sq + _sq_rows(u)
+                    ok, upd_sq = _track_update(tensors, old,
+                                               range(len(tensors)), ok,
+                                               upd_sq, True)
             # the update is applied: the stacked gradients (a copy of the
             # params' size) go before the combine allocates its buffers
             del grads
@@ -1529,8 +1612,7 @@ def build_train_step(
                 # the skip guard: an elementwise select over params, aux
                 # and optimizer state, no host branch; with every rank
                 # healthy it writes the update's own bits back
-                for p, o in zip(tensors, old):
-                    torch.where(_ranks(ok, p), p, o, out=p)
+                _guard_select(tensors, old, ok)
                 if has_aux:
                     for k, v in aux.items():
                         torch.where(_ranks(ok, v), v, aux_old[k], out=v)
@@ -1539,8 +1621,8 @@ def build_train_step(
             del old, snap
             if neighbor and comm_mode == "atc" and on_cycle \
                     and not interleave:
-                outs, cons = combine(mixed, step, comm_weights, mix_state)
-                commit(mixed, outs)
+                cons = combine(mixed, step, comm_weights, mix_state,
+                               commit_each=True)[1]
             hv = None
             if want_health:
                 hv = HealthVector(
@@ -1596,15 +1678,18 @@ def build_train_step(
         """The MixState for rank-major ``params``: ``err`` zero, ``ref``
         and ``mirror`` each rank's OWN packed params (exact when every
         rank starts from the same params, the ``rank_major`` init; ranks
-        that start diverged should zero them instead)."""
-        tensors = mixed_leaves(params)
+        that start diverged should zero them instead).  Under per-device
+        buckets each row packs every device's bucket, shard-major."""
+        leaf_shards(params)
+        leaves = mixed_leaves(params)
+        tensors = list(leaves.values())
         R, G = len(specs), int(sum(mix_slots))
-        groups, comp = plan_for(tensors)
+        plan = plan_for(leaves)
         errs, refs, mirs = [], [], []
-        for (idx, _), ci in zip(groups, comp):
+        for g, ci in enumerate(plan.comp):
             if ci is None:
                 continue
-            flat = _fusion.pack_bucket(tensors, idx).reshape(n, -1).float()
+            flat = plan.pack(tensors, g).reshape(n, -1).float()
             errs.append(torch.zeros_like(flat))
             refs.append(flat[:, None, :].expand(n, R, -1).clone())
             mirs.append(flat[:, None, :].expand(n, G, -1).clone())
@@ -1615,14 +1700,19 @@ def build_train_step(
 
     def mix_wire_layout(params) -> tuple:
         """Per compressible bucket: ``{bucket, numel, k, wire_bytes}``,
-        the bytes one permute of that bucket moves per rank."""
-        tensors = mixed_leaves(params)
-        groups, comp = plan_for(tensors)
+        the bytes one permute of that bucket moves per device (``numel``
+        one device's packed size: model-parallel layouts exchange
+        shards, so each device moves its own wire)."""
+        leaf_shards(params)
+        leaves = mixed_leaves(params)
+        tensors = list(leaves.values())
+        plan = plan_for(leaves)
         rows = []
-        for (idx, b), ci in zip(groups, comp):
+        for g, ((idx, b), ci) in enumerate(zip(plan.groups, plan.comp)):
             if ci is None:
                 continue
-            numel = sum(tensors[i][0].numel() for i in idx)
+            numel = (plan.layout.numel(plan.views[g]) if per_device else
+                     sum(tensors[i][0].numel() for i in idx))
             k = _resolve_k(None, mix.ratio, numel)
             rows.append(dict(bucket=b.index, numel=numel, k=k,
                              wire_bytes=C.mix_wire_bytes(numel, k,
@@ -1639,12 +1729,10 @@ def build_train_step(
     def combine_params(params, step, mix_state=None, comm_weights=None):
         """The neighbor combine the step runs, in place on ``params``
         (for timing); returns the consensus sq partials [n]."""
-        tensors = mixed_leaves(params)
+        leaves = mixed_leaves(params)
         with torch.no_grad():
-            outs, cons = combine(tensors, int(step), comm_weights or
-                                 default_w, mix_state)
-            commit(tensors, outs)
-        return cons
+            return combine(leaves, int(step), comm_weights or default_w,
+                           mix_state, commit_each=True)[1]
 
     step_fn.has_aux = has_aux
     step_fn.backend = backend
@@ -1658,9 +1746,19 @@ def build_train_step(
     if neighbor:
         step_fn.combine = combine_params
     if mix_on:
+        # which dims of the MixState are per device: the packed axis
+        # holds every model axis's devices, shard-major (JAX's
+        # P("bf", rest) over the mesh's other axes)
+        rest = None
+        if per_device:
+            names = tuple(a for a, _ in dev_axes)
+            rest = names[0] if len(names) == 1 else names
         step_fn.init_mix_state = init_mix_state
         step_fn.mix_wire_layout = mix_wire_layout
         step_fn.set_mix_ratio = set_mix_ratio
+        step_fn.mix_state_specs = MixState(
+            ratio=(RANK_AXIS,), err=(RANK_AXIS, rest),
+            ref=(RANK_AXIS, None, rest), mirror=(RANK_AXIS, None, rest))
     if guarded:
         step_fn.guard_config = guard
     if guarded or neighbor:

@@ -83,6 +83,15 @@ __all__ = [
 ]
 
 
+def _tally_machine(x: torch.Tensor, local_size: int, size: int,
+                   devices: int) -> None:
+    """Count a machine mean as JAX's grouped all-reduce, its rank groups
+    the machines."""
+    if _exchange_tally is not None:
+        _tally_exchange("all-reduce", _row_bytes(x, devices),
+                        groups=machine_groups(size, local_size))
+
+
 def _accum_dtype(dtype: torch.dtype) -> torch.dtype:
     """Combine in f32 for low-precision floats and integers; keep f32/f64."""
     if dtype in (torch.bfloat16, torch.float16):
@@ -174,24 +183,37 @@ def _permute(x: torch.Tensor, perm: Sequence[Tuple[int, int]]
 EXCHANGE = "bf.backend.exchange"
 
 # The exchanges of a ``profile_step`` run by collective kind, ``{kind:
-# {"count", "bytes"}}``: ``observe/stepprof.py`` sets a dict here for the
-# run it profiles and reads it back; None (nothing counted) otherwise.
+# {"count", "bytes", "payloads"}}`` (``payloads``: each exchange's bytes,
+# in order; a grouped all-reduce also records its rank ``groups``):
+# ``observe/stepprof.py`` sets a dict here for the run it profiles and
+# reads it back; None (nothing counted) otherwise.
 _exchange_tally: Optional[dict] = None
 
 
-def _tally_exchange(kind: str, nbytes: int) -> None:
-    """Count one exchange of ``nbytes`` per rank (the JAX package's
-    per-device result bytes: one row for a permute or a sum, every rank's
-    rows for a gather) while a profile counts."""
+def _tally_exchange(kind: str, nbytes: int, groups=None) -> None:
+    """Count one exchange of ``nbytes`` per device (the JAX package's
+    per-device result bytes: one device's row for a permute or a sum,
+    every rank's rows for a gather) while a profile counts; ``groups``
+    (a grouped all-reduce's rank groups) is recorded once per distinct
+    value."""
     tally = _exchange_tally
     if tally is not None:
-        rec = tally.setdefault(kind, {"count": 0, "bytes": 0})
+        rec = tally.setdefault(kind, {"count": 0, "bytes": 0,
+                                      "payloads": []})
         rec["count"] += 1
         rec["bytes"] += int(nbytes)
+        rec["payloads"].append(int(nbytes))
+        if groups is not None:
+            seen = rec.setdefault("groups", [])
+            groups = tuple(tuple(g) for g in groups)
+            if groups not in seen:
+                seen.append(groups)
 
 
-def _row_bytes(x: torch.Tensor) -> int:
-    return x[:1].numel() * x.element_size()
+def _row_bytes(x: torch.Tensor, devices: int = 1) -> int:
+    """One device's bytes of rank-major ``x``: a rank's row, over the
+    ``devices`` its dim 1 holds (a per-device bucket ``[n, D, ...]``)."""
+    return x[:1].numel() * x.element_size() // int(devices)
 
 
 class RankAxis:
@@ -221,11 +243,14 @@ class RankAxis:
             return v
         return v[self.first_rank:self.first_rank + self.n_local]
 
-    def permute(self, x: torch.Tensor, perm) -> torch.Tensor:
+    def permute(self, x: torch.Tensor, perm,
+                devices: int = 1) -> torch.Tensor:
         """``lax.ppermute`` over global (src, dst) pairs on this process's
-        rows ``x`` (``[n_local, ...]``)."""
+        rows ``x`` (``[n_local, ...]``; ``devices``: a per-device bucket
+        ``[n_local, devices, ...]``, each device's row a permute of JAX's
+        devices, counted as one device's bytes)."""
         with torch.profiler.record_function(EXCHANGE):
-            _tally_exchange("collective-permute", _row_bytes(x))
+            _tally_exchange("collective-permute", _row_bytes(x, devices))
             return _permute(x, perm)
 
     def gather_ranks(self, x: torch.Tensor) -> torch.Tensor:
@@ -243,10 +268,12 @@ class RankAxis:
         return [int(v) for v in sizes]
 
     def machine_mean(self, x: torch.Tensor, local_size: int,
-                     dtype: torch.dtype, average: bool = True
-                     ) -> torch.Tensor:
+                     dtype: torch.dtype, average: bool = True,
+                     devices: int = 1) -> torch.Tensor:
         """:func:`_machine_mean` over the machines of ``local_size``
-        consecutive global ranks, on this process's rows."""
+        consecutive global ranks, on this process's rows: JAX's grouped
+        all-reduce (``devices``: as for :meth:`permute`)."""
+        _tally_machine(x, local_size, self.size, devices)
         return _machine_mean(x, local_size, dtype, average)
 
 
@@ -499,29 +526,41 @@ class WireGenerator:
     """The uniform draws of the stochastic-rounding wire of bucket
     ``bucket`` at train step ``step``: one ``torch.Generator`` per GLOBAL
     rank, seeded from ``(0x51EED, step, bucket, rank)`` as the JAX
-    package folds ``PRNGKey(0x51EED)`` with the step and then the bucket.
-    A rank's draws do not depend on which process holds it, so a
-    :class:`ProcessBackend` job rounds as the stacked backend does.  They
-    are not the JAX package's bits (another generator)."""
+    package folds ``PRNGKey(0x51EED)`` with the step and then the bucket,
+    and for a per-device bucket one per (rank, device), seeded from
+    ``(0x51EED, step, bucket, rank, device)``.  A rank's draws do not
+    depend on which process holds it, so a :class:`ProcessBackend` job
+    rounds as the stacked backend does.  They are not the JAX package's
+    bits (another generator)."""
 
     def __init__(self, device, step: int, bucket: int = 0):
         self.device = torch.device(device)
         self.step, self.bucket = int(step), int(bucket)
 
-    def generator(self, rank: int) -> torch.Generator:
-        seed = int(np.random.SeedSequence(
-            [_WIRE_SEED, self.step, self.bucket, int(rank)]).generate_state(
-                1, np.uint64)[0] >> np.uint64(1))
+    def generator(self, rank: int,
+                  device: Optional[int] = None) -> torch.Generator:
+        key = [_WIRE_SEED, self.step, self.bucket, int(rank)]
+        if device is not None:
+            key.append(int(device))
+        seed = int(np.random.SeedSequence(key).generate_state(
+            1, np.uint64)[0] >> np.uint64(1))
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def uniform(self, like: torch.Tensor, first_rank: int = 0
-                ) -> torch.Tensor:
+    def uniform(self, like: torch.Tensor, first_rank: int = 0,
+                per_device: bool = False) -> torch.Tensor:
         """U[0, 1) shaped like the rank-major ``like``, row ``i`` from
-        global rank ``first_rank + i``'s stream."""
-        return torch.stack([
-            torch.rand(like.shape[1:], generator=self.generator(
-                first_rank + i), device=like.device, dtype=like.dtype)
-            for i in range(like.shape[0])])
+        global rank ``first_rank + i``'s stream; with ``per_device``
+        (``like`` is ``[n, D, ...]``) row ``(i, d)`` from that rank's
+        device ``d``'s stream."""
+        if not per_device:
+            return torch.stack([
+                torch.rand(like.shape[1:], generator=self.generator(
+                    first_rank + i), device=like.device, dtype=like.dtype)
+                for i in range(like.shape[0])])
+        return torch.stack([torch.stack([
+            torch.rand(like.shape[2:], generator=self.generator(
+                first_rank + i, d), device=like.device, dtype=like.dtype)
+            for d in range(like.shape[1])]) for i in range(like.shape[0])])
 
 
 def wire_generator(device, step: int, bucket: int = 0) -> WireGenerator:
@@ -532,23 +571,25 @@ def wire_generator(device, step: int, bucket: int = 0) -> WireGenerator:
 
 def _wire_quantize_int8(x: torch.Tensor,
                         generator: Optional[WireGenerator] = None,
-                        first_rank: int = 0):
-    """Per-tensor (per rank) absmax int8 quantization of the payload.
-    Without ``generator`` it rounds to nearest (half to even, as
-    ``jnp.round``): deterministic but biased, so in iterated averaging the
-    snaps can build a consensus floor.  With ``generator`` it rounds
-    stochastically, ``floor(y + u)`` with u ~ U[0, 1) drawn per rank from
-    that rank's stream (row ``i`` is global rank ``first_rank + i``), so
-    E[q] = y.  Returns (q int8 [n, ...], scale f32 [n])."""
+                        first_rank: int = 0, per_device: bool = False):
+    """Per-tensor (per rank) absmax int8 quantization of the payload, or
+    with ``per_device`` (``x`` is ``[n, D, ...]``) per (rank, device), as
+    each JAX device quantizes what it holds.  Without ``generator`` it
+    rounds to nearest (half to even, as ``jnp.round``): deterministic but
+    biased, so in iterated averaging the snaps can build a consensus
+    floor.  With ``generator`` it rounds stochastically, ``floor(y + u)``
+    with u ~ U[0, 1) drawn per rank (per rank and device) from its stream
+    (row ``i`` is global rank ``first_rank + i``), so E[q] = y.  Returns
+    (q int8 like ``x``, scale f32 [n] or [n, D])."""
     x32 = x.float()
-    n = x.shape[0]
-    scale = x32.abs().reshape(n, -1).amax(dim=1) / 127.0
+    lead = tuple(x.shape[:2 if per_device else 1])
+    scale = x32.abs().reshape(lead + (-1,)).amax(dim=-1) / 127.0
     safe = torch.where(scale == 0.0, torch.ones_like(scale), scale)
-    y = x32 / safe.reshape(_rank_shape(x))
+    y = x32 / safe.reshape(lead + (1,) * (x.dim() - len(lead)))
     if generator is None:
         q = torch.round(y)
     else:
-        q = torch.floor(y + generator.uniform(y, first_rank))
+        q = torch.floor(y + generator.uniform(y, first_rank, per_device))
     q = torch.clamp(q, -127, 127).to(torch.int8)
     return q, scale
 
@@ -569,6 +610,7 @@ def neighbor_allreduce(
     self_weights: Optional[torch.Tensor] = None,
     generator: Optional[WireGenerator] = None,
     comm: Optional[RankAxis] = None,
+    per_device: bool = False,
 ) -> torch.Tensor:
     """Weighted neighbor averaging of a rank-major ``x`` ([n, ...]):
 
@@ -588,7 +630,10 @@ def neighbor_allreduce(
     ``generator`` (int8 only) switches the wire to unbiased stochastic
     rounding (the JAX package's ``wire_key``; see
     :func:`wire_generator`).  ``comm`` is the rank axis ``x`` lies on
-    (default: every rank stacked in ``x``)."""
+    (default: every rank stacked in ``x``).  ``per_device``: ``x`` is a
+    per-device bucket ``[n, D, ...]`` (``optim.fusion.DeviceLayout``),
+    each (rank, device) row its own int8 scale and stochastic-rounding
+    stream, each permute counted as one device's bytes."""
     if compress not in (None, "int8", "bf16"):
         raise ValueError(f"unknown compress mode {compress!r}")
     if generator is not None and compress != "int8":
@@ -598,6 +643,7 @@ def neighbor_allreduce(
     acc = _accum_dtype(x.dtype)
     dev = x.device
     bshape = _rank_shape(x)
+    D = x.shape[1] if per_device else 1
     self_w = ax.own(_as_weights(self_weights_of(spec) if self_weights is None
                                 else self_weights, acc, dev)).reshape(bshape)
     classes = spec.shift_classes
@@ -611,14 +657,16 @@ def neighbor_allreduce(
 
     def wire(perm):
         if compress == "int8":
-            return (ax.permute(q, perm).float()
-                    * ax.permute(scale, perm).reshape(bshape))
+            return (ax.permute(q, perm, D).float()
+                    * ax.permute(scale, perm, D).reshape(sshape))
         if compress == "bf16" and x.dtype != torch.bfloat16:
-            return ax.permute(x.to(torch.bfloat16), perm)
-        return ax.permute(x, perm)
+            return ax.permute(x.to(torch.bfloat16), perm, D)
+        return ax.permute(x, perm, D)
 
     if compress == "int8":
-        q, scale = _wire_quantize_int8(x, generator, ax.first_rank)
+        q, scale = _wire_quantize_int8(x, generator, ax.first_rank,
+                                       per_device)
+        sshape = tuple(scale.shape) + (1,) * (x.dim() - scale.dim())
     merged = _fused_pairs(classes)
     if merged is not None:
         w_fused = ax.own(_as_weights(_fused_recv_weights(
@@ -643,6 +691,7 @@ def neighbor_allreduce_buckets(
     class_weights: Optional[torch.Tensor] = None,
     self_weights: Optional[torch.Tensor] = None,
     comm: Optional[RankAxis] = None,
+    per_device: bool = False,
 ) -> list:
     """One weighted neighbor combine per bucket buffer: the data plane of
     ``build_train_step(overlap="bucketed")``.  Each bucket is an
@@ -654,7 +703,8 @@ def neighbor_allreduce_buckets(
     through the machine-level combine (``spec`` and the weights are then
     machine-level, compression on the DCN leg only).  Per element the
     numerics are those of one ``neighbor_allreduce`` per leaf, except the
-    int8 absmax scale, which is per bucket."""
+    int8 absmax scale, which is per bucket (per bucket and device for
+    ``per_device`` buckets ``[n, D, ...]``)."""
     outs = []
     for i, buf in enumerate(buffers):
         gen = (wire_generator(buf.device, wire_step, i)
@@ -663,11 +713,12 @@ def neighbor_allreduce_buckets(
             outs.append(hierarchical_neighbor_allreduce(
                 buf, spec, hierarchical_local_size, compress=compress,
                 class_weights=class_weights, self_weights=self_weights,
-                generator=gen, comm=comm))
+                generator=gen, comm=comm, per_device=per_device))
         else:
             outs.append(neighbor_allreduce(
                 buf, spec, compress=compress, class_weights=class_weights,
-                self_weights=self_weights, generator=gen, comm=comm))
+                self_weights=self_weights, generator=gen, comm=comm,
+                per_device=per_device))
     return outs
 
 
@@ -792,6 +843,7 @@ def hierarchical_neighbor_allreduce(
     self_weights: Optional[torch.Tensor] = None,
     generator: Optional[WireGenerator] = None,
     comm: Optional[RankAxis] = None,
+    per_device: bool = False,
 ) -> torch.Tensor:
     """Machine-level neighbor averaging, ``W_machine ⊗ exact-local-mean``:
     (1) the exact mean over each machine's ``local_size`` ranks (full
@@ -803,7 +855,9 @@ def hierarchical_neighbor_allreduce(
     apply to the inter-machine leg only.  ``class_weights``
     ([n_machine_classes, n_machines]) and ``self_weights`` ([n_machines])
     supply machine-level weights as runtime tensors.  With
-    ``local_size == 1`` it is :func:`neighbor_allreduce`, bit for bit."""
+    ``local_size == 1`` it is :func:`neighbor_allreduce`, bit for bit.
+    ``per_device``: as for :func:`neighbor_allreduce` (each device's
+    machine mean over the same device of the machine's ranks)."""
     if compress not in (None, "int8", "bf16"):
         raise ValueError(f"unknown compress mode {compress!r}")
     if generator is not None and compress != "int8":
@@ -817,7 +871,8 @@ def hierarchical_neighbor_allreduce(
     dev = x.device
     bshape = _rank_shape(x)
     unit = [r // L for r in ax.ranks]
-    local_mean = ax.machine_mean(x, L, acc)
+    D = x.shape[1] if per_device else 1
+    local_mean = ax.machine_mean(x, L, acc, devices=D)
     self_w = _unit_weights(self_weights_of(machine_spec)
                            if self_weights is None else self_weights,
                            unit, acc, dev).reshape(bshape)
@@ -825,15 +880,17 @@ def hierarchical_neighbor_allreduce(
     # local_size 1), or compressed; the self term keeps full precision
     wire_x = local_mean.to(x.dtype)
     if compress == "int8":
-        q, scale = _wire_quantize_int8(wire_x, generator, ax.first_rank)
+        q, scale = _wire_quantize_int8(wire_x, generator, ax.first_rank,
+                                       per_device)
+        sshape = tuple(scale.shape) + (1,) * (x.dim() - scale.dim())
 
     def wire(perm):
         if compress == "int8":
-            return (ax.permute(q, perm).float()
-                    * ax.permute(scale, perm).reshape(bshape))
+            return (ax.permute(q, perm, D).float()
+                    * ax.permute(scale, perm, D).reshape(sshape))
         if compress == "bf16" and x.dtype != torch.bfloat16:
-            return ax.permute(wire_x.to(torch.bfloat16), perm)
-        return ax.permute(wire_x, perm)
+            return ax.permute(wire_x.to(torch.bfloat16), perm, D)
+        return ax.permute(wire_x, perm, D)
 
     def recv_w(c, cls):
         w = cls.recv_weights if class_weights is None else class_weights[c]
@@ -935,18 +992,26 @@ def _mix_decode_wire(wire: torch.Tensor, numel: int, k: int,
 
 def _mix_encode_wire(target: torch.Tensor, k: int, k_live: torch.Tensor,
                      values: str, generator: Optional[WireGenerator],
-                     first_rank: int = 0):
+                     first_rank: int = 0, devices: int = 0):
     """(wire uint8 [n, mix_wire_bytes], own delta f32 [n, numel]): top-k
     select each row's delta, quantize the kept values, pack everything
     into ONE byte row per rank, and decode it back, so the sender's own
-    delta is bit for bit what every receiver decodes."""
+    delta is bit for bit what every receiver decodes.  ``devices`` > 0:
+    the rows are (rank, device) pairs, rank-major, each its own
+    selection, scale and stochastic-rounding stream."""
     from bluefog_tpu_torch.compressor import topk_mask_encode
 
     n, numel = target.shape
     mask, vals = topk_mask_encode(target, k, k_live)
     packed = _pack_bits(mask)
     if values in ("int8", "int8_sr"):
-        q, scale = _wire_quantize_int8(vals, generator, first_rank)
+        if devices:
+            q, scale = _wire_quantize_int8(
+                vals.reshape(n // devices, devices, k), generator,
+                first_rank, per_device=True)
+            q, scale = q.reshape(n, k), scale.reshape(n)
+        else:
+            q, scale = _wire_quantize_int8(vals, generator, first_rank)
         wire = torch.cat([q.view(torch.uint8), packed,
                           scale.contiguous().view(torch.uint8).reshape(n, 4)],
                          dim=1)
@@ -972,6 +1037,7 @@ def mix_compress_exchange(
     generator: Optional[WireGenerator] = None,
     hierarchical_local_size: Optional[int] = None,
     comm: Optional[RankAxis] = None,
+    per_device: bool = False,
 ):
     """ONE round of error-feedback compressed neighbor averaging of the
     rank-major bucket ``x`` ([n, ...]).
@@ -992,6 +1058,13 @@ def mix_compress_exchange(
     ``"int8"``, ``"int8_sr"`` (stochastic rounding from ``generator``)
     or ``"none"``.  Under ``hierarchical_local_size`` the exact machine
     mean is exchanged and the state lives at machine-mean granularity.
+    ``per_device``: ``x`` is a per-device bucket ``[n, D, numel]``
+    (``optim.fusion.DeviceLayout``) and the state holds one row per
+    device, shard-major (``ref_row``/``err`` [n, D * numel], ``mirrors``
+    [n, slots, D * numel]): each (rank, device) row has its own top-k
+    selection, ``k_live``, int8 scale and stochastic-rounding stream,
+    and one permute moves every device's wire (counted as one
+    device's bytes).
 
     Returns ``(out, new_ref_row, new_mirrors, new_err)``.  A rank with no
     out-edge this round keeps ``ref``/``err``; one with no in-edge
@@ -1005,8 +1078,12 @@ def mix_compress_exchange(
     shape, dtype = x.shape, x.dtype
     n = shape[0]
     dev = x.device
-    xf = x.reshape(n, -1)
-    nb = xf.shape[1]
+    D = shape[1] if per_device else 1
+    # rows [n, D, numel] (D = 1 without per_device), the state viewed so
+    xf = x.reshape(n, D, -1)
+    nb = xf.shape[2]
+    ref3 = ref_row.reshape(n, D, nb)
+    err3 = err.reshape(n, D, nb)
     f32 = torch.float32
     ax = _axis(comm, x)
     L = 1 if hierarchical_local_size is None else int(
@@ -1015,10 +1092,11 @@ def mix_compress_exchange(
         validate_machine_decomposition(spec.size * L, L, (spec,))
     _check_rows(ax, x, spec.size * L, "the spec covers")
     base = (xf.float() if hierarchical_local_size is None
-            else ax.machine_mean(xf, L, f32))
+            else ax.machine_mean(xf, L, f32, devices=D))
     unit = [r // L for r in ax.ranks]
     self_w = _unit_weights(self_weights_of(spec) if self_weights is None
-                           else self_weights, unit, f32, dev).reshape(n, 1)
+                           else self_weights, unit, f32,
+                           dev).reshape(n, 1, 1)
     classes = spec.shift_classes
     if not classes:
         return (base * self_w).to(dtype).reshape(shape), ref_row, mirrors, err
@@ -1026,29 +1104,41 @@ def mix_compress_exchange(
     # sender: encode the delta once per round (one wire to every
     # out-edge), fold the residual into e, advance ref, for ranks with
     # an out-edge this round only
-    target = base - ref_row + err
+    target = base - ref3 + err3
     k_live = torch.clamp(torch.floor(ratio * nb).to(torch.int32), 1, k)
-    wire, d_own = _mix_encode_wire(target, k, k_live, values, generator,
-                                   ax.first_rank)
+    if per_device:
+        k_live = k_live.repeat_interleave(D)
+    wire, d_own = _mix_encode_wire(target.reshape(n * D, nb), k, k_live,
+                                   values, generator, ax.first_rank,
+                                   D if per_device else 0)
+    wire = wire.reshape(n, D, -1)
+    d_own = d_own.reshape(n, D, nb)
     has_out_unit = [False] * spec.size
     for cls in classes:
         for (s, _) in cls.perm:
             has_out_unit[s] = True
     has_out = _device_const(tuple(has_out_unit[u] for u in unit), dev,
-                            torch.bool).reshape(n, 1)
-    new_ref = torch.where(has_out, ref_row + d_own, ref_row)
-    new_err = (torch.where(has_out, target - d_own, err) if error_feedback
-               else err)
+                            torch.bool).reshape(n, 1, 1)
+    # the new err and ref in the storage of target and d_own, which are
+    # not read again (a bucket at 8B width is gigabytes)
+    new_err = err3
+    if error_feedback:
+        new_err = torch.where(has_out, target.sub_(d_own), err3, out=target)
+    new_ref = torch.where(has_out, d_own.add_(ref3), ref3, out=d_own)
 
     def recv_w(w):
-        return _unit_weights(w, unit, f32, dev).reshape(n, 1)
+        return _unit_weights(w, unit, f32, dev).reshape(n, 1, 1)
+
+    def received(perm):
+        got = ax.permute(wire if per_device else wire[:, 0], perm, D)
+        return _mix_decode_wire(got.reshape(n * D, -1), nb, k,
+                                values).reshape(n, D, nb)
 
     # receiver: the class-fusion rule of the dense exchange; a fused or
     # single-class round permutes the one wire once into one mirror row,
     # a multi-class round permutes it per class into per-slot rows
     merged = _fused_pairs(classes)
-    acc = base * self_w
-    new_mirrors = mirrors.clone()
+    new_mirrors = mirrors.reshape(n, -1, D, nb).clone()
     if merged is not None or len(classes) == 1:
         if merged is not None:
             perm = _expand_pairs(merged, L)
@@ -1058,18 +1148,17 @@ def mix_compress_exchange(
             perm = _expand_pairs(classes[0].perm, L)
             w = recv_w(classes[0].recv_weights if class_weights is None
                        else class_weights[0])
-        rd = _mix_decode_wire(ax.permute(wire, perm), nb, k, values)
-        new_mirrors[:, 0] += rd
-        acc = acc + new_mirrors[:, 0] * w
+        new_mirrors[:, 0] += received(perm)
+        acc = base * self_w + new_mirrors[:, 0] * w
     else:
+        acc = base * self_w
         for c, cls in enumerate(classes):
-            rd = _mix_decode_wire(
-                ax.permute(wire, _expand_pairs(cls.perm, L)), nb, k, values)
-            new_mirrors[:, c] += rd
+            new_mirrors[:, c] += received(_expand_pairs(cls.perm, L))
             w = recv_w(cls.recv_weights if class_weights is None
                        else class_weights[c])
             acc = acc + new_mirrors[:, c] * w
-    return acc.to(dtype).reshape(shape), new_ref, new_mirrors, new_err
+    return (acc.to(dtype).reshape(shape), new_ref.reshape(ref_row.shape),
+            new_mirrors.reshape(mirrors.shape), new_err.reshape(err.shape))
 
 
 def allreduce(x: torch.Tensor, average: bool = True,
@@ -1298,29 +1387,33 @@ class RankBackend(RankAxis):
                 for k, v in tree.items()}
 
     def neighbor_allreduce(self, x, spec, compress=None, class_weights=None,
-                           self_weights=None, generator=None):
+                           self_weights=None, generator=None,
+                           per_device=False):
         return neighbor_allreduce(x, spec, compress=compress,
                                   class_weights=class_weights,
                                   self_weights=self_weights,
-                                  generator=generator, comm=self)
+                                  generator=generator, comm=self,
+                                  per_device=per_device)
 
     def neighbor_allreduce_buckets(self, buffers, spec, compress=None,
                                    wire_step=None,
                                    hierarchical_local_size=None,
-                                   class_weights=None, self_weights=None):
+                                   class_weights=None, self_weights=None,
+                                   per_device=False):
         return neighbor_allreduce_buckets(
             buffers, spec, compress=compress, wire_step=wire_step,
             hierarchical_local_size=hierarchical_local_size,
             class_weights=class_weights, self_weights=self_weights,
-            comm=self)
+            comm=self, per_device=per_device)
 
     def hierarchical_neighbor_allreduce(self, x, machine_spec, local_size,
                                         compress=None, class_weights=None,
-                                        self_weights=None, generator=None):
+                                        self_weights=None, generator=None,
+                                        per_device=False):
         return hierarchical_neighbor_allreduce(
             x, machine_spec, local_size, compress=compress,
             class_weights=class_weights, self_weights=self_weights,
-            generator=generator, comm=self)
+            generator=generator, comm=self, per_device=per_device)
 
     def push_sum_mix(self, tree, ps_weight, spec):
         return push_sum_mix(tree, ps_weight, spec, comm=self)
@@ -1471,10 +1564,11 @@ class ProcessBackend(RankBackend):
             raise _attribute_failure(self.EXCHANGE, exc) from exc
 
     # -- the primitives ---------------------------------------------------
-    def permute(self, x: torch.Tensor, perm) -> torch.Tensor:
+    def permute(self, x: torch.Tensor, perm,
+                devices: int = 1) -> torch.Tensor:
         import torch.distributed as dist
 
-        _tally_exchange("collective-permute", _row_bytes(x))
+        _tally_exchange("collective-permute", _row_bytes(x, devices))
         k, first = self.n_local, self.first_rank
         pairs = sorted(perm)
         local = tuple((s - first, d - first) for s, d in pairs
@@ -1550,7 +1644,8 @@ class ProcessBackend(RankBackend):
         dist.all_gather_object(got, mine)
         return [v for part in got for v in part]
 
-    def machine_mean(self, x, local_size, dtype, average=True):
+    def machine_mean(self, x, local_size, dtype, average=True, devices=1):
+        _tally_machine(x, local_size, self.size, devices)
         if self.n_local % int(local_size) == 0:
             # every machine lies inside one process
             return _machine_mean(x, local_size, dtype, average)

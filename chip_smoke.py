@@ -472,11 +472,39 @@ Phases (any failure raises and exits non-zero, printing no result):
       into two shards by batch_specs, each shard dispatched on its own:
       0 host syncs in a steady step, finite losses, the expert leaves
       bit-equal to a step under the identity combine.
+27. Per-device wire buckets: the int8 wires and top-k mixing under
+   model-parallel specs, each bucket planned and quantized per (rank,
+   device) as a JAX device holds it:
+   a. Llama-3.1-8B's width at dp 2 x tp 2 under atc over
+      ExponentialTwoGraph(2) in the JAX package's 8B pod layout
+      (vocab_parallel + tp_seq_shard, llama_param_specs(vocab_axis=
+      "tp"): only the norms replicated), guard + health +
+      overlap="bucketed" (4 buckets), SGD without momentum, batch 4 x
+      2048 a rank: the uncompressed step, compress="int8" and "int8_sr"
+      at WIRE_LAYERS, then MixCompressConfig(0.25, "int8") against its
+      own uncompressed step at WIRE_MIX_LAYERS (its MixState is three
+      f32 copies of a rank's params).
+   b. 26b's dp 2 x pp 2 under atc (2 layers, remat, GPipe),
+      uncompressed and under compress="int8".
+   Each leg: step 0's loss the uncompressed step's (the wire acts after
+   the backward); the params after 2 steps within WIRE_SLACK x the
+   int8 grid's bound of the uncompressed run's (per bucket, what a
+   receiver's view may miss: half a grid step of the sender's (rank,
+   device) scale, one under stochastic rounding, the top-k residual's
+   threshold for top-k); every quantizer call's per-(rank, device)
+   scales equal to each device's absmax computed apart, and one scale
+   over a rank's whole bucket (the old layout) rejected;
+   verify_collective_contract [] on the step's profile against the
+   per-device plan (mix_wire_layout for top-k; 27b with the pipeline's
+   hops) and mismatches against whole-rank buckets; the profile's
+   device ms, the combine's ms, wire bytes a step, peak memory and 0
+   host syncs in a steady step.
 
 The line before the last is a JSON object with one entry per kernel
 (seven; K4's launches are phase 3's, 19's, 20's, 23c's, 24b's and
 25b's; K2's, K3a's and K3b's phase 8's, 21b's, 21c's, 22b's, 23a's,
-23b's, 24a's, 25's and 26's, K2's 23c's rollout too); the last line is
+23b's, 24a's, 25's, 26's and 27's, K2's 23c's rollout too); the last
+line is
 {"ok": true, "device": {...}}.
 """
 
@@ -7367,6 +7395,411 @@ def phase_pipeline(seed):
     return out
 
 
+# ------------------------------------------------------------------ #
+# phase 27: per-device wire buckets (the int8 wires and top-k mixing
+# under model-parallel specs), the JAX package's 8B pod layout
+# ------------------------------------------------------------------ #
+# 27a's int8 legs and 27b: 2 layers.  25a's 4 layers leave no room for
+# the guard's snapshots of the params and the momentum (14.3 GiB each at
+# 4 layers over 2 ranks); 27a drops the momentum, so the uncompressed
+# step's params stay on the card beside its int8 legs; the top-k leg: 1
+# layer, its MixState being three more f32 copies of a rank's mixed
+# params, the uncompressed params on the host (PERF.md, PR 19)
+WIRE_LAYERS = 2
+WIRE_MIX_LAYERS = 1
+WIRE_BUCKETS = 4
+WIRE_RATIO = 0.25
+# ExponentialTwoGraph(2): each rank takes half of its neighbour's wire
+WIRE_W = 0.5
+# the params bound's allowance for step 1's gradients, taken at params
+# the step-0 wire moved (bf16 compute): on the H100 they added up to 0.9x
+# the wire's own term (top-k's output.kernel; PERF.md, PR 19)
+WIRE_SLACK = 3.0
+
+
+class _WireSpy:
+    """For one leg, wraps ``collectives._wire_quantize_int8`` (the int8
+    wire's and top-k mixing's quantizer): each call's per-(rank, device)
+    scales must equal a plain absmax of each device's row computed apart
+    (each row alone, then / 127); one scale over a rank's whole bucket,
+    the layout before per-device buckets, is the planted fault that must
+    disagree.  Keeps per call the scales and each row's smallest kept
+    magnitude (the top-k threshold, for top-k's values)."""
+
+    def __init__(self):
+        from bluefog_tpu_torch.parallel import collectives as C
+
+        self.C, self.calls, self.old_agrees = C, [], 0
+
+    def __enter__(self):
+        real = self.real = self.C._wire_quantize_int8
+
+        def spy(x, generator=None, first_rank=0, per_device=False):
+            q, scale = real(x, generator, first_rank, per_device)
+            if not per_device:
+                raise AssertionError("27: a model-parallel bucket went on "
+                                     "the wire with one scale per rank")
+            n, D = scale.shape
+            plain = torch.stack([torch.stack([
+                x[r, d].float().abs().max() / 127.0 for d in range(D)])
+                for r in range(n)])
+            if not torch.equal(plain, scale):
+                raise AssertionError(
+                    f"27: scales {scale.tolist()} are not each device's "
+                    f"absmax / 127 {plain.tolist()}")
+            whole = (x.float().abs().reshape(n, -1).amax(1, keepdim=True)
+                     / 127.0).expand(n, D)
+            self.old_agrees += int(torch.equal(whole, scale))
+            self.calls.append((scale.clone(), x.float().abs().reshape(
+                n, D, -1).amin(-1)))
+            return q, scale
+
+        self.C._wire_quantize_int8 = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.C._wire_quantize_int8 = self.real
+
+
+def _p27_buckets(params, specs, sizes, n_buckets, per_device=True):
+    """The buckets JAX plans for rank-major ``params`` under ``specs``
+    (its ``_local_shapes`` rule, computed apart from the step): each leaf
+    with the rank axis stripped and every dim divided by the sizes of
+    the axes its spec names, a stage-owned leaf's layers of one weight
+    name one leaf ``[L / S, ...]`` where its first layer stands (with
+    ``per_device=False``: a rank's whole leaves), then EpiloguePlan.
+    Returns [(param names, per-device numel)]."""
+    import re
+    from types import SimpleNamespace
+
+    from bluefog_tpu_torch.optim.fusion import EpiloguePlan
+
+    leaves, names, where = [], [], {}
+    for k, v in params.items():
+        dims = list(v.shape[1:])
+        spec = specs[k]
+        if per_device:
+            for i, e in enumerate(spec[1:]):
+                for a in (e if isinstance(e, tuple) else (e,)):
+                    if a is not None:
+                        dims[i] //= sizes[a]
+        if per_device and isinstance(spec[0], tuple):
+            key = re.sub(r"\.\d+\.", ".*.", k, count=1)
+            if key in where:
+                names[where[key]].append(k)
+                continue
+            count = sum(re.sub(r"\.\d+\.", ".*.", j, count=1) == key
+                        for j in params)
+            dims = [count // sizes[spec[0][1]]] + dims
+            where[key] = len(leaves)
+        leaves.append(SimpleNamespace(shape=tuple(dims), dtype=v.dtype))
+        names.append([k])
+    plan = EpiloguePlan.for_leaves(leaves, n_buckets)
+    return [([n for i in b.leaves for n in names[i]],
+             sum(int(np.prod(leaves[i].shape)) for i in b.leaves))
+            for b in plan.buckets]
+
+
+def _p27_step(cfg, seed, compress, momentum, pp=False, **kw):
+    """``cfg``'s model over 2 stacked ranks, atc over
+    ExponentialTwoGraph(2), f32 masters from --seed: tp 2 in the JAX
+    pod's layout (vocab_parallel + tp_seq_shard, every matrix sharded,
+    the norms replicated) or, with ``pp``, pp 2 (GPipe).  Returns (step,
+    params, opt, batch, specs, axis sizes)."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.models.llama import (llama_loss_fn,
+                                                llama_param_specs,
+                                                llama_pp_loss_fn)
+    from bluefog_tpu_torch.optim import functional as F
+
+    model = bt.Llama(cfg, device="cuda", param_dtype=torch.float32,
+                     generator=torch.Generator("cuda").manual_seed(seed))
+    state = model.state(release=True)
+    if pp:
+        specs = llama_param_specs(state, tp_axis=None, ep_axis=None,
+                                  pp_axis="pp")
+        loss_fn = llama_pp_loss_fn(cfg, pp_axis="pp", n_stages=PP_STAGES,
+                                   n_micro=PP_MICRO, n_loops=1)
+        axes = dict(pp_axis=bt.MeshAxis("pp", PP_STAGES))
+        sizes = {"pp": PP_STAGES}
+    else:
+        specs = llama_param_specs(state, vocab_axis="tp")
+        loss_fn = llama_loss_fn(model)
+        axes = dict(mesh_axes=(bt.MeshAxis("tp", TP_SIZE),))
+        sizes = {"tp": TP_SIZE}
+    backend = bt.StackedBackend(2, device="cuda")
+    params = bt.rank_major(state, backend, specs=specs)
+    opt = torch.optim.SGD(params.values(), lr=1e-3, momentum=momentum)
+    step = bt.build_train_step(
+        loss_fn, opt, backend, comm_mode="atc",
+        topology=bt.uniform_topology_spec(bt.ExponentialTwoGraph(2)),
+        param_specs=specs,
+        opt_state_specs=F.optax_state_specs(opt, state, specs),
+        compress=compress, **axes, **kw)
+    del state
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    raw = torch.randint(0, cfg.vocab_size, (2, LLAMA_BATCH, LLAMA_SEQ + 1),
+                        generator=g, device="cuda")
+    batch = (raw[..., :-1].contiguous(), raw[..., 1:].contiguous())
+    return step, params, opt, batch, specs, sizes
+
+
+def _p27_leg(label, cfg, seed, compress, momentum, per_step, ref=None,
+             pp=False, hold="cuda", **kw):
+    """One leg of phase 27: 2 steps (the first from the same params as
+    the uncompressed step's), then a third under torch.profiler with the
+    exchange tally on and the host syncs counted (the device ms, the
+    contract's permutes), and the combine's ms.  ``ref`` (the
+    uncompressed leg's record) holds step 0's loss equal and the params
+    after 2 steps within the int8 grid's bound; without ``ref`` this is
+    the uncompressed leg, and its params after 2 steps are kept in the
+    record, on ``hold`` (the host where the card has no room for them
+    beside the compressed legs).  ``per_step``: each kernel's launches a step.
+    Returns the leg's record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bluefog_tpu_torch import benchutil
+    from bluefog_tpu_torch.parallel import collectives as C
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    laps = [time.perf_counter()]
+    step, params, opt, batch, specs, sizes = _p27_step(
+        cfg, seed, compress, momentum, pp=pp, **kw)
+    mix = step.mix_config is not None
+    guarded = "guard" in kw
+    state = (opt, step.init_mix_state(params)) if mix else opt
+    w = (step.default_comm_weights,) if guarded else ()
+    _reset_counts()
+    losses = []
+    spy = _WireSpy()
+    with spy if compress is not None else contextlib.nullcontext():
+        for i in range(2):
+            out = step(params, state, batch, i, *w)
+            params, state, loss = out[:3]
+            losses.append(loss.clone())
+            if guarded and out[3].any():
+                raise AssertionError(f"{label}: the guard skipped "
+                                     f"{out[3].tolist()}")
+    del out
+    rec = dict(losses=torch.stack(losses).tolist())
+    laps.append(time.perf_counter())
+    if ref is None:
+        rec["params"] = {k: v.to(hold, copy=True)
+                         for k, v in params.items()}
+    else:
+        # step 0's loss is taken before the wire acts: the same bits
+        if not torch.equal(losses[0], ref["loss0"]):
+            raise AssertionError(f"{label}: step-0 loss {losses[0].tolist()}"
+                                 f" is not the uncompressed step's "
+                                 f"{ref['loss0'].tolist()}")
+        n_buckets = WIRE_BUCKETS if "overlap" in kw else None
+        buckets = _p27_buckets(params, specs, sizes, n_buckets)
+        nb = len(buckets)
+        if len(spy.calls) != 2 * nb:
+            raise AssertionError(f"{label}: {len(spy.calls)} quantizer "
+                                 f"calls, {2 * nb} buckets in 2 steps")
+        if spy.old_agrees >= len(spy.calls):
+            raise AssertionError(f"{label}: one scale over a rank's whole "
+                                 "bucket passes the per-device check")
+        # per step and bucket, what a receiver's view of a sender's
+        # bucket may miss: half a grid step (one under stochastic
+        # rounding); for top-k the larger of that and the smallest kept
+        # magnitude (the residual held back), and the view at step 1
+        # misses step 1's residual less step 0's (the reference carries
+        # what was sent), so step 0's counts twice
+        f = 1.0 if "int8_sr" in (compress, getattr(compress, "values",
+                                                   None)) else 0.5
+        miss = []
+        for scale, kept in spy.calls:
+            m = f * scale
+            if mix:
+                m = torch.maximum(m, kept)
+            miss.append(float(m.max()))
+        worst, where = 0.0, None
+        for b, (names, _) in enumerate(buckets):
+            bound = WIRE_SLACK * WIRE_W * (miss[b] * (2 if mix else 1)
+                                           + miss[nb + b])
+            for k in names:
+                d = (params[k] - ref["params"][k].to(params[k].device)
+                     ).abs().max().item()
+                r = d / bound
+                if r > worst:
+                    worst, where = r, k
+        rec.update(scales_checked=len(spy.calls),
+                   old_layout_rejected=len(spy.calls) - spy.old_agrees,
+                   worst_ratio=worst, worst_leaf=where)
+        if worst > 1.0:
+            raise AssertionError(f"{label}: params after 2 steps beyond the "
+                                 f"int8 grid's bound ({worst:.3g} of it at "
+                                 f"{where})")
+    laps.append(time.perf_counter())
+    # step 2: the device ms, the exchanges (one device's payload each) and
+    # the host syncs of a steady step
+    C._exchange_tally = {}
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rec["syncs"] = _count_syncs(
+                lambda: step(params, state, batch, 2, *w))
+        tally = C._exchange_tally
+    finally:
+        C._exchange_tally = None
+    rec["device_ms"] = sum(e.self_device_time_total
+                           for e in _device_kernels(prof)) / 1e3
+    del prof
+    permutes = tally.get("collective-permute", {}).get("payloads", [])
+    rec["wire_bytes"] = sum(permutes)
+    if ref is not None:
+        hops = ([(LLAMA_BATCH // PP_MICRO) * LLAMA_SEQ * cfg.dim * 2]
+                * 2 * (PP_MICRO + PP_STAGES - 1) if pp else [])
+
+        def predicted(bks):
+            if mix:
+                pay = [C.mix_wire_bytes(n, max(int(WIRE_RATIO * n), 1),
+                                        "int8") for _, n in bks]
+            else:
+                pay = [n for _, n in bks] + [4] * len(bks)
+            pay = pay + hops
+            return ({"permutes_per_period": len(pay),
+                     "bytes_per_period": float(sum(pay))}, sorted(set(pay)))
+
+        if mix:
+            layout = [r["numel"] for r in step.mix_wire_layout(params)]
+            if layout != [n for _, n in buckets]:
+                raise AssertionError(f"{label}: mix_wire_layout {layout} "
+                                     "against the per-device plan's "
+                                     f"{[n for _, n in buckets]}")
+        got = benchutil.verify_collective_contract(tally, *predicted(
+            buckets))
+        whole = benchutil.verify_collective_contract(tally, *predicted(
+            _p27_buckets(params, specs, sizes, n_buckets,
+                         per_device=False)))
+        if got or not whole:
+            raise AssertionError(f"{label}: the collective contract gives "
+                                 f"{got} (want []) and against whole-rank "
+                                 f"buckets {whole} (want mismatches)")
+        rec["contract_rejects"] = len(whole)
+    laps.append(time.perf_counter())
+    times = []
+    for _ in range(3):   # the step's own in-place combine, on its params
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step.combine(params, 0, state[1] if mix else None, *w)
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    rec["combine_ms"] = statistics.median(a.elapsed_time(b)
+                                          for a, b in times[1:])
+    laps.append(time.perf_counter())
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["launches"] = _expect_launches(label, {k: 3 * n for k, n in
+                                               per_step.items()})
+    if not all(math.isfinite(x) for row in rec["losses"] for x in row):
+        raise AssertionError(f"{label}: losses {rec['losses']}")
+    if rec["syncs"]:
+        raise AssertionError(f"{label}: {rec['syncs']} host syncs in a "
+                             "steady step")
+    log(f"{label}: losses {[[round(x, 6) for x in r] for r in rec['losses']]}"
+        f", device {rec['device_ms']:.2f} ms a step, combine "
+        f"{rec['combine_ms']:.3f} ms, wire {rec['wire_bytes']:,} bytes a "
+        + ("step a rank (whole-rank buckets)" if ref is None else
+           "step a device")
+        + f", peak {rec['peak_gib']:.2f} GiB, {rec['syncs']} host syncs"
+        + ("" if ref is None else
+           f"; step 0's loss the uncompressed step's; params after 2 steps "
+           f"within {rec['worst_ratio']:.3g} of the grid's bound (worst "
+           f"{rec['worst_leaf']}); {rec['scales_checked']} calls' scales "
+           f"each device's absmax, one scale a rank's bucket rejected at "
+           f"{rec['old_layout_rejected']}; contract [] (whole-rank buckets: "
+           f"{rec['contract_rejects']} mismatches)")
+        + "; s: build + 2 steps {:.1f}, hold {:.1f}, profiled step {:.1f}, "
+        "combine {:.1f}".format(*(b - a for a, b in zip(laps, laps[1:]))))
+    rec["loss0"] = losses[0]
+    del step, params, opt, state, batch, losses
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _p27a(seed):
+    """27a: Llama-3.1-8B's width at dp 2 x tp 2 under atc in the JAX
+    pod's layout (vocab_parallel + tp_seq_shard, llama_param_specs(
+    vocab_axis="tp")), guard + health + overlap="bucketed", SGD without
+    momentum: the uncompressed step, the int8 wire, the int8_sr wire
+    (WIRE_LAYERS), then MixCompressConfig(WIRE_RATIO, "int8") against its
+    own uncompressed step at WIRE_MIX_LAYERS.  Returns the launches."""
+    import bluefog_tpu_torch as bt
+
+    def cfg(n):
+        return dataclasses.replace(_llama8b_cfg(n), tp_axis="tp",
+                                   tp_size=TP_SIZE, vocab_parallel=True,
+                                   tp_seq_shard=True)
+
+    kw = dict(overlap="bucketed", overlap_buckets=WIRE_BUCKETS,
+              guard=bt.GuardConfig(), health=bt.HealthConfig())
+    total = dict.fromkeys(FLASH_KERNELS, 0)
+    recs = {}
+    for n_layers, hold, legs in (
+            (WIRE_LAYERS, "cuda", (("int8", "int8"),
+                                   ("int8_sr", "int8_sr"))),
+            (WIRE_MIX_LAYERS, "cpu", ((
+                f"top-k {WIRE_RATIO} int8",
+                bt.MixCompressConfig(ratio=WIRE_RATIO, values="int8")),))):
+        per_step = dict.fromkeys(FLASH_KERNELS, n_layers * 2)
+        ref = _p27_leg(f"[wire27a] uncompressed, {n_layers} layers", cfg(
+            n_layers), seed, None, 0.0, per_step, hold=hold, **kw)
+        recs[f"uncompressed {n_layers}"] = ref
+        for what, compress in legs:
+            recs[what] = _p27_leg(f"[wire27a] {what}, {n_layers} layers",
+                                  cfg(n_layers), seed, compress, 0.0,
+                                  per_step, ref=ref, **kw)
+        del ref["params"]
+    for rec in recs.values():
+        for k in FLASH_KERNELS:
+            total[k] += rec["launches"][k]
+    ms = {k: r["device_ms"] for k, r in recs.items()}
+    log(f"[wire27a] dp 2 x tp 2: device ms a step uncompressed "
+        f"{ms[f'uncompressed {WIRE_LAYERS}']:.2f} / int8 {ms['int8']:.2f} "
+        f"/ int8_sr {ms['int8_sr']:.2f} at {WIRE_LAYERS} layers, "
+        f"uncompressed {ms[f'uncompressed {WIRE_MIX_LAYERS}']:.2f} / top-k "
+        f"{ms[f'top-k {WIRE_RATIO} int8']:.2f} at "
+        f"{WIRE_MIX_LAYERS}, beside 25a's dp 2 x tp 2 at 4 layers (1,334.82 "
+        "ms, PERF.md)")
+    return total
+
+
+def _p27b(seed):
+    """27b: 26b's dp 2 x pp 2 under atc (PP_DP_LAYERS layers, remat,
+    GPipe) uncompressed and under the int8 wire (a bucket a stage's
+    weight stack, the replicated embedding, norm and head whole on each
+    stage).  Returns the launches."""
+    cfg = _pp_cfg(PP_DP_LAYERS)
+    per_step = _pp_launches(1, PP_DP_LAYERS, 2)
+    ref = _p27_leg("[wire27b] dp 2 x pp 2 uncompressed", cfg, seed, None,
+                   0.9, per_step, pp=True)
+    rec = _p27_leg("[wire27b] dp 2 x pp 2 int8", cfg, seed, "int8", 0.9,
+                   per_step, ref=ref, pp=True)
+    del ref["params"]
+    log(f"[wire27b] dp 2 x pp 2 device ms a step: uncompressed "
+        f"{ref['device_ms']:.2f}, int8 {rec['device_ms']:.2f}, beside "
+        "26b's (1,294.20 / 1,289.86 ms of step wall, PERF.md)")
+    return {k: ref["launches"][k] + rec["launches"][k] for k in per_step}
+
+
+def phase_wire(seed):
+    """Phase 27: per-device wire buckets under model-parallel specs.
+    Returns the kernels' launches."""
+    t0 = time.perf_counter()
+    out = _p27a(seed)
+    log(f"[wire27a] {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    for kname, n in _p27b(seed).items():
+        out[kname] += n
+    log(f"[wire27b] {time.perf_counter() - t1:.1f} s; phase 27 "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7474,6 +7907,9 @@ def main() -> int:
     for kname, n in phase_pipeline(args.seed).items():
         launches[kname] += n
     lap("pipeline")
+    for kname, n in phase_wire(args.seed).items():
+        launches[kname] += n
+    lap("wire")
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):
         entries.append(dict(

@@ -14,9 +14,10 @@ the same weights (``llama_params_from_flax``) and numpy tokens:
   and Ulysses, with the guard and ``overlap="bucketed"`` once each; the
   step-0 losses also equal the unsharded model's
   (``tests/test_ulysses.py:97-137``);
-* the refusal that remains names ROADMAP item 10 and no finished item;
-  what slice 18 ported (the pipeline, the expert step over a sequence
-  axis) runs, or raises JAX's errors.
+* the refusals that remain name ROADMAP item 13 and no finished item;
+  what slices 18 and 19 ported (the pipeline, the expert step over a
+  sequence axis, the per-device wires under model-parallel specs) runs,
+  or raises JAX's errors.
 
 The JAX side runs ``attn_impl="xla"`` throughout, the same function as
 its flash (its ring and Ulysses flash in interpret mode cost ~20 s a
@@ -249,19 +250,18 @@ def test_dp_sp_train_step_matches_jax(name):
 
 
 def _refusals():
-    """Every refusal of the Llama model and the train step that is left:
-    the per-device wires under model-parallel specs (the model axes run
-    since slice 17, ``tests/test_torch_tp.py``; the pipeline and the
-    expert step over a sequence axis since slice 18)."""
-    backend = bt.StackedBackend(2, device="cpu")
-    p = bt.rank_major({"w": torch.zeros(3)}, backend)
-    opt = torch.optim.SGD(p.values(), lr=0.1)
+    """Every refusal of the training path that is left: the HLO reading
+    of the step profiler (``hlo_op_breakdown`` and the overlap
+    accounting, ``benchutil``'s HLO parts, item 13).  The model axes run
+    since slice 17 (``tests/test_torch_tp.py``), the pipeline and the
+    expert step over a sequence axis since slice 18, the per-device
+    wires under model-parallel specs since slice 19
+    (``tests/test_torch_wire_shard.py``)."""
+    from bluefog_tpu_torch import observe
+
     cases = [
-        lambda: bt.build_train_step(
-            lambda p, b: p["w"].sum(), opt, backend, comm_mode="atc",
-            topology=bt.uniform_topology_spec(bt.ExponentialTwoGraph(2)),
-            compress="int8", mesh_axes=(bt.MeshAxis("tp", 3),),
-            param_specs={"w": ("bf", "tp")}),
+        lambda: observe.hlo_op_breakdown("HloModule m"),
+        lambda: observe.profile_step(lambda: None, link_bytes_per_s=1e9),
     ]
     out = []
     for case in cases:
@@ -272,20 +272,29 @@ def _refusals():
 
 
 def test_refusals_name_item_10_only():
-    """The per-device wires under model-parallel specs still raise,
-    naming ROADMAP.md Queue 1 item 10 and no finished item; what slice 18
-    ported runs or raises JAX's errors: the pipeline's builders
+    """The refusals left name ROADMAP.md Queue 1 item 13 and no other
+    item: item 10 is done (the per-device wires under model-parallel
+    specs build and step since slice 19: an int8 step over a tp spec
+    runs here); what slice 18 ported runs or raises JAX's errors: the
+    pipeline's builders
     (``llama_pp_loss_fn``, ``llama_circular_layout``,
     ``llama_param_specs(pp_axis=)``), the step's ``pp_axis`` (JAX's
     ``ValueError`` without ``param_specs``) and the expert step over a
     sequence axis; an sp_axis given as a bare name is refused (the axis
     object holds the size)."""
     for msg in _refusals():
-        assert "ROADMAP.md" in msg and "item 10" in msg, msg
-        assert set(re.findall(r"items? (\d+)", msg)) == {"10"}, msg
+        assert "ROADMAP.md" in msg and "item 13" in msg, msg
+        assert set(re.findall(r"items? (\d+)", msg)) == {"13"}, msg
     backend = bt.StackedBackend(2, device="cpu")
-    p = bt.rank_major({"w": torch.zeros(3)}, backend)
+    p = bt.rank_major({"w": torch.zeros(4)}, backend)
     opt = torch.optim.SGD(p.values(), lr=0.1)
+    step = bt.build_train_step(
+        lambda p, b: p["w"].square().sum(), opt, backend, comm_mode="atc",
+        topology=bt.uniform_topology_spec(bt.ExponentialTwoGraph(2)),
+        compress="int8", mesh_axes=(bt.MeshAxis("tp", 2),),
+        param_specs={"w": ("bf", "tp")})
+    step(p, opt, torch.zeros(2), 0)
+    assert torch.isfinite(p["w"]).all()
     cfg = bt.LlamaConfig.tiny(scan_layers=True)
     assert callable(bt.models.llama_pp_loss_fn(cfg, pp_axis="pp",
                                                n_stages=2, n_micro=2))

@@ -63,9 +63,11 @@ def test_observe_exports_every_jax_name():
     assert set(jobserve.__all__) <= set(observe.__all__)
     for name in jobserve.__all__:
         assert getattr(observe, name) is not None
-    for name in ("hlo_op_breakdown", "verify_collective_contract"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            getattr(observe, name)("HloModule m")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        observe.hlo_op_breakdown("HloModule m")
+    # the contract check reads a profiled step's tally, not HLO text
+    with pytest.raises(TypeError, match="StepProfile"):
+        observe.verify_collective_contract("HloModule m", {}, 4)
     with pytest.raises(NotImplementedError, match="item 13"):
         observe.profile_step(lambda: None, link_bytes_per_s=1e9)
 

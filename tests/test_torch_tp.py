@@ -354,14 +354,24 @@ def test_tp_step_every_mode_equals_tp1(ref, mode):
 
 
 def test_tp_step_refuses_per_device_wires(ref):
-    """The int8 wire's scale and top-k mixing are per bucket of ONE
-    device's shards: refused under model-parallel specs (ROADMAP item
-    10); a param spec over an axis the step does not hold is an error."""
+    """The int8 wires and top-k mixing, whose scale and selection are per
+    bucket of ONE device's shards, build and step under model-parallel
+    specs (per-device buckets; held to JAX by
+    ``tests/test_torch_wire_shard.py``), their MixState one row per
+    device; what is still refused is a param spec over an axis the step
+    does not hold, and a sequence axis among the model axes."""
     topo = TT.uniform_topology_spec(TT.ExponentialTwoGraph(N_BF))
     for compress in ("int8", "int8_sr", "topk"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            _tp_step(ref["variables"], dict(tp_axis="tp", tp_size=N_TP),
-                     comm_mode="atc", topology=topo, compress=compress)
+        _, step, params, opt, batch = _tp_step(
+            ref["variables"], dict(tp_axis="tp", tp_size=N_TP),
+            comm_mode="atc", topology=topo, compress=compress)
+        state = ((opt, step.init_mix_state(params)) if compress == "topk"
+                 else opt)
+        params, state, loss = step(params, state, batch, 0)
+        assert torch.isfinite(loss).all(), compress
+        if compress == "topk":
+            numel = sum(r["numel"] for r in step.mix_wire_layout(params))
+            assert sum(e.shape[1] for e in state[1].err) == N_TP * numel
     cfg, model = _port_model(ref["variables"])
     backend = bt.StackedBackend(N_BF, device="cpu")
     state = model.state(release=True)
