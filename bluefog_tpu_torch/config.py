@@ -9,7 +9,8 @@ timeline writers, the elastic membership policy, the knobs
 layer's: logging, the timeline path, fusion, the stall watchdog, the op
 timeout, ``BLUEFOG_OPS_ON_CPU``, and the launcher's job: the process
 identity, ranks per process and the group's timeout; and the topology
-control plane's re-plan knobs).  The
+control plane's re-plan knobs; ``ibfrun``'s engine token and state
+directory, and ``benchutil``'s card-figure overrides).  The
 environment-variable names and defaults are the JAX package's, so one
 environment configures both packages.  Every environment read of the
 port lives in this module.
@@ -64,6 +65,10 @@ __all__ = [
     "topology_replan_margin",
     "topology_replan_cooldown",
     "topology_replan_probation",
+    "engine_token",
+    "state_dir",
+    "chip_peak_tflops_override",
+    "chip_hbm_gbps_override",
 ]
 
 
@@ -519,3 +524,35 @@ def topology_replan_probation() -> int:
         return max(1, int(_env("BLUEFOG_TOPOLOGY_REPLAN_PROBATION", "8")))
     except ValueError:
         return 8
+
+
+def engine_token() -> str:
+    """BLUEFOG_TPU_ENGINE_TOKEN: shared secret the interactive-run
+    engine processes require on every control connection
+    (:mod:`bluefog_tpu_torch.run.engines`); empty disables nothing: an
+    empty token still HMACs, it is just guessable."""
+    return _env("BLUEFOG_TPU_ENGINE_TOKEN", "")
+
+
+def state_dir() -> str:
+    """BLUEFOG_TPU_STATE_DIR (default ``~/.bluefog_tpu``), expanded:
+    where ``ibfrun`` keeps its per-profile engine state files."""
+    return os.path.expanduser(_env("BLUEFOG_TPU_STATE_DIR",
+                                   "~/.bluefog_tpu"))
+
+
+def chip_peak_tflops_override():
+    """BLUEFOG_CHIP_PEAK_TFLOPS: per-card peak bf16 TFLOP/s override for
+    :func:`bluefog_tpu_torch.benchutil.chip_peak_flops` (a card the
+    table does not list, or auditing a card from a host).  ``None`` when
+    unset or empty."""
+    raw = _env("BLUEFOG_CHIP_PEAK_TFLOPS", "")
+    return float(raw) if raw else None
+
+
+def chip_hbm_gbps_override():
+    """BLUEFOG_CHIP_HBM_GBPS: per-card memory GB/s override for
+    :func:`bluefog_tpu_torch.benchutil.chip_hbm_bandwidth`; the same
+    convention as :func:`chip_peak_tflops_override`."""
+    raw = _env("BLUEFOG_CHIP_HBM_GBPS", "")
+    return float(raw) if raw else None

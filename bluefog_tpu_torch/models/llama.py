@@ -1787,7 +1787,8 @@ def llama_param_specs(params_or_shapes, rank_axis: Optional[str] = "bf",
                       tp_axis: Optional[str] = "tp",
                       ep_axis: Optional[str] = "ep",
                       pp_axis: Optional[str] = None,
-                      vocab_axis: Optional[str] = None
+                      vocab_axis: Optional[str] = None,
+                      scan_layers: bool = False
                       ) -> Dict[str, tuple]:
     """The JAX package's ``llama_param_specs`` over the port's state
     dict (``{name: tensor or shape}``, the leaves WITHOUT the rank
@@ -1809,11 +1810,16 @@ def llama_param_specs(params_or_shapes, rank_axis: Optional[str] = "bf",
     the stage axis that holds the leaf, its other dims as without pp.
     ``build_train_step``, ``optax_state_specs`` and the edge account read
     the pp axis there (a stage-owned leaf counts as split over the
-    stages, what one JAX device holds).  It needs ``rank_axis``."""
-    if pp_axis is not None and rank_axis is None:
-        raise ValueError("llama_param_specs(pp_axis=) marks a stage-owned "
-                         "leaf on its rank entry (rank_axis, pp_axis): "
-                         "give rank_axis")
+    stages, what one JAX device holds).  It needs ``rank_axis``.
+
+    ``scan_layers=True`` (the model's ``cfg.scan_layers``, which a pp
+    axis implies) marks every leaf under ``layers.*`` as one layer of
+    JAX's scanned stack, the rank entry ``(rank_axis,)``: the int8 wires
+    and top-k mixing then plan, scale and select a weight name's layers
+    as the one leaf ``[L, ...]`` JAX holds."""
+    if (pp_axis is not None or scan_layers) and rank_axis is None:
+        raise ValueError("llama_param_specs(pp_axis=, scan_layers=) marks a "
+                         "stacked leaf on its rank entry: give rank_axis")
     column = ("wq", "wk", "wv", "w1", "w3")
     row = ("wo", "w2")
     out = {}
@@ -1841,7 +1847,9 @@ def llama_param_specs(params_or_shapes, rank_axis: Optional[str] = "bf",
                 dims[-2] = tp_axis
         while dims and dims[-1] is None:
             dims.pop()
-        rank = (rank_axis if pp_axis is None or parts[0] != "layers"
-                else (rank_axis, pp_axis))
+        if parts[0] != "layers" or (pp_axis is None and not scan_layers):
+            rank = rank_axis
+        else:
+            rank = (rank_axis,) if pp_axis is None else (rank_axis, pp_axis)
         out[name] = tuple(dims) if rank_axis is None else (rank, *dims)
     return out

@@ -4,12 +4,12 @@ counterpart), every name the JAX package exports:
 * ``registry`` and ``tracer`` — copies of the JAX package's metrics
   registry and span tracer;
 * ``stepprof`` — ``profile_step`` returns a :class:`StepProfile`
-  (FLOPs, per-collective bytes, device time by kernel, MFU), rebuilt on
-  ``torch.profiler`` and the flop counter in place of XLA's compiled
-  module; ``verify_collective_contract`` (``benchutil``'s) holds a
-  profiled step's exchanges to their predicted sketch, and
-  ``hlo_op_breakdown`` reads HLO and raises ``NotImplementedError``
-  (ROADMAP.md Queue 1, item 13);
+  (FLOPs, per-collective bytes, device time and FLOPs by kernel, each
+  exchange's window and, given a link rate, the overlap accounting,
+  MFU), rebuilt on ``torch.profiler`` and the flop counter in place of
+  XLA's compiled module; ``verify_collective_contract`` and
+  ``hlo_op_breakdown`` (``benchutil``'s) read a profiled run where JAX
+  reads HLO;
 * ``export`` — Prometheus text / JSONL event log / Chrome trace, plus
   the one-call ``snapshot()``;
 * ``fleet`` — decentralized cross-rank aggregation by push-sum gossip

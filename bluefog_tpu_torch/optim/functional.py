@@ -264,8 +264,10 @@ def rank_major(tree: Dict[str, torch.Tensor], backend: RankBackend,
 
 def _rank_entry(entry) -> Optional[tuple]:
     """The axes a spec's rank entry names beyond the rank axis: ``()``
-    for ``"bf"``, ``("pp",)`` for a stage-owned leaf's ``("bf", "pp")``
-    (``llama_param_specs(pp_axis=)``); None when it is neither."""
+    for ``"bf"`` and for one layer of a scanned stack's ``("bf",)``
+    (``llama_param_specs(scan_layers=True)``), ``("pp",)`` for a
+    stage-owned leaf's ``("bf", "pp")`` (``llama_param_specs(pp_axis=)``);
+    None when it is neither."""
     if entry == RANK_AXIS:
         return ()
     if (isinstance(entry, tuple) and entry and entry[0] == RANK_AXIS
@@ -1219,10 +1221,17 @@ def build_train_step(
     per_bucket = bucketed or wire_compress == "int8" or mix_on
     # the model axes' devices of a rank (each one a (rank, index on every
     # axis)); where a bucket carries its own state the buckets are
-    # planned and exchanged per device, as JAX's devices hold them
+    # planned and exchanged per device, as JAX's devices hold them, and
+    # so they are where a spec marks a leaf one layer of a scanned stack
+    # (a rank entry that is a tuple), which JAX plans as one leaf
     dev_axes = [(a, ax.size) for a, ax in axes.items()]
+    stacked = param_specs is not None and any(
+        isinstance(sp[0], tuple) for sp in (
+            param_specs.values() if isinstance(param_specs, dict)
+            else (param_specs,)))
     per_device = (param_specs is not None
-                  and int(np.prod([s for _, s in dev_axes])) > 1
+                  and (int(np.prod([s for _, s in dev_axes])) > 1
+                       or stacked)
                   and (wire_compress == "int8" or mix_on))
     default_w = comm_weight_inputs(specs) if neighbor else ()
     shared_names: Dict[tuple, list] = {}
@@ -1752,7 +1761,7 @@ def build_train_step(
         rest = None
         if per_device:
             names = tuple(a for a, _ in dev_axes)
-            rest = names[0] if len(names) == 1 else names
+            rest = names[0] if len(names) == 1 else (names or None)
         step_fn.init_mix_state = init_mix_state
         step_fn.mix_wire_layout = mix_wire_layout
         step_fn.set_mix_ratio = set_mix_ratio

@@ -211,7 +211,7 @@ def pack_bucket(leaves, idx) -> torch.Tensor:
 
 
 def _stage_key(name: str):
-    """(group key, layer index) of a stage-owned leaf's dotted name: the
+    """(group key, layer index) of a stacked leaf's dotted name: the
     name with its first integer component taken out, and that integer
     (``layers.3.attention.wq.kernel`` -> ``("layers.*.attention.wq.
     kernel", 3)``)."""
@@ -219,18 +219,18 @@ def _stage_key(name: str):
     for i, p in enumerate(parts):
         if p.isdigit():
             return ".".join(parts[:i] + ["*"] + parts[i + 1:]), int(p)
-    raise ValueError(f"param {name!r} is stage-owned (its spec's rank entry "
-                     "names a pp axis) but its name holds no layer index: a "
-                     "stage owns the layers i // (L / S) == s")
+    raise ValueError(f"param {name!r} is one layer of a stack (its spec's "
+                     "rank entry is a tuple) but its name holds no layer "
+                     "index")
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceView:
     """One leaf of what ONE device holds, read from rank-major leaves.
 
-    ``members``: the rank-major leaves it is read from: one, or a
-    stage's layers of one weight name (stacked along a new dim 1 in
-    layer order, as JAX's scanned stack holds them).  ``splits``: per
+    ``members``: the rank-major leaves it is read from: one, or the
+    layers of one weight name a device holds (stacked along a new dim 1
+    in layer order, as JAX's scanned stack holds them).  ``splits``: per
     dim of the (stacked) per-rank leaf, the mesh axes that split it,
     major first.  ``shape``: one device's shape; ``dtype`` its numpy
     name."""
@@ -253,8 +253,11 @@ class DeviceLayout:
     shards a packed axis over the mesh's other axes).  Its leaves
     (``views``, in the params' order) are each sharded leaf's slice
     along the dims its spec names, a leaf replicated over an axis whole,
-    and under a pp axis its stage's layers of each weight name as one
-    leaf ``[L / S, ...]`` (placed where the name's first layer stands).
+    and where JAX's leaf is a scanned stack (a spec whose rank entry is a
+    tuple: ``(rank axis,)`` for ``scan_layers``, ``(rank axis, pp axis)``
+    under a pp axis) the layers of each weight name as one leaf, ``[L,
+    ...]`` or its stage's ``[L / S, ...]`` (placed where the name's first
+    layer stands).
 
     :meth:`pack` gathers a bucket of views into ``[n, devices, numel]``
     (reshapes, one permute and one broadcast per view: no loop over
@@ -276,8 +279,9 @@ class DeviceLayout:
                    axes: Sequence[Tuple[str, int]]) -> "DeviceLayout":
         """The layout of rank-major ``leaves`` named ``names`` under
         ``specs`` (``{name: spec}`` or one spec; a spec the tuple of axis
-        names the train step takes, the rank entry first, ``("bf",
-        "pp")`` for a stage-owned leaf).  Raises JAX's ValueError when
+        names the train step takes, the rank entry first: ``("bf",)``
+        for one layer of a scanned stack, ``("bf", "pp")`` for a
+        stage-owned one).  Raises JAX's ValueError when
         the specs do not match the leaves exactly."""
         sizes = dict(axes)
         if isinstance(specs, tuple):
@@ -297,21 +301,19 @@ class DeviceLayout:
                                            else (e,)) if a is not None)
             return out
 
-        def stage_axes(spec):
-            e = spec[0]
-            return tuple(e[1:]) if isinstance(e, tuple) else ()
+        def stacked(spec):
+            return isinstance(spec[0], tuple)
 
         groups: Dict[str, list] = {}
         for i, k in enumerate(names):
-            if stage_axes(specs[k]):
+            if stacked(specs[k]):
                 key, layer = _stage_key(k)
                 groups.setdefault(key, []).append((layer, i))
         views, seen = [], set()
         for i, k in enumerate(names):
             spec = specs[k]
-            st = stage_axes(spec)
             dims = dim_axes(spec, len(shapes[i]))
-            if not st:
+            if not stacked(spec):
                 members, shape, splits = (i,), shapes[i], dims
             else:
                 key, _ = _stage_key(k)
@@ -325,9 +327,9 @@ class DeviceLayout:
                         raise ValueError(
                             f"the layers of {key!r} differ in shape, dtype "
                             f"or spec ({names[j]!r} against {k!r}): one "
-                            "weight name is one leaf of a stage")
+                            "weight name is one leaf of a stack")
                 shape = (len(members),) + shapes[i]
-                splits = [st] + dims
+                splits = [tuple(spec[0][1:])] + dims
             dev_shape = []
             for d, (size, ax) in enumerate(zip(shape, splits)):
                 div = int(np.prod([sizes[a] for a in ax], dtype=np.int64))

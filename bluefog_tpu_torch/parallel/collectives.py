@@ -179,7 +179,10 @@ def _permute(x: torch.Tensor, perm: Sequence[Tuple[int, int]]
     return out
 
 
-# Every exchange runs inside a profiler range of this name.
+# Every exchange runs inside a profiler range of this name; while a
+# profile counts, each leaves a zero-length marker ``<EXCHANGE>/<kind>/
+# <bytes>`` there (``benchutil.scheduled_collective_windows`` reads an
+# exchange's kind and payload from it).
 EXCHANGE = "bf.backend.exchange"
 
 # The exchanges of a ``profile_step`` run by collective kind, ``{kind:
@@ -208,6 +211,9 @@ def _tally_exchange(kind: str, nbytes: int, groups=None) -> None:
             groups = tuple(tuple(g) for g in groups)
             if groups not in seen:
                 seen.append(groups)
+        with torch.profiler.record_function(f"{EXCHANGE}/{kind}/"
+                                            f"{int(nbytes)}"):
+            pass
 
 
 def _row_bytes(x: torch.Tensor, devices: int = 1) -> int:

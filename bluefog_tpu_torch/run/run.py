@@ -166,8 +166,12 @@ def _coordinator_for_attempt(coordinator: str, attempt: int) -> str:
 
 
 def _child_env(args, process_id: int, attempt: int,
-               coordinator: str, local_id: int = 0) -> dict:
-    env = {k: v for k, v in bfconfig.environ_passthrough().items()
+               coordinator: str, local_id: int = 0,
+               base_env=None) -> dict:
+    """A child's environment: the whitelisted part of this process's (or
+    ``base_env``) and the job's identity (``ibfrun``'s engines get the
+    same, ``interactive_run.engine_env``)."""
+    env = {k: v for k, v in bfconfig.environ_passthrough(base_env).items()
            if k.startswith(PASS_PREFIXES)}
     # the caller resolves the coordinator ONCE per attempt (per-child
     # probing could hand ranks different addresses once rank 0's

@@ -195,9 +195,8 @@ Phases (any failure raises and exits non-zero, printing no result):
       wire's three legs (device to host, gloo, host to device) for the
       params' bytes; then an eager job of 2 ranks a process:
       neighbor_allreduce consensus, win_put gossip, a ragged
-      neighbor_allgather over StarGraph(4).
-   c. NCCL asked for two ranks on one card: the exit code and NCCL's
-      message (the reason (b) runs over gloo).
+      neighbor_allgather over StarGraph(4).  (b) runs over gloo
+      because NCCL refuses two ranks on one card (PERF.md §6).
 19. The rest of single-engine serving at Llama-3.1-8B's full width and
    depth (32 layers, random bf16 weights from --seed as phase 3), every
    engine with 8 slots and 256-token prefill chunks, each run with the
@@ -248,7 +247,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    once, and one request arrives a round through router.submit.  Each
    run with the launch counts reset just before and read just after (K4
    n_layers x decode steps summed over replicas, draft steps included):
-   a. 12 requests (prompts 16-1500 tokens, 4 of them a shared 1024-token
+   a. 8 requests (prompts 16-1500 tokens, 3 of them a shared 1024-token
       prefix, 32-128 new tokens, half greedy and half at temperature
       0.8): every request completes its budget with finite logits;
       placements per replica, fleet tokens/s, TTFT p50 and p99,
@@ -491,7 +490,13 @@ Phases (any failure raises and exits non-zero, printing no result):
    int8 grid's bound of the uncompressed run's (per bucket, what a
    receiver's view may miss: half a grid step of the sender's (rank,
    device) scale, one under stochastic rounding, the top-k residual's
-   threshold for top-k); every quantizer call's per-(rank, device)
+   threshold for top-k); each compressed exchange's combined bucket
+   within that miss (at step 1 of top-k plus step 0's) of the exact mix
+   of its own input rows, no slack and no gradient in it, plus the f32
+   rounding of the two mixes (WIRE_ROUND); in the top-k leg the planted
+   fault, bucket 0's received delta dropped at step 1 (the scale spy
+   sees nothing), rejected by both bounds; every quantizer call's
+   per-(rank, device)
    scales equal to each device's absmax computed apart, and one scale
    over a rank's whole bucket (the old layout) rejected;
    verify_collective_contract [] on the step's profile against the
@@ -499,12 +504,31 @@ Phases (any failure raises and exits non-zero, printing no result):
    hops) and mismatches against whole-rank buckets; the profile's
    device ms, the combine's ms, wire bytes a step, peak memory and 0
    host syncs in a steady step.
+28. benchutil and ibfrun on the card:
+   a. 27a's layout (WIRE_LAYERS, dp 2 x tp 2, 4 buckets, no wire)
+      under cta, its bucketed exchanges on a side stream beside the
+      forward and backward, through observe.profile_step(
+      link_bytes_per_s=) at the card's copy rate (its memory rate / 2:
+      on one card an exchange is a device copy): each exchange's window
+      on its stream, the compute-stream ms inside it, and the
+      overlappable fraction, at least OVERLAP_SOUND_MIN; the planted
+      fault, the same step with its exchanges on the compute stream,
+      reads at most OVERLAP_FAULT_MAX.
+   b. One K2 call at q [4,2048,32,128] (kv 8, causal, bf16) timed by
+      benchutil.chain_time and by time_ms on the same input, their
+      ratio within TIMER_RATIO; a timer that records its end event
+      before the work (planted) falls outside it.
+   c. run.interactive_run.start_native_cluster starts one native
+      engine; through run.engines.Client it runs bf.init() (the card,
+      no CPU fallback) and one K2 call held to its plain version under
+      flash_check's bound, and returns its card's name; stop_cluster
+      stops it.
 
 The line before the last is a JSON object with one entry per kernel
 (seven; K4's launches are phase 3's, 19's, 20's, 23c's, 24b's and
 25b's; K2's, K3a's and K3b's phase 8's, 21b's, 21c's, 22b's, 23a's,
-23b's, 24a's, 25's, 26's and 27's, K2's 23c's rollout too); the last
-line is
+23b's, 24a's, 25's, 26's, 27's and 28a's, K2's 23c's rollout too); the
+last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -3356,26 +3380,7 @@ def child_18b(seed, out_dir):
     dist.destroy_process_group()
 
 
-def child_nccl_two_ranks_one_card(seed, out_dir):
-    """NCCL asked to put two ranks on one card."""
-    import datetime
-
-    import torch.distributed as dist
-
-    pid = int(os.environ["BLUEFOG_TPU_PROCESS_ID"])
-    torch.cuda.set_device(0)
-    dist.init_process_group(
-        "nccl", init_method=os.environ["BLUEFOG_TPU_COORDINATOR"], rank=pid,
-        world_size=2, timeout=datetime.timedelta(seconds=60))
-    t = torch.ones(1, device="cuda:0")
-    dist.all_reduce(t)
-    torch.cuda.synchronize()
-    _report(dict(nccl_two_ranks_one_card="accepted", sum=float(t)))
-    dist.destroy_process_group()
-
-
-CHILDREN = {"18a": child_18a, "18b": child_18b,
-            "nccl_dup": child_nccl_two_ranks_one_card}
+CHILDREN = {"18a": child_18a, "18b": child_18b}
 
 
 def _bfrun_children(name, nproc, out_dir, seed, extra_env=(),
@@ -3509,15 +3514,6 @@ def phase_process(seed):
                 f"neighbor_allgather exact")
         log(f"[process18b] {time.perf_counter() - t0:.1f} s")
 
-        # NCCL asked for two ranks on one card (the reason 18b is gloo)
-        rc, out, recs = _bfrun_children("nccl_dup", 2, out_dir, seed,
-                                        timeout=120)
-        lines = out.splitlines()
-        said = ([ln for ln in lines if "Duplicate GPU" in ln]
-                or [ln for ln in lines if "ncclInvalidUsage" in ln])
-        log(f"[process18c] NCCL, two ranks on one card: exit {rc}; "
-            + (f"refused: {said[0].strip()[:300]}" if said
-               else f"{recs or out[-600:]}"))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
@@ -4142,7 +4138,7 @@ def phase_serving_rest(seed):
 # phase 20: the serving fleet at Llama-3.1-8B's width and depth
 # ------------------------------------------------------------------ #
 FLEET = 3            # replicas on the one card
-FLEET_REQS = 12      # 20a's requests, one arrival a round
+FLEET_REQS = 8       # 20a's requests, one arrival a round
 STALE_S = 0.5        # 20b's staleness window, harness seconds
 DEATH_STEP = 20      # 20b: replica 1 dies at its 20th step
 
@@ -4178,7 +4174,7 @@ class _RoundClock(_HarnessClock):
 
 
 def _fleet_reqs(rng, vocab):
-    """20a's requests: prompts of 16-1500 tokens (4 of them a shared
+    """20a's requests: prompts of 16-1500 tokens (every third a shared
     1024-token prefix and a 16-476-token tail), 32-128 new tokens, half
     greedy and half at temperature 0.8."""
     from bluefog_tpu_torch.serving import Request
@@ -4467,11 +4463,12 @@ def _phase20_failover(model, cfg, reqs, base, tally):
 
 def _log_profiles(profs, what):
     for name, p in profs.items():
-        top = sorted(p.op_breakdown.items(), key=lambda kv: -kv[1]["ms"])[:6]
+        top = sorted(p.op_breakdown.items(),
+                     key=lambda kv: -kv[1]["device_ms"])[:6]
         log(f"[fleet20d] {what} {name}: device {p.device_seconds * 1e3:.3f} "
             f"ms in a {p.step_seconds * 1e3:.2f} ms run, {p.flops / 1e9:.2f} "
             f"GFLOP, MFU {p.mfu(p.device_seconds):.4f} of device time; "
-            + "; ".join(f"{k[:48]} {v['ms']:.3f} ms x{v['count']}"
+            + "; ".join(f"{k[:48]} {v['device_ms']:.3f} ms x{v['count']}"
                         for k, v in top))
 
 
@@ -7415,6 +7412,33 @@ WIRE_W = 0.5
 # the step-0 wire moved (bf16 compute): on the H100 they added up to 0.9x
 # the wire's own term (top-k's output.kernel; PERF.md, PR 19)
 WIRE_SLACK = 3.0
+# the f32 rounding of a combine and of its exact mix, in grid steps of
+# the bucket's largest |exact| entry (the exchange bound's one allowance)
+WIRE_ROUND = 4 * torch.finfo(torch.float32).eps
+# 27's planted fault, seen by the exchange bound alone: top-k's bucket 0
+# at step 1 with its received delta dropped (the receiver's mirror not
+# advanced), the sender's quantizer call, and so the scale spy, as sound
+WIRE_FAULT_BUCKET = 0
+
+
+def _rows_gap(x, out, chunk=1 << 24, drop=None):
+    """(max |out - exact|, max |exact|, max |WIRE_W * drop| over device
+    0's rows) over ``out`` [2, D, numel], the exact mix of two ranks'
+    rows ``x`` under ExponentialTwoGraph(2)'s weights (WIRE_W each: both
+    rows the mean), chunk by chunk; with ``drop`` ([2, D, numel], a
+    receiver's lost delta) the gap of ``out - WIRE_W * drop`` instead."""
+    gap = top = moved = 0.0
+    for a in range(0, x.shape[-1], chunk):
+        xs = x[..., a:a + chunk].float()
+        exact = (1 - WIRE_W) * xs[0] + WIRE_W * xs[1]
+        got = out[..., a:a + chunk].float()
+        if drop is not None:
+            lost = WIRE_W * drop[..., a:a + chunk].float()
+            got = got - lost
+            moved = max(moved, lost[:, 0].abs().max().item())
+        gap = max(gap, (got - exact).abs().max().item())
+        top = max(top, exact.abs().max().item())
+    return gap, top, moved
 
 
 class _WireSpy:
@@ -7424,15 +7448,27 @@ class _WireSpy:
     (each row alone, then / 127); one scale over a rank's whole bucket,
     the layout before per-device buckets, is the planted fault that must
     disagree.  Keeps per call the scales and each row's smallest kept
-    magnitude (the top-k threshold, for top-k's values)."""
+    magnitude (the top-k threshold, for top-k's values).
+
+    It also wraps the backend's compressed exchanges (the int8
+    ``neighbor_allreduce`` and ``mix_compress_exchange``): per call the
+    largest gap of the combined bucket to the exact mix of the same
+    input rows and the bucket's largest exact entry (``exchanges``), and
+    under top-k the gap with the receiver's delta dropped (``dropped``):
+    the exchange bound's readings, no gradient in them."""
 
     def __init__(self):
         from bluefog_tpu_torch.parallel import collectives as C
 
         self.C, self.calls, self.old_agrees = C, [], 0
+        self.exchanges, self.dropped = [], []
 
     def __enter__(self):
         real = self.real = self.C._wire_quantize_int8
+        backend = self.C.RankBackend
+        self.real_nar = backend.neighbor_allreduce
+        self.real_mix = backend.mix_compress_exchange
+        spy_self = self
 
         def spy(x, generator=None, first_rank=0, per_device=False):
             q, scale = real(x, generator, first_rank, per_device)
@@ -7454,11 +7490,34 @@ class _WireSpy:
                 n, D, -1).amin(-1)))
             return q, scale
 
+        def nar(self, x, spec, compress=None, **kw):
+            out = spy_self.real_nar(self, x, spec, compress=compress, **kw)
+            if compress == "int8":
+                spy_self.exchanges.append(_rows_gap(x, out)[:2])
+            return out
+
+        def mix(self, x, spec, **kw):
+            got = spy_self.real_mix(self, x, spec, **kw)
+            out, new_mirrors = got[0], got[2]
+            if x.shape[0] != 2 or new_mirrors.shape[1] != 1:
+                raise AssertionError("27's exchange check reads 2 ranks "
+                                     "with one in-neighbour each")
+            spy_self.exchanges.append(_rows_gap(x, out)[:2])
+            drop = (new_mirrors[:, 0] - kw["mirrors"][:, 0]).reshape(
+                out.shape)
+            gap, _, moved = _rows_gap(x, out, drop=drop)
+            spy_self.dropped.append((gap, moved))
+            return got
+
         self.C._wire_quantize_int8 = spy
+        backend.neighbor_allreduce = nar
+        backend.mix_compress_exchange = mix
         return self
 
     def __exit__(self, *exc):
         self.C._wire_quantize_int8 = self.real
+        self.C.RankBackend.neighbor_allreduce = self.real_nar
+        self.C.RankBackend.mix_compress_exchange = self.real_mix
 
 
 def _p27_buckets(params, specs, sizes, n_buckets, per_device=True):
@@ -7490,7 +7549,8 @@ def _p27_buckets(params, specs, sizes, n_buckets, per_device=True):
                 continue
             count = sum(re.sub(r"\.\d+\.", ".*.", j, count=1) == key
                         for j in params)
-            dims = [count // sizes[spec[0][1]]] + dims
+            dims = [count // int(np.prod([sizes[a] for a in spec[0][1:]]))
+                    ] + dims
             where[key] = len(leaves)
         leaves.append(SimpleNamespace(shape=tuple(dims), dtype=v.dtype))
         names.append([k])
@@ -7500,8 +7560,9 @@ def _p27_buckets(params, specs, sizes, n_buckets, per_device=True):
             for b in plan.buckets]
 
 
-def _p27_step(cfg, seed, compress, momentum, pp=False, **kw):
-    """``cfg``'s model over 2 stacked ranks, atc over
+def _p27_step(cfg, seed, compress, momentum, pp=False, comm_mode="atc",
+              **kw):
+    """``cfg``'s model over 2 stacked ranks, ``comm_mode`` (atc) over
     ExponentialTwoGraph(2), f32 masters from --seed: tp 2 in the JAX
     pod's layout (vocab_parallel + tp_seq_shard, every matrix sharded,
     the norms replicated) or, with ``pp``, pp 2 (GPipe).  Returns (step,
@@ -7531,7 +7592,7 @@ def _p27_step(cfg, seed, compress, momentum, pp=False, **kw):
     params = bt.rank_major(state, backend, specs=specs)
     opt = torch.optim.SGD(params.values(), lr=1e-3, momentum=momentum)
     step = bt.build_train_step(
-        loss_fn, opt, backend, comm_mode="atc",
+        loss_fn, opt, backend, comm_mode=comm_mode,
         topology=bt.uniform_topology_spec(bt.ExponentialTwoGraph(2)),
         param_specs=specs,
         opt_state_specs=F.optax_state_specs(opt, state, specs),
@@ -7616,13 +7677,16 @@ def _p27_leg(label, cfg, seed, compress, momentum, per_step, ref=None,
             if mix:
                 m = torch.maximum(m, kept)
             miss.append(float(m.max()))
-        worst, where = 0.0, None
+        worst, where, bounds, drift = 0.0, None, [], []
         for b, (names, _) in enumerate(buckets):
             bound = WIRE_SLACK * WIRE_W * (miss[b] * (2 if mix else 1)
                                            + miss[nb + b])
+            bounds.append(bound)
+            drift.append(0.0)
             for k in names:
                 d = (params[k] - ref["params"][k].to(params[k].device)
                      ).abs().max().item()
+                drift[b] = max(drift[b], d)
                 r = d / bound
                 if r > worst:
                     worst, where = r, k
@@ -7633,6 +7697,48 @@ def _p27_leg(label, cfg, seed, compress, momentum, per_step, ref=None,
             raise AssertionError(f"{label}: params after 2 steps beyond the "
                                  f"int8 grid's bound ({worst:.3g} of it at "
                                  f"{where})")
+        # the exchange bound: each compressed exchange's combined bucket
+        # against the exact mix of its own input rows (the gradient term
+        # measured out, no slack): a receiver's view misses at most the
+        # call's miss, at step 1 of top-k the residual held at step 0 too
+        # (its view lags by the new residual less the old), plus the f32
+        # rounding of the two mixes
+        if len(spy.exchanges) != len(spy.calls):
+            raise AssertionError(f"{label}: {len(spy.exchanges)} exchanges "
+                                 f"for {len(spy.calls)} quantizer calls")
+        ex_worst, ex_at, planted = 0.0, None, []
+        for c, (gap, top) in enumerate(spy.exchanges):
+            st, b = divmod(c, nb)
+            bound = (WIRE_W * (miss[c] + (miss[c - nb] if mix and st
+                                          else 0.0))
+                     + WIRE_ROUND * top)
+            if gap / bound > ex_worst:
+                ex_worst, ex_at = gap / bound, (st, b)
+            if mix:
+                planted.append(spy.dropped[c][0] / bound)
+        rec.update(exchange_ratio=ex_worst, exchange_at=ex_at)
+        if ex_worst > 1.0:
+            raise AssertionError(f"{label}: an exchange's combine beyond "
+                                 f"its wire's bound ({ex_worst:.3g} of it "
+                                 f"at step, bucket {ex_at})")
+        if mix:
+            c = nb + WIRE_FAULT_BUCKET
+            rec["planted"] = planted[nb:]
+            # the 2-step bound under the same fault: the fault moves the
+            # params of bucket 0 by the dropped delta at step 1's combine
+            # (the step's last write; device 0's rows, which every leaf
+            # takes, moved by at most ``moved``), so it reads between
+            # (moved -/+ the bucket's drift) over its bound
+            moved, b0 = spy.dropped[c][1], bounds[WIRE_FAULT_BUCKET]
+            d0 = drift[WIRE_FAULT_BUCKET]
+            rec["planted_2step"] = ((moved - d0) / b0, (moved + d0) / b0)
+            if planted[c] <= 1.0 or rec["planted_2step"][0] <= 1.0:
+                raise AssertionError(
+                    f"{label}: bucket {WIRE_FAULT_BUCKET}'s received delta "
+                    f"dropped at step 1 reads {planted[c]:.3g} of the "
+                    f"exchange bound and at least "
+                    f"{rec['planted_2step'][0]:.3g} of the 2-step bound: "
+                    "not rejected")
     laps.append(time.perf_counter())
     # step 2: the device ms, the exchanges (one device's payload each) and
     # the host syncs of a steady step
@@ -7709,7 +7815,17 @@ def _p27_leg(label, cfg, seed, compress, momentum, per_step, ref=None,
         + ("" if ref is None else
            f"; step 0's loss the uncompressed step's; params after 2 steps "
            f"within {rec['worst_ratio']:.3g} of the grid's bound (worst "
-           f"{rec['worst_leaf']}); {rec['scales_checked']} calls' scales "
+           f"{rec['worst_leaf']}); each exchange within "
+           f"{rec['exchange_ratio']:.5f} of its wire's bound (worst step, "
+           f"bucket {rec['exchange_at']})"
+           + ("" if "planted" not in rec else
+              "; planted: bucket {}'s received delta dropped at step 1 "
+              "reads {:.3g} of the exchange bound (rejected; buckets "
+              "{}) and {:.3g}-{:.3g} of the 2-step bound (rejected)"
+              .format(WIRE_FAULT_BUCKET, rec["planted"][WIRE_FAULT_BUCKET],
+                      [round(r, 3) for r in rec["planted"]],
+                      *rec["planted_2step"]))
+           + f"; {rec['scales_checked']} calls' scales "
            f"each device's absmax, one scale a rank's bucket rejected at "
            f"{rec['old_layout_rejected']}; contract [] (whole-rank buckets: "
            f"{rec['contract_rejects']} mismatches)")
@@ -7798,6 +7914,299 @@ def phase_wire(seed):
     log(f"[wire27b] {time.perf_counter() - t1:.1f} s; phase 27 "
         f"{time.perf_counter() - t0:.1f} s")
     return out
+
+
+# ------------------------------------------------------------------ #
+# Phase 28: benchutil's timers and overlap accounting, and ibfrun's
+# engines, on the card
+# ------------------------------------------------------------------ #
+# 28a's floor for the bucketed cta step's overlappable fraction, and its
+# ceiling for the planted fault (the same step with its exchanges on the
+# compute stream, where no other stream's compute can hide them).  The
+# first bucket's exchange may run before the host has launched any of
+# the forward (0 and 2.2 ms of compute beside it in two runs, 35% of the
+# bytes; PERF.md §6), so the floor is a quarter of the bytes
+OVERLAP_SOUND_MIN = 0.25
+OVERLAP_FAULT_MAX = 0.05
+# 28b: chain_time's K2 iteration (one K2 call and one fused add over q's
+# 64 MiB) over time_ms's (K2 alone, L2 flushed, after a device spin)
+TIMER_RATIO = (0.9, 1.5)
+TIMER_N, TIMER_REPS = 20, 5
+
+
+@contextlib.contextmanager
+def _on_one_stream():
+    """The planted fault of 28a: while it holds, ``torch.cuda.stream(s)``
+    enters nothing, so the bucketed step's exchanges run on its compute
+    stream (``combine(..., on_side=False)`` in effect)."""
+    real = torch.cuda.stream
+    torch.cuda.stream = lambda stream: contextlib.nullcontext()
+    try:
+        yield
+    finally:
+        torch.cuda.stream = real
+
+
+def _dump_exchange_events(step, args, path="build/p28a_events.txt"):
+    """On a failed window check: one more profiled run of ``step`` with
+    the exchange tally on, its exchange ranges and markers, the runtime
+    calls and every device event written to ``path`` (relative to the
+    working directory)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bluefog_tpu_torch.parallel import collectives as C
+
+    C._exchange_tally = {}
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(*args)
+            torch.cuda.synchronize()
+    finally:
+        C._exchange_tally = None
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    cuda = torch.autograd.DeviceType.CUDA
+    with open(path, "w") as f:
+        for e in prof.events():
+            if not (e.name.startswith((C.EXCHANGE, "cu"))
+                    or e.device_type == cuda):
+                continue
+            par = getattr(e, "cpu_parent", None)
+            f.write(f"{e.name} {e.device_type} id={e.id} thread={e.thread}"
+                    f" stream={getattr(e, 'device_resource_id', None)} "
+                    f"ua={getattr(e, 'is_user_annotation', None)} "
+                    f"t={e.time_range.start:.1f}-{e.time_range.end:.1f} "
+                    f"parent={getattr(par, 'name', None)}:"
+                    f"{getattr(par, 'id', None)}\n")
+    log(f"[overlap28a] exchange events written to {path}")
+
+
+def _p28a(seed):
+    """28a: phase 27a's layout (Llama-3.1-8B's width at WIRE_LAYERS, dp 2
+    x tp 2, vocab_parallel + tp_seq_shard, 4 buckets, no wire) under
+    cta, whose bucketed exchanges run on a side stream beside the
+    forward and backward, profiled with ``profile_step(link_bytes_per_s=
+    the card's copy rate)``: on one card an exchange is a device copy,
+    so each window answers whether compute ran beside it for as long as
+    its own transfer takes; then the same step with its exchanges on the
+    compute stream (the planted fault).  Returns (the launches, {label:
+    overlap})."""
+    from bluefog_tpu_torch import benchutil, observe
+
+    cfg = dataclasses.replace(_llama8b_cfg(WIRE_LAYERS), tp_axis="tp",
+                              tp_size=TP_SIZE, vocab_parallel=True,
+                              tp_seq_shard=True)
+    link = benchutil.chip_hbm_bandwidth() / 2
+    torch.cuda.empty_cache()
+    _reset_counts()
+    step, params, opt, batch, _, _ = _p27_step(
+        cfg, seed, None, 0.0, comm_mode="cta", overlap="bucketed",
+        overlap_buckets=WIRE_BUCKETS)
+    out = {}
+    for label, fault in (("cta", False),
+                         ("cta, exchanges on the compute stream", True)):
+        t0 = time.perf_counter()
+        with _on_one_stream() if fault else contextlib.nullcontext():
+            prof = observe.profile_step(step, params, opt, batch, 0,
+                                        link_bytes_per_s=link,
+                                        publish=False)
+        acc = out[label] = prof.overlap
+        wins = [w for w in prof.windows if w["kind"] == "collective-permute"]
+        if len(wins) != WIRE_BUCKETS or any(w["window_ms"] <= 0
+                                            for w in wins):
+            _dump_exchange_events(step, (params, opt, batch, 0))
+            raise AssertionError(f"28a {label}: windows {wins}")
+        log(f"[overlap28a] {label}: {len(wins)} exchange windows "
+            + "; ".join(f"{w['bytes'] / 1e6:.1f} MB on {w['computation']}"
+                        f" {w['window_ms']:.3f} ms, compute inside "
+                        f"{w['compute_ms']:.3f} ms" for w in wins)
+            + f"; overlappable fraction {acc['fraction']:.3f} of "
+            f"{acc['bytes_total']:,} bytes at {link / 1e9:.1f} GB/s "
+            f"(basis {acc['basis']}); device {prof.device_seconds * 1e3:.2f}"
+            f" ms, {time.perf_counter() - t0:.1f} s")
+        del prof
+    del step, params, opt, batch
+    launches = _expect_launches("28a", dict.fromkeys(
+        FLASH_KERNELS, 2 * 2 * 2 * WIRE_LAYERS))
+    sound, planted = out["cta"], out["cta, exchanges on the compute stream"]
+    if sound["fraction"] < OVERLAP_SOUND_MIN:
+        raise AssertionError(f"28a: the side-stream exchanges' overlappable "
+                             f"fraction {sound['fraction']:.3f} is under "
+                             f"{OVERLAP_SOUND_MIN}")
+    if planted["fraction"] > OVERLAP_FAULT_MAX:
+        raise AssertionError(f"28a: exchanges on the compute stream read "
+                             f"{planted['fraction']:.3f} overlappable, over "
+                             f"{OVERLAP_FAULT_MAX}: the planted fault passes")
+    log(f"[overlap28a] the planted fault (exchanges on the compute stream) "
+        f"reads {planted['fraction']:.3f}, within {OVERLAP_FAULT_MAX}: "
+        "rejected")
+    return launches, out
+
+
+def _early_end_ms(f, params, x0, n, reps):
+    """The planted timer of 28b: chain_time's loop with its end event
+    recorded before the work, ms an iteration."""
+    times = []
+    with torch.no_grad():
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            end.record()
+            x = x0
+            for _ in range(n):
+                x = torch.add(x0, f(params, x), alpha=1e-30)
+            end.synchronize()
+            times.append(start.elapsed_time(end) / n)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _p28b(seed):
+    """28b: one K2 call at q [4,2048,32,128] (kv 8, causal, bf16) timed
+    by ``benchutil.chain_time`` and by ``time_ms`` on the same input;
+    their ratio within TIMER_RATIO, and a timer that records its end
+    event before the work rejected by it.  Returns the two ms."""
+    from bluefog_tpu_torch import benchutil
+    from bluefog_tpu_torch.parallel import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(seed + 28)
+    q = torch.randn(4, 2048, 32, 128, generator=g, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn(4, 2048, 8, 128, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+
+    def f(p, x):
+        return fa.flash_forward(x, p[0], p[1], True)[0]
+
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    chain_ms = benchutil.chain_time(f, (k, v), q, n=TIMER_N,
+                                    reps=TIMER_REPS) * 1e3
+    event_ms = time_ms(lambda: fa.flash_forward(q, k, v, True), flush)
+    planted_ms = _early_end_ms(f, (k, v), q, TIMER_N, TIMER_REPS)
+    lo, hi = TIMER_RATIO
+    ratio, planted = chain_ms / event_ms, planted_ms / event_ms
+    log(f"[timer28b] K2 at q [4,2048,32,128]: benchutil.chain_time "
+        f"{chain_ms:.4f} ms an iteration, time_ms {event_ms:.4f} ms, ratio "
+        f"{ratio:.3f} (held to {lo}-{hi}); the planted timer (end event "
+        f"before the work) {planted_ms:.4f} ms, ratio {planted:.3f}")
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"28b: chain_time / time_ms {ratio:.3f} outside "
+                             f"{TIMER_RATIO}")
+    if lo <= planted <= hi:
+        raise AssertionError("28b: a timer that records its end before the "
+                             f"work reads {planted:.3f} of time_ms: passes")
+    return chain_ms, event_ms
+
+
+# 28c: one native engine's cell, on the card it finds (no CPU fallback)
+ENGINE_CELL = """
+import torch
+import bluefog_tpu_torch as bf
+from bluefog_tpu_torch.parallel import flash_attention as fa
+from bluefog_tpu_torch.parallel import flash_check
+
+assert torch.cuda.is_available(), "the engine finds no card"
+bf.init()
+dev = torch.device("cuda", torch.cuda.current_device())
+g = torch.Generator(dev).manual_seed({seed})
+b, t, h, kv, d = 4, 2048, 32, 8, 128
+q = torch.randn(b, t, h, d, generator=g, device=dev).to(torch.bfloat16)
+k, v = (torch.randn(b, t, kv, d, generator=g, device=dev).to(
+    torch.bfloat16) for _ in range(2))
+fa.reset_launch_counts()
+out, lse = fa.flash_forward(q, k, v, True)
+launches = fa.flash_forward.launches
+ref, ref_lse = fa.flash_forward_plain(q, k, v, True)
+terms = flash_check.term_sizes(q, k, v, torch.zeros_like(q), ref_lse,
+                               torch.zeros_like(ref_lse), True)["out"]
+result = (torch.cuda.get_device_name(dev), str(dev), bf.size(), launches,
+          flash_check.mismatch(out, ref, terms), out.is_cuda)
+"""
+
+
+def _reap(pid, timeout=60.0):
+    """Wait for our child ``pid`` to exit (SIGKILL after ``timeout``)."""
+    import signal
+
+    deadline = time.time() + timeout
+    while True:
+        try:
+            done, _ = os.waitpid(pid, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if done:
+            return
+        if time.time() > deadline:
+            os.kill(pid, signal.SIGKILL)
+            deadline = float("inf")
+        time.sleep(0.05)
+
+
+def _p28c(seed):
+    """28c: ``interactive_run.start_native_cluster`` starts one native
+    engine; through ``Client`` it runs ``bf.init()`` (the card), one K2
+    call held to its plain version under flash_check's bound, and
+    returns its device; then ``stop_cluster``.  Returns the engine's
+    device name."""
+    import shutil
+
+    from bluefog_tpu_torch.run import interactive_run as ir
+    from bluefog_tpu_torch.run.engines import Client
+
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_28c_")
+    old = os.environ.get("BLUEFOG_TPU_STATE_DIR")
+    os.environ["BLUEFOG_TPU_STATE_DIR"] = tmp
+    t0 = time.perf_counter()
+    pids = []
+    try:
+        if ir.start_native_cluster(1, "chip28c", f"file://{tmp}/store") != 0:
+            raise AssertionError("28c: the engine did not start")
+        pids = ir.load_state("chip28c")["engine_pids"]
+        started = time.perf_counter() - t0
+        try:
+            with Client("chip28c") as c:
+                c.execute(ENGINE_CELL.format(seed=seed))
+                (name, dev, size, launches, err,
+                 on_card) = c.eval("result")[0]
+        finally:
+            if ir.stop_cluster("chip28c") != 0:
+                raise AssertionError("28c: stop_cluster found no cluster")
+            for pid in pids:
+                _reap(pid)
+    finally:
+        if old is None:
+            os.environ.pop("BLUEFOG_TPU_STATE_DIR", None)
+        else:
+            os.environ["BLUEFOG_TPU_STATE_DIR"] = old
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[engines28c] one native engine on {name} ({dev}), started in "
+        f"{started:.1f} s: bf.init() size {size}, K2 launched {launches} "
+        f"time(s), out within {err:.3g} of flash_check's bound; stopped, "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    if not on_card or not dev.startswith("cuda") or launches != 1 \
+            or err > 1.0 or size != 1:
+        raise AssertionError(f"28c: device {dev}, on the card {on_card}, "
+                             f"{launches} launches, mismatch {err}")
+    if name != torch.cuda.get_device_name(0):
+        raise AssertionError(f"28c: the engine's card {name!r}")
+    return name
+
+
+def phase_bench(seed):
+    """Phase 28: the overlap accounting (28a), the timers (28b) and the
+    engines (28c) on the card.  Returns 28a's launches."""
+    t0 = time.perf_counter()
+    launches, _ = _p28a(seed)
+    t1 = time.perf_counter()
+    _p28b(seed)
+    t2 = time.perf_counter()
+    _p28c(seed)
+    log(f"[bench28] 28a {t1 - t0:.1f} s, 28b {t2 - t1:.1f} s, 28c "
+        f"{time.perf_counter() - t2:.1f} s; phase 28 "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -7910,6 +8319,9 @@ def main() -> int:
     for kname, n in phase_wire(args.seed).items():
         launches[kname] += n
     lap("wire")
+    for kname, n in phase_bench(args.seed).items():
+        launches[kname] += n
+    lap("bench")
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):
         entries.append(dict(

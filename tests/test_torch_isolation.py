@@ -1,5 +1,6 @@
-"""The port stands alone: no module of bluefog_tpu_torch/ (its launcher
-``bluefog_tpu_torch.run`` included), and not chip_smoke.py, imports jax,
+"""The port stands alone: no module of bluefog_tpu_torch/ (its launchers
+``bluefog_tpu_torch.run`` and ``ibfrun`` included), and not chip_smoke.py,
+imports jax,
 flax, optax, networkx, triton or the JAX package; the package imports
 and the launcher runs with those blocked; and its entry points
 run on the card unless the caller asks for the CPU (without CUDA, a call
@@ -57,7 +58,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
         "moe/dispatch", "moe/layer", "topology/torus",
         "topology/compiler", "topology/control", "sim/clock", "sim/cost",
         "sim/traces", "sim/wire", "sim/training", "sim/serving",
-        "benchutil")} <= names
+        "benchutil", "run/engines", "run/interactive_run")} <= names
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
            for p in files}
@@ -108,6 +109,41 @@ def test_bfrun_runs_with_jax_and_triton_blocked():
                           text=True, timeout=120, env=env, cwd=str(ROOT))
     assert proc.returncode == 0, proc.stderr
     assert "bfrun (bluefog_tpu_torch)" in proc.stdout
+    assert proc.stdout.rstrip().endswith("ok")
+
+
+def test_ibfrun_runs_with_jax_blocked_and_stays_out_of_the_package(
+        tmp_path):
+    """``import bluefog_tpu_torch`` loads neither ``run.engines`` nor
+    ``run.interactive_run``; with jax and the JAX package unimportable
+    both import, load neither, and ``python -m
+    bluefog_tpu_torch.run.interactive_run stop`` runs (no cluster: 1)."""
+    code = (
+        "import runpy, sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'networkx',\n"
+        "             'bluefog_tpu', 'triton'):\n"
+        "    sys.modules[name] = None\n"
+        "import bluefog_tpu_torch\n"
+        "ibf = ('bluefog_tpu_torch.run.engines',\n"
+        "       'bluefog_tpu_torch.run.interactive_run')\n"
+        "assert not [m for m in ibf if m in sys.modules]\n"
+        "import bluefog_tpu_torch.run.engines\n"
+        "sys.argv = ['ibfrun', 'stop', '--profile', 'none']\n"
+        "try:\n"
+        "    runpy.run_module('bluefog_tpu_torch.run.interactive_run',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 1, e.code\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in\n"
+        "          ('jax', 'triton', 'bluefog_tpu')\n"
+        "          and sys.modules[m] is not None]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               BLUEFOG_TPU_STATE_DIR=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr
     assert proc.stdout.rstrip().endswith("ok")
 
 

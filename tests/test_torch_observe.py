@@ -63,13 +63,15 @@ def test_observe_exports_every_jax_name():
     assert set(jobserve.__all__) <= set(observe.__all__)
     for name in jobserve.__all__:
         assert getattr(observe, name) is not None
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # the op breakdown and the contract check read a profiled run, not
+    # HLO text; the overlap accounting runs where a link rate is given
+    with pytest.raises(TypeError, match="StepProfile"):
         observe.hlo_op_breakdown("HloModule m")
-    # the contract check reads a profiled step's tally, not HLO text
     with pytest.raises(TypeError, match="StepProfile"):
         observe.verify_collective_contract("HloModule m", {}, 4)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        observe.profile_step(lambda: None, link_bytes_per_s=1e9)
+    prof = observe.profile_step(lambda: None, link_bytes_per_s=1e9,
+                                publish=False)
+    assert prof.overlap["fraction"] == 0.0 and prof.windows == []
 
 
 def test_exporters_match_the_jax_exporters():
@@ -134,7 +136,10 @@ def test_profile_step_counts_flops_and_exchanges():
         "count": n_classes, "bytes": n_classes * (8 + 64) * 4}}
     assert prof.peak_flops == 0.0 and prof.mfu() == 0.0
     assert prof.step_seconds > 0 and prof.op_breakdown
-    assert prof.windows == [] and prof.overlap is None
+    # one window per exchange, with its payload; no link rate, no overlap
+    assert [(w["kind"], w["bytes"]) for w in prof.windows] == [
+        ("collective-permute", (8 + 64) * 4)] * n_classes
+    assert prof.overlap is None
     snap = reg.snapshot()
     assert snap["bf_step_flops"][0]["value"] == prof.flops
     assert snap["bf_step_collective_bytes"][0]["labels"] == {

@@ -71,12 +71,21 @@ def _prompts(sizes, seed):
     return [rs.randint(0, 256, (n,)).astype(np.int32) for n in sizes]
 
 
-def test_verify_window_keeps_every_position():
-    """``verify_window`` writes the K/V ``prefill_cache`` writes and keeps
-    every position's logits: position i equals a prefill of the first
-    i + 1 tokens."""
-    tcfg = bt.LlamaConfig.tiny(dtype=torch.float32)
-    model = bt.Llama(tcfg, device="cpu",
+# The f32 window's bound, in grid steps of the logits' largest entry
+# (eps * max|logits|).  The window runs every projection and the head as
+# one GEMM over its 6 rows, a prefill of i + 1 tokens over i + 1 rows,
+# and the BLAS library picks its kernel, and so its summation order, by
+# the row count and the host's CPU: the two paths part by a few grid
+# steps (5.6 on an AMD EPYC host with MKL).  32 steps hold that with
+# room; a position off by one moves the logits by O(1).
+F32_GRID_STEPS = 32
+
+
+def _window_and_prefills(tcfg, param_dtype=None):
+    """verify_window's logits over 6 tokens, and for each position i the
+    last logits of a prefill of the first i + 1 tokens ([1, 6, V] each);
+    the window's and a whole prefill's caches must be equal."""
+    model = bt.Llama(tcfg, device="cpu", param_dtype=param_dtype,
                      generator=torch.Generator().manual_seed(3))
     dcfg = decode_config(tcfg, 16)
     toks = torch.from_numpy(_prompts((6,), 5)[0][None])
@@ -86,11 +95,54 @@ def test_verify_window_keeps_every_position():
     c2 = init_cache(dcfg, 1, 16, device="cpu")
     prefill_cache(model, c2, toks)
     assert torch.equal(c1.key, c2.key) and torch.equal(c1.index, c2.index)
+    lasts = []
     for i in range(6):
         ci = init_cache(dcfg, 1, 16, device="cpu")
         last, _ = prefill_cache(model, ci, toks[:, :i + 1])
-        torch.testing.assert_close(logits[:, i], last[:, -1], rtol=1e-6,
-                                   atol=1e-6)
+        lasts.append(last[:, -1])
+    return logits, torch.stack(lasts, 1)
+
+
+def _worst_ratio(logits, prefills, tol, shift=0):
+    """The largest |window - prefill| over ``tol`` (a scalar or the
+    entries' own allowance), position i against the prefill of the first
+    i + 1 + ``shift`` tokens (``shift`` != 0: the planted off-by-one)."""
+    idx = [i + shift for i in range(6) if 0 <= i + shift < 6]
+    pos = [i for i in range(6) if 0 <= i + shift < 6]
+    gap = (logits[:, pos] - prefills[:, idx]).abs()
+    if not isinstance(tol, float):
+        tol = tol[:, idx]
+    return float((gap / tol).max())
+
+
+def test_verify_window_keeps_every_position():
+    """``verify_window`` writes the K/V ``prefill_cache`` writes and keeps
+    every position's logits: position i equals a prefill of the first
+    i + 1 tokens in f32 within ``F32_GRID_STEPS`` grid steps of the
+    largest logit, and a planted off-by-one position (either way) is
+    rejected."""
+    logits, prefills = _window_and_prefills(
+        bt.LlamaConfig.tiny(dtype=torch.float32))
+    assert logits.dtype == torch.float32
+    tol = F32_GRID_STEPS * torch.finfo(torch.float32).eps * float(
+        prefills.abs().max())
+    assert _worst_ratio(logits, prefills, tol) <= 1.0
+    for shift in (-1, 1):
+        assert _worst_ratio(logits, prefills, tol, shift) > 1.0, shift
+
+
+def test_verify_window_keeps_every_position_f64():
+    """The same contract where f32 rounding cannot reach it: the tiny
+    config in float64 with the head in float64 too
+    (``logits_dot_in_fp32=False``; the default f32 head is itself a GEMM
+    over the window's rows), at rtol = atol = 1e-12; a planted
+    off-by-one position is rejected."""
+    tcfg = bt.LlamaConfig.tiny(dtype=torch.float64, logits_dot_in_fp32=False)
+    logits, prefills = _window_and_prefills(tcfg, torch.float64)
+    tol = 1e-12 + 1e-12 * prefills.abs()
+    assert _worst_ratio(logits, prefills, tol) <= 1.0
+    for shift in (-1, 1):
+        assert _worst_ratio(logits, prefills, tol, shift) > 1.0, shift
 
 
 def test_speculative_self_draft_exact_and_fast(weights):

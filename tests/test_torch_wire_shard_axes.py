@@ -17,7 +17,13 @@ state, for 3 steps; losses, params and every ``MixState`` buffer within
   the expert dim, the router and the dense trunk replicated;
 * the hierarchical exchange (2 machines of 2 ranks) at tp 2 under
   ``MixCompressConfig(0.5, "int8")``: each device's machine mean, then
-  the machine-level wire.
+  the machine-level wire;
+* tp 2, ep 2 and dp alone with ``scan_layers=True`` and no pp axis,
+  each under the bucketed int8 wire and under bucketed
+  ``MixCompressConfig(0.5, "int8")`` (3 buckets asked for, 3-5 made):
+  JAX holds each weight name's layers as one scanned leaf ``[L, ...]``,
+  so the port plans, scales and selects a weight name's layers as one
+  leaf there too (``llama_param_specs(scan_layers=True)``).
 
 Why each step starts from JAX's state, and JAX's too: see
 ``test_torch_wire_shard.py`` (the wire's decisions are discontinuous in
@@ -57,8 +63,30 @@ CASES = {
                                   overlap_buckets=3), 2, 4),
     "ep": ("ep", 2, dict(mix="int8"), None, 2),
     "hier_tp": ("tp", 2, dict(mix="int8", hier=2), None, 2),
+    "tp_scan_int8": ("tp", 2, dict(compress="int8", overlap="bucketed",
+                                   overlap_buckets=3), None, 2),
+    "tp_scan_mix": ("tp", 2, dict(mix="int8", overlap="bucketed",
+                                  overlap_buckets=3), None, 2),
+    "ep_scan_int8": ("ep", 2, dict(compress="int8", overlap="bucketed",
+                                   overlap_buckets=3), None, 2),
+    "ep_scan_mix": ("ep", 2, dict(mix="int8", overlap="bucketed",
+                                  overlap_buckets=3), None, 2),
+    "dp_scan_int8": (None, 1, dict(compress="int8", overlap="bucketed",
+                                   overlap_buckets=3), None, 2),
+    "dp_scan_mix": (None, 1, dict(mix="int8", overlap="bucketed",
+                                  overlap_buckets=3), None, 2),
 }
 T = 16
+# data-parallel ranks where a case takes fewer than N_BF: on 8 CPU
+# devices XLA's in-process collectives can deadlock on JAX's scanned tp
+# int8 step (the early exchange's permutes over every device and the
+# scanned forward's tp all-reduces wait for each other's threads on a
+# loaded host), and do not over dp 2 x tp 2
+DP = {"tp_scan_int8": 2}
+
+
+def _dp(case):
+    return DP.get(case, N_BF)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -77,9 +105,10 @@ def _over(case):
     axis = CASES[case][0]
     if axis == "pp":
         return dict(n_layers=L, scan_layers=True)
+    scan = dict(n_layers=L, scan_layers=True) if "_scan" in case else {}
     if axis == "ep":
-        return dict(n_experts=4, moe_top_k=2, capacity_factor=2.0)
-    return {}
+        return dict(n_experts=4, moe_top_k=2, capacity_factor=2.0, **scan)
+    return scan
 
 
 def _model_over(case):
@@ -98,7 +127,7 @@ def _kw(F, case):
     if "mix" in kw:
         kw["compress"] = F.MixCompressConfig(0.5, kw.pop("mix"))
     hier = kw.pop("hier", None)
-    n_topo = N_BF // hier if hier else N_BF
+    n_topo = _dp(case) // hier if hier else _dp(case)
     kw["topology"] = F.uniform_topology_spec(F.ExponentialTwoGraph(n_topo)) \
         if F is bt else uniform_topology_spec(ExponentialTwoGraph(n_topo))
     if hier:
@@ -163,8 +192,10 @@ def _jax_run(case):
     if n_loops and n_loops > 1:
         variables = jax.tree.map(np.asarray,
                                  j_circular(variables, size, n_loops))
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(N_BF, size),
-                ("bf", axis))
+    n = _dp(case)
+    mesh = (Mesh(np.array(jax.devices()[:n]), ("bf",)) if axis is None
+            else Mesh(np.array(jax.devices()[:n * size]).reshape(n, size),
+                      ("bf", axis)))
     opt = optax.sgd(LR)
     kw = _kw(JF, case)
     if axis == "pp":
@@ -183,7 +214,7 @@ def _jax_run(case):
                     model.apply(params, batch[0]), batch[1]))
 
         specs = (j_specs(variables, tp_axis=None, ep_axis="ep")
-                 if axis == "ep" else j_specs(variables))
+                 if axis == "ep" else j_specs(variables, tp_axis=axis))
     ospecs = JF.optax_state_specs(opt, variables, specs)
     step = JF.build_train_step(
         loss_fn, opt, mesh, comm_mode="cta", batch_specs=P("bf"),
@@ -193,7 +224,7 @@ def _jax_run(case):
     mix = step.mix_config is not None
     if mix:
         opt_state = (opt_state, step.init_mix_state(params))
-    raw = np.random.RandomState(0).randint(0, 256, (N_BF, rows, T + 1))
+    raw = np.random.RandomState(0).randint(0, 256, (n, rows, T + 1))
     inp, tgt = raw[..., :-1].astype(np.int32), raw[..., 1:].astype(np.int32)
     sh = NamedSharding(mesh, P("bf"))
     batch = (jax.device_put(inp, sh), jax.device_put(tgt, sh))
@@ -229,9 +260,9 @@ def _port(case, ref):
     order = _port_names(ref["variables"], cfg.n_layers)
     assert sorted(order) == sorted(state)
     state = {k: state[k] for k in order}
-    backend = bt.StackedBackend(N_BF, device="cpu")
+    backend = bt.StackedBackend(_dp(case), device="cpu")
     kw = _kw(bt, case)
-    ax = bt.MeshAxis(axis, size)
+    ax = bt.MeshAxis(axis, size) if axis is not None else None
     if axis == "pp":
         specs = llama_param_specs(state, tp_axis=None, ep_axis=None,
                                   pp_axis="pp")
@@ -239,10 +270,14 @@ def _port(case, ref):
                                    n_micro=2 * n_loops, n_loops=n_loops)
         kw["pp_axis"] = ax
     else:
-        specs = (llama_param_specs(state, tp_axis=None, ep_axis="ep")
-                 if axis == "ep" else llama_param_specs(state))
+        specs = (llama_param_specs(state, tp_axis=None, ep_axis="ep",
+                                   scan_layers=cfg.scan_layers)
+                 if axis == "ep" else
+                 llama_param_specs(state, tp_axis=axis,
+                                   scan_layers=cfg.scan_layers))
         loss_fn = llama_loss_fn(model)
-        kw["mesh_axes"] = (ax,)
+        if axis is not None:
+            kw["mesh_axes"] = (ax,)
     params = bt.rank_major(state, backend, specs=specs)
     opt = torch.optim.SGD(params.values(), lr=LR)
     step = bt.build_train_step(
@@ -271,7 +306,7 @@ def test_axis_wire_step_matches_jax(case):
     mix = step.mix_config is not None
     for s in range(STEPS):
         jp, jmix = ref["states"][s]
-        for r in range(N_BF):
+        for r in range(_dp(case)):
             for k, w in _rank(cfg, jp, r).items():
                 params[k][r].copy_(w)
         if mix:
@@ -285,7 +320,7 @@ def test_axis_wire_step_matches_jax(case):
                                    rtol=RTOL, atol=ATOL,
                                    err_msg=f"step {s} losses")
         jp, jmix = ref["states"][s + 1]
-        for r in range(N_BF):
+        for r in range(_dp(case)):
             for k, w in _rank(cfg, jp, r).items():
                 np.testing.assert_allclose(
                     params[k][r].numpy(), w.numpy(), rtol=RTOL, atol=ATOL,
