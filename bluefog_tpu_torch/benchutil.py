@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import re
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -194,6 +195,40 @@ def _warm_up_launches(events) -> tuple:
                                                for e in last)
 
 
+def _breakdown_events(profile) -> list:
+    """What the breakdown reads of a finished profile: ``events()``, or,
+    where the profile keeps its raw results and recorded no flops, its
+    device events and the host's runtime calls and warm-up range read
+    from those, with the attributes ``events()`` gives them.  Building
+    ``events()`` makes an event of every CPU op of the window first, which
+    takes seconds for one 4-rank ResNet-50 step's profile."""
+    raw = getattr(getattr(profile, "profiler", None), "kineto_results",
+                  None)
+    if raw is None or getattr(profile, "with_flops", False):
+        return profile.events()
+    cpu = torch.autograd.DeviceType.CPU
+    out = []
+    base = None
+    for ev in raw.events():
+        name = ev.name()
+        kind = ev.device_type()
+        if (kind == cpu and name != _WARMUP and not name.startswith("cu")) \
+                or getattr(ev, "is_hidden_event", lambda: False)():
+            continue
+        # us from the first event read, as events() counts them from the
+        # trace's start: an epoch time in us as a float keeps only
+        # quarter microseconds
+        start = ev.start_ns()
+        base = start if base is None else base
+        out.append(SimpleNamespace(
+            name=name, id=ev.correlation_id(), device_type=kind,
+            is_user_annotation=ev.is_user_annotation(),
+            time_range=SimpleNamespace(
+                start=(start - base) / 1e3,
+                end=(start - base + ev.duration_ns()) / 1e3)))
+    return out
+
+
 def _profiled_on_card(events) -> bool:
     want = torch.autograd.DeviceType.CUDA
     return any(e.device_type == want for e in events)
@@ -218,8 +253,10 @@ def hlo_op_breakdown(profile, kernel_flops=None) -> dict:
         raise TypeError(
             "hlo_op_breakdown reads a finished torch.profiler run or a "
             "StepProfile; there is no HLO text in the port")
-    events = profile.events()
+    events = _breakdown_events(profile)
     cuda = _profiled_on_card(events)
+    if not cuda:
+        events = profile.events()
     out = {}
     if cuda:
         # each device event of the profiled work (not the warm-up's)

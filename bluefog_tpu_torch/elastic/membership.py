@@ -57,6 +57,11 @@ from bluefog_tpu_torch.topology.spec import DynamicTopology, Topology
 
 CommSpec = Union[Topology, DynamicTopology]
 
+# This module legitimately constructs weight tables from scratch: the
+# analysis lint's weight-matrix-bypass rule treats it as an authority
+# (everywhere else, tables must come from the shared helpers here).
+_WEIGHT_AUTHORITY = True
+
 __all__ = [
     "LIVE",
     "DEAD",

@@ -29,6 +29,11 @@ from bluefog_tpu_torch import config as _config
 from bluefog_tpu_torch._device import resolve_device
 from bluefog_tpu_torch.moe.dispatch import DispatchPlan, all_to_all_dispatch
 
+# This module legitimately constructs weight tables from scratch: the
+# analysis lint's weight-matrix-bypass rule treats it as an authority
+# (everywhere else, tables must come from the shared helpers here).
+_WEIGHT_AUTHORITY = True
+
 __all__ = [
     "default_capacity",
     "init_moe_params",

@@ -90,9 +90,9 @@ Phases (any failure raises and exits non-zero, printing no result):
    from one state on the same per-rank data (batch 16), the consensus
    distance under atc is below that of comm_mode="none".
 6b. Train-step modes, 4 ranks stacked, ResNet-50 at full width, batch
-   128 per rank, each mode its own build (1 warm-up, 3 timed steps, then
+   128 per rank, each mode its own build (1 warm-up, 2 timed steps, then
    one step under torch.profiler for the device-busy ms), plain atc
-   first as the yardstick, then: atc with guard= and health= (a NaN in rank 2's images at step 3: skipped
+   first as the yardstick, then: atc with guard= and health= (a NaN in rank 2's images at step 2: skipped
    [0, 0, 1, 0], rank 2's momentum and batch statistics kept bit for bit,
    params finite, HealthVector finite but for the planted rank's loss,
    grad and update norms), cta with overlap="bucketed" (4 buckets;
@@ -182,16 +182,16 @@ Phases (any failure raises and exits non-zero, printing no result):
    batch 16 a rank with cuDNN deterministic, as the reference.
    a. bfrun -np 1, one process holding 2 ranks, bf.init() joining an
       NCCL group of world size 1: the 3 reference steps bit-equal to
-      the parent's; then batch 128 a rank, 2 warm-up and 3 timed steps
+      the parent's; then batch 128 a rank, 1 warm-up and 2 timed steps
       (img/s per card, step ms, the combine's ms, peak memory, K1 20 x
-      2 x 5 launches), 0 host syncs in a steady step; the eager
+      2 x 3 launches), 0 host syncs in a steady step; the eager
       allreduce, broadcast and allgather through NCCL, exact.
    b. bfrun -np 2 on the one card, each process creating a gloo group
       that bf.init(device="cuda:0") adopts (device tensors cross through
       pinned host buffers): the 3 reference steps within phase 7's
       tolerance of the parent's (and whether bit-equal); the consensus
       distance under atc below comm_mode="none"'s; the timed window of
-      (a) at one rank a process (K1 20 x 5), the exchange's ms and the
+      (a) at one rank a process (K1 20 x 3), the exchange's ms and the
       wire's three legs (device to host, gloo, host to device) for the
       params' bytes; then an eager job of 2 ranks a process:
       neighbor_allreduce consensus, win_put gossip, a ragged
@@ -220,7 +220,7 @@ Phases (any failure raises and exits non-zero, printing no result):
       prefix (four 256-token chunks) through one PrefixCache; the second
       wave restores 32 chunks and its greedy streams equal a cold
       engine's bit for bit; TTFT p50 with and without the cache.
-   d. Speculative decoding, lookahead 4, 8 greedy requests of 12 tokens:
+   d. Speculative decoding, lookahead 4, 4 greedy requests of 12 tokens:
       the target as its own draft and a 2-layer draft at 8B width from
       --seed + 1, against plain greedy; accepted tokens a step, tokens/s.
    e. Drain and failover (capacity 4, a virtual clock, 8 requests, half
@@ -270,8 +270,8 @@ Phases (any failure raises and exits non-zero, printing no result):
       replica's depth; router.publish lands the bf_fleet_serving_*
       gauges, prometheus_text() carries them, snapshot(dir) writes
       metrics.prom, events.jsonl and trace.json.
-   d. profile() on a live replica mid-run, a plain engine and a
-      self-drafting speculative one: each program's device ms by kernel,
+   d. profile() on a live replica mid-run (4 requests), a plain engine
+      and a self-drafting speculative one: each program's device ms by kernel,
       K4's share of decode_step (spec_step), FLOPs and MFU; the later
       streams equal those of a run without the call.
 
@@ -295,7 +295,7 @@ Phases (any failure raises and exits non-zero, printing no result):
       off-diagonal block (q_offset 2048, kv_offset 0): kernel, plain,
       bound and SDPA ms (causal, non-causal), launches a 21b ring step.
    b. training on 1 rank, batch 1 x 8192, SGD(1e-3, momentum 0.9), 1
-      warm-up and 3 timed steps each: (i) attn_mode "full" with flash,
+      warm-up and 2 timed steps each: (i) attn_mode "full" with flash,
       (ii) ring + flash and (iii) Ulysses + flash, both over SeqAxis("sp",
       4) with batch_specs ("bf", None, "sp"): tokens/s per card, step ms,
       MFU, peak memory, the losses; K2, K3a and K3b launched n_layers x
@@ -305,7 +305,7 @@ Phases (any failure raises and exits non-zero, printing no result):
       mispaired beyond it; a profile of 2 steps each (device-busy share,
       the attention kernels' shares).
    c. dp 2 x sp 2, 2 layers, ring + flash, atc over ExponentialTwoGraph(2),
-      1 x 8192 a rank, 2 warm-up and 3 timed steps: tokens/s per card,
+      1 x 8192 a rank, 1 warm-up and 2 timed steps: tokens/s per card,
       launches 3 x 2 layers x 2 ranks x steps; after 3 steps (1 x 1024 a
       rank) the consensus distance under atc below comm_mode="none"'s.
    d. the tiny f32 Llama (D = 16) at dp 2 x sp 2, ring + flash and
@@ -524,11 +524,36 @@ Phases (any failure raises and exits non-zero, printing no result):
       flash_check's bound, and returns its card's name; stop_cluster
       stops it.
 
+29. The analyzer (bluefog_tpu_torch.analysis) on the card:
+   a. step_check.check_step on ResNet-50 at full width, 4 stacked ranks
+      of batch 128 (every 1x1 backward through K1; deterministic cuDNN;
+      each rank's params given a seeded spread, since a combine of equal
+      rows reads no weight): a guarded atc + health build (its table
+      the comm_weights argument) and an unguarded cta bucketed build
+      (its table written in place into default_comm_weights), 0
+      findings each, every rule's reading beside its bound (the
+      identity run's gap > 0, the restored table's gap 0, the third
+      table's deviation within BAKED_ULPS f32 eps x max|x|); the planted
+      fault, the guarded step always combining with its build-time
+      table, flagged dead-weight-operand and baked-weight-const.
+   b. check_collective_contracts() with the exchanges on the card: 0
+      findings; a prediction with one permute removed flagged.
+   c. check_serving_residents() at Llama-3.1-8B's width and 2 layers
+      (capacity 8, max_len 1024: K4 at B=8, S=1024), a plain and a
+      speculative engine: 0 findings; the planted fault, an engine whose
+      decode program reads a copy of the weights taken at build,
+      flagged.
+   d. python -m bluefog_tpu_torch.analysis as a subprocess started at
+      the phase's start, beside 29a-29c (the lint, the tiny step sweep
+      on the card, the collectives and the residents), exits 0; the
+      same CLI's lint (its main, --no-step) on a temporary root holding
+      one rogue os.getenv exits 1.
+
 The line before the last is a JSON object with one entry per kernel
-(seven; K4's launches are phase 3's, 19's, 20's, 23c's, 24b's and
-25b's; K2's, K3a's and K3b's phase 8's, 21b's, 21c's, 22b's, 23a's,
-23b's, 24a's, 25's, 26's, 27's and 28a's, K2's 23c's rollout too); the
-last line is
+(seven; K4's launches are phase 3's, 19's, 20's, 23c's, 24b's, 25b's
+and 29c's; K1's phase 5's and 29a's; K2's, K3a's and K3b's phase 8's,
+21b's, 21c's, 22b's, 23a's, 23b's, 24a's, 25's, 26's, 27's and 28a's,
+K2's 23c's rollout too); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -669,7 +694,10 @@ def phase_kernels(name, seed):
              # phase 25b's tp 2 decode: 8 prompts' two shards folded into
              # the batch, 4 kv heads a shard, a 96 + 32-position cache
              (16, 4, 4, 128, 128, torch.bfloat16),
-             (3, 2, 1, 40, 16, torch.float32)]
+             (3, 2, 1, 40, 16, torch.float32),
+             # the tiny f32 engines of phases 4 and 29d (capacity 2,
+             # max_len 48)
+             (2, 2, 2, 48, 16, torch.float32)]
     results = {}
     for b, n_kv, rep, s, d, dt in cases:
         q = torch.randn(b, 1, n_kv * rep, d, generator=g, device="cuda",
@@ -842,12 +870,11 @@ def _serve(model, cfg, kv_quant, reqs, counter):
 
 
 def _device_kernels(prof):
-    """The profile's device kernels by name: CUDA events without the user
-    annotations (``Optimizer.step#SGD.step`` spans kernels already
-    counted, and would count them twice)."""
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+    """The profile's device kernels, ``{name: {"count", "flops",
+    "device_ms"}}``: ``benchutil.hlo_op_breakdown``'s reading of it."""
+    from bluefog_tpu_torch import benchutil
+
+    return benchutil.hlo_op_breakdown(prof)
 
 
 def _profile_decode(model, cfg, reqs, steps=10):
@@ -872,21 +899,21 @@ def _profile_decode(model, cfg, reqs, steps=10):
             eng.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = _device_kernels(prof)
-    busy = sum(e.self_device_time_total for e in events)
-    k4 = sum(e.self_device_time_total for e in events
-             if "decode_split_kernel" in e.key
-             or "decode_merge_kernel" in e.key)
+    kernels = _device_kernels(prof)
+    busy = sum(r["device_ms"] for r in kernels.values()) * 1e3
+    k4 = sum(r["device_ms"] for k, r in kernels.items()
+             if "decode_split_kernel" in k
+             or "decode_merge_kernel" in k) * 1e3
     active = sum(r.state == "decode" for r in reqs)
     log(f"[profile] {steps} decode steps ({active} slots decoding): wall "
         f"{wall_us / steps / 1e3:.2f} ms/step, device busy "
         f"{busy / steps / 1e3:.2f} ms/step ({100 * busy / wall_us:.1f}%), "
         f"K4 (split + merge) {k4 / steps / 1e3:.3f} ms/step "
         f"({100 * k4 / max(busy, 1):.1f}% of device time)")
-    for e in sorted(events, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:12]:
-        log(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f} "
-            f"ms/step  {e.count // steps:5d} calls/step  {e.key[:90]}")
+    for k, r in sorted(kernels.items(), key=lambda kr: kr[1]["device_ms"],
+                       reverse=True)[:12]:
+        log(f"[profile]   {r['device_ms'] / steps:8.3f} "
+            f"ms/step  {r['count'] // steps:5d} calls/step  {k[:90]}")
 
 
 def phase_serving(seed):
@@ -1177,9 +1204,9 @@ def _kernel_split_ms(fn, names, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = _device_kernels(prof)
-    return {label: sum(e.self_device_time_total for e in events
-                       if any(n in e.key for n in syms)) / reps / 1e3
+    kernels = _device_kernels(prof)
+    return {label: sum(r["device_ms"] for k, r in kernels.items()
+                       if any(n in k for n in syms)) / reps
             for label, syms in names.items()}
 
 
@@ -1489,17 +1516,18 @@ def _profile_train(step, state, steps=3):
             params, stats, opt, loss = step(params, stats, opt, batch, i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = _device_kernels(prof)
-    busy = sum(e.self_device_time_total for e in events)
-    k1_us = sum(e.self_device_time_total for e in events if "k1_" in e.key)
+    kernels = _device_kernels(prof)
+    busy = sum(r["device_ms"] for r in kernels.values()) * 1e3
+    k1_us = sum(r["device_ms"] for k, r in kernels.items()
+                if "k1_" in k) * 1e3
     log(f"[profile] {steps} train steps: wall {wall_us / steps / 1e3:.2f} "
         f"ms/step, device busy {busy / steps / 1e3:.2f} ms/step "
         f"({100 * busy / wall_us:.1f}%), K1 {k1_us / steps / 1e3:.3f} "
         f"ms/step ({100 * k1_us / max(busy, 1):.1f}% of device time)")
-    for e in sorted(events, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:15]:
-        log(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f} "
-            f"ms/step  {e.count // steps:5d} calls/step  {e.key[:90]}")
+    for k, r in sorted(kernels.items(), key=lambda kr: kr[1]["device_ms"],
+                       reverse=True)[:15]:
+        log(f"[profile]   {r['device_ms'] / steps:8.3f} "
+            f"ms/step  {r['count'] // steps:5d} calls/step  {k[:90]}")
 
 
 def phase_train_1rank(seed):
@@ -1820,13 +1848,13 @@ def _profile_step(call, what, top=4, host_ops=True):
         call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = _device_kernels(prof)
-    for e in sorted(events, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:top]:
-        log(f"[profile] {what}: {e.self_device_time_total / 1e3:8.3f} ms "
-            f"{e.count:5d} calls  {e.key[:80]}")
-    busy = sum(e.self_device_time_total for e in events)
-    return wall_us / 1e3, busy / 1e3
+    kernels = _device_kernels(prof)
+    for k, r in sorted(kernels.items(), key=lambda kr: kr[1]["device_ms"],
+                       reverse=True)[:top]:
+        log(f"[profile] {what}: {r['device_ms']:8.3f} ms "
+            f"{r['count']:5d} calls  {k[:80]}")
+    busy = sum(r["device_ms"] for r in kernels.values())
+    return wall_us / 1e3, busy
 
 
 def _time_combine(step, params, opt_state):
@@ -1910,10 +1938,12 @@ def _cta_bit_equal(seed):
 def phase_train_modes(seed):
     """Phase 6b: plain atc, then each train-step mode, on ResNet-50 at
     full width, 4 stacked ranks, batch 128 per rank, each its own build,
-    1 warm-up and 3 timed steps, then one profiled step (device-busy ms)
-    and one step under the sync debug mode; K1 20 x 4 x 4 launches and no
-    other kernel; no mode makes more host syncs than plain atc."""
-    timed, warmup = 3, 1
+    1 warm-up and 2 timed steps (guard_health's last one poisoned), then
+    one profiled step (device-busy ms) and one step under the sync debug
+    mode; K1 20 x 4 x 3 launches and no other kernel; no mode makes more
+    host syncs than plain atc."""
+    timed, warmup = 2, 1
+    poison_at = warmup + timed - 1   # guard_health's NaN step
     spread_none = _spread_after_3(seed, "none", {})
     rows = {}
     for name in ("atc",) + TRAIN_MODES:
@@ -1934,15 +1964,16 @@ def phase_train_modes(seed):
             if i == warmup:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-            b = poisoned if (poisoned is not None and i == 3) else batch
-            if poisoned is not None and i == 3:
+            b = poisoned if (poisoned is not None and i == poison_at) \
+                else batch
+            if poisoned is not None and i == poison_at:
                 kept["before"] = (
                     {k: opt.state[v]["momentum_buffer"][2].clone()
                      for k, v in params.items()},
                     {k: v[2].clone() for k, v in stats.items()})
             params, stats, opt_state, loss, skipped, hv = _mode_call(
                 step, params, stats, opt_state, b, i)
-            if poisoned is not None and i == 3:
+            if poisoned is not None and i == poison_at:
                 kept["after"] = (
                     {k: opt.state[v]["momentum_buffer"][2].clone()
                      for k, v in params.items()},
@@ -1962,7 +1993,7 @@ def phase_train_modes(seed):
         loss_all = torch.stack(losses)
         extra = ""
         if name == "guard_health":
-            want = [[0, 0, 1, 0] if i == 3 else [0] * 4
+            want = [[0, 0, 1, 0] if i == poison_at else [0] * 4
                     for i in range(warmup + timed)]
             got = torch.stack(skips).tolist()
             if got != want:
@@ -1974,21 +2005,24 @@ def phase_train_modes(seed):
                             f"guard: rank 2's {('momentum', 'stat')[part]} "
                             f"{k} changed in its skipped step")
             # the planted rank's loss, gradients and update are NaN at
-            # step 3, so are its loss, grad and update norms (in JAX too)
+            # the poisoned step, so are its loss, grad and update norms
+            # (in JAX too)
             for i, hv in enumerate(hvs):
                 for f, v in hv._asdict().items():
                     ok = torch.isfinite(v)
-                    if f in ("loss", "grad_norm", "update_norm") and i == 3:
+                    if f in ("loss", "grad_norm", "update_norm") \
+                            and i == poison_at:
                         ok = ok | (torch.arange(4, device=v.device) == 2)
                     if not ok.all():
                         raise AssertionError(f"guard: HealthVector.{f} of "
                                              f"step {i}: {v.tolist()}")
             finite = torch.isfinite(loss_all)
             if finite.sum().item() != loss_all.numel() - 1 \
-                    or finite[3, 2].item():
+                    or finite[poison_at, 2].item():
                 raise AssertionError(f"guard: losses {loss_all.tolist()}")
             last = hvs[-1]
-            extra = (f", skipped {got[3]} at step 3 (rank 2's momentum and "
+            extra = (f", skipped {got[poison_at]} at step {poison_at} "
+                     f"(rank 2's momentum and "
                      f"statistics kept bit for bit), last HealthVector: "
                      f"grad_norm {[round(x, 4) for x in last.grad_norm.tolist()]}, "
                      f"update_norm {[round(x, 4) for x in last.update_norm.tolist()]}, "
@@ -2288,15 +2322,15 @@ def _profile_llama(step, params, opt, batch, steps=2, what="Llama"):
             params, opt, loss = step(params, opt, batch, i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = _device_kernels(prof)
-    busy = sum(e.self_device_time_total for e in events)
-    attn = {k: sum(e.self_device_time_total for e in events
-                   if any(n in e.key for n in names))
+    kernels = _device_kernels(prof)
+    busy = sum(r["device_ms"] for r in kernels.values()) * 1e3
+    attn = {k: sum(r["device_ms"] for name, r in kernels.items()
+                   if any(n in name for n in names)) * 1e3
             for k, names in KERNEL_SYMBOLS.items()}
     # the step's only f32 matrix products are the head's three (logits,
     # dX, dW); cuBLAS names its f32 kernels sgemm or gemm_f32f32
-    head = sum(e.self_device_time_total for e in events
-               if "sgemm" in e.key or "gemm_f32f32" in e.key)
+    head = sum(r["device_ms"] for k, r in kernels.items()
+               if "sgemm" in k or "gemm_f32f32" in k) * 1e3
     log(f"[profile] {steps} {what} train steps: wall "
         f"{wall_us / steps / 1e3:.2f} ms/step, device busy "
         f"{busy / steps / 1e3:.2f} ms/step ({100 * busy / wall_us:.1f}%), "
@@ -2305,10 +2339,10 @@ def _profile_llama(step, params, opt, batch, steps=2, what="Llama"):
                   for k, us in attn.items())
         + f"f32 GEMMs (the head) {head / steps / 1e3:.3f} ms/step "
         f"({100 * head / max(busy, 1):.1f}%)")
-    for e in sorted(events, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:15]:
-        log(f"[profile]   {e.self_device_time_total / steps / 1e3:8.3f} "
-            f"ms/step  {e.count // steps:5d} calls/step  {e.key[:90]}")
+    for k, r in sorted(kernels.items(), key=lambda kr: kr[1]["device_ms"],
+                       reverse=True)[:15]:
+        log(f"[profile]   {r['device_ms'] / steps:8.3f} "
+            f"ms/step  {r['count'] // steps:5d} calls/step  {k[:90]}")
     LAST_PROFILE.clear()
     LAST_PROFILE.update({k: us / steps / 1e3 for k, us in attn.items()},
                         device=busy / steps / 1e3, head=head / steps / 1e3)
@@ -3200,7 +3234,7 @@ def _process_compare(backend, seed, comm_mode="atc"):
     return out, spread
 
 
-def _timed_process_steps(backend, seed, what, warmup=2, timed=3):
+def _timed_process_steps(backend, seed, what, warmup=1, timed=2):
     """Phase 18's timed window: ResNet-50 at batch 128 a rank under atc
     over ExponentialTwoGraph(2), K1 counted from zero; then the host
     syncs of one more steady step and the combine alone (host wall: the
@@ -3524,6 +3558,7 @@ def phase_process(seed):
 SERVE_CAP = 8        # slots of every phase-19 engine but 19e's
 PREFIX_LEN = 1024    # 19c's shared prefix, four 256-token chunks
 LOOKAHEAD = 4        # 19d
+P19D_REQS = 4        # 19d's greedy requests (8 before the smoke's depth cut)
 
 
 def _hf_state_dict(model, cfg):
@@ -3755,7 +3790,8 @@ def _device_ms_per_step(eng, reqs, steps=5):
             eng.step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    busy = sum(e.self_device_time_total for e in _device_kernels(prof))
+    busy = sum(r["device_ms"]
+               for r in _device_kernels(prof).values()) * 1e3
     eng.run()
     return busy / steps / 1e3, wall
 
@@ -3989,7 +4025,7 @@ def _phase19_spec(model, cfg, seed, rng, tally):
     import bluefog_tpu_torch as bt
     from bluefog_tpu_torch.serving import ServingEngine, SpeculativeConfig
 
-    reqs = _serve_reqs(rng, 8, cfg.vocab_size, (16, 500), 12)
+    reqs = _serve_reqs(rng, P19D_REQS, cfg.vocab_size, (16, 500), 12)
     plain = ServingEngine(model, cfg, capacity=SERVE_CAP, max_len=2048,
                           prefill_chunk=256)
     base = _clones(reqs)
@@ -4021,7 +4057,8 @@ def _phase19_spec(model, cfg, seed, rng, tally):
                    f"over {m['spec_steps']} steps; K4 launches "
                    f"{draft_cfg.n_layers * (LOOKAHEAD + 1) * m['spec_steps']}"
                    f" = draft layers x {LOOKAHEAD + 1} x steps; "
-                   f"{n_diff}/8 streams differ from plain greedy")
+                   f"{n_diff}/{len(reqs)} streams differ from plain "
+                   "greedy")
         if m["accepted_per_step"] <= 1.0 and draft is model:
             raise AssertionError("19d: the self-draft accepted nothing")
         del eng
@@ -4141,6 +4178,7 @@ FLEET = 3            # replicas on the one card
 FLEET_REQS = 8       # 20a's requests, one arrival a round
 STALE_S = 0.5        # 20b's staleness window, harness seconds
 DEATH_STEP = 20      # 20b: replica 1 dies at its 20th step
+P20D_REQS = 4        # 20d's requests (8 before the smoke's depth cut)
 
 
 class _HarnessClock:
@@ -4477,7 +4515,7 @@ def _phase20_profile(model, cfg, rng, tally):
     speculative; the later streams equal those of a run without it."""
     from bluefog_tpu_torch.serving import ServingEngine, SpeculativeConfig
 
-    reqs = _serve_reqs(rng, 8, cfg.vocab_size, (16, 500), 12,
+    reqs = _serve_reqs(rng, P20D_REQS, cfg.vocab_size, (16, 500), 12,
                        temperature=0.8)
     spec = SpeculativeConfig(model, cfg, lookahead=LOOKAHEAD)
     for what, kw in (("plain", {}), ("self-draft", {"speculative": spec})):
@@ -4926,7 +4964,7 @@ def _phase21_train(seed):
     within SP_LOSS_LIMIT of (i)'s, and the same steps with a ring pair
     left out or Ulysses' head groups mispaired beyond it.  Returns the
     windows' launches."""
-    warmup, timed = 1, 3
+    warmup, timed = 1, 2
     n_layers = 4
     steps = warmup + timed
     total = dict.fromkeys(FLASH_KERNELS, 0)
@@ -4985,7 +5023,7 @@ def _phase21_dp(seed):
     rank) below comm_mode="none"'s.  Returns the timed run's launches."""
     import bluefog_tpu_torch as bt
 
-    n_layers, warmup, timed = 2, 2, 3
+    n_layers, warmup, timed = 2, 1, 2
     cfg = dataclasses.replace(_llama8b_cfg(n_layers), attn_mode="ring",
                               sp_axis="sp")
     topo = _exp2(2)
@@ -6932,9 +6970,10 @@ def _p25_decode(seed):
             torch.cuda.synchronize()
             step_wall = (time.perf_counter() - t1) * 1e3 / steps
         del cache
-    busy = sum(e.self_device_time_total for e in _device_kernels(prof))
-    k4 = sum(e.self_device_time_total for e in _device_kernels(prof)
-             if "decode" in e.key)
+    kernels = _device_kernels(prof)
+    busy = sum(r["device_ms"] for r in kernels.values()) * 1e3
+    k4 = sum(r["device_ms"] for k, r in kernels.items()
+             if "decode" in k) * 1e3
     # phase 19's near-tie rule: where a tp 2 stream parts from tp 1's,
     # both layouts' logits at that context sit within PATH_ERR_CEILING x
     # the uncached bf16 forward's distance to the f32 forward
@@ -7750,8 +7789,8 @@ def _p27_leg(label, cfg, seed, compress, momentum, per_step, ref=None,
         tally = C._exchange_tally
     finally:
         C._exchange_tally = None
-    rec["device_ms"] = sum(e.self_device_time_total
-                           for e in _device_kernels(prof)) / 1e3
+    rec["device_ms"] = sum(r["device_ms"]
+                           for r in _device_kernels(prof).values())
     del prof
     permutes = tally.get("collective-permute", {}).get("payloads", [])
     rec["wire_bytes"] = sum(permutes)
@@ -8209,6 +8248,228 @@ def phase_bench(seed):
     return launches
 
 
+# ------------------------------------------------------------------ #
+# Phase 29: the analyzer on the card
+# ------------------------------------------------------------------ #
+P29_SPREAD = 1e-2    # 29a: each rank's params scaled by 1 + this x N(0, 1)
+
+
+def _p29_spread(params, seed):
+    """Give each rank its own params (seeded): a row-stochastic combine of
+    equal rows is the identity, whatever its table."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    with torch.no_grad():
+        for v in params.values():
+            v.mul_(1.0 + P29_SPREAD * torch.randn(
+                v.shape, generator=g, device="cuda", dtype=v.dtype))
+
+
+def _p29a(seed):
+    """check_step on ResNet-50 at full width over 4 stacked ranks: the
+    guarded atc + health build and the unguarded cta bucketed build
+    clean, the baked-table mutant flagged.  Returns K1's launches."""
+    from bluefog_tpu_torch.analysis import step_check as S
+
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    launches = 0
+    try:
+        for what, name in (("guarded atc + health", "guard_health"),
+                           ("unguarded cta bucketed", "cta_bucketed")):
+            comm_mode, kw = _mode_config(name)
+            step, params, stats, opt, batch = _resnet_step(
+                4, comm_mode, seed, BATCH, **kw)
+            _p29_spread(params, seed + 29)
+            args = (params, stats, opt, batch, 0)
+            if hasattr(step, "guard_config"):
+                args = args + (step.default_comm_weights,)
+            _reset_counts()
+            t0 = time.perf_counter()
+            rd = {}
+            fs = S.check_step(step, args, name=f"resnet50[{name}]",
+                              readings=rd)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = _expect_launches(f"29a {name}", {
+                "conv1x1_backward": K1_LAUNCHES_PER_RANK_STEP * 4 * 4})
+            launches += got["conv1x1_backward"]
+            if fs:
+                raise AssertionError(f"29a {name}: findings "
+                                     f"{[f.render() for f in fs]}")
+            log(f"[analysis29a] {what}: 0 findings in {secs:.1f} s (4 "
+                f"steps from one state); dead-weight-operand: identity "
+                f"run {rd['dead_gap']:.4g} from the default run (must be "
+                f"> 0), the default table written back "
+                f"{rd['restore_gap']:.4g} from it (must be 0); "
+                f"baked-weight-const: the third table's deviation "
+                f"{rd['baked_ratio']:.4f} of its bound ({S.BAKED_ULPS} f32 "
+                f"eps x max|x| a leaf, must be <= 1); K1 launches {got}")
+            if name == "guard_health":
+                _reset_counts()
+                rd = {}
+                fs = S.check_step(S.baked_table_step(step), args,
+                                  name="resnet50[baked]", readings=rd)
+                launches_f = _expect_launches("29a planted", {
+                    "conv1x1_backward": K1_LAUNCHES_PER_RANK_STEP * 4 * 4})
+                launches += launches_f["conv1x1_backward"]
+                rules = sorted({f.rule for f in fs})
+                if rules != ["baked-weight-const", "dead-weight-operand"]:
+                    raise AssertionError(f"29a planted fault: {rules}")
+                log(f"[analysis29a] planted fault (the guarded step always "
+                    f"combining with its build-time table): flagged "
+                    f"{rules}; identity run {rd['dead_gap']:.4g} from the "
+                    f"default run, the third table's deviation "
+                    f"{rd['baked_ratio']:.4g} of its bound")
+            del step, params, stats, opt, batch, args
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+    return launches
+
+
+def _p29c(seed):
+    """check_serving_residents at Llama-3.1-8B's width and 2 layers:
+    plain and speculative engines clean, the copied-weights engine
+    flagged.  Returns the kernels' launches (K4's)."""
+    import bluefog_tpu_torch as bt
+    from bluefog_tpu_torch.analysis import step_check as S
+
+    cfg = dataclasses.replace(
+        bt.LlamaConfig.llama3_8b(rope_scaling_kind="llama3"), n_layers=2)
+    kw = dict(device="cuda", cfg=cfg, capacity=SERVE_CAP, max_len=1024,
+              prefill_chunk=256, lookahead=LOOKAHEAD, seed=seed + 29)
+    _reset_counts()
+    t0 = time.perf_counter()
+    fs = S.check_serving_residents(**kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {k: v for k, v in _launches().items() if v}
+    if not got.get("decode_attention"):
+        raise AssertionError(f"29c: launches {got}, K4 never ran")
+    if fs:
+        raise AssertionError(f"29c: findings {[f.render() for f in fs]}")
+    log(f"[analysis29c] serving residents at 8B width, 2 layers, capacity "
+        f"{SERVE_CAP}, max_len 1024 (plain: prefill_chunk, decode_step; "
+        f"speculative, lookahead {LOOKAHEAD}: prefill_chunk, "
+        f"draft_prefill_chunk, spec_step): 0 findings in {secs:.1f} s; "
+        f"K4 launches {got}")
+    launches = dict(got)
+    _reset_counts()
+    fs = S.check_serving_residents(wrap=S.copied_weights_engine, **kw)
+    for k, v in _launches().items():
+        if v:
+            launches[k] = launches.get(k, 0) + v
+    flagged = sorted((f.rule, f.path) for f in fs)
+    want = [("baked-weight-const", "serving[decode_step]"),
+            ("baked-weight-const", "spec_serving[spec_step]")]
+    if flagged != want:
+        raise AssertionError(f"29c planted fault: {flagged}")
+    log(f"[analysis29c] planted fault (the decode programs read a copy of "
+        f"the weights taken at build): flagged {flagged}; "
+        f"{[f.message.split(': it read')[0] for f in fs]}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _p29d_start(out_dir):
+    """Start the CLI as a subprocess: the whole check (the lint, the tiny
+    step sweep on the card, the collectives, the residents).  It runs
+    beside 29a-29c; its output goes to files under ``out_dir``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    out = open(os.path.join(out_dir, "cli.out"), "w")
+    err = open(os.path.join(out_dir, "cli.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "bluefog_tpu_torch.analysis", "--device",
+         "cuda"], cwd=here, env=env, stdout=out, stderr=err, text=True)
+    return proc, out, err, time.perf_counter()
+
+
+def _p29d_finish(started, out_dir):
+    """29d: the CLI's whole check exits 0; the same CLI's lint on a
+    temporary root holding one rogue os.getenv exits 1."""
+    import io
+
+    from bluefog_tpu_torch.analysis.__main__ import main as cli
+
+    proc, out, err, t0 = started
+    try:
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        err.close()
+    secs = time.perf_counter() - t0
+    text = {k: open(os.path.join(out_dir, f"cli.{k}")).read()
+            for k in ("out", "err")}
+    if rc != 0:
+        raise AssertionError(f"29d: the CLI exited {rc}:\n"
+                             f"{text['out'][-3000:]}{text['err'][-3000:]}")
+    root = os.path.join(out_dir, "rogue")
+    os.makedirs(os.path.join(root, "bluefog_tpu_torch"))
+    with open(os.path.join(root, "bluefog_tpu_torch", "rogue.py"),
+              "w") as f:
+        f.write("import os\nX = os.getenv('A')\n")
+    with open(os.path.join(root, "pyproject.toml"), "w") as f:
+        f.write("[project]\n")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rogue = cli(["--root", root, "--no-step"])
+    if rogue != 1 or "env-read-outside-config" not in buf.getvalue():
+        raise AssertionError(f"29d: the rogue root gave exit {rogue}:\n"
+                             f"{buf.getvalue()[-2000:]}")
+    summary = [ln for ln in text["err"].splitlines()
+               if ln.startswith("bluefog_tpu_torch.analysis:")]
+    log(f"[analysis29d] python -m bluefog_tpu_torch.analysis --device "
+        f"cuda (a subprocess, beside 29a-29c): exit 0 after {secs:.1f} s "
+        f"({summary[-1] if summary else text['err'].strip()[-200:]}); the "
+        f"same CLI on a root with one rogue os.getenv (--no-step): exit 1 "
+        f"({buf.getvalue().strip()})")
+
+
+def phase_analysis(seed):
+    """Phase 29: the analyzer's step check and CLI on the card (the CLI's
+    subprocess runs beside 29a-29c).  Returns 29a's K1 and 29c's K4
+    launches."""
+    from bluefog_tpu_torch.analysis import step_check as S
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="bf_phase29_") as out_dir:
+        cli = _p29d_start(out_dir)
+        try:
+            k1 = _p29a(seed)
+            t1 = time.perf_counter()
+            fs = S.check_collective_contracts(device="cuda")
+            if fs:
+                raise AssertionError(
+                    f"29b: findings {[f.render() for f in fs]}")
+            bad = S.check_collective_contracts(device="cuda",
+                                               tamper=S.drop_one_permute)
+            if not bad or {f.rule for f in bad} != {"collective-contract"}:
+                raise AssertionError(f"29b planted fault: {bad}")
+            log(f"[analysis29b] collective contracts with the exchanges on "
+                f"the card (pod_1x8 period and rounds, a2a pod_4x2, hier "
+                f"pod_4x2): 0 findings; one permute removed from each "
+                f"prediction: {len(bad)} findings, e.g. {bad[0].render()}")
+            t2 = time.perf_counter()
+            k4 = _p29c(seed)
+            t3 = time.perf_counter()
+        except BaseException:
+            cli[0].kill()
+            cli[0].wait()
+            raise
+        _p29d_finish(cli, out_dir)
+    log(f"[analysis29] 29a {t1 - t0:.1f} s, 29b {t2 - t1:.1f} s, 29c "
+        f"{t3 - t2:.1f} s, then 29d's wait {time.perf_counter() - t3:.1f} "
+        f"s; phase 29 {time.perf_counter() - t0:.1f} s")
+    return dict(k4, conv1x1_backward=k1 + k4.get("conv1x1_backward", 0))
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8322,6 +8583,9 @@ def main() -> int:
     for kname, n in phase_bench(args.seed).items():
         launches[kname] += n
     lap("bench")
+    for kname, n in phase_analysis(args.seed).items():
+        launches[kname] += n
+    lap("analysis")
     entries = []
     for kname in ("decode_attention", "decode_attention_int8"):
         entries.append(dict(

@@ -109,3 +109,37 @@ def test_bucketed_windows_on_the_side_stream():
     assert flat.windows[0]["stream"] != wins[0]["stream"]
     kernels = B.hlo_op_breakdown(prof)
     assert sum(r["flops"] for r in kernels.values()) > 0
+
+
+class _EventsOnly:
+    """The same finished profile seen through ``events()`` alone."""
+
+    def __init__(self, prof):
+        self.events, self.key_averages = prof.events, prof.key_averages
+
+
+def test_breakdown_reads_the_raw_results_as_events_would_on_the_card():
+    """A card's profile without flops is read from the profiler's raw
+    results: the same kernels, counts and device times as through
+    ``events()``, in a session that opens with ``profiler_warm_up`` (its
+    launches left out) and in a CUDA-only one."""
+    _card()
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(1024, 1024, device="cuda")
+    sessions = ([ProfilerActivity.CPU, ProfilerActivity.CUDA], True), \
+        ([ProfilerActivity.CUDA], False)
+    for activities, warm in sessions:
+        with profile(activities=activities) as prof:
+            if warm:
+                B.profiler_warm_up(x.device)
+            for _ in range(10):
+                x = torch.relu(x @ x) / 1024
+            torch.cuda.synchronize()
+        got = B.hlo_op_breakdown(prof)
+        want = B.hlo_op_breakdown(_EventsOnly(prof))
+        assert got.keys() == want.keys() and got
+        for k, r in want.items():
+            assert got[k]["count"] == r["count"], k
+            assert got[k]["device_ms"] == pytest.approx(r["device_ms"]), k
+        assert sum(r["count"] for r in got.values()) < B._WARMUP_LAUNCHES

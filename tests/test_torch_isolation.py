@@ -1,8 +1,11 @@
 """The port stands alone: no module of bluefog_tpu_torch/ (its launchers
-``bluefog_tpu_torch.run`` and ``ibfrun`` included), and not chip_smoke.py,
-imports jax,
-flax, optax, networkx, triton or the JAX package; the package imports
-and the launcher runs with those blocked; and its entry points
+``bluefog_tpu_torch.run`` and ``ibfrun`` and its analyzer included), and
+not chip_smoke.py, imports jax,
+flax, optax, networkx, triton or the JAX package, and only the TF adapter
+imports tensorflow; the package imports and the launcher runs with those
+blocked; ``import bluefog_tpu_torch``, ``bluefog_tpu_torch.interop`` and
+``bluefog_tpu_torch.analysis`` load none of jax, tensorflow or triton;
+and its entry points
 run on the card unless the caller asks for the CPU (without CUDA, a call
 that does not pass device="cpu" raises)."""
 
@@ -58,11 +61,39 @@ def test_no_port_file_imports_jax_or_the_jax_package():
         "moe/dispatch", "moe/layer", "topology/torus",
         "topology/compiler", "topology/control", "sim/clock", "sim/cost",
         "sim/traces", "sim/wire", "sim/training", "sim/serving",
-        "benchutil", "run/engines", "run/interactive_run")} <= names
+        "benchutil", "run/engines", "run/interactive_run",
+        "interop/tf_adapter", "analysis/__init__", "analysis/__main__",
+        "analysis/lint", "analysis/step_check")} <= names
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
            for p in files}
     assert not {k: v for k, v in bad.items() if v}
+    tf_users = sorted(str(p.relative_to(ROOT)) for p in files
+                      if "tensorflow" in set(_imported_roots(p)))
+    assert tf_users == ["bluefog_tpu_torch/interop/tf_adapter.py"]
+
+
+def test_package_interop_and_analysis_load_no_jax_tf_or_triton():
+    """Nothing is blocked here: the imports themselves must not pull
+    jax, tensorflow or triton in (the interop package reaches its TF
+    adapter lazily)."""
+    code = (
+        "import sys\n"
+        "import bluefog_tpu_torch, bluefog_tpu_torch.interop\n"
+        "import bluefog_tpu_torch.analysis\n"
+        "import bluefog_tpu_torch.analysis.lint\n"
+        "import bluefog_tpu_torch.analysis.step_check\n"
+        "import bluefog_tpu_torch.analysis.__main__\n"
+        "loaded = sorted({m.split('.')[0] for m in sys.modules}\n"
+        "                & {'jax', 'tensorflow', 'triton', 'bluefog_tpu'})\n"
+        "assert not loaded, loaded\n"
+        "assert 'bluefog_tpu_torch.interop.tf_adapter' not in sys.modules\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.rstrip().endswith("ok")
 
 
 def test_package_imports_with_jax_blocked():
@@ -73,7 +104,8 @@ def test_package_imports_with_jax_blocked():
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'networkx',\n"
-        "             'bluefog_tpu', 'triton', 'transformers'):\n"
+        "             'bluefog_tpu', 'triton', 'transformers',\n"
+        "             'tensorflow'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {modules!r}:\n"
@@ -154,6 +186,7 @@ def _entry_points():
                                            mlp_params_from_flax,
                                            resnet_params_from_flax,
                                            vit_params_from_flax)
+    from bluefog_tpu_torch.analysis import step_check
     from bluefog_tpu_torch.context import BluefogContext
     from bluefog_tpu_torch.serving import SlotPool
 
@@ -191,6 +224,11 @@ def _entry_points():
         "BluefogContext": lambda: BluefogContext(4),
         "init_moe_params": lambda: bt.moe.init_moe_params(
             torch.Generator(), 8, 16, 4),
+        "run_sweep": lambda: step_check.run_sweep(cases=[]),
+        "check_collective_contracts":
+            lambda: step_check.check_collective_contracts(),
+        "check_serving_residents":
+            lambda: step_check.check_serving_residents(),
     }
 
 
@@ -203,7 +241,9 @@ def _entry_points():
                                   "ViT_B16", "MLP", "MnistNet",
                                   "vit_params_from_flax",
                                   "mlp_params_from_flax", "init",
-                                  "BluefogContext", "init_moe_params"])
+                                  "BluefogContext", "init_moe_params",
+                                  "run_sweep", "check_collective_contracts",
+                                  "check_serving_residents"])
 def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is valid here")

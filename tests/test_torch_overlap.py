@@ -287,3 +287,85 @@ def test_card_breakdown_leaves_the_profiler_warm_up_out():
     assert B._warm_up_launches(events) == (frozenset({1, 2}), True)
     lost = [e for e in events if not (e.name == "fill" and e.id == 2)]
     assert B._warm_up_launches(lost)[1] is False
+
+
+_EPOCH_NS = 1_792_382_912_918_416_123
+
+
+class _RawEv:
+    """One of the profiler's raw results (``kineto_results.events()``),
+    made from an ``_Ev``: epoch times in ns, every attribute a method."""
+
+    def __init__(self, ev, hidden=False):
+        self._ev, self._hidden = ev, hidden
+
+    def name(self):
+        return self._ev.name
+
+    def device_type(self):
+        return self._ev.device_type
+
+    def correlation_id(self):
+        return self._ev.id
+
+    def is_user_annotation(self):
+        return self._ev.is_user_annotation
+
+    def is_hidden_event(self):
+        return self._hidden
+
+    def start_ns(self):
+        return _EPOCH_NS + round(self._ev.time_range.start * 1e3)
+
+    def duration_ns(self):
+        return round((self._ev.time_range.end - self._ev.time_range.start)
+                     * 1e3)
+
+
+class _RawProf:
+    """A finished profile that keeps its raw results; ``events()`` (which
+    builds every CPU op's event) is refused."""
+
+    with_flops = False
+
+    def __init__(self, raw):
+        self.profiler = SimpleNamespace(
+            kineto_results=SimpleNamespace(events=lambda: raw))
+
+    def events(self):
+        raise AssertionError("a card's breakdown reads the raw results")
+
+    key_averages = events
+
+
+def test_card_breakdown_reads_the_raw_results_as_events_would():
+    """Where the profile keeps its raw results the breakdown reads them
+    (and never ``events()``): the same kernels, counts and times as from
+    ``events()``, to the nanosecond though the raw times are epoch
+    nanoseconds, the warm-up left out; host ops other than the runtime
+    calls and hidden events are not read."""
+    warm = "bf.profile_step.warmup"
+    events = [_Ev(warm, 0, 5, annotation=True),
+              _Ev("cudaLaunchKernel", 1, 2, id=1),
+              _Ev("aten::fill_", 1, 2, id=9),
+              _Ev("cudaLaunchKernel", 6, 7, id=3),
+              _Ev("fill", 10.007, 11.13, cuda=True, id=1, stream=7),
+              _Ev("gemm", 20.011, 50.134, cuda=True, id=3, stream=7),
+              _Ev("Optimizer.step", 20, 60, cuda=True, id=8, stream=7,
+                  annotation=True),
+              _Ev("fill", 60.001, 61.09, cuda=True, id=4, stream=7)]
+    want = B.hlo_op_breakdown(_Prof(events))
+    assert {k: r["count"] for k, r in want.items()} == {"gemm": 1,
+                                                         "fill": 1}
+    assert want["gemm"]["device_ms"] == pytest.approx(0.030123)
+    assert want["fill"]["device_ms"] == pytest.approx(0.001089)
+    raw = [_RawEv(e) for e in events]
+    raw.append(_RawEv(_Ev("gemm", 70, 90, cuda=True, id=5), hidden=True))
+    got = B.hlo_op_breakdown(_RawProf(raw))
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k]["count"] == want[k]["count"]
+        assert got[k]["device_ms"] == pytest.approx(want[k]["device_ms"])
+    assert [e.name for e in B._breakdown_events(_RawProf(raw))] == [
+        warm, "cudaLaunchKernel", "cudaLaunchKernel", "fill", "gemm",
+        "Optimizer.step", "fill"]
